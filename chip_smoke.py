@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`waves_jl_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+from the root of the repository. Phases, each printing a flushed line with
+its elapsed seconds:
+
+1. device: the card's name and power limit;
+2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, with
+   ptxas's register and spill report;
+3. kernels: each kernel against its plain PyTorch version at 700^2;
+4. main path: a warm 20-action x 100-step MPC control episode at 700^2
+   (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
+   surrogate with the tracked weights), the simulator's steps/s over 20
+   windows, and a random-policy episode over a position-adjustable design
+   space, the path of the general kernel.
+
+The launch counts of each kernel are read from the main-path runs alone.
+The last lines are one JSON object describing every kernel, then
+{"ok": true, "device": ...}. Any failed check raises and the script exits
+non-zero; without a CUDA card it exits non-zero before printing a result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+T0 = time.time()
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SIZE = 700
+STEPS = 100
+WINDOWS = 20
+CHECKPOINT = "models/ref500_h8s4/checkpoint_step=2600"
+STRIDE = 4
+# Kernel against plain version, relative to the largest magnitude: both run
+# the same float32 operations in the same order (FMA contraction is off in
+# the kernel), so they differ only where sinf and torch.sin round apart and
+# where sums are reduced in another order, ~1e-7 a step. A stencil, index
+# or rasterisation fault shows at 1e-3 or more.
+REL_TOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{time.time() - T0:8.2f} s] {phase}: {msg}", flush=True)
+
+
+def rel_err(a, b) -> float:
+    import torch
+
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)).clamp_min(1e-30))
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps calls, after one warm call."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def build_env(space, device):
+    from waves_jl_tpu_torch.dims import build_grid, two_dim
+    from waves_jl_tpu_torch.env import make_wave_env
+    from waves_jl_tpu_torch.sources import GaussianSource
+
+    dim = two_dim(15.0, SIZE, device=device)
+    source = GaussianSource.create(build_grid(dim), [[-10.0, -10.0]], [[-10.0, 10.0]],
+                                   [0.3], [1.0], 1000.0)
+    return make_wave_env(dim, space, source, integration_steps=STEPS, actions=WINDOWS)
+
+
+def position_space(ring_space):
+    """The triple ring's cylinders at fixed radius 0.5, each free to move
+    +-0.5 in x and y: cylinder positions change within a window, so the
+    radii-only kernel does not apply."""
+    import torch
+
+    from waves_jl_tpu_torch.designs import (AdjustablePositionScatterers, Cylinders,
+                                            DesignSpace, design_cylinders)
+
+    cy = design_cylinders(ring_space.low)
+    r = torch.full_like(cy.r, 0.5)
+    return DesignSpace(AdjustablePositionScatterers(Cylinders(cy.pos - 0.5, r, cy.c)),
+                       AdjustablePositionScatterers(Cylinders(cy.pos + 0.5, r, cy.c)))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from waves_jl_tpu_torch.control.mpc import RandomShooting, make_mpc_episode_fused
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset, env_tspan
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.fused import (cyl_params, make_env_step_fused,
+                                                  radii_only_ok, step_config)
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+
+    dev = torch.device("cuda")
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log("device", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(smi, flush=True)
+
+    # 2. build
+    t = time.time()
+    lib_path, report = fk.build()
+    log("build", f"{time.time() - t:.2f} s, {lib_path.name}" + ("" if report else " (already built)"))
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("    " + line.strip(), flush=True)
+
+    # 3. kernels against their plain versions, 700^2
+    space = build_triple_ring_design_space(device=dev)
+    check(radii_only_ok(space), "the triple ring takes the radii-only kernel")
+    env = build_env(space, dev)
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    step = make_env_step_fused(env)
+    policy = RandomDesignPolicy(env.action_space)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = env_reset(env, gen)
+    state, _ = step(state, policy(gen))  # one window, so the state holds a wave
+    torch.cuda.synchronize()
+    tspan = env_tspan(env, state)
+    ti, tf = float(tspan[0]), float(tspan[-1])
+    cyl = cyl_params(state.design, env.design_space(state.design, policy(gen))).contiguous()
+    shape = state.source.shape
+    u0 = state.wave[-1]
+    log("kernels", f"state after one window: max |u| {float(u0.abs().max()):.3e}")
+
+    owner_k = fk.select_owner(cyl, cfg)
+    owner_p = fk.select_owner_reference(cyl, cfg)
+    torch.cuda.synchronize()
+    owner_err = float(torch.max(torch.abs(owner_k - owner_p)))
+    owner_rel = rel_err(owner_k[1:], owner_p[1:])  # d2 holds 1e30 far from every cylinder
+    log("kernels", f"select_owner vs plain: max abs err {owner_err}, rel err of r1, dr, c1, dc "
+                   f"{owner_rel:.3e} (tol {REL_TOL:g})")
+    check(owner_rel <= REL_TOL, "select_owner agrees with its plain version")
+
+    def window_run(step_fn, owner, cyl_, n_steps):
+        u, es = u0, []
+        for k in range(n_steps):
+            u, e = step_fn(u, shape, prof, cyl_, owner, float(tspan[k]), ti, tf, cfg)
+            es.append(e)
+        return u, torch.stack(es)
+
+    u_k2, e_k2 = window_run(fk.fused_rk4_step, owner_k, cyl, STEPS)
+    u_p2, e_p2 = window_run(fk.fused_rk4_step_reference, owner_p, cyl, STEPS)
+    torch.cuda.synchronize()
+    k2_state, k2_sig = rel_err(u_k2, u_p2), rel_err(e_k2, e_p2)
+    k2_abs = float(torch.max(torch.abs(u_k2 - u_p2)))
+    log("kernels", f"K2 radii-only vs plain, {STEPS} steps: rel err state {k2_state:.3e}, "
+                   f"signal {k2_sig:.3e} (tol {REL_TOL:g})")
+    check(k2_state <= REL_TOL and k2_sig <= REL_TOL, "K2 agrees with its plain version")
+
+    moved = cyl.clone()
+    moved[4] += 0.3  # p2x != p1x: the cylinders move within the window
+    moved[5] -= 0.2
+    u_k1, e_k1 = window_run(fk.fused_rk4_step, None, moved, 10)
+    u_p1, e_p1 = window_run(fk.fused_rk4_step_reference, None, moved, 10)
+    torch.cuda.synchronize()
+    k1_state, k1_sig = rel_err(u_k1, u_p1), rel_err(e_k1, e_p1)
+    k1_abs = float(torch.max(torch.abs(u_k1 - u_p1)))
+    log("kernels", f"K1 general vs plain, 10 steps, moving cylinders: rel err state "
+                   f"{k1_state:.3e}, signal {k1_sig:.3e} (tol {REL_TOL:g})")
+    check(k1_state <= REL_TOL and k1_sig <= REL_TOL, "K1 agrees with its plain version")
+
+    u_g, e_g = window_run(fk.fused_rk4_step, None, cyl, 10)
+    u_r, e_r = window_run(fk.fused_rk4_step, owner_k, cyl, 10)
+    torch.cuda.synchronize()
+    kk_state, kk_sig = rel_err(u_g, u_r), rel_err(e_g, e_r)
+    log("kernels", f"K1 vs K2 on the triple ring, 10 steps: rel err state {kk_state:.3e}, "
+                   f"signal {kk_sig:.3e} (tol {REL_TOL:g})")
+    check(kk_state <= REL_TOL and kk_sig <= REL_TOL, "K1 agrees with K2 on the triple ring")
+
+    # times per call at the main path's shapes: one RK4 step, one owner pass
+    t_arg = float(tspan[0])
+    k2_ms = cuda_ms(lambda: fk.fused_rk4_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 50)
+    k2_plain = cuda_ms(lambda: fk.fused_rk4_step_reference(u0, shape, prof, cyl, owner_p, t_arg, ti,
+                                                           tf, cfg), 5)
+    k1_ms = cuda_ms(lambda: fk.fused_rk4_step(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 50)
+    k1_plain = cuda_ms(lambda: fk.fused_rk4_step_reference(u0, shape, prof, moved, None, t_arg, ti,
+                                                           tf, cfg), 3)
+    own_ms = cuda_ms(lambda: fk.select_owner(cyl, cfg), 50)
+    own_plain = cuda_ms(lambda: fk.select_owner_reference(cyl, cfg), 5)
+    log("kernels", f"ms per RK4 step: K2 {k2_ms:.4f} (plain {k2_plain:.4f}), K1 {k1_ms:.4f} "
+                   f"(plain {k1_plain:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f})")
+
+    n_cyl = cyl.shape[1]
+    part = torch.empty((fk.partial_rows(SIZE), 3), dtype=torch.float32)
+    # what an RK4 step needs, K1 and K2 alike: state, source shape, profile and
+    # cylinders in, state and energy partials out. K2's owner fields are a
+    # layout of this design, made once a window, and stay out of the bound.
+    io_step = nbytes(u0, shape, prof, cyl) + nbytes(u0, part)
+    k2_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True))
+    k1_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False))
+    own_bound = bound(nbytes(cyl, owner_k), SIZE * SIZE * n_cyl * 9)
+    log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}), K1 and K2; K2 reads "
+                   f"its owner fields on top, {nbytes(owner_k) / HBM_BYTES_PER_S * 1e3:.5f} ms "
+                   f"of bytes once read")
+
+    # 4. main path: the MPC control episode
+    model = AcousticEnergyModel(space, 1000.0, elements=1024, h_size=256, nfreq=500,
+                                integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE, device=dev)
+    ck_step = load_model_checkpoint(model, os.path.join(ROOT, CHECKPOINT))
+    log("main path", f"flagship loaded from {CHECKPOINT} (step {ck_step})")
+    mpc = RandomShooting(model=model, horizon=5, shots=256, alpha=1.0)
+    run = make_mpc_episode_fused(env, mpc)
+    start = env_reset(env, torch.Generator(device=dev).manual_seed(2))
+    t = time.time()
+    run(start, torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    log("main path", f"warm-up episode {time.time() - t:.3f} s")
+
+    fk.reset_launch_counts()
+    t = time.time()
+    final, signals, chosen, costs = run(start, torch.Generator(device=dev).manual_seed(4))
+    torch.cuda.synchronize()
+    episode_s = time.time() - t
+    mpc_counts = dict(fk.launch_counts)
+    log("main path", f"MPC episode {episode_s:.4f} s, launches {mpc_counts}")
+    expect_steps = WINDOWS * STEPS * fk.STAGES
+    check(mpc_counts["fused_rk4_radii_only"] == expect_steps,
+          f"{expect_steps} radii-only stage launches ({WINDOWS} windows x {STEPS} steps x "
+          f"{fk.STAGES} stages)")
+    check(mpc_counts["select_owner"] == WINDOWS, f"{WINDOWS} owner launches, one per window")
+    check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
+    check(bool(torch.isfinite(signals).all()), "every signal is finite")
+    check(final.time_step == WINDOWS * STEPS, "the episode ran every window")
+    check(bool((chosen <= costs.mean(dim=1)).all()),
+          "each chosen cost is at most the mean cost of its shots")
+    check(float(signals[:, :, 2].max()) > 0.0, "the scattered field is non-zero")
+    log("main path", f"signals finite; sc energy max {float(signals[:, :, 2].max()):.4e}; chosen "
+                     f"cost <= shot mean for all {WINDOWS} actions")
+
+    t = time.time()
+    for k in range(3):
+        mpc(env, final, torch.Generator(device=dev).manual_seed(10 + k))
+    torch.cuda.synchronize()
+    select_s = (time.time() - t) / 3
+    log("main path", f"one selection (observe, encode, {mpc.shots} shots x "
+                     f"{mpc.horizon * model.integration_steps} latent RK4 steps) {select_s:.4f} s; "
+                     f"{WINDOWS} of them {WINDOWS * select_s:.3f} s of the {episode_s:.3f} s episode")
+
+    acts = [policy(gen) for _ in range(WINDOWS)]
+    st = env_reset(env, torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    t = time.time()
+    for a in acts:
+        st, _ = step(st, a)
+    torch.cuda.synchronize()
+    sim_s = time.time() - t
+    check(bool(torch.isfinite(st.signal).all()), "simulator-only run is finite")
+    log("main path", f"simulator alone: {WINDOWS * STEPS} steps in {sim_s:.4f} s = "
+                     f"{WINDOWS * STEPS / sim_s:.1f} steps/s")
+
+    pos_env = build_env(position_space(space), dev)
+    check(not radii_only_ok(pos_env.design_space), "moving cylinders take the general kernel")
+    pos_step = make_env_step_fused(pos_env)
+    pos_policy = RandomDesignPolicy(pos_env.action_space)
+    pgen = torch.Generator(device=dev).manual_seed(6)
+    pst = env_reset(pos_env, pgen)
+    pos_windows = 2
+    fk.reset_launch_counts()
+    for _ in range(pos_windows):
+        pst, _ = pos_step(pst, pos_policy(pgen))
+    torch.cuda.synchronize()
+    pos_counts = dict(fk.launch_counts)
+    check(pos_counts["fused_rk4_general"] == pos_windows * STEPS * fk.STAGES,
+          f"{pos_windows * STEPS * fk.STAGES} general stage launches")
+    check(bool(torch.isfinite(pst.signal).all()), "position-design signal is finite")
+    log("main path", f"position-design episode, {pos_windows} windows: launches {pos_counts}")
+
+    src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
+    kernels = [
+        {"name": "fused_rk4_radii_only", "route": "cuda", "source": src,
+         "replaces": "waves_jl_tpu/ops/pallas_fd.py:432", "launches": mpc_counts["fused_rk4_radii_only"],
+         "max_abs_err": k2_abs, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "select_owner", "route": "cuda", "source": src,
+         "replaces": "waves_jl_tpu/ops/pallas_fd.py:247", "launches": mpc_counts["select_owner"],
+         "max_abs_err": owner_err, "ms": own_ms, "plain_ms": own_plain, "bound_ms": own_bound[0],
+         "bound_by": own_bound[1], "library_ms": None},
+        {"name": "fused_rk4_general", "route": "cuda", "source": src,
+         "replaces": "waves_jl_tpu/ops/pallas_fd.py:432", "launches": pos_counts["fused_rk4_general"],
+         "max_abs_err": k1_abs, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
+    ]
+    for k in kernels:
+        check(all(isinstance(v, (int, float)) and math.isfinite(v)
+                  for key, v in k.items() if key in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
+              f"{k['name']} has finite numbers")
+    log("done", f"whole run {time.time() - T0:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,102 @@
+"""Neural building blocks (counterpart of `waves_jl_tpu/models/layers.py`).
+
+Images enter the port's modules channels-last, as in the JAX package, and
+go NCHW at the convolution stack.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Run the enclosed matmuls and cuDNN convolutions in IEEE float32, not
+    TF32 (which cuDNN allows by default): the precision the models are held
+    to against the JAX package. Usable as a decorator; restores the flags."""
+    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=0.01)
+
+
+def sin_basis(elements: int, grid_size: float, nfreq: int, device) -> torch.Tensor:
+    """(E, nfreq) basis Phi[e, k] = sin(pi (k+1) (x_e - C) / L) on the
+    latent grid [-grid_size, grid_size], C = L / 2."""
+    x = torch.linspace(-grid_size, grid_size, elements, dtype=torch.float32, device=device)
+    L = x[-1] - x[0]
+    C = L / 2.0
+    k = torch.arange(1, nfreq + 1, dtype=torch.float32, device=device)
+    phase = np.float32(np.pi) * k[None, :] * (x[:, None] - C) / L
+    return torch.sin(phase)
+
+
+def embed_sin(basis: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
+    """coefs (..., nfreq) -> fields (..., E), normalised by sqrt(nfreq)."""
+    nfreq = basis.shape[1]
+    return torch.matmul(coefs / np.sqrt(np.float32(nfreq)), basis.T)
+
+
+def localization_coords(h: int, w: int, device) -> torch.Tensor:
+    """(2, h, w) coordinate channels in [-1, 1]: x down the rows, y along."""
+    gx = torch.linspace(-1.0, 1.0, h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    gy = torch.linspace(-1.0, 1.0, w, dtype=torch.float32, device=device)[None, :].expand(h, w)
+    return torch.stack([gx, gy], dim=0)
+
+
+class ResidualBlock(nn.Module):
+    """conv3x3 - act - conv3x3, plus a 1x1 skip, act, 2x2 max pool."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.conv0 = nn.Conv2d(in_ch, features, 3, padding=1)
+        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv2 = nn.Conv2d(in_ch, features, 1)
+
+    def forward(self, x):
+        main = self.conv1(leaky_relu(self.conv0(x)))
+        return F.max_pool2d(leaky_relu(main + self.conv2(x)), 2)
+
+
+class MLP(nn.Module):
+    def __init__(self, in_features: int, features: list[int]):
+        super().__init__()
+        dims = [in_features, *features]
+        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = leaky_relu(x)
+        return x
+
+
+class CNNBase(nn.Module):
+    """x + 1e-5, coordinate channels, three residual blocks, global max pool."""
+
+    def __init__(self, in_ch: int, h_size: int):
+        super().__init__()
+        self.blocks = nn.ModuleList([
+            ResidualBlock(in_ch + 2, 32), ResidualBlock(32, 64), ResidualBlock(64, h_size)])
+
+    def forward(self, x):
+        """x (B, C, H, W) -> (B, h_size)."""
+        b, _, h, w = x.shape
+        coords = localization_coords(h, w, x.device)[None].expand(b, 2, h, w)
+        x = torch.cat([x + 1e-5, coords], dim=1)
+        for block in self.blocks:
+            x = block(x)
+        return torch.amax(x, dim=(2, 3))

@@ -1,0 +1,355 @@
+"""Fused RK4 step of the 12-channel split-field PML acoustic system.
+
+The CUDA kernel (`csrc/fused_rk4.cu`) takes the place of the Pallas kernel
+`make_fused_acoustic_step` of the JAX package (`waves_jl_tpu/ops/pallas_fd.py`)
+in its single-device modes: K1, the general rasterisation, and K2, the
+radii-only owner rasterisation. This module builds the kernel with plain
+`nvcc` into a shared library with a C interface at first use, binds it with
+`ctypes`, and keeps the plain PyTorch version of the same function beside it.
+
+A wrapper takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises. `launch_counts` counts the
+kernel launches per kernel.
+
+The state is a contiguous (12, n, n) float32 tensor: channels U, Vx, Vy,
+Psix, Psiy, Omega of the total field, then the same six of the incident
+field. `cyl` is (8, n_cyl) float32 with rows [p1x, p1y, r1, c1, p2x, p2y, r2,
+c2], the cylinders at the two ends of the design lerp. Energies are
+[sum u_tot^2, sum u_inc^2, sum (u_tot - u_inc)^2] after each step, not yet
+multiplied by the cell area.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..designs import lerp_weight
+from .fd import dx_edge_aware, dy_edge_aware
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "fused_rk4.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # every a*b+c rounds twice, as in the plain version
+    "-fmad=false",
+    "-Xptxas", "-v",
+)
+MAX_CYL = 64  # as in the source
+STAGES = 4  # kernel launches per RK4 step
+
+launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    """Static parameters of the step: an n x n grid with coordinates
+    x_min + i * spacing on both axes, time step dt, ambient speed c0 and
+    source frequency freq."""
+
+    n: int
+    spacing: float
+    x_min: float
+    dt: float
+    c0: float
+    freq: float
+
+    @property
+    def inv2d(self) -> float:
+        return 1.0 / (2.0 * self.spacing)
+
+
+def stage_times(t: float, dt: float):
+    """float32 times of the k1, k2/k3 and k4 stages of a step from t, in the
+    JAX kernel's arithmetic."""
+    f = np.float32
+    t0 = f(t)
+    return t0, t0 + f(0.5 * dt), t0 + f(dt)
+
+
+def step_flops(n: int, n_cyl: int, radii_only: bool) -> int:
+    """Float32 operations of one RK4 step on an n x n grid: per cell and
+    stage, 12 stage inputs u + a k (2 each) and per stack 4 edge derivatives
+    (3 each), U + f at the 4 stencil points (2 each) and the right-hand side
+    (19), plus the rasterisation (5 for the owner test, 14 per cylinder in
+    the general mode); per cell and step, the combine (12 x 6) and the
+    energies (6)."""
+    raster = 5 if radii_only else 14 * n_cyl
+    per_stage = 12 * 2 + 2 * (4 * 3 + 4 * 2 + 19) + raster
+    return n * n * (STAGES * per_stage + 12 * 6 + 6)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _coords(cfg: StepConfig, device) -> torch.Tensor:
+    idx = torch.arange(cfg.n, dtype=torch.float32, device=device)
+    return cfg.x_min + idx * cfg.spacing
+
+
+def select_owner_reference(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
+    """(5, n, n) owner fields [d2, r1, r2 - r1, c1, c2 - c1] of each cell's
+    nearest cylinder by gap d2 - rmax^2 (first in order on ties)."""
+    xy = _coords(cfg, cyl.device)
+    x, y = xy[:, None], xy[None, :]
+    shape = (cfg.n, cfg.n)
+    best = torch.full(shape, 1e30, dtype=torch.float32, device=cyl.device)
+    d2o = best.clone()
+    r1, dr, c1, dc = (torch.zeros(shape, dtype=torch.float32, device=cyl.device) for _ in range(4))
+    for q in range(cyl.shape[1]):
+        ddx = x - cyl[0, q]
+        ddy = y - cyl[1, q]
+        d2 = ddx * ddx + ddy * ddy
+        rmax = torch.maximum(cyl[2, q], cyl[6, q])
+        gap = d2 - rmax * rmax
+        upd = gap < best
+        best = torch.where(upd, gap, best)
+        d2o = torch.where(upd, d2, d2o)
+        r1 = torch.where(upd, cyl[2, q], r1)
+        dr = torch.where(upd, cyl[6, q] - cyl[2, q], dr)
+        c1 = torch.where(upd, cyl[3, q], c1)
+        dc = torch.where(upd, cyl[7, q] - cyl[3, q], dc)
+    return torch.stack([d2o, r1, dr, c1, dc])
+
+
+def _rasterize(cyl, x, y, w: float, c0: float) -> torch.Tensor:
+    """Wavespeed of the cylinders lerped to weight w: the sum of the speeds
+    of the cylinders that cover a cell, c0 where none does."""
+    csum = torch.zeros((x.shape[0], y.shape[1]), dtype=torch.float32, device=cyl.device)
+    inside = torch.zeros_like(csum)
+    for q in range(cyl.shape[1]):
+        px = cyl[0, q] + w * (cyl[4, q] - cyl[0, q])
+        py = cyl[1, q] + w * (cyl[5, q] - cyl[1, q])
+        r = cyl[2, q] + w * (cyl[6, q] - cyl[2, q])
+        c = cyl[3, q] + w * (cyl[7, q] - cyl[3, q])
+        ddx = x - px
+        ddy = y - py
+        m = ((ddx * ddx + ddy * ddy) < r * r).to(torch.float32)
+        csum = csum + m * c
+        inside = inside + m
+    return torch.where(inside == 0.0, torch.full_like(csum, c0), csum)
+
+
+def _stack_rhs(v, b, f, sx, sy, bc, inv2d):
+    U, Vx, Vy, Px, Py, Om = v
+    Vxx = dx_edge_aware(Vx, inv2d)
+    Vyy = dy_edge_aware(Vy, inv2d)
+    Uf = U + f
+    Ux = dx_edge_aware(Uf, inv2d)
+    Uy = dy_edge_aware(Uf, inv2d)
+    dU = b * (Vxx + Vyy) + Px + Py - (sx + sy) * U - Om
+    dVx = Ux - sx * Vx
+    dVy = Uy - sy * Vy
+    dPx = b * sx * Vyy
+    dPy = b * sy * Vxx
+    dOm = sx * sy * U
+    return [bc * dU, dVx, dVy, dPx, dPy, dOm]
+
+
+def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+    """Plain PyTorch version of `fused_rk4_step`: the same equations, op
+    order, rasterisation, closed-form RK4 combine and energies. Returns
+    (u_next (12, n, n), energies (3,))."""
+    n = cfg.n
+    dev = u.device
+    xy = _coords(cfg, dev)
+    x, y = xy[:, None], xy[None, :]
+    sx, sy = prof[:, None], prof[None, :]
+    bc = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    bc[1:-1, 1:-1] = 1.0
+    c0 = float(np.float32(cfg.c0))
+    b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
+    two_pi_f = np.float32(2.0 * math.pi)
+
+    def rhs(v, ts):
+        w = lerp_weight(ts, ti, tf)
+        if owner is not None:
+            r = owner[1] + w * owner[2]
+            c = torch.where(owner[0] < r * r, owner[3] + w * owner[4], torch.full_like(r, c0))
+        else:
+            c = _rasterize(cyl, x, y, w, c0)
+        sn = torch.sin(torch.tensor(two_pi_f * np.float32(ts) * np.float32(cfg.freq), device=dev))
+        f = shape * sn
+        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d)
+        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d)
+        return torch.stack(d_tot + d_inc)
+
+    half, full, sixth = 0.5 * cfg.dt, cfg.dt, cfg.dt / 6.0
+    t0, th, t1 = stage_times(t, cfg.dt)
+    k1 = rhs(u, t0)
+    k2 = rhs(u + half * k1, th)
+    k3 = rhs(u + half * k2, th)
+    k4 = rhs(u + full * k3, t1)
+    u = u + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    sc = u[0] - u[6]
+    return u, torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
+
+
+# ---------------------------------------------------------------------------
+# the kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernel library if it is not built yet for this source
+    and these flags. Returns its path and nvcc's ptxas report (empty when
+    the library was already there)."""
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libfused_rk4_{digest}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build finds a whole library or none
+    return lib, proc.stderr
+
+
+class _Library:
+    """The loaded kernel library with its C signatures declared."""
+
+    def __init__(self, path: Path):
+        self.cdll = ctypes.CDLL(str(path))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.stage = self.cdll.fused_rk4_stage
+        self.stage.argtypes = [I, I, P, P, F, P, P, F, P, P, P, P, P, I, P, I,
+                               F, F, F, F, F, F, F, F, P]
+        self.stage.restype = I
+        self.owner = self.cdll.select_owner
+        self.owner.argtypes = [P, I, P, I, F, F, P]
+        self.owner.restype = I
+        self.blocks = self.cdll.fused_rk4_blocks
+        self.blocks.argtypes = [I]
+        self.blocks.restype = I
+
+
+_library: _Library | None = None
+
+
+def _lib() -> _Library:
+    global _library
+    if _library is None:
+        path, _ = build()
+        _library = _Library(path)
+    return _library
+
+
+def partial_rows(n: int) -> int:
+    """Rows of energy partials (one per thread block) a step writes on an
+    n x n grid."""
+    return _lib().blocks(n)
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed with cudaError {code}")
+
+
+def select_owner(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
+    """K2's owner fields (5, n, n) for the window's cylinders (see
+    `select_owner_reference`)."""
+    if cyl.device.type == "cpu":
+        return select_owner_reference(cyl, cfg)
+    if cyl.device.type != "cuda":
+        raise ValueError(f"unsupported device {cyl.device}")
+    n_cyl = cyl.shape[1]
+    _check("cyl", cyl, (8, n_cyl), cyl.device)
+    if n_cyl > MAX_CYL:
+        raise ValueError(f"{n_cyl} cylinders; the kernel takes at most {MAX_CYL}")
+    lib = _lib()
+    owner = torch.empty((5, cfg.n, cfg.n), dtype=torch.float32, device=cyl.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cyl.device).cuda_stream)
+    _raise_on(lib.owner(_ptr(cyl), n_cyl, _ptr(owner), cfg.n, cfg.spacing, cfg.x_min, stream),
+              "select_owner")
+    launch_counts["select_owner"] += 1
+    return owner
+
+
+def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+    """Advance the state one RK4 step from time t, with the design lerped
+    over [ti, tf]. `owner` (from `select_owner`) selects the radii-only
+    kernel K2; None selects the general kernel K1. Returns (u_next,
+    energies (3,))."""
+    if u.device.type == "cpu":
+        return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    n, dev = cfg.n, u.device
+    n_cyl = cyl.shape[1]
+    _check("u", u, (12, n, n), dev)
+    _check("shape", shape, (n, n), dev)
+    _check("prof", prof, (n,), dev)
+    _check("cyl", cyl, (8, n_cyl), dev)
+    if owner is not None:
+        _check("owner", owner, (5, n, n), dev)
+    if n_cyl > MAX_CYL:
+        raise ValueError(f"{n_cyl} cylinders; the kernel takes at most {MAX_CYL}")
+    lib = _lib()
+    radii = owner is not None
+    key = "fused_rk4_radii_only" if radii else "fused_rk4_general"
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    partials = torch.empty((partial_rows(n), 3), dtype=torch.float32, device=dev)
+    f = np.float32
+    half, full, sixth = float(f(0.5 * cfg.dt)), float(f(cfg.dt)), float(f(cfg.dt / 6.0))
+    fixed = (_ptr(shape), _ptr(prof), _ptr(cyl), n_cyl, _ptr(owner), n, cfg.spacing,
+             cfg.inv2d, cfg.x_min, cfg.c0, cfg.freq)
+    ks = [torch.empty_like(u) for _ in range(3)]
+    out = torch.empty_like(u)
+    t0, th, t1 = (float(x) for x in stage_times(t, cfg.dt))
+    launches = (
+        (0, None, 0.0, ks[0], None, t0),
+        (1, ks[0], half, ks[1], None, th),
+        (1, ks[1], half, ks[2], None, th),
+        (2, ks[2], full, out, partials, t1),
+    )
+    for mode, kp, a, dst, part, ts in launches:
+        code = lib.stage(mode, int(radii), _ptr(u), _ptr(kp), a, _ptr(ks[0]), _ptr(ks[1]),
+                         sixth, _ptr(dst), _ptr(part), *fixed, ts, ti, tf, stream)
+        _raise_on(code, key)
+        launch_counts[key] += 1
+    return out, partials.sum(dim=0)

@@ -1,0 +1,157 @@
+"""Dynamics and time integration (counterpart of
+`waves_jl_tpu/physics/dynamics.py`).
+
+* `runge_kutta`: classic RK4 increment with the JAX package's op order.
+* `Integrator`: steps a dynamics `rhs(u, t, theta) -> du` over a time grid.
+* `AcousticDynamics2D`: split-field PML acoustic system over 12 channels,
+  the total field (design speed) and the incident field (ambient c0). This
+  is the plain reference of the fused RK4 kernel's equations.
+* `AcousticDynamics1D`: the surrogate's 4-field latent system with learned
+  PML, batched; the spatial derivative is a dense (E, E) matmul.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..dims import OneDim, TwoDim, build_dirichlet, get_dx, get_dy
+from ..ops.fd import fd_dx, fd_dy, gradient_matrix
+from ..ops.pml import build_pml
+
+
+def build_tspan(ti: float, dt: float, steps: int) -> np.ndarray:
+    """(steps+1,) float32 time points from ti with spacing dt, computed on
+    the host as `jnp.linspace` does: ti*(1-s) + tf*s with s = k/steps."""
+    lo = np.float32(ti)
+    hi = np.float32(ti + steps * dt)
+    s = np.arange(steps, dtype=np.float32) / np.float32(steps)
+    out = lo * (np.float32(1.0) - s) + hi * s
+    return np.concatenate([out, np.array([hi], np.float32)])
+
+
+def runge_kutta(f, u, t, theta, dt):
+    """One RK4 increment (times dt)."""
+    k1 = f(u, t, theta)
+    k2 = f(u + 0.5 * dt * k1, t + 0.5 * dt, theta)
+    k3 = f(u + 0.5 * dt * k2, t + 0.5 * dt, theta)
+    k4 = f(u + dt * k3, t + dt, theta)
+    du = (1.0 / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return du * dt
+
+
+@dataclass(frozen=True)
+class Integrator:
+    dynamics: Any
+    integration_function: Callable = runge_kutta
+    dt: float = 1e-5
+
+    def step(self, u, t, theta):
+        return u + self.integration_function(self.dynamics, u, t, theta, self.dt)
+
+    def __call__(self, u0, tspan, theta) -> torch.Tensor:
+        """Trajectory (T+1, ...) with u0 first; tspan (T+1,) host times."""
+        traj = [u0]
+        for t in tspan[:-1]:
+            traj.append(self.step(traj[-1], t, theta))
+        return torch.stack(traj, dim=0)
+
+
+def acoustic_rhs_2d(x, c, f, pml, bc, dx, dy):
+    """One stack of the split-field PML system. x: (6, nx, ny) fields
+    U, Vx, Vy, Psix, Psiy, Omega; c speed (field or scalar); f source field;
+    pml (nx, ny) varying along x (sigma_y is its transpose)."""
+    U, Vx, Vy, Px, Py, Om = x[0], x[1], x[2], x[3], x[4], x[5]
+    b = c**2
+    sx = pml
+    sy = pml.T
+    Vxx = fd_dx(Vx, dx)
+    Vyy = fd_dy(Vy, dy)
+    Uf = U + f
+    Ux = fd_dx(Uf, dx)
+    Uy = fd_dy(Uf, dy)
+    dU = b * (Vxx + Vyy) + Px + Py - (sx + sy) * U - Om
+    dVx = Ux - sx * Vx
+    dVy = Uy - sy * Vy
+    dPx = b * sx * Vyy
+    dPy = b * sy * Vxx
+    dOm = sx * sy * U
+    return torch.stack([bc * dU, dVx, dVy, dPx, dPy, dOm], dim=0)
+
+
+@dataclass(frozen=True)
+class AcousticDynamics2D:
+    """theta = (C, F): t -> speed field and t -> source field."""
+
+    c0: float
+    pml: torch.Tensor  # (nx, ny)
+    bc: torch.Tensor  # (nx, ny)
+    dx: torch.Tensor
+    dy: torch.Tensor
+
+    def __call__(self, x, t, theta):
+        C, F = theta
+        c = C(t)
+        f = F(t)
+        dtot = acoustic_rhs_2d(x[0:6], c, f, self.pml, self.bc, self.dx, self.dy)
+        c0 = torch.tensor(self.c0, dtype=torch.float32, device=x.device)
+        dinc = acoustic_rhs_2d(x[6:12], c0, f, self.pml, self.bc, self.dx, self.dy)
+        return torch.cat([dtot, dinc], dim=0)
+
+
+def make_acoustic_dynamics_2d(dim: TwoDim, c0: float, pml_width: float,
+                              pml_scale: float) -> AcousticDynamics2D:
+    return AcousticDynamics2D(
+        c0=float(c0),
+        pml=build_pml(dim, pml_width, pml_scale),
+        bc=build_dirichlet(dim),
+        dx=get_dx(dim),
+        dy=get_dy(dim),
+    )
+
+
+@dataclass(frozen=True)
+class AcousticDynamics1D:
+    """Batched latent system. x: (B, 4, E) fields U_tot, V_tot, U_inc, V_inc;
+    theta = (C, F, PML): C(t) -> (B, E) latent speed, F(t) -> (B, E) latent
+    source, PML (B, E) learned profile scaled by pml[0]."""
+
+    c0: float
+    grad: torch.Tensor  # (E, E)
+    pml: torch.Tensor  # (E,); only pml[0] (the boundary value) is used
+    bc: torch.Tensor  # (E,)
+
+    def __post_init__(self):
+        dev = self.grad.device
+        # constant masks of the field-broadcast form, built once
+        object.__setattr__(self, "_perm", torch.tensor([1, 0, 3, 2], device=dev))
+        object.__setattr__(self, "_e_uf", torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)[None, :, None])
+        tot = torch.tensor([True, True, False, False], device=dev)[None, :, None]
+        object.__setattr__(self, "_tot", tot)
+        bc_mask = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)[None, :, None] * (
+            self.bc[None, None, :] - 1.0) + 1.0
+        object.__setattr__(self, "_bc_mask", bc_mask)
+
+    def __call__(self, x, t, theta):
+        C, F, PML = theta
+        sigma = self.pml[0] * PML
+        c = C(t)
+        f = F(t)
+        # y = x[:, perm] + f * e_uf; d = y @ grad^T; du = coef * d - sigma * x
+        y = x[:, self._perm] + f[:, None] * self._e_uf
+        d = torch.matmul(y, self.grad.T)
+        coef = self.c0 * torch.where(self._tot, c[:, None], torch.ones_like(c[:, None]))
+        du = coef * d - sigma[:, None] * x
+        return du * self._bc_mask
+
+
+def make_acoustic_dynamics_1d(dim: OneDim, c0: float, pml_width: float,
+                              pml_scale: float) -> AcousticDynamics1D:
+    return AcousticDynamics1D(
+        c0=float(c0),
+        grad=gradient_matrix(dim.x),
+        pml=build_pml(dim, pml_width, pml_scale),
+        bc=build_dirichlet(dim),
+    )

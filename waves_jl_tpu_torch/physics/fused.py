@@ -1,0 +1,116 @@
+"""The fused RK4 kernel wired into the environment's action window
+(counterpart of `waves_jl_tpu/physics/fused.py`).
+
+Gives the same signal and frames as `env_step`, with each RK4 step in the
+fused kernel. The state stays a contiguous (12, n, n) float32 tensor; the
+JAX package's padded TPU layout has no counterpart here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..designs import design_cylinders
+from ..env import EnvState, WaveEnv, env_tspan, frame_segments
+from ..ops.fused_rk4 import StepConfig, fused_rk4_step, select_owner
+
+
+def cyl_params(d1, d2) -> torch.Tensor:
+    """(8, n_cyl) [p1x, p1y, r1, c1, p2x, p2y, r2, c2] lerp endpoints."""
+    c1 = design_cylinders(d1)
+    c2 = design_cylinders(d2)
+    if c1 is None:
+        return torch.zeros((8, 0), dtype=torch.float32)
+    return torch.stack([c1.pos[:, 0], c1.pos[:, 1], c1.r, c1.c,
+                        c2.pos[:, 0], c2.pos[:, 1], c2.r, c2.c])
+
+
+def radii_only_ok(space) -> bool:
+    """True when the radii-only kernel is exact for every design in `space`:
+    positions and speeds are fixed and the circles at their largest radii
+    are pairwise disjoint, so each cell has one owning cylinder."""
+    lo = design_cylinders(space.low)
+    hi = design_cylinders(space.high)
+    if lo is None:
+        return False
+    pos_lo, pos_hi = lo.pos.cpu().numpy(), hi.pos.cpu().numpy()
+    if not (np.array_equal(pos_lo, pos_hi)
+            and np.array_equal(lo.c.cpu().numpy(), hi.c.cpu().numpy())):
+        return False
+    rmax = hi.r.cpu().numpy()
+    d = np.sqrt(((pos_lo[:, None, :] - pos_lo[None, :, :]) ** 2).sum(-1))
+    sep = rmax[:, None] + rmax[None, :]
+    iu = np.triu_indices(len(rmax), k=1)
+    return bool((d[iu] > sep[iu]).all())
+
+
+def step_config(env: WaveEnv) -> StepConfig:
+    """Kernel parameters of the environment, as Python floats like the JAX
+    package computes them."""
+    n = env.dim.shape[0]
+    return StepConfig(
+        n=n,
+        spacing=float(2.0 * float(env.dim.x[-1]) / (n - 1)),
+        x_min=float(env.dim.x[0]),
+        dt=float(env.dt),
+        c0=float(env.c0),
+        freq=float(env.source.freq),
+    )
+
+
+def make_fused_window(env: WaveEnv):
+    """Action window through the fused kernel, one wrapper call a step;
+    radii-only (K2) when `radii_only_ok` holds for the design space, else
+    general (K1).
+
+    Returns window(u, shape, tspan, cyl) -> (u_final, frames, signal): u the
+    (12, n, n) state, shape the (n, n) source shape, tspan the window's
+    (steps+1,) float32 host times, cyl from `cyl_params`. frames are the
+    states at the ends of the frame segments and signal is (steps+1, 3)
+    energies times the cell area.
+    """
+    cfg = step_config(env)
+    seg_lens = frame_segments(env.integration_steps)
+    radii = radii_only_ok(env.design_space)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    d_omega = cfg.spacing * cfg.spacing
+
+    def window(u, shape, tspan, cyl):
+        ti, tf = float(tspan[0]), float(tspan[-1])
+        owner = select_owner(cyl, cfg) if radii else None
+        sc = u[0] - u[6]
+        energies = [torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]),
+                                 torch.sum(sc * sc)])]
+        frames = []
+        offset = 0
+        for seg in seg_lens:
+            for t in tspan[offset:offset + seg]:
+                u, e = fused_rk4_step(u, shape, prof, cyl, owner, float(t), ti, tf, cfg)
+                energies.append(e)
+            frames.append(u)
+            offset += seg
+        return u, frames, torch.stack(energies) * d_omega
+
+    return window
+
+
+def make_env_step_fused(env: WaveEnv):
+    """Fused counterpart of `env_step`: returns step(state, action) ->
+    (state', info)."""
+    window = make_fused_window(env)
+
+    def step(state: EnvState, action):
+        tspan = env_tspan(env, state)
+        next_design = env.design_space(state.design, action)
+        cyl = cyl_params(state.design, next_design).contiguous()
+        _, frames, signal = window(state.wave[-1], state.source.shape, tspan, cyl)
+        new_state = EnvState(
+            wave=torch.stack(frames, dim=0),
+            design=next_design,
+            source=state.source,
+            signal=signal,
+            time_step=state.time_step + env.integration_steps,
+        )
+        return new_state, {"tspan": tspan}
+
+    return step
