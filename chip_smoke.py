@@ -9,12 +9,23 @@ its elapsed seconds:
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, with
    ptxas's register and spill report;
-3. kernels: each kernel against its plain PyTorch version at 700^2;
+3. kernels: each kernel against its plain PyTorch version at 700^2, and
+   the candidate-batched kernel K3 (16 candidates at 350^2, coarsened from
+   the 700^2 state) against its plain version and against K2 run on each
+   candidate alone;
 4. main path: a warm 20-action x 100-step MPC control episode at 700^2
    (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
    surrogate with the tracked weights), the simulator's steps/s over 20
    windows, and a random-policy episode over a position-adjustable design
-   space, the path of the general kernel.
+   space, the path of the general kernel, with one K = 4 re-rank window
+   there, the path of K3's general mode, whose kernel is held against its
+   plain version on that window's own states, cylinders and step times;
+5. hybrid: a 20-action episode of the hybrid controller at full width
+   (256 shots pruned by the fine-tuned stride-4 flagship, the best 16
+   re-ranked exactly at 350^2 through K3, the winner applied at 700^2),
+   three of its selections replayed through the sequential re-rank (K2),
+   one selection split into prune, re-rank and env window, the batched
+   re-rank against the sequential one, and two exact-CEM rounds against one.
 
 The launch counts of each kernel are read from the main-path runs alone.
 The last lines are one JSON object describing every kernel, then
@@ -33,10 +44,14 @@ import time
 T0 = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE = 700
+SIZE_RERANK = 350  # the hybrid's re-rank grid
 STEPS = 100
 WINDOWS = 20
 CHECKPOINT = "models/ref500_h8s4/checkpoint_step=2600"
+CHECKPOINT_HYBRID = "models/ref500_h8s4_ft/checkpoint_step=1320"
 STRIDE = 4
+TOPK = 16  # candidates the hybrid re-ranks exactly
+HORIZON = 5
 # Kernel against plain version, relative to the largest magnitude: both run
 # the same float32 operations in the same order (FMA contraction is off in
 # the kernel), so they differ only where sinf and torch.sin round apart and
@@ -87,12 +102,23 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def build_env(space, device):
+def host_s(fn):
+    """(seconds on the host clock, result) of fn(), synchronised at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.time() - t, out
+
+
+def build_env(space, device, n=SIZE):
     from waves_jl_tpu_torch.dims import build_grid, two_dim
     from waves_jl_tpu_torch.env import make_wave_env
     from waves_jl_tpu_torch.sources import GaussianSource
 
-    dim = two_dim(15.0, SIZE, device=device)
+    dim = two_dim(15.0, n, device=device)
     source = GaussianSource.create(build_grid(dim), [[-10.0, -10.0]], [[-10.0, 10.0]],
                                    [0.3], [1.0], 1000.0)
     return make_wave_env(dim, space, source, integration_steps=STEPS, actions=WINDOWS)
@@ -113,6 +139,255 @@ def position_space(ring_space):
                        AdjustablePositionScatterers(Cylinders(cy.pos + 0.5, r, cy.c)))
 
 
+def batched_kernels(env, state, dev):
+    """Phase 3, K3: 16 candidates at 350^2 from the coarsened 700^2 state,
+    each with its own radii. Returns the numbers of its kernel rows."""
+    import torch
+
+    from waves_jl_tpu_torch.control.mpc import coarsen_env_state
+    from waves_jl_tpu_torch.env import env_tspan
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.fused import cyl_params, step_config
+
+    env_lo = build_env(env.design_space, dev, SIZE_RERANK)
+    cfg = step_config(env_lo)
+    prof = env_lo.integrator.dynamics.pml[:, 0].contiguous()
+    st = coarsen_env_state(env_lo, state)
+    shape = st.source.shape
+    u0 = st.wave[-1].expand(TOPK, *st.wave.shape[1:]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    designs = env_lo.design_space.sample(gen, batch=(TOPK,))
+    nxt = env_lo.design_space(designs, env_lo.action_space.sample(gen, batch=(TOPK,)))
+    cyl = cyl_params(designs, nxt, dev).contiguous()
+    tspan = env_tspan(env_lo, st)
+    ti, tf = float(tspan[0]), float(tspan[-1])
+    log("kernels", f"K3 input: {TOPK} candidates at {SIZE_RERANK}^2, max |u| "
+                   f"{float(u0.abs().max()):.3e}, radii drawn per candidate")
+
+    owner_k = fk.select_owner_batched(cyl, cfg)
+    owner_p = fk.select_owner_batched_reference(cyl, cfg)
+    torch.cuda.synchronize()
+    owner_err = float(torch.max(torch.abs(owner_k - owner_p)))
+    owner_rel = rel_err(owner_k[:, 1:], owner_p[:, 1:])
+    log("kernels", f"select_owner_batched vs plain: max abs err {owner_err}, rel err of r1, dr, "
+                   f"c1, dc {owner_rel:.3e} (tol {REL_TOL:g})")
+    check(owner_rel <= REL_TOL, "select_owner_batched agrees with its plain version")
+
+    def window_run(step_fn, owner, cyl_, n_steps, u=u0):
+        es = []
+        for k in range(n_steps):
+            u, e = step_fn(u, shape, prof, cyl_, owner, float(tspan[k]), ti, tf, cfg)
+            es.append(e)
+        return u, torch.stack(es)
+
+    u_k, e_k = window_run(fk.fused_rk4_step_batched, owner_k, cyl, STEPS)
+    u_p, e_p = window_run(fk.fused_rk4_step_batched_reference, owner_p, cyl, STEPS)
+    torch.cuda.synchronize()
+    k3_state, k3_sig = rel_err(u_k, u_p), rel_err(e_k, e_p)
+    k3_abs = float(torch.max(torch.abs(u_k - u_p)))
+    log("kernels", f"K3 radii-only vs plain, {STEPS} steps: rel err state {k3_state:.3e}, "
+                   f"signal {k3_sig:.3e} (tol {REL_TOL:g})")
+    check(k3_state <= REL_TOL and k3_sig <= REL_TOL, "K3 radii-only agrees with its plain version")
+
+    identical, sig_err = 0, 0.0
+    for b in range(TOPK):
+        u_b, e_b = window_run(fk.fused_rk4_step, owner_k[b], cyl[b], STEPS, u0[b])
+        identical += int(torch.equal(u_b, u_k[b]))
+        sig_err = max(sig_err, rel_err(e_k[:, b], e_b))
+    log("kernels", f"K3 vs K2 on each candidate alone, {STEPS} steps: {identical} of {TOPK} "
+                   f"states identical, signal rel err {sig_err:.3e} (tol {REL_TOL:g})")
+    check(identical == TOPK, "each K3 candidate's state is K2's on that candidate, bit for bit")
+    check(sig_err <= REL_TOL, "each K3 candidate's signal agrees with K2's")
+
+    moved = cyl.clone()
+    moved[:, 4] += 0.3  # p2x != p1x: the cylinders move within the window
+    moved[:, 5] -= 0.2
+    u_kg, e_kg = window_run(fk.fused_rk4_step_batched, None, moved, 10)
+    u_pg, e_pg = window_run(fk.fused_rk4_step_batched_reference, None, moved, 10)
+    torch.cuda.synchronize()
+    k3g_state, k3g_sig = rel_err(u_kg, u_pg), rel_err(e_kg, e_pg)
+    log("kernels", f"K3 general vs plain, 10 steps, moving cylinders: rel err state "
+                   f"{k3g_state:.3e}, signal {k3g_sig:.3e} (tol {REL_TOL:g})")
+    check(k3g_state <= REL_TOL and k3g_sig <= REL_TOL, "K3 general agrees with its plain version")
+
+    t_arg = float(tspan[0])
+    k3_ms = cuda_ms(lambda: fk.fused_rk4_step_batched(u0, shape, prof, cyl, owner_k, t_arg, ti,
+                                                      tf, cfg), 50)
+    k3_plain = cuda_ms(lambda: fk.fused_rk4_step_batched_reference(u0, shape, prof, cyl, owner_p,
+                                                                   t_arg, ti, tf, cfg), 3)
+    seq_ms = cuda_ms(lambda: [fk.fused_rk4_step(u0[b], shape, prof, cyl[b], owner_k[b], t_arg, ti,
+                                                tf, cfg) for b in range(TOPK)], 20)
+    own_ms = cuda_ms(lambda: fk.select_owner_batched(cyl, cfg), 50)
+    own_plain = cuda_ms(lambda: fk.select_owner_batched_reference(cyl, cfg), 3)
+    log("kernels", f"ms per batched RK4 step of {TOPK} candidates at {SIZE_RERANK}^2: K3 radii-only "
+                   f"{k3_ms:.4f} (plain {k3_plain:.4f}); {TOPK} x K2 steps, the sequential route, "
+                   f"{seq_ms:.4f}; select_owner_batched {own_ms:.4f} (plain {own_plain:.4f})")
+
+    n_cyl = cyl.shape[-1]
+    part = torch.empty((TOPK, fk.partial_rows(SIZE_RERANK), 3), dtype=torch.float32)
+    # K times what an RK4 step needs: the states in and out, the shared
+    # shape and profile, each candidate's cylinders and energy partials
+    io_step = 2 * nbytes(u0) + nbytes(shape, prof, cyl, part)
+    k3_bound = bound(io_step, TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True))
+    own_bound = bound(nbytes(cyl, owner_k), TOPK * SIZE_RERANK * SIZE_RERANK * n_cyl * 9)
+    log("kernels", f"K3 bound per batched step {k3_bound[0]:.5f} ms ({k3_bound[1]}; states alone "
+                   f"{2 * nbytes(u0) / 1e6:.1f} MB, {2 * nbytes(u0) / HBM_BYTES_PER_S * 1e3:.5f} "
+                   f"ms); select_owner_batched {own_bound[0]:.5f} ms ({own_bound[1]})")
+    return env_lo, {"k3": (k3_abs, k3_ms, k3_plain, k3_bound),
+                    "own": (owner_err, own_ms, own_plain, own_bound), "seq_ms": seq_ms}
+
+
+def batched_general_kernel(env, state, elite, t0, dev):
+    """Phase 4, K3 general on the position-design re-rank window's own
+    inputs: its K states, cylinders and float32 step times, as
+    `make_rerank_rollout` forms them. The kernel against its plain version
+    over the window's first 10 steps. Returns the numbers of its kernel row."""
+    import numpy as np
+    import torch
+
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.fused import cyl_params, rerank_step_times, step_config
+    from waves_jl_tpu_torch.utils.trees import tree_leaves, tree_map
+
+    k = tree_leaves(elite)[0].shape[0]
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    shape = state.source.shape
+    u0 = state.wave[-1].expand(k, *state.wave.shape[1:]).contiguous()
+    designs = tree_map(lambda x: x.expand(k, *x.shape), state.design)
+    nxt = env.design_space(designs, tree_map(lambda x: x[:, 0], elite))
+    cyl = cyl_params(designs, nxt, dev).contiguous()
+    check(bool((cyl[:, 0:2] != cyl[:, 4:6]).any()), "the re-rank window's cylinders move")
+    t_i = np.float32(t0)
+    ti, tf = float(t_i), float(np.float32(t_i + np.float32(STEPS * cfg.dt)))
+    times = [float(ts) for ts in rerank_step_times(t_i, STEPS, cfg.dt)[:10]]
+
+    def window_run(step_fn):
+        u, es = u0, []
+        for ts in times:
+            u, e = step_fn(u, shape, prof, cyl, None, ts, ti, tf, cfg)
+            es.append(e)
+        return u, torch.stack(es)
+
+    u_k, e_k = window_run(fk.fused_rk4_step_batched)
+    u_p, e_p = window_run(fk.fused_rk4_step_batched_reference)
+    torch.cuda.synchronize()
+    state_err, sig_err = rel_err(u_k, u_p), rel_err(e_k, e_p)
+    abs_err = float(torch.max(torch.abs(u_k - u_p)))
+    log("main path", f"K3 general vs plain on the re-rank window, K = {k} at {SIZE}^2, "
+                     f"{len(times)} steps: rel err state {state_err:.3e}, signal {sig_err:.3e} "
+                     f"(tol {REL_TOL:g})")
+    check(state_err <= REL_TOL and sig_err <= REL_TOL,
+          "K3 general agrees with its plain version on the re-rank window")
+    ms = cuda_ms(lambda: fk.fused_rk4_step_batched(u0, shape, prof, cyl, None, times[0], ti, tf,
+                                                   cfg), 20)
+    plain = cuda_ms(lambda: fk.fused_rk4_step_batched_reference(u0, shape, prof, cyl, None,
+                                                                times[0], ti, tf, cfg), 2)
+    part = torch.empty((k, fk.partial_rows(SIZE), 3), dtype=torch.float32)
+    bnd = bound(2 * nbytes(u0) + nbytes(shape, prof, cyl, part),
+                k * fk.step_flops(SIZE, cyl.shape[-1], False))
+    log("main path", f"ms per batched RK4 step of {k} candidates at {SIZE}^2: K3 general {ms:.4f} "
+                     f"(plain {plain:.4f}), bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return abs_err, ms, plain, bnd
+
+
+def hybrid_episode(env, env_lo, space, dev):
+    """Phase 5: the hybrid controller at full width. Returns its launch
+    counts."""
+    import torch
+
+    from waves_jl_tpu_torch.control.mpc import HybridShooting, make_hybrid_action_fused
+    from waves_jl_tpu_torch.env import env_reset
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+    from waves_jl_tpu_torch.utils.trees import tree_leaves, tree_map
+
+    model = AcousticEnergyModel(space, 1000.0, elements=1024, h_size=256, nfreq=500,
+                                integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE, device=dev)
+    ck_step = load_model_checkpoint(model, os.path.join(ROOT, CHECKPOINT_HYBRID))
+    log("hybrid", f"pruner loaded from {CHECKPOINT_HYBRID} (step {ck_step})")
+    kw = dict(horizon=HORIZON, shots=256, topk=TOPK, alpha=1.0, rerank_env=env_lo)
+    act, step = make_hybrid_action_fused(env, model, **kw)  # batched re-rank, through K3
+    seq = HybridShooting(env, model, batched=False, **kw)  # K rollouts in turn, through K2
+    gen = torch.Generator(device=dev).manual_seed(20)
+    start = env_reset(env, torch.Generator(device=dev).manual_seed(21))
+    warm_s, _ = host_s(lambda: step(start, act(start, gen)[0]))
+    log("hybrid", f"warm-up selection and window {warm_s:.3f} s")
+
+    replay_at = (0, WINDOWS // 2, WINDOWS - 1)
+    fk.reset_launch_counts()
+
+    def episode():
+        st, signals, replays = start, [], []
+        for i in range(WINDOWS):
+            before = (st, gen.get_state())
+            a, c = act(st, gen)
+            st, _ = step(st, a)
+            signals.append(st.signal)
+            if i in replay_at:
+                replays.append((*before, a, c))
+        return st, torch.stack(signals), replays
+
+    episode_s, (final, signals, replays) = host_s(episode)
+    counts = dict(fk.launch_counts)
+    log("hybrid", f"hybrid episode ({WINDOWS} actions, {TOPK} of 256 re-ranked at "
+                  f"{SIZE_RERANK}^2 over {HORIZON} windows) {episode_s:.4f} s, launches {counts}")
+    expect = {"fused_rk4_batched_radii_only": WINDOWS * HORIZON * STEPS * fk.STAGES,
+              "select_owner_batched": WINDOWS * HORIZON,
+              "fused_rk4_radii_only": WINDOWS * STEPS * fk.STAGES, "select_owner": WINDOWS,
+              "fused_rk4_batched_general": 0, "fused_rk4_general": 0}
+    check(counts == expect, f"hybrid launch counts {counts} == {expect}")
+    check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
+    check(bool(torch.isfinite(signals).all()), "every hybrid signal is finite")
+    check(final.time_step == WINDOWS * STEPS, "the hybrid episode ran every window")
+    log("hybrid", f"signals finite; sc energy max {float(signals[:, :, 2].max()):.4e}")
+
+    # selections of the episode replayed from their state and draws through
+    # the sequential re-rank: the same chosen cost and, where the best two
+    # exact costs are apart, the same action
+    for i, (st, gen_state, a, c) in zip(replay_at, replays):
+        g = torch.Generator(device=dev)
+        g.set_state(gen_state)
+        s_actions, s_cost = seq.rerank(st, *seq.prune(st, g), g)
+        j = int(torch.argmin(s_cost))
+        err = rel_err(s_cost[j], c)
+        best2 = torch.sort(s_cost).values[:2]
+        decided = float(best2[1] - best2[0]) > 1e-5 * float(s_cost.abs().max())
+        same = all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(tree_map(lambda v: v[j, 0], s_actions)), tree_leaves(a)))
+        log("hybrid", f"selection {i} replayed through the sequential re-rank: chosen cost "
+                      f"{float(c):.6e} vs {float(s_cost[j]):.6e}, rel err {err:.3e} (tol 1e-05); "
+                      f"same action {same} (decided {decided})")
+        check(err <= 1e-5, f"selection {i}'s chosen cost agrees with the sequential re-rank's")
+        check(same or not decided, f"selection {i}'s action is the sequential re-rank's")
+
+    prune_s, pruned = host_s(lambda: act.prune(final, gen))
+    rerank_s, (ev_actions, ev_cost) = host_s(lambda: act.rerank(final, *pruned, gen))
+    idx = torch.argmin(ev_cost)
+    window_s, _ = host_s(lambda: step(final, tree_map(lambda v: v[idx, 0], ev_actions)))
+    log("hybrid", f"one selection apart: surrogate prune {prune_s:.4f} s, re-rank (coarsen + "
+                  f"{TOPK} x {HORIZON} windows through K3) {rerank_s:.4f} s, env window "
+                  f"{window_s:.4f} s")
+
+    seq_s, (_, seq_cost) = host_s(lambda: seq.rerank(final, *pruned, gen))
+    seq_rel = rel_err(seq_cost, ev_cost)
+    log("hybrid", f"re-rank, batched {rerank_s:.4f} s vs sequential ({TOPK} x {HORIZON} K2 "
+                  f"windows) {seq_s:.4f} s; costs rel err {seq_rel:.3e} (tol 1e-05), chosen "
+                  f"{int(idx)} vs {int(torch.argmin(seq_cost))}")
+    check(int(torch.argmin(seq_cost)) == int(idx), "batched and sequential re-ranks choose alike")
+    check(seq_rel <= 1e-5, "batched and sequential re-rank costs agree")
+
+    rounds = HybridShooting(env, model, exact_rounds=2, **kw)
+    rounds_s, (_, r2_cost) = host_s(lambda: rounds.rerank(final, *pruned, gen))
+    log("hybrid", f"two exact rounds {rounds_s:.4f} s: chosen cost {float(r2_cost.min()):.6e} vs "
+                  f"one round {float(ev_cost.min()):.6e}; round-1 costs identical: "
+                  f"{bool(torch.equal(r2_cost[:TOPK], ev_cost))}")
+    check(float(r2_cost.min()) <= float(ev_cost.min()),
+          "two exact rounds choose no worse than one from the same draws")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -122,11 +397,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from waves_jl_tpu_torch.control.mpc import RandomShooting, make_mpc_episode_fused
     from waves_jl_tpu_torch.designs import build_triple_ring_design_space
-    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset, env_tspan
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset, env_time, env_tspan
     from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
     from waves_jl_tpu_torch.physics.fused import (cyl_params, make_env_step_fused,
-                                                  radii_only_ok, step_config)
+                                                  make_rerank_rollout, radii_only_ok, step_config)
     from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
 
     dev = torch.device("cuda")
@@ -160,7 +435,7 @@ def main() -> int:
     torch.cuda.synchronize()
     tspan = env_tspan(env, state)
     ti, tf = float(tspan[0]), float(tspan[-1])
-    cyl = cyl_params(state.design, env.design_space(state.design, policy(gen))).contiguous()
+    cyl = cyl_params(state.design, env.design_space(state.design, policy(gen)), dev).contiguous()
     shape = state.source.shape
     u0 = state.wave[-1]
     log("kernels", f"state after one window: max |u| {float(u0.abs().max()):.3e}")
@@ -235,6 +510,7 @@ def main() -> int:
     log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}), K1 and K2; K2 reads "
                    f"its owner fields on top, {nbytes(owner_k) / HBM_BYTES_PER_S * 1e3:.5f} ms "
                    f"of bytes once read")
+    env_lo, k3 = batched_kernels(env, state, dev)
 
     # 4. main path: the MPC control episode
     model = AcousticEnergyModel(space, 1000.0, elements=1024, h_size=256, nfreq=500,
@@ -308,6 +584,24 @@ def main() -> int:
     check(bool(torch.isfinite(pst.signal).all()), "position-design signal is finite")
     log("main path", f"position-design episode, {pos_windows} windows: launches {pos_counts}")
 
+    rerank_k = 4
+    roll = make_rerank_rollout(pos_env, rerank_k, 1)
+    elite = pos_env.action_space.sample(pgen, batch=(rerank_k, 1))
+    t_pos = env_time(pos_env, pst)
+    fk.reset_launch_counts()
+    pos_costs = roll(pst, elite, t_pos)
+    torch.cuda.synchronize()
+    roll_counts = dict(fk.launch_counts)
+    check(roll_counts["fused_rk4_batched_general"] == STEPS * fk.STAGES,
+          f"{STEPS * fk.STAGES} batched general stage launches")
+    check(tuple(pos_costs.shape) == (rerank_k,) and bool(torch.isfinite(pos_costs).all()),
+          "position-design re-rank costs are finite")
+    log("main path", f"position-design re-rank window, K = {rerank_k}: launches {roll_counts}")
+    k3["k3g"] = batched_general_kernel(pos_env, pst, elite, t_pos, dev)
+
+    # 5. the hybrid controller
+    hyb_counts = hybrid_episode(env, env_lo, space, dev)
+
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
     kernels = [
         {"name": "fused_rk4_radii_only", "route": "cuda", "source": src,
@@ -323,6 +617,19 @@ def main() -> int:
          "max_abs_err": k1_abs, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
     ]
+    batched_rows = (
+        ("fused_rk4_batched_radii_only", "waves_jl_tpu/ops/pallas_fd.py:162", "k3",
+         hyb_counts["fused_rk4_batched_radii_only"]),
+        ("select_owner_batched", "waves_jl_tpu/ops/pallas_fd.py:247", "own",
+         hyb_counts["select_owner_batched"]),
+        ("fused_rk4_batched_general", "waves_jl_tpu/ops/pallas_fd.py:162", "k3g",
+         roll_counts["fused_rk4_batched_general"]),
+    )
+    for name, replaces, key, launches in batched_rows:
+        err, ms, plain, bnd = k3[key]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
     for k in kernels:
         check(all(isinstance(v, (int, float)) and math.isfinite(v)
                   for key, v in k.items() if key in ("max_abs_err", "ms", "plain_ms", "bound_ms")),

@@ -114,7 +114,7 @@ def test_plain_general_matches_plain_radii_only_on_triple_ring():
                         freq=1000.0)
     space = td.build_triple_ring_design_space(device="cpu")
     gen = torch.Generator().manual_seed(0)
-    cyl = cyl_params(space.sample(gen), space.sample(gen)).contiguous()
+    cyl = cyl_params(space.sample(gen), space.sample(gen), "cpu").contiguous()
     u = torch.from_numpy((np.random.default_rng(0).standard_normal((12, n, n)) * 1e-3)
                          .astype(np.float32))
     shape = torch.zeros(n, n)

@@ -7,7 +7,9 @@ runs on a machine without it:
 
 Tolerance 1e-5 relative: kernel and plain version run the same float32
 operations in the same order (the kernel is built without FMA
-contraction); only sin and the energy sums round apart.
+contraction); only sin and the energy sums round apart. Each candidate of
+the batched kernel K3 equals K1 or K2 run on it alone, bit for bit on the
+state.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from waves_jl_tpu_torch.ops import fused_rk4 as fk
 
 torch.set_num_threads(1)
 TOL = 1e-5
+K3 = 3  # candidates of the batched kernel
 
 
 @pytest.fixture
@@ -80,3 +83,91 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         fk.fused_rk4_step(u.transpose(1, 2), shape, prof, cyl, None, 0.0, 0.0, 1e-3, cfg)
     with pytest.raises(ValueError, match="on cpu"):
         fk.fused_rk4_step(u, shape.cpu(), prof, cyl, None, 0.0, 0.0, 1e-3, cfg)
+
+
+
+def _batched_inputs(n, moving, device):
+    """K3 = 3 candidates, each with its own state and radii; the source
+    shape and the profile are shared."""
+    cfg, cyl, u, shape, prof = _inputs(n, moving, device)
+    rng = np.random.default_rng(n + 1)
+    scale = torch.from_numpy(rng.uniform(0.7, 1.0, (K3, 1, cyl.shape[-1])).astype(np.float32))
+    cyls = cyl.expand(K3, -1, -1).clone()
+    cyls[:, [2, 6]] *= scale.to(device)  # rows r1, r2
+    us = torch.stack([u, u.flip(1), u.flip(2)])
+    return cfg, cyls.contiguous(), us.contiguous(), shape, prof
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radii_only", [True, False])
+@pytest.mark.parametrize("n", [37, 160])
+def test_batched_kernel_matches_plain_version_and_single_kernel(card, radii_only, n):
+    cfg, cyl, u, shape, prof = _batched_inputs(n, not radii_only, card)
+    owner = None
+    if radii_only:
+        owner = fk.select_owner_batched(cyl, cfg)
+        assert rel(owner[:, 1:], fk.select_owner_batched_reference(cyl, cfg)[:, 1:]) <= TOL
+    before = dict(fk.launch_counts)
+    got, want = (u, None), (u, None)
+    for t0 in (2e-4, 2.1e-4):  # two chained steps
+        got = fk.fused_rk4_step_batched(got[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg)
+        want = fk.fused_rk4_step_batched_reference(want[0], shape, prof, cyl, owner, t0, 0.0,
+                                                   1e-3, cfg)
+    torch.cuda.synchronize()
+    key = "fused_rk4_batched_radii_only" if radii_only else "fused_rk4_batched_general"
+    assert fk.launch_counts[key] - before[key] == 2 * fk.STAGES
+    assert got[0].shape == (K3, 12, n, n) and got[1].shape == (K3, 3)
+    for a, b in zip(got, want):
+        assert rel(a, b) <= TOL
+    # each candidate's state is bit for bit what K1 or K2 gives it alone
+    for b in range(K3):
+        one = (u[b], None)
+        for t0 in (2e-4, 2.1e-4):
+            one = fk.fused_rk4_step(one[0], shape, prof, cyl[b],
+                                    None if owner is None else owner[b], t0, 0.0, 1e-3, cfg)
+        assert torch.equal(got[0][b], one[0])
+        assert rel(got[1][b], one[1]) <= TOL
+
+
+@pytest.mark.gpu
+def test_batched_owner_pass_matches_separate_owner_passes(card):
+    cfg, cyl, *_ = _batched_inputs(64, False, card)
+    before = dict(fk.launch_counts)
+    owner = fk.select_owner_batched(cyl, cfg)
+    torch.cuda.synchronize()
+    assert fk.launch_counts["select_owner_batched"] - before["select_owner_batched"] == 1
+    assert owner.shape == (K3, 5, 64, 64)
+    for b in range(K3):
+        assert torch.equal(owner[b], fk.select_owner(cyl[b], cfg))
+    assert not torch.equal(owner[0], owner[1])  # each candidate has its own radii
+
+
+@pytest.mark.gpu
+def test_window_with_no_cylinders_runs_on_the_card(card):
+    from waves_jl_tpu_torch.designs import NoDesign, build_triple_ring_design_space
+    from waves_jl_tpu_torch.dims import build_grid, two_dim
+    from waves_jl_tpu_torch.env import env_reset, env_tspan, make_wave_env
+    from waves_jl_tpu_torch.physics.fused import cyl_params, make_fused_window, step_config
+    from waves_jl_tpu_torch.sources import GaussianSource
+
+    n = 48
+    dim = two_dim(15.0, n, device=card)
+    source = GaussianSource.create(build_grid(dim), [[-10.0, -10.0]], [[-10.0, 10.0]], [0.3],
+                                   [1.0], 1000.0)
+    env = make_wave_env(dim, build_triple_ring_design_space(device=card), source,
+                        resolution=(16, 16), integration_steps=10)
+    cyl = cyl_params(NoDesign(), NoDesign(), env.device)
+    assert cyl.shape == (8, 0) and cyl.device == env.device
+    tspan = env_tspan(env, env_reset(env, torch.Generator(device=card).manual_seed(0)))
+    u0 = torch.from_numpy((np.random.default_rng(5).standard_normal((12, n, n)) * 1e-3)
+                          .astype(np.float32)).to(card)
+    u, frames, signal = make_fused_window(env)(u0, source.shape, tspan, cyl)
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    want, owner = u0, fk.select_owner_reference(cyl, cfg)
+    for t0 in tspan[:-1]:
+        want, _ = fk.fused_rk4_step_reference(want, source.shape, prof, cyl, owner, float(t0),
+                                              float(tspan[0]), float(tspan[-1]), cfg)
+    torch.cuda.synchronize()
+    assert signal.shape == (11, 3) and bool(torch.isfinite(signal).all())
+    assert rel(u, want) <= TOL

@@ -1,0 +1,11 @@
+"""The port's batched hybrid controller with one exact-CEM refinement round
+against the JAX package's, with JAX's candidate draws and refinement noise
+(helpers and tolerances in tests/test_torch_hybrid_act.py)."""
+import torch
+from test_torch_hybrid_act import check_act, setup  # noqa: F401 (a fixture)
+
+torch.set_num_threads(1)
+
+
+def test_batched_hybrid_act_with_exact_rounds_matches_jax(setup):  # noqa: F811
+    check_act(setup, batched=True, exact_rounds=2)

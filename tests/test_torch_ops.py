@@ -155,7 +155,7 @@ def test_rasterization_cyl_params_and_radii_only():
     r1, r2 = (rng.uniform(0.2, 1.0, 18).astype(np.float32) for _ in range(2))
     jd1, jd2 = _jax_ring_design(r1), _jax_ring_design(r2)
     pd1, pd2 = _port_ring_design(psp, r1), _port_ring_design(psp, r2)
-    close(cyl_params(pd1, pd2).numpy(), np.asarray(jax_cyl_params(jd1, jd2)), 1e-6)
+    close(cyl_params(pd1, pd2, "cpu").numpy(), np.asarray(jax_cyl_params(jd1, jd2)), 1e-6)
     assert radii_only_ok(psp) and jax_radii_only_ok(jsp)
     jgrid = w.build_grid(w.two_dim(15.0, n))
     pgrid = tdims.build_grid(tdims.two_dim(15.0, n, device="cpu"))

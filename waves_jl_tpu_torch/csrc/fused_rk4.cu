@@ -28,6 +28,18 @@
 // reads mostly hit L1/L2), so the kernel runs several times above its
 // bound. Fusing the four stages behind shared-memory halos is later work.
 //
+// K3, candidate-batched (`batch=K`, :121-127, :162-170, :403-406, :431,
+// :450-456), in both rasterisation modes: K independent states advance
+// through the same time step in one launch. blockIdx.z is the candidate;
+// it offsets the state, k1..k3, out, cylinder, owner and energy-partial
+// pointers, while the source shape and the PML profile are shared. A
+// launch with one candidate is K1 or K2, so each candidate's state is bit
+// for bit what K1 or K2 computes for it alone. The TPU kernel's padded
+// layout and DMA semaphores have no counterpart here: a 350^2 grid is only
+// 11 x 44 = 484 blocks against 132 SMs, and 16 candidates make 7,744.
+// Its bound is K times a step's: at 350^2 and K = 16 the states in and out
+// are 16 x 2 x 5.88 MB = 188.2 MB, 56.2 us at 3.35 TB/s.
+//
 // Numerics: the library is compiled with -fmad=false, so every a*b+c
 // rounds twice, as in the plain PyTorch version and the JAX kernel. The op
 // order follows `stack_rhs` (:315) and the closed-form combine (:371-374).
@@ -97,6 +109,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // MODE 0: k1 = rhs(u).  MODE 1: out = rhs(u + a*kp).
 // MODE 2: k4 = rhs(u + a*kp) with kp = k3; out = u + sixth*(k1+2k2+2k3+k4),
 //         and partials[block] = [sum u_tot^2, sum u_inc^2, sum (u_tot-u_inc)^2].
+// Candidate blockIdx.z reads and writes its own (12, n, n) state slices,
+// (8, n_cyl) cylinders, (5, n, n) owner fields and partial rows.
 template <int MODE, bool RADII>
 __global__ void __launch_bounds__(BX * BY)
 rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
@@ -107,17 +121,29 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
           Geometry g, float ts, float ti, float tf) {
   __shared__ float s_cyl[8 * MAX_CYL];
   __shared__ float red[BX * BY / 32];
-  if (!RADII) {
+  const int n = g.n;
+  const int nn = n * n;
+  const size_t cand = blockIdx.z;
+  const size_t so = cand * 12 * (size_t)nn;
+  u += so;
+  out += so;
+  if (MODE > 0) kp += so;
+  if (MODE == 2) {
+    k1 += so;
+    k2 += so;
+  }
+  if (RADII) {
+    owner += cand * 5 * (size_t)nn;
+  } else {
+    cyl += cand * 8 * (size_t)n_cyl;
     for (int k = threadIdx.y * BX + threadIdx.x; k < 8 * n_cyl; k += BX * BY) s_cyl[k] = cyl[k];
     __syncthreads();
   }
-  const int n = g.n;
   const int j = blockIdx.x * BX + threadIdx.x;  // y index
   const int i = blockIdx.y * BY + threadIdx.y;  // x index
   float e_tot = 0.0f, e_inc = 0.0f, e_sc = 0.0f;
 
   if (i < n && j < n) {
-    const int nn = n * n;
     const int p = i * n + j;
     const StageInput<MODE> v{u, kp, a};
 
@@ -206,7 +232,8 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
     const float s_inc = block_sum(e_inc, red);
     const float s_sc = block_sum(e_sc, red);
     if (threadIdx.x == 0 && threadIdx.y == 0) {
-      float* dst = partials + 3 * (blockIdx.y * gridDim.x + blockIdx.x);
+      const size_t blocks = (size_t)gridDim.x * gridDim.y;
+      float* dst = partials + 3 * (cand * blocks + blockIdx.y * gridDim.x + blockIdx.x);
       dst[0] = s_tot;
       dst[1] = s_inc;
       dst[2] = s_sc;
@@ -218,10 +245,13 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
 // cylinder with the smallest gap d2 - rmax^2 (first in order on ties), as
 // owner[0..4] = [d2, r1, r2 - r1, c1, c2 - c1]. Exact when the circles at
 // their largest radii are disjoint and positions and speeds are fixed.
+// Candidate blockIdx.z has its own radii, so its own rmax, gaps and owner.
 __global__ void __launch_bounds__(BX * BY)
 select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict__ owner,
                     Geometry g) {
   __shared__ float s_cyl[8 * MAX_CYL];
+  cyl += (size_t)blockIdx.z * 8 * n_cyl;
+  owner += (size_t)blockIdx.z * 5 * g.n * g.n;
   for (int k = threadIdx.y * BX + threadIdx.x; k < 8 * n_cyl; k += BX * BY) s_cyl[k] = cyl[k];
   __syncthreads();
   const int n = g.n;
@@ -256,32 +286,38 @@ select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict_
   owner[4 * nn + p] = dc;
 }
 
-dim3 grid_for(int n) { return dim3((n + BX - 1) / BX, (n + BY - 1) / BY); }
+dim3 grid_for(int n, int batch) {
+  return dim3((n + BX - 1) / BX, (n + BY - 1) / BY, batch);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Number of energy-partial rows (blocks) a final stage writes for an n x n grid.
+// Number of energy-partial rows (blocks) a final stage writes for an n x n
+// grid, per candidate.
 int fused_rk4_blocks(int n) {
-  const dim3 gr = grid_for(n);
+  const dim3 gr = grid_for(n, 1);
   return (int)(gr.x * gr.y);
 }
 
-// One RK4 stage; `mode` 0, 1 or 2 as for `rk4_stage`, `radii` selects K2.
-// Returns the cudaError_t of the launch.
-int fused_rk4_stage(int mode, int radii, const float* u, const float* kp, float a,
-                    const float* k1, const float* k2, float sixth, float* out,
-                    float* partials, const float* shape, const float* prof,
-                    const float* cyl, int n_cyl, const float* owner, int n, float spacing,
-                    float inv2d, float x_min, float c0, float freq, float ts, float ti,
-                    float tf, void* stream) {
-  if (n < 3 || n_cyl < 0 || n_cyl > MAX_CYL || mode < 0 || mode > 2) {
+// One RK4 stage for `batch` candidates (K3; K1 or K2 of a single state
+// when batch is 1). `mode` 0, 1 or 2 as for `rk4_stage`, `radii` selects the owner test.
+// u, kp, k1, k2 and out are (batch, 12, n, n), cyl (batch, 8, n_cyl), owner
+// (batch, 5, n, n), partials (batch, fused_rk4_blocks(n), 3); shape (n, n)
+// and prof (n) are shared. Returns the cudaError_t of the launch.
+int fused_rk4_stage(int batch, int mode, int radii, const float* u, const float* kp, float a,
+                    const float* k1, const float* k2, float sixth, float* out, float* partials,
+                    const float* shape, const float* prof, const float* cyl, int n_cyl,
+                    const float* owner, int n, float spacing, float inv2d, float x_min, float c0,
+                    float freq, float ts, float ti, float tf, void* stream) {
+  if (n < 3 || n_cyl < 0 || n_cyl > MAX_CYL || mode < 0 || mode > 2 || batch < 1 ||
+      batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const Geometry g{n, spacing, inv2d, x_min, c0, freq};
   const dim3 block(BX, BY);
-  const dim3 gr = grid_for(n);
+  const dim3 gr = grid_for(n, batch);
   cudaStream_t s = (cudaStream_t)stream;
 #define WAVES_LAUNCH(M, R)                                                               \
   rk4_stage<M, R><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
@@ -299,12 +335,16 @@ int fused_rk4_stage(int mode, int radii, const float* u, const float* kp, float 
   return (int)cudaGetLastError();
 }
 
-int select_owner(const float* cyl, int n_cyl, float* owner, int n, float spacing,
+// Owner fields (batch, 5, n, n) of `batch` candidates' cylinders
+// (batch, 8, n_cyl); batch 1 for a single state.
+int select_owner(int batch, const float* cyl, int n_cyl, float* owner, int n, float spacing,
                  float x_min, void* stream) {
-  if (n < 3 || n_cyl < 0 || n_cyl > MAX_CYL) return (int)cudaErrorInvalidValue;
+  if (n < 3 || n_cyl < 0 || n_cyl > MAX_CYL || batch < 1 || batch > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Geometry g{n, spacing, 0.0f, x_min, 0.0f, 0.0f};
-  select_owner_kernel<<<grid_for(n), dim3(BX, BY), 0, (cudaStream_t)stream>>>(cyl, n_cyl,
-                                                                              owner, g);
+  select_owner_kernel<<<grid_for(n, batch), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+      cyl, n_cyl, owner, g);
   return (int)cudaGetLastError();
 }
 

@@ -2,10 +2,12 @@
 
 The CUDA kernel (`csrc/fused_rk4.cu`) takes the place of the Pallas kernel
 `make_fused_acoustic_step` of the JAX package (`waves_jl_tpu/ops/pallas_fd.py`)
-in its single-device modes: K1, the general rasterisation, and K2, the
-radii-only owner rasterisation. This module builds the kernel with plain
-`nvcc` into a shared library with a C interface at first use, binds it with
-`ctypes`, and keeps the plain PyTorch version of the same function beside it.
+in its single-device modes: K1, the general rasterisation, K2, the
+radii-only owner rasterisation, and K3, either of them for K candidate
+states in one launch (`batch=K`, the hybrid controller's re-rank). This
+module builds the kernel with plain `nvcc` into a shared library with a C
+interface at first use, binds it with `ctypes`, and keeps the plain PyTorch
+version of the same function beside it.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
@@ -16,7 +18,9 @@ Psix, Psiy, Omega of the total field, then the same six of the incident
 field. `cyl` is (8, n_cyl) float32 with rows [p1x, p1y, r1, c1, p2x, p2y, r2,
 c2], the cylinders at the two ends of the design lerp. Energies are
 [sum u_tot^2, sum u_inc^2, sum (u_tot - u_inc)^2] after each step, not yet
-multiplied by the cell area.
+multiplied by the cell area. The batched functions take the same tensors
+with a leading candidate axis K on the state, cylinders and owner fields;
+the source shape and the PML profile are shared.
 """
 from __future__ import annotations
 
@@ -48,7 +52,9 @@ NVCC_FLAGS = (
 MAX_CYL = 64  # as in the source
 STAGES = 4  # kernel launches per RK4 step
 
-launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0}
+launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0,
+                 "fused_rk4_batched_general": 0, "fused_rk4_batched_radii_only": 0,
+                 "select_owner_batched": 0}
 
 
 def reset_launch_counts() -> None:
@@ -202,6 +208,21 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
     return u, torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
 
 
+def select_owner_batched_reference(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
+    """(K, 5, n, n) owner fields of K candidates' cylinders (K, 8, n_cyl),
+    each as `select_owner_reference` gives them."""
+    return torch.stack([select_owner_reference(c, cfg) for c in cyl])
+
+
+def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+    """Plain PyTorch version of `fused_rk4_step_batched`: the plain step of
+    each candidate in turn. Returns (u_next (K, 12, n, n), energies (K, 3))."""
+    steps = [fused_rk4_step_reference(u[b], shape, prof, cyl[b],
+                                      None if owner is None else owner[b], t, ti, tf, cfg)
+             for b in range(u.shape[0])]
+    return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
+
+
 # ---------------------------------------------------------------------------
 # the kernel: build, bind, launch
 # ---------------------------------------------------------------------------
@@ -241,16 +262,17 @@ class _Library:
     def __init__(self, path: Path):
         self.cdll = ctypes.CDLL(str(path))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.stage = self.cdll.fused_rk4_stage
-        self.stage.argtypes = [I, I, P, P, F, P, P, F, P, P, P, P, P, I, P, I,
-                               F, F, F, F, F, F, F, F, P]
-        self.stage.restype = I
-        self.owner = self.cdll.select_owner
-        self.owner.argtypes = [P, I, P, I, F, F, P]
-        self.owner.restype = I
-        self.blocks = self.cdll.fused_rk4_blocks
-        self.blocks.argtypes = [I]
-        self.blocks.restype = I
+        # both take the candidate count first, 1 for a single state
+        self.stage = self._bind("fused_rk4_stage", [I, I, I, P, P, F, P, P, F, P, P, P, P, P, I,
+                                                    P, I, F, F, F, F, F, F, F, F, P])
+        self.owner = self._bind("select_owner", [I, P, I, P, I, F, F, P])
+        self.blocks = self._bind("fused_rk4_blocks", [I])
+
+    def _bind(self, name: str, argtypes: list):
+        fn = getattr(self.cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
 
 
 _library: _Library | None = None
@@ -290,50 +312,75 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed with cudaError {code}")
 
 
-def select_owner(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
-    """K2's owner fields (5, n, n) for the window's cylinders (see
-    `select_owner_reference`)."""
-    if cyl.device.type == "cpu":
-        return select_owner_reference(cyl, cfg)
-    if cyl.device.type != "cuda":
-        raise ValueError(f"unsupported device {cyl.device}")
-    n_cyl = cyl.shape[1]
-    _check("cyl", cyl, (8, n_cyl), cyl.device)
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (take
+    the plain version); raises on any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def _check_cyl(cyl: torch.Tensor, lead: tuple, device: torch.device) -> int:
+    n_cyl = cyl.shape[-1]
+    _check("cyl", cyl, (*lead, 8, n_cyl), device)
     if n_cyl > MAX_CYL:
         raise ValueError(f"{n_cyl} cylinders; the kernel takes at most {MAX_CYL}")
-    lib = _lib()
-    owner = torch.empty((5, cfg.n, cfg.n), dtype=torch.float32, device=cyl.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(cyl.device).cuda_stream)
-    _raise_on(lib.owner(_ptr(cyl), n_cyl, _ptr(owner), cfg.n, cfg.spacing, cfg.x_min, stream),
-              "select_owner")
-    launch_counts["select_owner"] += 1
+    return n_cyl
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch_owner(cyl: torch.Tensor, cfg: StepConfig, batch: int | None) -> torch.Tensor:
+    """Check the cylinders and launch the owner pass: of one design for
+    batch None, else of `batch` candidates' designs."""
+    lead = () if batch is None else (batch,)
+    n_cyl = _check_cyl(cyl, lead, cyl.device)
+    owner = torch.empty((*lead, 5, cfg.n, cfg.n), dtype=torch.float32, device=cyl.device)
+    key = "select_owner" if batch is None else "select_owner_batched"
+    _raise_on(_lib().owner(batch or 1, _ptr(cyl), n_cyl, _ptr(owner), cfg.n, cfg.spacing,
+                           cfg.x_min, _stream(cyl.device)), key)
+    launch_counts[key] += 1
     return owner
 
 
-def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
-    """Advance the state one RK4 step from time t, with the design lerped
-    over [ti, tf]. `owner` (from `select_owner`) selects the radii-only
-    kernel K2; None selects the general kernel K1. Returns (u_next,
-    energies (3,))."""
-    if u.device.type == "cpu":
-        return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg)
-    if u.device.type != "cuda":
-        raise ValueError(f"unsupported device {u.device}")
+def select_owner(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
+    """K2's owner fields (5, n, n) for the window's cylinders (see
+    `select_owner_reference`)."""
+    if not _on_card(cyl):
+        return select_owner_reference(cyl, cfg)
+    return _launch_owner(cyl, cfg, None)
+
+
+def select_owner_batched(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
+    """K3's owner fields (K, 5, n, n) for K candidates' cylinders
+    (K, 8, n_cyl), in one launch (see `select_owner_batched_reference`)."""
+    if not _on_card(cyl):
+        return select_owner_batched_reference(cyl, cfg)
+    return _launch_owner(cyl, cfg, cyl.shape[0])
+
+
+def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: int | None):
+    """Check the inputs and launch the four stages of one RK4 step: of one
+    state (K1 or K2) for batch None, else of `batch` candidates (K3).
+    Returns (u_next, energy partials (batch or 1, blocks, 3))."""
     n, dev = cfg.n, u.device
-    n_cyl = cyl.shape[1]
-    _check("u", u, (12, n, n), dev)
+    lead = () if batch is None else (batch,)
+    _check("u", u, (*lead, 12, n, n), dev)
     _check("shape", shape, (n, n), dev)
     _check("prof", prof, (n,), dev)
-    _check("cyl", cyl, (8, n_cyl), dev)
+    n_cyl = _check_cyl(cyl, lead, dev)
     if owner is not None:
-        _check("owner", owner, (5, n, n), dev)
-    if n_cyl > MAX_CYL:
-        raise ValueError(f"{n_cyl} cylinders; the kernel takes at most {MAX_CYL}")
-    lib = _lib()
+        _check("owner", owner, (*lead, 5, n, n), dev)
     radii = owner is not None
-    key = "fused_rk4_radii_only" if radii else "fused_rk4_general"
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    partials = torch.empty((partial_rows(n), 3), dtype=torch.float32, device=dev)
+    key = ("fused_rk4" if batch is None else "fused_rk4_batched") + (
+        "_radii_only" if radii else "_general")
+    stage = _lib().stage
+    stream = _stream(dev)
+    partials = torch.empty((batch or 1, partial_rows(n), 3), dtype=torch.float32, device=dev)
     f = np.float32
     half, full, sixth = float(f(0.5 * cfg.dt)), float(f(cfg.dt)), float(f(cfg.dt / 6.0))
     fixed = (_ptr(shape), _ptr(prof), _ptr(cyl), n_cyl, _ptr(owner), n, cfg.spacing,
@@ -348,8 +395,32 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
         (2, ks[2], full, out, partials, t1),
     )
     for mode, kp, a, dst, part, ts in launches:
-        code = lib.stage(mode, int(radii), _ptr(u), _ptr(kp), a, _ptr(ks[0]), _ptr(ks[1]),
-                         sixth, _ptr(dst), _ptr(part), *fixed, ts, ti, tf, stream)
+        code = stage(batch or 1, mode, int(radii), _ptr(u), _ptr(kp), a, _ptr(ks[0]), _ptr(ks[1]),
+                     sixth, _ptr(dst), _ptr(part), *fixed, ts, ti, tf, stream)
         _raise_on(code, key)
         launch_counts[key] += 1
-    return out, partials.sum(dim=0)
+    return out, partials
+
+
+def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+    """Advance the state one RK4 step from time t, with the design lerped
+    over [ti, tf]. `owner` (from `select_owner`) selects the radii-only
+    kernel K2; None selects the general kernel K1. Returns (u_next,
+    energies (3,))."""
+    if not _on_card(u):
+        return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg)
+    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None)
+    return out, partials[0].sum(dim=0)
+
+
+def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+    """Advance K candidate states (K, 12, n, n) one RK4 step from the same
+    time t, one launch a stage (K3), each with its own cylinders
+    (K, 8, n_cyl) lerped over [ti, tf]. `owner` (K, 5, n, n) from
+    `select_owner_batched` selects the radii-only mode, None the general
+    one. Each candidate's energy partials are summed in a fixed order.
+    Returns (u_next (K, 12, n, n), energies (K, 3))."""
+    if not _on_card(u):
+        return fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg)
+    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, u.shape[0])
+    return out, partials.sum(dim=1)

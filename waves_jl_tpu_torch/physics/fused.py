@@ -4,6 +4,8 @@
 Gives the same signal and frames as `env_step`, with each RK4 step in the
 fused kernel. The state stays a contiguous (12, n, n) float32 tensor; the
 JAX package's padded TPU layout has no counterpart here.
+`make_rerank_rollout` advances K candidate states at once through the
+candidate-batched kernel K3, the hybrid controller's exact re-rank.
 """
 from __future__ import annotations
 
@@ -12,17 +14,22 @@ import torch
 
 from ..designs import design_cylinders
 from ..env import EnvState, WaveEnv, env_tspan, frame_segments
-from ..ops.fused_rk4 import StepConfig, fused_rk4_step, select_owner
+from ..ops.fused_rk4 import (StepConfig, fused_rk4_step, fused_rk4_step_batched, select_owner,
+                             select_owner_batched)
+from ..utils.trees import tree_map
 
 
-def cyl_params(d1, d2) -> torch.Tensor:
-    """(8, n_cyl) [p1x, p1y, r1, c1, p2x, p2y, r2, c2] lerp endpoints."""
+def cyl_params(d1, d2, device) -> torch.Tensor:
+    """(..., 8, n_cyl) [p1x, p1y, r1, c1, p2x, p2y, r2, c2] lerp endpoints,
+    with the designs' leading batch dimensions (what `jax.vmap(cyl_params)`
+    gives in the JAX package); an empty (8, 0) tensor on `device` when
+    there is no design."""
     c1 = design_cylinders(d1)
     c2 = design_cylinders(d2)
     if c1 is None:
-        return torch.zeros((8, 0), dtype=torch.float32)
-    return torch.stack([c1.pos[:, 0], c1.pos[:, 1], c1.r, c1.c,
-                        c2.pos[:, 0], c2.pos[:, 1], c2.r, c2.c])
+        return torch.zeros((8, 0), dtype=torch.float32, device=device)
+    return torch.stack([c1.pos[..., 0], c1.pos[..., 1], c1.r, c1.c,
+                        c2.pos[..., 0], c2.pos[..., 1], c2.r, c2.c], dim=-2)
 
 
 def radii_only_ok(space) -> bool:
@@ -102,7 +109,7 @@ def make_env_step_fused(env: WaveEnv):
     def step(state: EnvState, action):
         tspan = env_tspan(env, state)
         next_design = env.design_space(state.design, action)
-        cyl = cyl_params(state.design, next_design).contiguous()
+        cyl = cyl_params(state.design, next_design, env.device).contiguous()
         _, frames, signal = window(state.wave[-1], state.source.shape, tspan, cyl)
         new_state = EnvState(
             wave=torch.stack(frames, dim=0),
@@ -114,3 +121,56 @@ def make_env_step_fused(env: WaveEnv):
         return new_state, {"tspan": tspan}
 
     return step
+
+
+def rerank_step_times(t_i: np.float32, steps: int, dt: float) -> list[np.float32]:
+    """float32 times of a re-rank window's steps from t_i, as the JAX
+    re-rank forms them: kernel calls at t_i + m dt for every second step m
+    (every step when `steps` is odd), each call's second step one dt later."""
+    f = np.float32
+    spc = 2 if steps % 2 == 0 else 1
+    return [f(f(t_i + f(f(m) * f(dt))) + f(s * dt))
+            for m in range(0, steps, spc) for s in range(spc)]
+
+
+def make_rerank_rollout(env: WaveEnv, k: int, horizon: int):
+    """K-candidate exact re-rank rollout for the hybrid controller: all K
+    action sequences advance through the simulator together, one
+    candidate-batched kernel launch (K3) a stage, instead of K rollouts in
+    turn. Radii-only when `radii_only_ok` holds for the design space, with
+    one batched owner pass a window; general otherwise.
+
+    Returns rollout(state, elite, t0) -> (K,) cumulative scattered energy
+    over `horizon` windows, sum_h sum(signal_h[1:, 2]) for each candidate:
+    elite holds actions with leading (K, horizon), t0 is the window start
+    time. Window times are float32 in the JAX package's arithmetic:
+    tf = t_i + steps dt, and the next window starts at that tf.
+    """
+    cfg = step_config(env)
+    radii = radii_only_ok(env.design_space)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    steps = env.integration_steps
+    d_omega = cfg.spacing * cfg.spacing
+    f = np.float32
+
+    def rollout(state: EnvState, elite, t0):
+        shape = state.source.shape
+        u = state.wave[-1].expand(k, *state.wave.shape[1:]).contiguous()
+        designs = tree_map(lambda x: x.expand(k, *x.shape), state.design)
+        t_i = f(t0)
+        per_window = []
+        for h in range(horizon):
+            next_designs = env.design_space(designs, tree_map(lambda x: x[:, h], elite))
+            cyl = cyl_params(designs, next_designs, env.device).contiguous()
+            owner = select_owner_batched(cyl, cfg) if radii else None
+            tf = f(t_i + f(steps * cfg.dt))
+            sc = []
+            for ts in rerank_step_times(t_i, steps, cfg.dt):
+                u, e = fused_rk4_step_batched(u, shape, prof, cyl, owner, float(ts), float(t_i),
+                                              float(tf), cfg)
+                sc.append(e[:, 2])
+            per_window.append(torch.stack(sc).sum(dim=0))
+            designs, t_i = next_designs, tf
+        return torch.stack(per_window).sum(dim=0) * d_omega
+
+    return rollout

@@ -28,3 +28,16 @@ def tree_leaves(tree) -> list:
         return [leaf for f in dataclasses.fields(tree)
                 for leaf in tree_leaves(getattr(tree, f.name))]
     raise TypeError(f"unsupported tree node {type(tree)}")
+
+
+def tree_clamp(x, low, high):
+    """Leafwise clip of x into [low, high] (`jnp.clip`: max, then min)."""
+    return tree_map(lambda v, lo, hi: torch.minimum(torch.maximum(v, lo), hi), x, low, high)
+
+
+def tree_normal(generator: torch.Generator, like):
+    """Standard-normal tree with `like`'s leaf shapes, dtypes and devices,
+    drawn leaf by leaf in field order (the counterpart of the JAX
+    package's `_tree_normal`; the draws themselves differ)."""
+    return tree_map(lambda v: torch.randn(v.shape, generator=generator, dtype=v.dtype,
+                                          device=v.device), like)
