@@ -25,10 +25,20 @@ its elapsed seconds:
    re-ranked exactly at 350^2 through K3, the winner applied at 700^2),
    three of its selections replayed through the sequential re-rank (K2),
    one selection split into prune, re-rank and env window, the batched
-   re-rank against the sequential one, and two exact-CEM rounds against one.
+   re-rank against the sequential one, and two exact-CEM rounds against one;
+6. sharded: from phase 3's state, cylinders and window times, the y-sharded
+   kernel K4 (4 shards of 175 columns) against its plain version in both
+   modes, the fused sharded rollout (`parallel/fused_domain.py`) at 1, 2 and
+   4 shards against the K2 window bit for bit on the state, at 4 shards
+   against K1, and against the plain sharded rollout (`parallel/domain.py`);
+   K1 and the owner pass with 80 cylinders against their plain versions; a
+   free-field window through K1; the times of a sharded step, host-driven
+   and as device work, against K2's, and of K4 alone.
 
 The launch counts of each kernel are read from the main-path runs alone.
-The last lines are one JSON object describing every kernel, then
+The last lines are one JSON object describing every kernel (`ms` with CUDA
+events around calls as the host drives them; K4's rows add `device_ms`, the
+same launches queued behind a device sleep, without the host's issue cost), then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
 """
@@ -84,6 +94,26 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps calls, after one warm call,
+    with the host out of the way: the calls are queued behind a device sleep
+    of about 50 ms, so the events time the queued kernels back to back
+    rather than the host's issue rate. The calls must take the host less
+    time than the sleep and queue fewer than about 1,000 operations."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -336,7 +366,9 @@ def hybrid_episode(env, env_lo, space, dev):
     expect = {"fused_rk4_batched_radii_only": WINDOWS * HORIZON * STEPS * fk.STAGES,
               "select_owner_batched": WINDOWS * HORIZON,
               "fused_rk4_radii_only": WINDOWS * STEPS * fk.STAGES, "select_owner": WINDOWS,
-              "fused_rk4_batched_general": 0, "fused_rk4_general": 0}
+              "fused_rk4_batched_general": 0, "fused_rk4_general": 0,
+              "fused_rk4_sharded_radii_only": 0, "fused_rk4_sharded_general": 0,
+              "select_owner_sharded": 0}
     check(counts == expect, f"hybrid launch counts {counts} == {expect}")
     check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
     check(bool(torch.isfinite(signals).all()), "every hybrid signal is finite")
@@ -388,6 +420,243 @@ def hybrid_episode(env, env_lo, space, dev):
     return counts
 
 
+def cylinder_grid(moving: bool):
+    """80 cylinders (8, 80) in numpy: a 9 x 9 grid at pitch 2.5 minus its
+    last cell, radii 0.4-1.0 (disjoint at any radius), moving by
+    (0.3, -0.2) in the window if `moving`."""
+    import numpy as np
+
+    rng = np.random.default_rng(80)
+    xs = np.linspace(-10.0, 10.0, 9)
+    pos = np.array([(x, y) for x in xs for y in xs])[:80]
+    r1, r2 = rng.uniform(0.4, 1.0, 80), rng.uniform(0.4, 1.0, 80)
+    c = np.full(80, 1032.0)
+    pos2 = pos + (np.array([0.3, -0.2]) if moving else 0.0)
+    return np.stack([pos[:, 0], pos[:, 1], r1, c, pos2[:, 0], pos2[:, 1], r2, c])
+
+
+def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
+    """Phase 6: K4 and the `parallel/` rollouts at 700^2 from phase 3's
+    state, cylinders and window times; the 80-cylinder K1 and a free-field
+    K1 window. Returns the numbers of K4's kernel rows and its launches."""
+    import torch
+
+    from waves_jl_tpu_torch.designs import DesignInterpolator, DesignSpace, NoDesign
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.parallel import (make_fused_sharded_rollout, make_mesh,
+                                             make_sharded_rollout)
+    from waves_jl_tpu_torch.parallel.fused_domain import build_rollout, cut_slabs, shard_slabs
+    from waves_jl_tpu_torch.physics.fused import make_env_step_fused, make_fused_window, step_config
+
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    shape = state.source.shape
+    u0 = state.wave[-1]
+    ti, tf = float(tspan[0]), float(tspan[-1])
+    times = [float(t) for t in tspan[:-1]]
+    n_cyl = cyl.shape[1]
+    shards = 4
+    ny = SIZE // shards
+
+    def rollout(k, radii):
+        return make_fused_sharded_rollout(make_mesh(devices=[dev] * k), SIZE, cfg.spacing, cfg.dt,
+                                          cfg.c0, cfg.freq, n_cyl, cfg.x_min, radii_only=radii)
+
+    # K4 against its plain version: the rollout's own loop, 10 steps, 4 shards
+    mesh4 = make_mesh(devices=[dev] * shards)
+    tspan10 = tspan[:11]
+    errs = {}
+    for radii, cyl_ in ((True, cyl), (False, moved)):
+        u_k, e_k = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step, fk.select_owner)(
+            u0, tspan10, cyl_, shape, prof)
+        u_p, e_p = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step_reference,
+                                 fk.select_owner_reference)(u0, tspan10, cyl_, shape, prof)
+        torch.cuda.synchronize()
+        errs[radii] = float(torch.max(torch.abs(u_k - u_p)))
+        sig = rel_err(e_k, e_p)
+        log("sharded", f"K4 {'radii-only' if radii else 'general'} vs plain, {shards} shards of "
+                       f"{ny} columns at {SIZE}^2, 10 steps: owned state max abs err "
+                       f"{errs[radii]}, signal rel err {sig:.3e} (tol {REL_TOL:g})")
+        check(errs[radii] == 0.0, "K4's owned state equals its plain version's")
+        check(sig <= REL_TOL, "K4's signal agrees with its plain version's")
+    slab1 = shard_slabs(SIZE, shards)[1]
+    owner_k = fk.select_owner(cyl, cfg, slab1)
+    owner_p = fk.select_owner_reference(cyl, cfg, slab1)
+    own_err = float(torch.max(torch.abs(owner_k - owner_p)))
+    log("sharded", f"select_owner on shard 1's slab vs plain: max abs err {own_err}")
+    check(own_err == 0.0, "the sharded owner pass equals its plain version")
+
+    # the sharded rollout against the whole-grid kernel over the window
+    u_w, _, s_w = make_fused_window(env)(u0, shape, tspan, cyl)
+    owner_w = fk.select_owner(cyl, cfg)
+    d_omega = cfg.spacing * cfg.spacing
+    counts = {}
+    for k in (1, 2, 4):
+        roll = rollout(k, True)
+        roll(u0, tspan, cyl, shape, prof)  # warm
+        torch.cuda.synchronize()
+        if k == shards:
+            fk.reset_launch_counts()
+        u_s, s_s = roll(u0, tspan, cyl, shape, prof)
+        torch.cuda.synchronize()
+        if k == shards:
+            counts = dict(fk.launch_counts)
+        err = float(torch.max(torch.abs(u_s - u_w)))
+        sig = rel_err(s_s * d_omega, s_w)
+        log("sharded", f"radii-only rollout, {k} shard(s), {STEPS} steps, vs the K2 window: state "
+                       f"max abs err {err}, signal rel err {sig:.3e} (tol 1e-06)")
+        check(err == 0.0, f"the {k}-shard state equals K2's bit for bit")
+        check(sig <= 1e-6, f"the {k}-shard signal agrees with K2's")
+    log("sharded", f"launches of the {shards}-shard radii-only rollout: {counts}")
+    check(counts["fused_rk4_sharded_radii_only"] == shards * STEPS * fk.STAGES
+          and counts["select_owner_sharded"] == shards,
+          f"{shards * STEPS * fk.STAGES} K4 radii-only stage launches and {shards} owner passes")
+    check(all(v == 0 for key, v in counts.items() if "sharded" not in key),
+          "the sharded rollout launches no whole-grid kernel")
+
+    roll_g = rollout(shards, False)
+    fk.reset_launch_counts()
+    u_g, s_g = roll_g(u0, tspan10, moved, shape, prof)
+    torch.cuda.synchronize()
+    counts_g = dict(fk.launch_counts)
+    check(counts_g["fused_rk4_sharded_general"] == shards * 10 * fk.STAGES,
+          f"{shards * 10 * fk.STAGES} K4 general stage launches")
+    ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
+    u1, e1 = u0, []
+    for t in tspan10[:-1]:
+        u1, e = fk.fused_rk4_step(u1, shape, prof, moved, None, float(t), ti10, tf10, cfg)
+        e1.append(e)
+    torch.cuda.synchronize()
+    err_g = float(torch.max(torch.abs(u_g - u1)))
+    sig_g = rel_err(s_g[1:], torch.stack(e1))
+    log("sharded", f"general rollout, {shards} shards, 10 steps, moving cylinders, vs K1: state max "
+                   f"abs err {err_g}, signal rel err {sig_g:.3e} (tol 1e-06)")
+    check(err_g == 0.0 and sig_g <= 1e-6, "the 4-shard general rollout equals K1")
+
+    # the plain sharded rollout (domain.py) against the fused one
+    dyn = env.integrator.dynamics
+    interp = DesignInterpolator(state.design, nxt, ti10, tf10)
+    plain = make_sharded_rollout(make_mesh(devices=[dev] * shards), env.c0, dyn.dx, dyn.dy, 10,
+                                 cfg.dt)
+    t_p = time.time()
+    u_pl, s_pl = plain(u0, tspan10, interp, env.grid, shape, cfg.freq, dyn.pml,
+                       dyn.pml.T.contiguous(), dyn.bc, d_omega)
+    u_fr, s_fr = rollout(shards, True)(u0, tspan10, cyl, shape, prof)
+    torch.cuda.synchronize()
+    t_p = time.time() - t_p
+    pl_sig, pl_state = rel_err(s_fr * d_omega, s_pl), rel_err(u_fr, u_pl)
+    log("sharded", f"plain sharded rollout (domain.py) vs fused, {shards} shards, 10 steps: "
+                   f"signal rel err {pl_sig:.3e}, state rel err {pl_state:.3e} (tol {REL_TOL:g}); "
+                   f"{t_p:.3f} s for both")
+    check(pl_sig <= REL_TOL, "the plain and fused sharded rollouts agree")
+
+    # no cylinder cap: 80 cylinders through K1 and the owner pass
+    grid80 = torch.from_numpy(cylinder_grid(True).astype("float32")).to(dev)
+    u_a, u_b = u0, u0
+    for t in times[:2]:
+        u_a, e_a = fk.fused_rk4_step(u_a, shape, prof, grid80, None, t, ti, tf, cfg)
+        u_b, e_b = fk.fused_rk4_step_reference(u_b, shape, prof, grid80, None, t, ti, tf, cfg)
+    o80 = torch.equal(fk.select_owner(grid80, cfg), fk.select_owner_reference(grid80, cfg))
+    torch.cuda.synchronize()
+    e80 = float(torch.max(torch.abs(u_a - u_b)))
+    log("sharded", f"K1 with 80 cylinders, 2 steps at {SIZE}^2, vs plain: state max abs err {e80}, "
+                   f"energies rel err {rel_err(e_a, e_b):.3e}; owner pass identical {o80}")
+    check(e80 == 0.0 and rel_err(e_a, e_b) <= REL_TOL and o80, "80 cylinders run without a cap")
+
+    # K1 with no cylinders: a free-field window
+    free = build_env(DesignSpace(NoDesign(), NoDesign()), dev)
+    gen = torch.Generator(device=dev).manual_seed(60)
+    fst = env_reset(free, gen)
+    fk.reset_launch_counts()
+    fst, _ = make_env_step_fused(free)(fst, RandomDesignPolicy(free.action_space)(gen))
+    torch.cuda.synchronize()
+    fs = fst.signal
+    log("sharded", f"free-field window through K1: launches {fk.launch_counts['fused_rk4_general']}, "
+                   f"tot max {float(fs[:, 0].max()):.4e}, tot == inc {torch.equal(fs[:, 0], fs[:, 1])}, "
+                   f"sc max {float(fs[:, 2].max())}")
+    check(fk.launch_counts["fused_rk4_general"] == STEPS * fk.STAGES, "the free field takes K1")
+    check(bool(torch.isfinite(fs).all()) and float(fs[:, 0].max()) > 0.0
+          and torch.equal(fs[:, 0], fs[:, 1]) and float(fs[:, 2].max()) == 0.0,
+          "free field: tot == inc, sc == 0")
+
+    # times: a sharded step at 1, 2 and 4 shards against K2's, as the host
+    # drives it (events around the 100-step rollout) and as device work
+    # (a 10-step rollout queued behind a device sleep)
+    steps_ms, dev_ms = {}, {}
+    for k in (1, 2, 4):
+        roll = rollout(k, True)
+        steps_ms[k] = cuda_ms(lambda: roll(u0, tspan, cyl, shape, prof), 3) / STEPS
+        dev_ms[k] = device_ms(lambda: roll(u0, tspan10, cyl, shape, prof), 1) / 10
+    window = make_fused_window(env)
+    win_ms = cuda_ms(lambda: window(u0, shape, tspan, cyl), 3) / STEPS
+    win_dev = device_ms(lambda: window(u0, shape, tspan10, cyl), 1) / 10
+    k2_dev = device_ms(lambda: fk.fused_rk4_step(u0, shape, prof, cyl, owner_w, times[0], ti, tf,
+                                                 cfg), 20)
+    log("sharded", f"ms per RK4 step, events around the {STEPS}-step rollout: K2 window "
+                   f"{win_ms:.4f}; sharded " + ", ".join(
+                       f"{k} shard(s) {v:.4f} ({v / win_ms:.3f}x)" for k, v in steps_ms.items()))
+    log("sharded", f"device ms per RK4 step, 10-step rollout queued behind a device sleep: K2 "
+                   f"window {win_dev:.4f} (K2 step alone {k2_dev:.4f}, {k2_ms:.4f} as the host "
+                   f"drives it); sharded " + ", ".join(
+                       f"{k} shard(s) {v:.4f} ({v / win_dev:.3f}x)" for k, v in dev_ms.items()))
+    roll = rollout(shards, True)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_h = time.perf_counter()
+        roll(u0, tspan[:21], cyl, shape, prof)
+        host.append((time.perf_counter() - t_h) * 1e3 / 20)
+    torch.cuda.synchronize()
+    log("sharded", f"host time to issue one {shards}-shard step (16 ctypes launches, 6 halo "
+                   f"copies, 4 partial sums, 3 adds, 20 allocations), 20-step rollouts left "
+                   f"unsynchronised, setup included: " + ", ".join(f"{h:.4f}" for h in host)
+        + " ms")
+
+    # K4 alone: one step of all 4 slabs (16 launches), no exchange
+    slabs = shard_slabs(SIZE, shards)
+    sh, us = cut_slabs(shape, slabs, [dev] * shards), cut_slabs(u0, slabs, [dev] * shards)
+    owners_k = [fk.select_owner(cyl, cfg, s) for s in slabs]
+    owners_p = [fk.select_owner_reference(cyl, cfg, s) for s in slabs]
+    t0 = times[0]
+
+    def launch_set(step_fn, owners, cyl_):
+        return [step_fn(u, h, prof, cyl_, o, t0, ti, tf, cfg, s)
+                for u, h, o, s in zip(us, sh, owners, slabs)]
+
+    none = [None] * shards
+    rows = {}
+    part = [torch.empty((fk.partial_rows(SIZE, s.w), 3), dtype=torch.float32) for s in slabs]
+    io = sum(2 * nbytes(u) for u in us) + nbytes(*sh, *part) + shards * nbytes(prof, cyl)
+    # `ms` as for K1-K3 (events around host-driven calls); `device_ms` the
+    # same launches queued behind a device sleep, without the host's issue cost
+    for name, owners_, ownp, cyl_, radii in (("radii", owners_k, owners_p, cyl, True),
+                                              ("general", none, none, moved, False)):
+        ms = cuda_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_), 50)
+        dev_only = device_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_), 20)
+        plain_ms = cuda_ms(lambda: launch_set(fk.fused_rk4_step_reference, ownp, cyl_), 3)
+        flops = sum(fk.step_flops(SIZE, n_cyl, radii, s.w) for s in slabs)
+        rows[name] = (errs[radii], ms, dev_only, plain_ms, bound(io, flops))
+    own_ms = cuda_ms(lambda: [fk.select_owner(cyl, cfg, s) for s in slabs], 50)
+    own_dev = device_ms(lambda: [fk.select_owner(cyl, cfg, s) for s in slabs], 20)
+    own_plain = cuda_ms(lambda: [fk.select_owner_reference(cyl, cfg, s) for s in slabs], 3)
+    own_bound = bound(shards * nbytes(cyl) + sum(nbytes(o) for o in owners_k),
+                      sum(SIZE * s.w for s in slabs) * n_cyl * 9)
+    rows["owner"] = (own_err, own_ms, own_dev, own_plain, own_bound)
+    states_mb = sum(2 * nbytes(u) for u in us) / 1e6
+    log("sharded", f"K4, one step of {shards} slabs (16 launches), ms as the host drives it "
+                   f"(device ms queued behind a sleep): radii-only {rows['radii'][1]:.4f} "
+                   f"({rows['radii'][2]:.4f}; plain {rows['radii'][3]:.4f}), general "
+                   f"{rows['general'][1]:.4f} ({rows['general'][2]:.4f}; plain "
+                   f"{rows['general'][3]:.4f}); bound {rows['radii'][4][0]:.5f} ms "
+                   f"({rows['radii'][4][1]}; states alone {states_mb:.1f} MB); {shards} owner "
+                   f"passes {own_ms:.4f} ({own_dev:.4f}; plain {own_plain:.4f}), bound "
+                   f"{own_bound[0]:.5f} ms")
+    return rows, {"radii": counts["fused_rk4_sharded_radii_only"],
+                  "owner": counts["select_owner_sharded"],
+                  "general": counts_g["fused_rk4_sharded_general"]}
+
+
 def main() -> int:
     import torch
 
@@ -435,7 +704,8 @@ def main() -> int:
     torch.cuda.synchronize()
     tspan = env_tspan(env, state)
     ti, tf = float(tspan[0]), float(tspan[-1])
-    cyl = cyl_params(state.design, env.design_space(state.design, policy(gen)), dev).contiguous()
+    nxt = env.design_space(state.design, policy(gen))
+    cyl = cyl_params(state.design, nxt, dev).contiguous()
     shape = state.source.shape
     u0 = state.wave[-1]
     log("kernels", f"state after one window: max |u| {float(u0.abs().max()):.3e}")
@@ -602,6 +872,9 @@ def main() -> int:
     # 5. the hybrid controller
     hyb_counts = hybrid_episode(env, env_lo, space, dev)
 
+    # 6. the y-sharded rollout through K4, at 700^2 from phase 3's state
+    k4, k4_counts = sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms)
+
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
     kernels = [
         {"name": "fused_rk4_radii_only", "route": "cuda", "source": src,
@@ -630,9 +903,21 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
+    sharded_rows = (
+        ("fused_rk4_sharded_radii_only", "waves_jl_tpu/ops/pallas_fd.py:195", "radii"),
+        ("select_owner_sharded", "waves_jl_tpu/ops/pallas_fd.py:247", "owner"),
+        ("fused_rk4_sharded_general", "waves_jl_tpu/ops/pallas_fd.py:195", "general"),
+    )
+    for name, replaces, key in sharded_rows:
+        err, ms, dev_only, plain, bnd = k4[key]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": k4_counts[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                        "device_ms": dev_only})
     for k in kernels:
         check(all(isinstance(v, (int, float)) and math.isfinite(v)
-                  for key, v in k.items() if key in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
+                  for key, v in k.items()
+                  if key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "device_ms")),
               f"{k['name']} has finite numbers")
     log("done", f"whole run {time.time() - T0:.1f} s")
     print(smi, flush=True)

@@ -9,7 +9,8 @@ Tolerance 1e-5 relative: kernel and plain version run the same float32
 operations in the same order (the kernel is built without FMA
 contraction); only sin and the energy sums round apart. Each candidate of
 the batched kernel K3 equals K1 or K2 run on it alone, bit for bit on the
-state.
+state, and each owned cell of the y-sharded kernel K4 equals the
+whole-grid kernel's, bit for bit.
 """
 import numpy as np
 import pytest
@@ -171,3 +172,154 @@ def test_window_with_no_cylinders_runs_on_the_card(card):
     torch.cuda.synchronize()
     assert signal.shape == (11, 3) and bool(torch.isfinite(signal).all())
     assert rel(u, want) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radii_only", [True, False])
+def test_sharded_kernel_matches_plain_version_and_whole_grid(card, radii_only):
+    from waves_jl_tpu_torch.parallel import make_fused_sharded_rollout, make_mesh
+    from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs, shard_slabs
+
+    n, shards, steps = 64, 4, 3
+    ny = n // shards
+    cfg, cyl, u, shape, prof = _inputs(n, not radii_only, card)
+    tspan = np.float32(2e-4) + np.arange(steps + 1, dtype=np.float32) * np.float32(cfg.dt)
+    ti, tf = float(tspan[0]), float(tspan[-1])
+    owner = fk.select_owner(cyl, cfg) if radii_only else None
+    whole, e_whole = fk.fused_rk4_step(u, shape, prof, cyl, owner, ti, ti, tf, cfg)
+    # one K4 step on each slab, cut from the global state with its halos
+    slabs = shard_slabs(n, shards)
+    for k, (slab, u_k, shape_k) in enumerate(zip(slabs, cut_slabs(u, slabs, [card] * shards),
+                                                 cut_slabs(shape, slabs, [card] * shards))):
+        own = fk.select_owner(cyl, cfg, slab) if radii_only else None
+        if radii_only:
+            assert torch.equal(own, fk.select_owner_reference(cyl, cfg, slab))
+        args = (u_k, shape_k, prof, cyl, own, ti, ti, tf, cfg, slab)
+        got, want = fk.fused_rk4_step(*args), fk.fused_rk4_step_reference(*args)
+        torch.cuda.synchronize()
+        assert rel(got[0], want[0]) <= TOL and rel(got[1], want[1]) <= TOL
+        owned = slice(fk.HALO, fk.HALO + ny)
+        assert torch.equal(got[0][:, :, owned], whole[:, :, k * ny:(k + 1) * ny])
+        outside = (slab.columns(card) < 0) | (slab.columns(card) >= n)
+        assert bool((got[0][:, :, outside] == 0).all())
+    # the rollout over 4 shards on one card against the whole-grid kernel
+    roll = make_fused_sharded_rollout(make_mesh(devices=[card] * shards), n, cfg.spacing, cfg.dt,
+                                      cfg.c0, cfg.freq, cyl.shape[1], cfg.x_min, radii_only)
+    before = dict(fk.launch_counts)
+    u_sh, sig = roll(u, tspan, cyl, shape, prof)
+    torch.cuda.synchronize()
+    key = "fused_rk4_sharded_" + ("radii_only" if radii_only else "general")
+    assert fk.launch_counts[key] - before[key] == shards * steps * fk.STAGES
+    assert (fk.launch_counts["select_owner_sharded"] - before["select_owner_sharded"]
+            == (shards if radii_only else 0))
+    want, es = u, []
+    for t0 in tspan[:-1]:
+        want, e = fk.fused_rk4_step(want, shape, prof, cyl, owner, float(t0), ti, tf, cfg)
+        es.append(e)
+    torch.cuda.synchronize()
+    assert torch.equal(u_sh, want)
+    assert rel(sig[1:], torch.stack(es)) <= 1e-6
+
+
+@pytest.fixture
+def cards():
+    """2 or 4 distinct cards, as many as the machine has up to 4."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more NVIDIA cards")
+    return 4 if count >= 4 else 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radii_only", [True, False])
+def test_sharded_rollouts_across_cards_equal_one_card(card, cards, radii_only):
+    from waves_jl_tpu_torch.designs import Cylinders, DesignInterpolator
+    from waves_jl_tpu_torch.dims import build_grid, two_dim
+    from waves_jl_tpu_torch.parallel import (make_fused_sharded_rollout, make_mesh,
+                                             make_sharded_rollout)
+
+    n, steps = 64, 3
+    cfg, cyl, u, shape, prof = _inputs(n, not radii_only, card)
+    tspan = np.float32(2e-4) + np.arange(steps + 1, dtype=np.float32) * np.float32(cfg.dt)
+    many, one = make_mesh(cards), make_mesh(devices=[card] * cards)
+    assert len(set(many.devices)) == cards
+
+    def fused(mesh):
+        return make_fused_sharded_rollout(mesh, n, cfg.spacing, cfg.dt, cfg.c0, cfg.freq,
+                                          cyl.shape[1], cfg.x_min, radii_only)(
+            u, tspan, cyl, shape, prof)
+
+    got, want = fused(many), fused(one)
+    torch.cuda.synchronize()
+    assert got[0].device == want[0].device == many.devices[0]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    def design(rows):
+        return Cylinders(cyl[rows[:2]].T.contiguous(), cyl[rows[2]], cyl[rows[3]])
+
+    interp = DesignInterpolator(design([0, 1, 2, 3]), design([4, 5, 6, 7]), float(tspan[0]),
+                                float(tspan[-1]))
+    grid = build_grid(two_dim(15.0, n, device=card))
+    sx = prof[:, None].expand(n, n).contiguous()
+    bc = torch.ones((n, n), device=card)
+    bc[0], bc[-1], bc[:, 0], bc[:, -1] = 0.0, 0.0, 0.0, 0.0
+
+    def plain(mesh):
+        return make_sharded_rollout(mesh, cfg.c0, cfg.spacing, cfg.spacing, steps, cfg.dt)(
+            u, tspan, interp, grid, shape, cfg.freq, sx, sx.T.contiguous(), bc,
+            cfg.spacing ** 2)
+
+    got, want = plain(many), plain(one)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_eighty_cylinders_match_plain_version(card):
+    from chip_smoke import cylinder_grid
+
+    cfg, _, u, shape, prof = _inputs(96, False, card)
+    for moving in (True, False):
+        cyl = torch.from_numpy(cylinder_grid(moving).astype(np.float32)).to(card)
+        owner = None
+        if not moving:
+            owner = fk.select_owner(cyl, cfg)
+            assert torch.equal(owner, fk.select_owner_reference(cyl, cfg))
+            assert int((owner[0] < owner[1] ** 2).sum()) > 80  # cylinders cover cells
+        got, want = (u, None), (u, None)
+        for t0 in (2e-4, 2.1e-4):
+            got = fk.fused_rk4_step(got[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg)
+            want = fk.fused_rk4_step_reference(want[0], shape, prof, cyl, owner, t0, 0.0, 1e-3,
+                                               cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert rel(got[1], want[1]) <= TOL
+
+
+@pytest.mark.gpu
+def test_free_field_window_runs_the_general_kernel(card):
+    from waves_jl_tpu_torch.designs import DesignSpace, NoDesign
+    from waves_jl_tpu_torch.dims import build_grid, two_dim
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset, make_wave_env
+    from waves_jl_tpu_torch.physics.fused import make_env_step_fused
+    from waves_jl_tpu_torch.sources import GaussianSource
+
+    n, steps = 48, 10
+    dim = two_dim(15.0, n, device=card)
+    source = GaussianSource.create(build_grid(dim), [[-10.0, -10.0]], [[-10.0, 10.0]], [0.3],
+                                   [1.0], 1000.0)
+    env = make_wave_env(dim, DesignSpace(NoDesign(), NoDesign()), source, resolution=(16, 16),
+                        integration_steps=steps, actions=2)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state = env_reset(env, gen)
+    step = make_env_step_fused(env)
+    before = dict(fk.launch_counts)
+    for _ in range(2):
+        state, _ = step(state, RandomDesignPolicy(env.action_space)(gen))
+    torch.cuda.synchronize()
+    assert fk.launch_counts["fused_rk4_general"] - before["fused_rk4_general"] == (
+        2 * steps * fk.STAGES)
+    sig = state.signal
+    assert bool(torch.isfinite(sig).all()) and float(sig[:, 0].max()) > 0.0
+    assert torch.equal(sig[:, 0], sig[:, 1])  # tot == inc
+    assert float(sig[:, 2].max()) == 0.0  # no scattered field

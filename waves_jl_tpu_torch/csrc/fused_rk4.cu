@@ -40,6 +40,28 @@
 // Its bound is K times a step's: at 350^2 and K = 16 the states in and out
 // are 16 x 2 x 5.88 MB = 188.2 MB, 56.2 us at 3.35 TB/s.
 //
+// K4, y-sharded (`ny_local`, `y_ghost`, :129-133, :152, :195-204, :351,
+// :391), driven by `waves_jl_tpu/parallel/fused_domain.py`: the same step
+// on one column slab (12, n, w) of the global n x n grid, w = ny_local +
+// 2 HALO. Local column j is global column jg = col0 + j. It is not a second
+// kernel: `Geometry` carries w and col0, every flat index is i * w + j, and
+// K1/K2/K3 are the whole grid, w = n and col0 = 0. The one-sided y
+// stencils, the Dirichlet mask, the y coordinate and the PML profile are
+// taken at jg, so an owned cell of a slab is bit for bit the whole-grid
+// kernel's. At a slab's local edge (j = 0 or w - 1, jg interior) the
+// stencil turns one-sided on local data: those are halo cells, stale after
+// the step and refreshed by the next exchange, and no thread reads outside
+// the slab. Columns outside the domain (jg < 0 or jg >= n) are written 0,
+// and the energy partials cover the owned columns, HALO <= j < w - HALO.
+// Its bound is the slabs' bytes: at 700^2 and 4 shards the states in and
+// out are 4 x 2 x 12 x 700 x 183 x 4 B = 49.2 MB, 14.7 us at 3.35 TB/s.
+//
+// Cylinders: the general mode and the owner pass stream the (8, n_cyl)
+// table through shared memory in chunks of CYL_CHUNK, in order, so sums
+// and ties do not depend on the chunking and there is no cap on n_cyl.
+// Every thread of a block reaches each chunk's barriers; threads outside
+// the grid skip only the arithmetic.
+//
 // Numerics: the library is compiled with -fmad=false, so every a*b+c
 // rounds twice, as in the plain PyTorch version and the JAX kernel. The op
 // order follows `stack_rhs` (:315) and the closed-form combine (:371-374).
@@ -51,11 +73,14 @@ namespace {
 
 constexpr int BX = 32;  // threads along y, the contiguous axis
 constexpr int BY = 8;   // threads along x
-constexpr int MAX_CYL = 64;
+constexpr int CYL_CHUNK = 64;  // cylinders staged in shared memory at a time
+constexpr int HALO = 4;  // halo columns a slab carries on each side
 constexpr float TWO_PI = 6.28318530717958647692f;
 
 struct Geometry {
-  int n;
+  int n;     // rows, and columns of the whole domain
+  int w;     // local columns: n, or ny_local + 2 HALO for a slab
+  int col0;  // global column of local column 0
   float spacing;
   float inv2d;  // 1 / (2 spacing)
   float x_min;
@@ -75,21 +100,34 @@ struct StageInput {
   }
 };
 
-// Edge-aware first derivative along an axis: central in the interior,
-// one-sided at index 0 and n-1 (pallas_fd.py:59-86). `p` is the cell's
+// First derivative along an axis: one-sided forward where `first`, backward
+// where `last`, central elsewhere (pallas_fd.py:59-86). `p` is the cell's
 // flat index, `stride` the flat distance of one step along the axis.
 template <typename G>
-__device__ __forceinline__ float d_edge(const G& g, int i, int n, int p, int stride,
+__device__ __forceinline__ float d_edge(const G& g, bool first, bool last, int p, int stride,
                                         float inv2d) {
   float d;
-  if (i == 0) {
+  if (first) {
     d = -3.0f * g(p) + 4.0f * g(p + stride) - g(p + 2 * stride);
-  } else if (i == n - 1) {
+  } else if (last) {
     d = 3.0f * g(p) - 4.0f * g(p - stride) + g(p - 2 * stride);
   } else {
     d = g(p + stride) - g(p - stride);
   }
   return d * inv2d;
+}
+
+// Stage cylinders [q0, q0 + cnt) of the (8, n_cyl) table `cyl` into s_cyl,
+// laid out (8, CYL_CHUNK). Every thread of the block calls it.
+__device__ __forceinline__ void load_cylinders(float* s_cyl, const float* __restrict__ cyl,
+                                               int n_cyl, int q0, int cnt) {
+  __syncthreads();  // no thread still reads the previous chunk
+  for (int k = threadIdx.y * BX + threadIdx.x; k < 8 * cnt; k += BX * BY) {
+    const int r = k / cnt;
+    const int q = k - r * cnt;
+    s_cyl[r * CYL_CHUNK + q] = cyl[r * n_cyl + q0 + q];
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -108,10 +146,15 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // MODE 0: k1 = rhs(u).  MODE 1: out = rhs(u + a*kp).
 // MODE 2: k4 = rhs(u + a*kp) with kp = k3; out = u + sixth*(k1+2k2+2k3+k4),
-//         and partials[block] = [sum u_tot^2, sum u_inc^2, sum (u_tot-u_inc)^2].
-// Candidate blockIdx.z reads and writes its own (12, n, n) state slices,
-// (8, n_cyl) cylinders, (5, n, n) owner fields and partial rows.
-template <int MODE, bool RADII>
+//         and partials[block] = [sum u_tot^2, sum u_inc^2, sum (u_tot-u_inc)^2]
+//         over the block's owned cells.
+// Candidate blockIdx.z reads and writes its own (12, n, w) state slices,
+// (8, n_cyl) cylinders, (5, n, w) owner fields and partial rows; the
+// (n, w) source shape and the (n) profile are shared. SLAB is false for the
+// whole grid (w = n, col0 = 0), where the slab's column logic folds away
+// and the kernel keeps the registers, and so the occupancy, it has without
+// it.
+template <int MODE, bool RADII, bool SLAB>
 __global__ void __launch_bounds__(BX * BY)
 rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
           const float* __restrict__ k1, const float* __restrict__ k2, float sixth,
@@ -119,10 +162,11 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
           const float* __restrict__ shape, const float* __restrict__ prof,
           const float* __restrict__ cyl, int n_cyl, const float* __restrict__ owner,
           Geometry g, float ts, float ti, float tf) {
-  __shared__ float s_cyl[8 * MAX_CYL];
+  __shared__ float s_cyl[8 * CYL_CHUNK];
   __shared__ float red[BX * BY / 32];
   const int n = g.n;
-  const int nn = n * n;
+  const int w = SLAB ? g.w : n;
+  const int nn = n * w;
   const size_t cand = blockIdx.z;
   const size_t so = cand * 12 * (size_t)nn;
   u += so;
@@ -136,51 +180,65 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
     owner += cand * 5 * (size_t)nn;
   } else {
     cyl += cand * 8 * (size_t)n_cyl;
-    for (int k = threadIdx.y * BX + threadIdx.x; k < 8 * n_cyl; k += BX * BY) s_cyl[k] = cyl[k];
-    __syncthreads();
   }
-  const int j = blockIdx.x * BX + threadIdx.x;  // y index
-  const int i = blockIdx.y * BY + threadIdx.y;  // x index
-  float e_tot = 0.0f, e_inc = 0.0f, e_sc = 0.0f;
+  const int j = blockIdx.x * BX + threadIdx.x;  // local column (y)
+  const int i = blockIdx.y * BY + threadIdx.y;  // row (x)
+  const int jg = SLAB ? g.col0 + j : j;        // global column
+  const bool inside = i < n && j < w;
+  const bool live = SLAB ? inside && jg >= 0 && jg < n : inside;
+  const int p = i * w + j;
 
-  if (i < n && j < n) {
-    const int p = i * n + j;
-    const StageInput<MODE> v{u, kp, a};
+  const float span = tf - ti;
+  const float denom = span > 0.0f ? span : 1.0f;
+  const float lw = (fminf(fmaxf(ts, ti), tf) - ti) / denom;  // lerp weight
 
-    const float span = tf - ti;
-    const float denom = span > 0.0f ? span : 1.0f;
-    const float w = (fminf(fmaxf(ts, ti), tf) - ti) / denom;
-    const float sn = sinf(TWO_PI * ts * g.freq);
-
-    float c;
-    if (RADII) {
-      const float r = __ldg(owner + nn + p) + w * __ldg(owner + 2 * nn + p);
+  float c = g.c0;
+  if (RADII) {
+    if (live) {
+      const float r = __ldg(owner + nn + p) + lw * __ldg(owner + 2 * nn + p);
       const bool m = __ldg(owner + p) < r * r;
-      c = m ? __ldg(owner + 3 * nn + p) + w * __ldg(owner + 4 * nn + p) : g.c0;
-    } else {
-      const float x = g.x_min + (float)i * g.spacing;
-      const float y = g.x_min + (float)j * g.spacing;
-      float csum = 0.0f, inside = 0.0f;
-      for (int q = 0; q < n_cyl; ++q) {
+      c = m ? __ldg(owner + 3 * nn + p) + lw * __ldg(owner + 4 * nn + p) : g.c0;
+    }
+  } else {
+    const float x = g.x_min + (float)i * g.spacing;
+    const float y = g.x_min + (float)jg * g.spacing;
+    float csum = 0.0f, covered = 0.0f;
+    for (int q0 = 0; q0 < n_cyl; q0 += CYL_CHUNK) {
+      const int cnt = min(CYL_CHUNK, n_cyl - q0);
+      load_cylinders(s_cyl, cyl, n_cyl, q0, cnt);
+      if (!live) continue;
+      for (int q = 0; q < cnt; ++q) {
         const float* cq = s_cyl + q;  // rows [p1x, p1y, r1, c1, p2x, p2y, r2, c2]
-        const float px = cq[0] + w * (cq[4 * n_cyl] - cq[0]);
-        const float py = cq[n_cyl] + w * (cq[5 * n_cyl] - cq[n_cyl]);
-        const float rq = cq[2 * n_cyl] + w * (cq[6 * n_cyl] - cq[2 * n_cyl]);
-        const float ccq = cq[3 * n_cyl] + w * (cq[7 * n_cyl] - cq[3 * n_cyl]);
+        const float px = cq[0] + lw * (cq[4 * CYL_CHUNK] - cq[0]);
+        const float py = cq[CYL_CHUNK] + lw * (cq[5 * CYL_CHUNK] - cq[CYL_CHUNK]);
+        const float rq = cq[2 * CYL_CHUNK] + lw * (cq[6 * CYL_CHUNK] - cq[2 * CYL_CHUNK]);
+        const float ccq = cq[3 * CYL_CHUNK] + lw * (cq[7 * CYL_CHUNK] - cq[3 * CYL_CHUNK]);
         const float ddx = x - px;
         const float ddy = y - py;
         const float d2 = ddx * ddx + ddy * ddy;
         if (d2 < rq * rq) {
           csum = csum + ccq;
-          inside = inside + 1.0f;
+          covered = covered + 1.0f;
         }
       }
-      c = inside == 0.0f ? g.c0 : csum;
     }
+    if (covered != 0.0f) c = csum;
+  }
 
+  float e_tot = 0.0f, e_inc = 0.0f, e_sc = 0.0f;
+  if (SLAB && inside && !live) {
+    // outside the domain: every stage output and the new state are 0
+#pragma unroll
+    for (int ch = 0; ch < 12; ++ch) out[ch * nn + p] = 0.0f;
+  } else if (live) {
+    const StageInput<MODE> v{u, kp, a};
+    const float sn = sinf(TWO_PI * ts * g.freq);
     const float sx = __ldg(prof + i);
-    const float sy = __ldg(prof + j);
-    const float bc = (i > 0 && i < n - 1 && j > 0 && j < n - 1) ? 1.0f : 0.0f;
+    const float sy = __ldg(prof + jg);
+    const float bc = (i > 0 && i < n - 1 && jg > 0 && jg < n - 1) ? 1.0f : 0.0f;
+    const bool x_first = i == 0, x_last = i == n - 1;
+    const bool y_first = jg == 0 || (SLAB && j == 0);
+    const bool y_last = jg == n - 1 || (SLAB && j == w - 1);
 
 #pragma unroll
     for (int stack = 0; stack < 2; ++stack) {
@@ -189,10 +247,10 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
       auto uf = [&](int q) { return v(o + q) + __ldg(shape + q) * sn; };  // U + f
       auto vx = [&](int q) { return v(o + nn + q); };
       auto vy = [&](int q) { return v(o + 2 * nn + q); };
-      const float Vxx = d_edge(vx, i, n, p, n, g.inv2d);
-      const float Vyy = d_edge(vy, j, n, p, 1, g.inv2d);
-      const float Ux = d_edge(uf, i, n, p, n, g.inv2d);
-      const float Uy = d_edge(uf, j, n, p, 1, g.inv2d);
+      const float Vxx = d_edge(vx, x_first, x_last, p, w, g.inv2d);
+      const float Vyy = d_edge(vy, y_first, y_last, p, 1, g.inv2d);
+      const float Ux = d_edge(uf, x_first, x_last, p, w, g.inv2d);
+      const float Uy = d_edge(uf, y_first, y_last, p, 1, g.inv2d);
       const float U = v(o + p);
       const float Px = v(o + 3 * nn + p);
       const float Py = v(o + 4 * nn + p);
@@ -220,10 +278,14 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
       }
     }
     if (MODE == 2) {
-      const float sc = e_tot - e_inc;
-      e_sc = sc * sc;
-      e_tot = e_tot * e_tot;
-      e_inc = e_inc * e_inc;
+      if (!SLAB || (j >= HALO && j < w - HALO)) {  // owned columns
+        const float sc = e_tot - e_inc;
+        e_sc = sc * sc;
+        e_tot = e_tot * e_tot;
+        e_inc = e_inc * e_inc;
+      } else {
+        e_tot = e_inc = 0.0f;
+      }
     }
   }
 
@@ -243,42 +305,48 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
 
 // Owner fields of the radii-only mode, once per window: for each cell the
 // cylinder with the smallest gap d2 - rmax^2 (first in order on ties), as
-// owner[0..4] = [d2, r1, r2 - r1, c1, c2 - c1]. Exact when the circles at
-// their largest radii are disjoint and positions and speeds are fixed.
-// Candidate blockIdx.z has its own radii, so its own rmax, gaps and owner.
+// owner[0..4] = [d2, r1, r2 - r1, c1, c2 - c1], from global coordinates.
+// Exact when the circles at their largest radii are disjoint and positions
+// and speeds are fixed. Candidate blockIdx.z has its own radii, so its own
+// rmax, gaps and owner.
 __global__ void __launch_bounds__(BX * BY)
 select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict__ owner,
                     Geometry g) {
-  __shared__ float s_cyl[8 * MAX_CYL];
-  cyl += (size_t)blockIdx.z * 8 * n_cyl;
-  owner += (size_t)blockIdx.z * 5 * g.n * g.n;
-  for (int k = threadIdx.y * BX + threadIdx.x; k < 8 * n_cyl; k += BX * BY) s_cyl[k] = cyl[k];
-  __syncthreads();
+  __shared__ float s_cyl[8 * CYL_CHUNK];
   const int n = g.n;
+  const int w = g.w;
+  cyl += (size_t)blockIdx.z * 8 * n_cyl;
+  owner += (size_t)blockIdx.z * 5 * n * w;
   const int j = blockIdx.x * BX + threadIdx.x;
   const int i = blockIdx.y * BY + threadIdx.y;
-  if (i >= n || j >= n) return;
+  const bool inside = i < n && j < w;
   const float x = g.x_min + (float)i * g.spacing;
-  const float y = g.x_min + (float)j * g.spacing;
+  const float y = g.x_min + (float)(g.col0 + j) * g.spacing;
   float best = 1e30f, d2o = 1e30f, r1 = 0.0f, dr = 0.0f, c1 = 0.0f, dc = 0.0f;
-  for (int q = 0; q < n_cyl; ++q) {
-    const float* cq = s_cyl + q;
-    const float ddx = x - cq[0];
-    const float ddy = y - cq[n_cyl];
-    const float d2 = ddx * ddx + ddy * ddy;
-    const float rmax = fmaxf(cq[2 * n_cyl], cq[6 * n_cyl]);
-    const float gap = d2 - rmax * rmax;
-    if (gap < best) {
-      best = gap;
-      d2o = d2;
-      r1 = cq[2 * n_cyl];
-      dr = cq[6 * n_cyl] - cq[2 * n_cyl];
-      c1 = cq[3 * n_cyl];
-      dc = cq[7 * n_cyl] - cq[3 * n_cyl];
+  for (int q0 = 0; q0 < n_cyl; q0 += CYL_CHUNK) {
+    const int cnt = min(CYL_CHUNK, n_cyl - q0);
+    load_cylinders(s_cyl, cyl, n_cyl, q0, cnt);
+    if (!inside) continue;
+    for (int q = 0; q < cnt; ++q) {
+      const float* cq = s_cyl + q;
+      const float ddx = x - cq[0];
+      const float ddy = y - cq[CYL_CHUNK];
+      const float d2 = ddx * ddx + ddy * ddy;
+      const float rmax = fmaxf(cq[2 * CYL_CHUNK], cq[6 * CYL_CHUNK]);
+      const float gap = d2 - rmax * rmax;
+      if (gap < best) {
+        best = gap;
+        d2o = d2;
+        r1 = cq[2 * CYL_CHUNK];
+        dr = cq[6 * CYL_CHUNK] - cq[2 * CYL_CHUNK];
+        c1 = cq[3 * CYL_CHUNK];
+        dc = cq[7 * CYL_CHUNK] - cq[3 * CYL_CHUNK];
+      }
     }
   }
-  const int nn = n * n;
-  const int p = i * n + j;
+  if (!inside) return;
+  const int nn = n * w;
+  const int p = i * w + j;
   owner[p] = d2o;
   owner[nn + p] = r1;
   owner[2 * nn + p] = dr;
@@ -286,64 +354,84 @@ select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict_
   owner[4 * nn + p] = dc;
 }
 
-dim3 grid_for(int n, int batch) {
-  return dim3((n + BX - 1) / BX, (n + BY - 1) / BY, batch);
+dim3 grid_for(int n, int w, int batch) {
+  return dim3((w + BX - 1) / BX, (n + BY - 1) / BY, batch);
+}
+
+// The whole grid is w == n with col0 == 0. Any other (w, col0) is a slab
+// with HALO halo columns on each side whose owned columns lie in the
+// domain (a slab never has col0 == 0: col0 = start - HALO and the start is
+// 0 or at least 2 HALO). Returns false for anything else.
+bool make_geometry(int n, int w, int col0, float spacing, float inv2d, float x_min, float c0,
+                   float freq, Geometry* g) {
+  if (n < 3) return false;
+  if (!(w == n && col0 == 0) && (w < 4 * HALO || col0 + HALO < 0 || col0 + w - HALO > n)) {
+    return false;
+  }
+  *g = Geometry{n, w, col0, spacing, inv2d, x_min, c0, freq};
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of energy-partial rows (blocks) a final stage writes for an n x n
-// grid, per candidate.
-int fused_rk4_blocks(int n) {
-  const dim3 gr = grid_for(n, 1);
+// Number of energy-partial rows (blocks) a final stage writes for an n x w
+// grid or slab, per candidate.
+int fused_rk4_blocks(int n, int w) {
+  const dim3 gr = grid_for(n, w, 1);
   return (int)(gr.x * gr.y);
 }
 
 // One RK4 stage for `batch` candidates (K3; K1 or K2 of a single state
-// when batch is 1). `mode` 0, 1 or 2 as for `rk4_stage`, `radii` selects the owner test.
-// u, kp, k1, k2 and out are (batch, 12, n, n), cyl (batch, 8, n_cyl), owner
-// (batch, 5, n, n), partials (batch, fused_rk4_blocks(n), 3); shape (n, n)
-// and prof (n) are shared. Returns the cudaError_t of the launch.
+// when batch is 1; K4 on a slab when (w, col0) is not (n, 0)). `mode` 0,
+// 1 or 2 as for `rk4_stage`, `radii` selects the owner test. u, kp, k1, k2
+// and out are (batch, 12, n, w), cyl (batch, 8, n_cyl), owner
+// (batch, 5, n, w), partials (batch, fused_rk4_blocks(n, w), 3); shape
+// (n, w) and prof (n) are shared. Returns the cudaError_t of the launch.
 int fused_rk4_stage(int batch, int mode, int radii, const float* u, const float* kp, float a,
                     const float* k1, const float* k2, float sixth, float* out, float* partials,
                     const float* shape, const float* prof, const float* cyl, int n_cyl,
-                    const float* owner, int n, float spacing, float inv2d, float x_min, float c0,
-                    float freq, float ts, float ti, float tf, void* stream) {
-  if (n < 3 || n_cyl < 0 || n_cyl > MAX_CYL || mode < 0 || mode > 2 || batch < 1 ||
-      batch > 65535) {
+                    const float* owner, int n, int w, int col0, float spacing, float inv2d,
+                    float x_min, float c0, float freq, float ts, float ti, float tf,
+                    void* stream) {
+  Geometry g;
+  if (!make_geometry(n, w, col0, spacing, inv2d, x_min, c0, freq, &g) || n_cyl < 0 ||
+      mode < 0 || mode > 2 || batch < 1 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const Geometry g{n, spacing, inv2d, x_min, c0, freq};
   const dim3 block(BX, BY);
-  const dim3 gr = grid_for(n, batch);
+  const dim3 gr = grid_for(n, w, batch);
+  const bool slab = !(w == n && col0 == 0);
   cudaStream_t s = (cudaStream_t)stream;
-#define WAVES_LAUNCH(M, R)                                                               \
-  rk4_stage<M, R><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
-                                       prof, cyl, n_cyl, owner, g, ts, ti, tf)
+#define WAVES_LAUNCH(M, R, S)                                                               \
+  rk4_stage<M, R, S><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
+                                          prof, cyl, n_cyl, owner, g, ts, ti, tf)
+#define WAVES_MODES(R, S)                \
+  if (mode == 0) WAVES_LAUNCH(0, R, S);  \
+  else if (mode == 1) WAVES_LAUNCH(1, R, S); \
+  else WAVES_LAUNCH(2, R, S)
   if (radii) {
-    if (mode == 0) WAVES_LAUNCH(0, true);
-    else if (mode == 1) WAVES_LAUNCH(1, true);
-    else WAVES_LAUNCH(2, true);
+    if (slab) { WAVES_MODES(true, true); } else { WAVES_MODES(true, false); }
   } else {
-    if (mode == 0) WAVES_LAUNCH(0, false);
-    else if (mode == 1) WAVES_LAUNCH(1, false);
-    else WAVES_LAUNCH(2, false);
+    if (slab) { WAVES_MODES(false, true); } else { WAVES_MODES(false, false); }
   }
+#undef WAVES_MODES
 #undef WAVES_LAUNCH
   return (int)cudaGetLastError();
 }
 
-// Owner fields (batch, 5, n, n) of `batch` candidates' cylinders
-// (batch, 8, n_cyl); batch 1 for a single state.
-int select_owner(int batch, const float* cyl, int n_cyl, float* owner, int n, float spacing,
-                 float x_min, void* stream) {
-  if (n < 3 || n_cyl < 0 || n_cyl > MAX_CYL || batch < 1 || batch > 65535) {
+// Owner fields (batch, 5, n, w) of `batch` candidates' cylinders
+// (batch, 8, n_cyl); batch 1 for a single state, (w, col0) as for
+// `fused_rk4_stage`.
+int select_owner(int batch, const float* cyl, int n_cyl, float* owner, int n, int w, int col0,
+                 float spacing, float x_min, void* stream) {
+  Geometry g;
+  if (!make_geometry(n, w, col0, spacing, 0.0f, x_min, 0.0f, 0.0f, &g) || n_cyl < 0 ||
+      batch < 1 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const Geometry g{n, spacing, 0.0f, x_min, 0.0f, 0.0f};
-  select_owner_kernel<<<grid_for(n, batch), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
+  select_owner_kernel<<<grid_for(n, w, batch), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
       cyl, n_cyl, owner, g);
   return (int)cudaGetLastError();
 }

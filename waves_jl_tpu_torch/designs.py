@@ -21,7 +21,13 @@ from .utils.trees import tree_map
 
 @dataclass(frozen=True)
 class NoDesign:
-    pass
+    """The empty design of a free-field env: no cylinders."""
+
+    def to_vec(self, device=None) -> torch.Tensor:
+        """The empty parameter vector, float32, on `device`: the CPU unless
+        given. `normalize_design` and `compute_action_cost` give none, so a
+        free-field vector is an empty CPU tensor there."""
+        return torch.zeros((0,), dtype=torch.float32, device=device)
 
 
 @dataclass(frozen=True)
@@ -130,6 +136,8 @@ def build_action_space(design, scale: float) -> DesignSpace:
     def full(x, v):
         return torch.full_like(x, v)
 
+    if isinstance(design, NoDesign):
+        return DesignSpace(NoDesign(), NoDesign())
     if isinstance(design, Cylinders):
         return DesignSpace(tree_map(lambda x: full(x, -scale), design),
                            tree_map(lambda x: full(x, scale), design))

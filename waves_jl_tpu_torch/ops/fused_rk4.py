@@ -1,13 +1,14 @@
 """Fused RK4 step of the 12-channel split-field PML acoustic system.
 
 The CUDA kernel (`csrc/fused_rk4.cu`) takes the place of the Pallas kernel
-`make_fused_acoustic_step` of the JAX package (`waves_jl_tpu/ops/pallas_fd.py`)
-in its single-device modes: K1, the general rasterisation, K2, the
-radii-only owner rasterisation, and K3, either of them for K candidate
-states in one launch (`batch=K`, the hybrid controller's re-rank). This
-module builds the kernel with plain `nvcc` into a shared library with a C
-interface at first use, binds it with `ctypes`, and keeps the plain PyTorch
-version of the same function beside it.
+`make_fused_acoustic_step` of the JAX package (`waves_jl_tpu/ops/pallas_fd.py`):
+K1, the general rasterisation, K2, the radii-only owner rasterisation, K3,
+either of them for K candidate states in one launch (`batch=K`, the hybrid
+controller's re-rank), and K4, either of them on one column slab of a
+y-sharded grid (`slab=`, the domain-decomposed rollout of
+`parallel/fused_domain.py`). This module builds the kernel with plain
+`nvcc` into a shared library with a C interface at first use, binds it with
+`ctypes`, and keeps the plain PyTorch version of the same function beside it.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
@@ -20,7 +21,10 @@ c2], the cylinders at the two ends of the design lerp. Energies are
 [sum u_tot^2, sum u_inc^2, sum (u_tot - u_inc)^2] after each step, not yet
 multiplied by the cell area. The batched functions take the same tensors
 with a leading candidate axis K on the state, cylinders and owner fields;
-the source shape and the PML profile are shared.
+the source shape and the PML profile are shared. On a `Slab` the state,
+source shape and owner fields are (.., n, slab.w) column slabs of the
+global grid, the profile stays the global (n,) one, and the energies cover
+the slab's owned columns.
 """
 from __future__ import annotations
 
@@ -49,12 +53,13 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",
 )
-MAX_CYL = 64  # as in the source
 STAGES = 4  # kernel launches per RK4 step
+HALO = 4  # halo columns one RK4 step consumes on each side of a slab (pallas_fd.py:31)
 
 launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0,
                  "fused_rk4_batched_general": 0, "fused_rk4_batched_radii_only": 0,
-                 "select_owner_batched": 0}
+                 "select_owner_batched": 0, "fused_rk4_sharded_general": 0,
+                 "fused_rk4_sharded_radii_only": 0, "select_owner_sharded": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,6 +85,26 @@ class StepConfig:
         return 1.0 / (2.0 * self.spacing)
 
 
+@dataclass(frozen=True)
+class Slab:
+    """One column slab of the global n x n grid (K4): `w` local columns,
+    local column j at global column col0 + j, HALO halo columns on each
+    side of the owned ones. A shard of ny_local columns from global column
+    `start` is Slab(w=ny_local + 2 HALO, col0=start - HALO)."""
+
+    w: int
+    col0: int
+
+    def columns(self, device) -> torch.Tensor:
+        """(w,) global column index of each local column."""
+        return torch.arange(self.col0, self.col0 + self.w, device=device)
+
+
+def _extent(cfg: StepConfig, slab: Slab | None) -> tuple[int, int]:
+    """(w, col0) of the whole grid or of a slab."""
+    return (cfg.n, 0) if slab is None else (slab.w, slab.col0)
+
+
 def stage_times(t: float, dt: float):
     """float32 times of the k1, k2/k3 and k4 stages of a step from t, in the
     JAX kernel's arithmetic."""
@@ -88,8 +113,9 @@ def stage_times(t: float, dt: float):
     return t0, t0 + f(0.5 * dt), t0 + f(dt)
 
 
-def step_flops(n: int, n_cyl: int, radii_only: bool) -> int:
-    """Float32 operations of one RK4 step on an n x n grid: per cell and
+def step_flops(n: int, n_cyl: int, radii_only: bool, w: int | None = None) -> int:
+    """Float32 operations of one RK4 step on an n x w grid (w = n unless
+    given): per cell and
     stage, 12 stage inputs u + a k (2 each) and per stack 4 edge derivatives
     (3 each), U + f at the 4 stencil points (2 each) and the right-hand side
     (19), plus the rasterisation (5 for the owner test, 14 per cylinder in
@@ -97,7 +123,7 @@ def step_flops(n: int, n_cyl: int, radii_only: bool) -> int:
     energies (6)."""
     raster = 5 if radii_only else 14 * n_cyl
     per_stage = 12 * 2 + 2 * (4 * 3 + 4 * 2 + 19) + raster
-    return n * n * (STAGES * per_stage + 12 * 6 + 6)
+    return n * (w or n) * (STAGES * per_stage + 12 * 6 + 6)
 
 
 # ---------------------------------------------------------------------------
@@ -105,17 +131,24 @@ def step_flops(n: int, n_cyl: int, radii_only: bool) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _coords(cfg: StepConfig, device) -> torch.Tensor:
+def _coords(cfg: StepConfig, device, slab: Slab | None = None):
+    """(x of each row, y of each local column): x_min + index * spacing at
+    the global index."""
     idx = torch.arange(cfg.n, dtype=torch.float32, device=device)
-    return cfg.x_min + idx * cfg.spacing
+    x = cfg.x_min + idx * cfg.spacing
+    if slab is None:
+        return x, x
+    return x, cfg.x_min + slab.columns(device).to(torch.float32) * cfg.spacing
 
 
-def select_owner_reference(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
-    """(5, n, n) owner fields [d2, r1, r2 - r1, c1, c2 - c1] of each cell's
-    nearest cylinder by gap d2 - rmax^2 (first in order on ties)."""
-    xy = _coords(cfg, cyl.device)
-    x, y = xy[:, None], xy[None, :]
-    shape = (cfg.n, cfg.n)
+def select_owner_reference(cyl: torch.Tensor, cfg: StepConfig,
+                           slab: Slab | None = None) -> torch.Tensor:
+    """(5, n, w) owner fields [d2, r1, r2 - r1, c1, c2 - c1] of each cell's
+    nearest cylinder by gap d2 - rmax^2 (first in order on ties), over the
+    whole grid (w = n) or a slab."""
+    xs, ys = _coords(cfg, cyl.device, slab)
+    x, y = xs[:, None], ys[None, :]
+    shape = (xs.shape[0], ys.shape[0])
     best = torch.full(shape, 1e30, dtype=torch.float32, device=cyl.device)
     d2o = best.clone()
     r1, dr, c1, dc = (torch.zeros(shape, dtype=torch.float32, device=cyl.device) for _ in range(4))
@@ -153,13 +186,26 @@ def _rasterize(cyl, x, y, w: float, c0: float) -> torch.Tensor:
     return torch.where(inside == 0.0, torch.full_like(csum, c0), csum)
 
 
-def _stack_rhs(v, b, f, sx, sy, bc, inv2d):
+def _dy(u, inv2d: float, lo: int, hi: int):
+    """d/dy along axis -1 as `dy_edge_aware`, and one-sided also at local
+    columns lo and hi, where a slab holds the domain's first and last
+    columns away from its own edges."""
+    d = dy_edge_aware(u, inv2d)
+    w = u.shape[-1]
+    if 0 < lo < w - 2:
+        d[..., lo] = (-3.0 * u[..., lo] + 4.0 * u[..., lo + 1] - u[..., lo + 2]) * inv2d
+    if 1 < hi < w - 1:
+        d[..., hi] = (3.0 * u[..., hi] - 4.0 * u[..., hi - 1] + u[..., hi - 2]) * inv2d
+    return d
+
+
+def _stack_rhs(v, b, f, sx, sy, bc, inv2d, lo, hi):
     U, Vx, Vy, Px, Py, Om = v
     Vxx = dx_edge_aware(Vx, inv2d)
-    Vyy = dy_edge_aware(Vy, inv2d)
+    Vyy = _dy(Vy, inv2d, lo, hi)
     Uf = U + f
     Ux = dx_edge_aware(Uf, inv2d)
-    Uy = dy_edge_aware(Uf, inv2d)
+    Uy = _dy(Uf, inv2d, lo, hi)
     dU = b * (Vxx + Vyy) + Px + Py - (sx + sy) * U - Om
     dVx = Ux - sx * Vx
     dVy = Uy - sy * Vy
@@ -169,17 +215,24 @@ def _stack_rhs(v, b, f, sx, sy, bc, inv2d):
     return [bc * dU, dVx, dVy, dPx, dPy, dOm]
 
 
-def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
+                             slab: Slab | None = None):
     """Plain PyTorch version of `fused_rk4_step`: the same equations, op
-    order, rasterisation, closed-form RK4 combine and energies. Returns
-    (u_next (12, n, n), energies (3,))."""
+    order, rasterisation, closed-form RK4 combine and energies, on the whole
+    grid or on a slab (columns outside the domain come out 0, energies
+    cover the owned columns). Returns (u_next (12, n, w), energies (3,))."""
     n = cfg.n
     dev = u.device
-    xy = _coords(cfg, dev)
-    x, y = xy[:, None], xy[None, :]
-    sx, sy = prof[:, None], prof[None, :]
-    bc = torch.zeros((n, n), dtype=torch.float32, device=dev)
-    bc[1:-1, 1:-1] = 1.0
+    xs, ys = _coords(cfg, dev, slab)
+    x, y = xs[:, None], ys[None, :]
+    rows = torch.arange(n, device=dev)
+    cols = rows if slab is None else slab.columns(dev)
+    w, col0 = _extent(cfg, slab)
+    halo = 0 if slab is None else HALO
+    sx, sy = prof[:, None], prof[cols.clamp(0, n - 1)][None, :]
+    bc = (((rows > 0) & (rows < n - 1))[:, None]
+          & ((cols > 0) & (cols < n - 1))[None, :]).to(torch.float32)
+    lo, hi = -col0, n - 1 - col0  # local columns of the domain's edges
     c0 = float(np.float32(cfg.c0))
     b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
     two_pi_f = np.float32(2.0 * math.pi)
@@ -193,8 +246,8 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
             c = _rasterize(cyl, x, y, w, c0)
         sn = torch.sin(torch.tensor(two_pi_f * np.float32(ts) * np.float32(cfg.freq), device=dev))
         f = shape * sn
-        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d)
-        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d)
+        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d, lo, hi)
+        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d, lo, hi)
         return torch.stack(d_tot + d_inc)
 
     half, full, sixth = 0.5 * cfg.dt, cfg.dt, cfg.dt / 6.0
@@ -204,8 +257,11 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
     k3 = rhs(u + half * k2, th)
     k4 = rhs(u + full * k3, t1)
     u = u + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-    sc = u[0] - u[6]
-    return u, torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
+    u = torch.where(((cols >= 0) & (cols < n))[None, None, :], u, 0.0)
+    own = u[:, :, halo:w - halo]
+    sc = own[0] - own[6]
+    return u, torch.stack([torch.sum(own[0] * own[0]), torch.sum(own[6] * own[6]),
+                           torch.sum(sc * sc)])
 
 
 def select_owner_batched_reference(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
@@ -264,9 +320,9 @@ class _Library:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # both take the candidate count first, 1 for a single state
         self.stage = self._bind("fused_rk4_stage", [I, I, I, P, P, F, P, P, F, P, P, P, P, P, I,
-                                                    P, I, F, F, F, F, F, F, F, F, P])
-        self.owner = self._bind("select_owner", [I, P, I, P, I, F, F, P])
-        self.blocks = self._bind("fused_rk4_blocks", [I])
+                                                    P, I, I, I, F, F, F, F, F, F, F, F, P])
+        self.owner = self._bind("select_owner", [I, P, I, P, I, I, I, F, F, P])
+        self.blocks = self._bind("fused_rk4_blocks", [I, I])
 
     def _bind(self, name: str, argtypes: list):
         fn = getattr(self.cdll, name)
@@ -286,10 +342,10 @@ def _lib() -> _Library:
     return _library
 
 
-def partial_rows(n: int) -> int:
+def partial_rows(n: int, w: int | None = None) -> int:
     """Rows of energy partials (one per thread block) a step writes on an
-    n x n grid."""
-    return _lib().blocks(n)
+    n x w grid (w = n unless given)."""
+    return _lib().blocks(n, w or n)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -325,34 +381,44 @@ def _on_card(t: torch.Tensor) -> bool:
 def _check_cyl(cyl: torch.Tensor, lead: tuple, device: torch.device) -> int:
     n_cyl = cyl.shape[-1]
     _check("cyl", cyl, (*lead, 8, n_cyl), device)
-    if n_cyl > MAX_CYL:
-        raise ValueError(f"{n_cyl} cylinders; the kernel takes at most {MAX_CYL}")
     return n_cyl
+
+
+def _key(kernel: str, batch: int | None, slab: Slab | None) -> str:
+    """Launch counter of `kernel` ("fused_rk4" or "select_owner") for a
+    single state, a candidate batch (K3) or a slab (K4)."""
+    if slab is not None:
+        return kernel + "_sharded"
+    return kernel if batch is None else kernel + "_batched"
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch_owner(cyl: torch.Tensor, cfg: StepConfig, batch: int | None) -> torch.Tensor:
+def _launch_owner(cyl: torch.Tensor, cfg: StepConfig, batch: int | None,
+                  slab: Slab | None = None) -> torch.Tensor:
     """Check the cylinders and launch the owner pass: of one design for
-    batch None, else of `batch` candidates' designs."""
+    batch None, else of `batch` candidates' designs; on a slab if given."""
     lead = () if batch is None else (batch,)
     n_cyl = _check_cyl(cyl, lead, cyl.device)
-    owner = torch.empty((*lead, 5, cfg.n, cfg.n), dtype=torch.float32, device=cyl.device)
-    key = "select_owner" if batch is None else "select_owner_batched"
-    _raise_on(_lib().owner(batch or 1, _ptr(cyl), n_cyl, _ptr(owner), cfg.n, cfg.spacing,
-                           cfg.x_min, _stream(cyl.device)), key)
+    w, col0 = _extent(cfg, slab)
+    owner = torch.empty((*lead, 5, cfg.n, w), dtype=torch.float32, device=cyl.device)
+    key = _key("select_owner", batch, slab)
+    with torch.cuda.device(cyl.device):  # the launch goes to the current device
+        code = _lib().owner(batch or 1, _ptr(cyl), n_cyl, _ptr(owner), cfg.n, w, col0,
+                            cfg.spacing, cfg.x_min, _stream(cyl.device))
+    _raise_on(code, key)
     launch_counts[key] += 1
     return owner
 
 
-def select_owner(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
-    """K2's owner fields (5, n, n) for the window's cylinders (see
-    `select_owner_reference`)."""
+def select_owner(cyl: torch.Tensor, cfg: StepConfig, slab: Slab | None = None) -> torch.Tensor:
+    """K2's owner fields (5, n, n) for the window's cylinders, or K4's
+    (5, n, slab.w) on a slab (see `select_owner_reference`)."""
     if not _on_card(cyl):
-        return select_owner_reference(cyl, cfg)
-    return _launch_owner(cyl, cfg, None)
+        return select_owner_reference(cyl, cfg, slab)
+    return _launch_owner(cyl, cfg, None, slab)
 
 
 def select_owner_batched(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
@@ -363,27 +429,29 @@ def select_owner_batched(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
     return _launch_owner(cyl, cfg, cyl.shape[0])
 
 
-def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: int | None):
+def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: int | None,
+                 slab: Slab | None = None):
     """Check the inputs and launch the four stages of one RK4 step: of one
-    state (K1 or K2) for batch None, else of `batch` candidates (K3).
-    Returns (u_next, energy partials (batch or 1, blocks, 3))."""
+    state (K1 or K2) for batch None, else of `batch` candidates (K3); on a
+    slab (K4) if given. Returns (u_next, energy partials (batch or 1,
+    blocks, 3))."""
     n, dev = cfg.n, u.device
+    w, col0 = _extent(cfg, slab)
     lead = () if batch is None else (batch,)
-    _check("u", u, (*lead, 12, n, n), dev)
-    _check("shape", shape, (n, n), dev)
+    _check("u", u, (*lead, 12, n, w), dev)
+    _check("shape", shape, (n, w), dev)
     _check("prof", prof, (n,), dev)
     n_cyl = _check_cyl(cyl, lead, dev)
     if owner is not None:
-        _check("owner", owner, (*lead, 5, n, n), dev)
+        _check("owner", owner, (*lead, 5, n, w), dev)
     radii = owner is not None
-    key = ("fused_rk4" if batch is None else "fused_rk4_batched") + (
-        "_radii_only" if radii else "_general")
+    key = _key("fused_rk4", batch, slab) + ("_radii_only" if radii else "_general")
     stage = _lib().stage
     stream = _stream(dev)
-    partials = torch.empty((batch or 1, partial_rows(n), 3), dtype=torch.float32, device=dev)
+    partials = torch.empty((batch or 1, partial_rows(n, w), 3), dtype=torch.float32, device=dev)
     f = np.float32
     half, full, sixth = float(f(0.5 * cfg.dt)), float(f(cfg.dt)), float(f(cfg.dt / 6.0))
-    fixed = (_ptr(shape), _ptr(prof), _ptr(cyl), n_cyl, _ptr(owner), n, cfg.spacing,
+    fixed = (_ptr(shape), _ptr(prof), _ptr(cyl), n_cyl, _ptr(owner), n, w, col0, cfg.spacing,
              cfg.inv2d, cfg.x_min, cfg.c0, cfg.freq)
     ks = [torch.empty_like(u) for _ in range(3)]
     out = torch.empty_like(u)
@@ -394,22 +462,25 @@ def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: 
         (1, ks[1], half, ks[2], None, th),
         (2, ks[2], full, out, partials, t1),
     )
-    for mode, kp, a, dst, part, ts in launches:
-        code = stage(batch or 1, mode, int(radii), _ptr(u), _ptr(kp), a, _ptr(ks[0]), _ptr(ks[1]),
-                     sixth, _ptr(dst), _ptr(part), *fixed, ts, ti, tf, stream)
-        _raise_on(code, key)
-        launch_counts[key] += 1
+    with torch.cuda.device(dev):  # the launches go to the current device
+        for mode, kp, a, dst, part, ts in launches:
+            code = stage(batch or 1, mode, int(radii), _ptr(u), _ptr(kp), a, _ptr(ks[0]),
+                         _ptr(ks[1]), sixth, _ptr(dst), _ptr(part), *fixed, ts, ti, tf, stream)
+            _raise_on(code, key)
+            launch_counts[key] += 1
     return out, partials
 
 
-def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
+                   slab: Slab | None = None):
     """Advance the state one RK4 step from time t, with the design lerped
     over [ti, tf]. `owner` (from `select_owner`) selects the radii-only
-    kernel K2; None selects the general kernel K1. Returns (u_next,
-    energies (3,))."""
+    kernel K2; None selects the general kernel K1. With a slab, u, shape
+    and owner are its (.., n, slab.w) columns and the step is K4's.
+    Returns (u_next, energies (3,))."""
     if not _on_card(u):
-        return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg)
-    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None)
+        return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab)
+    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None, slab)
     return out, partials[0].sum(dim=0)
 
 

@@ -1,0 +1,106 @@
+"""The y-sharded fused rollout: the RK4 step kernel K4 on each shard's
+column slab, with a halo-column exchange between steps (counterpart of
+`waves_jl_tpu/parallel/fused_domain.py`).
+
+Shard k owns global columns [k ny_local, (k+1) ny_local) and keeps them in a
+(12, n, ny_local + 2 HALO) slab with HALO halo columns on each side. Before
+every step each slab's halos take its neighbours' owned edge columns; the
+kernel applies one-sided stencils only at the true domain edges and zeroes
+the columns outside the domain, so an owned cell is bit for bit the
+whole-grid kernel's. One process drives every shard, in shard order.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.fused_rk4 import HALO, Slab, StepConfig, fused_rk4_step, select_owner
+from .domain import sum_in_order
+from .mesh import Mesh
+
+
+def shard_slabs(n: int, n_shards: int) -> list:
+    """The `Slab` of each of n_shards shards of an n x n grid: shard k owns
+    global columns [k ny_local, (k+1) ny_local) with HALO halo columns on
+    each side."""
+    if n % n_shards:
+        raise ValueError(f"n = {n} does not split into {n_shards} shards")
+    ny_local = n // n_shards
+    if ny_local < 2 * HALO:
+        raise ValueError(f"shards of {ny_local} columns are too thin for the {HALO}-column halo")
+    return [Slab(w=ny_local + 2 * HALO, col0=k * ny_local - HALO) for k in range(n_shards)]
+
+
+def cut_slabs(x: torch.Tensor, slabs: list, devices) -> list:
+    """Each slab's columns of the global field x (..., n, n), contiguous on
+    its device, 0 outside the domain."""
+    x_ext = F.pad(x, (HALO, HALO))
+    return [x_ext[..., s.col0 + HALO:s.col0 + HALO + s.w].to(d).contiguous()
+            for s, d in zip(slabs, devices)]
+
+
+def exchange_halos(us: list, ny_local: int) -> None:
+    """Refresh every slab's halo columns in place: the left halo takes the
+    left neighbour's last HALO owned columns, the right halo the right
+    neighbour's first HALO. The outer halos of the first and last slab stay
+    as they are (0). Reads only owned columns and writes only halos, so the
+    copies are independent of one another."""
+    for k in range(1, len(us)):
+        us[k][:, :, :HALO].copy_(us[k - 1][:, :, ny_local:ny_local + HALO])
+        us[k - 1][:, :, HALO + ny_local:].copy_(us[k][:, :, HALO:2 * HALO])
+
+
+def _energies(u: torch.Tensor) -> torch.Tensor:
+    sc = u[0] - u[6]
+    return torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
+
+
+def make_fused_sharded_rollout(mesh: Mesh, n: int, spacing: float, dt: float, c0: float,
+                               freq: float, n_cyl: int, x_min: float, radii_only: bool = False):
+    """Build a y-sharded fused rollout over the mesh's devices.
+
+    rollout(u0, tspan, cyl, shape, prof) -> (u_final, signal) with
+      u0     (12, n, n) global state
+      tspan  (steps+1,) host times; step k starts at tspan[k], and the
+             design lerps over [tspan[0], tspan[-1]]
+      cyl    (8, n_cyl) design lerp endpoints (see physics.fused.cyl_params)
+      shape  (n, n) source spatial shape
+      prof   (n,) PML sigma profile
+    u_final is the global (12, n, n) state on the mesh's first device and
+    signal the (steps+1, 3) [tot, inc, sc] energies, not multiplied by the
+    cell area. `radii_only` selects the owner rasterisation (one owner pass
+    per shard a rollout), valid where `physics.fused.radii_only_ok` holds.
+    """
+    cfg = StepConfig(n=n, spacing=spacing, x_min=x_min, dt=dt, c0=c0, freq=freq)
+    return build_rollout(mesh, cfg, n_cyl, radii_only, fused_rk4_step, select_owner)
+
+
+def build_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool, step, owner):
+    """The rollout of `make_fused_sharded_rollout`, stepping each slab
+    through `step` with owner fields from `owner`: `fused_rk4_step` and
+    `select_owner` (K4), or their `*_reference` plain versions."""
+    n = cfg.n
+    slabs = shard_slabs(n, mesh.size)
+    ny_local = n // mesh.size
+    devs = mesh.devices
+
+    def rollout(u0, tspan, cyl, shape, prof):
+        if tuple(cyl.shape) != (8, n_cyl):
+            raise ValueError(f"cyl has shape {tuple(cyl.shape)}, expected (8, {n_cyl})")
+        shapes = cut_slabs(shape, slabs, devs)
+        us = cut_slabs(u0, slabs, devs)  # the first exchange refreshes the halos
+        profs = [prof.to(d).contiguous() for d in devs]
+        cyls = [cyl.to(d).contiguous() for d in devs]
+        owners = [owner(c, cfg, s) if radii_only else None for c, s in zip(cyls, slabs)]
+        ti, tf = float(tspan[0]), float(tspan[-1])
+        signal = [sum_in_order([_energies(u[:, :, HALO:HALO + ny_local]) for u in us], devs[0])]
+        for t in tspan[:-1]:
+            exchange_halos(us, ny_local)
+            stepped = [step(u, sh, pr, c, ow, float(t), ti, tf, cfg, s)
+                       for u, sh, pr, c, ow, s in zip(us, shapes, profs, cyls, owners, slabs)]
+            us = [u for u, _ in stepped]
+            signal.append(sum_in_order([e for _, e in stepped], devs[0]))
+        u_final = torch.cat([u[:, :, HALO:HALO + ny_local].to(devs[0]) for u in us], dim=-1)
+        return u_final, torch.stack(signal)
+
+    return rollout
