@@ -9,23 +9,27 @@ its elapsed seconds:
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, with
    ptxas's register and spill report;
-3. kernels: each kernel against its plain PyTorch version at 700^2, and
-   the candidate-batched kernel K3 (16 candidates at 350^2, coarsened from
-   the 700^2 state) against its plain version and against K2 run on each
-   candidate alone;
+3. kernels: each kernel against its plain PyTorch version at 700^2, K5
+   (the split d/dx, `x_matmul=True`) in both rasterisation modes with the
+   count of cells that differ, and the candidate-batched kernels K3 and K5
+   (16 candidates at 350^2, coarsened from the 700^2 state) against their
+   plain versions and against K2 or K5 run on each candidate alone;
 4. main path: a warm 20-action x 100-step MPC control episode at 700^2
    (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
    surrogate with the tracked weights), the simulator's steps/s over 20
-   windows, and a random-policy episode over a position-adjustable design
-   space, the path of the general kernel, with one K = 4 re-rank window
-   there, the path of K3's general mode, whose kernel is held against its
-   plain version on that window's own states, cylinders and step times;
+   windows with `x_matmul=True` (K5) and `False` (K2) in turns, and a
+   random-policy episode over a position-adjustable design space, the path
+   of the general kernels (K5 general, and K1 with `x_matmul=False`), with
+   one K = 4 re-rank window there in each mode (K5 and K3 general), each
+   batched kernel held against its plain version on that window's own
+   states, cylinders and step times;
 5. hybrid: a 20-action episode of the hybrid controller at full width
    (256 shots pruned by the fine-tuned stride-4 flagship, the best 16
-   re-ranked exactly at 350^2 through K3, the winner applied at 700^2),
-   three of its selections replayed through the sequential re-rank (K2),
-   one selection split into prune, re-rank and env window, the batched
-   re-rank against the sequential one, and two exact-CEM rounds against one;
+   re-ranked exactly at 350^2 through batched K5, the winner applied at
+   700^2 through K5), three of its selections replayed through the
+   sequential re-rank, one selection split into prune, re-rank and env
+   window, the batched re-rank against the sequential one and against the
+   exact-stencil re-rank (K3), and two exact-CEM rounds against one;
 6. sharded: from phase 3's state, cylinders and window times, the y-sharded
    kernel K4 (4 shards of 175 columns) against its plain version in both
    modes, the fused sharded rollout (`parallel/fused_domain.py`) at 1, 2 and
@@ -33,7 +37,14 @@ its elapsed seconds:
    against K1, and against the plain sharded rollout (`parallel/domain.py`);
    K1 and the owner pass with 80 cylinders against their plain versions; a
    free-field window through K1; the times of a sharded step, host-driven
-   and as device work, against K2's, and of K4 alone.
+   and as device work, against K2's, and of K4 alone;
+7. datagen at `bench.py`'s operating point (700^2, triple ring, Gaussian
+   source at x = -10, 20 actions x 100 steps, random policy, chunks of 10
+   episodes): one warm chunk, then two timed chunks, seconds per episode
+   with the host pull; every leaf finite, the observations' shape, the
+   scattered energy 0 in the first window and positive by the last, K5's
+   launches; one episode through `.wbin`, `.npz` and a shard and back, bit
+   for bit; the datagen CLI once, in a subprocess.
 
 The launch counts of each kernel are read from the main-path runs alone.
 The last lines are one JSON object describing every kernel (`ms` with CUDA
@@ -44,6 +55,7 @@ non-zero; without a CUDA card it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -62,6 +74,7 @@ CHECKPOINT_HYBRID = "models/ref500_h8s4_ft/checkpoint_step=1320"
 STRIDE = 4
 TOPK = 16  # candidates the hybrid re-ranks exactly
 HORIZON = 5
+CHUNK = 10  # datagen episodes a chunk, as bench.py times them
 # Kernel against plain version, relative to the largest magnitude: both run
 # the same float32 operations in the same order (FMA contraction is off in
 # the kernel), so they differ only where sinf and torch.sin round apart and
@@ -128,6 +141,21 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def differing_cells(got, want) -> str:
+    """How many cells of two states differ, and by how much relative to
+    the cell's own magnitude: an ulp of sinf against torch.sin upstream
+    shows as about 2^-17 of the cell after K5's bf16 split, a fault as
+    much more."""
+    import torch
+
+    diff = got != want
+    n = int(diff.sum())
+    if n == 0:
+        return f"0 of {got.numel()} cells differ (bit for bit)"
+    cell = float((torch.abs(got - want)[diff] / torch.abs(want)[diff].clamp_min(1e-30)).max())
+    return f"{n} of {got.numel()} cells differ, by at most {cell:.3e} of the cell"
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -170,8 +198,9 @@ def position_space(ring_space):
 
 
 def batched_kernels(env, state, dev):
-    """Phase 3, K3: 16 candidates at 350^2 from the coarsened 700^2 state,
-    each with its own radii. Returns the numbers of its kernel rows."""
+    """Phase 3, K3 and batched K5: 16 candidates at 350^2 from the
+    coarsened 700^2 state, each with its own radii. Returns the numbers of
+    their kernel rows."""
     import torch
 
     from waves_jl_tpu_torch.control.mpc import coarsen_env_state
@@ -240,7 +269,34 @@ def batched_kernels(env, state, dev):
                    f"{k3g_state:.3e}, signal {k3g_sig:.3e} (tol {REL_TOL:g})")
     check(k3g_state <= REL_TOL and k3g_sig <= REL_TOL, "K3 general agrees with its plain version")
 
+    # batched K5: against its plain version over 10 steps, and each
+    # candidate against K5 alone over the window
+    xm_batched = functools.partial(fk.fused_rk4_step_batched, x_matmul=True)
+    xm_batched_plain = functools.partial(fk.fused_rk4_step_batched_reference, x_matmul=True)
+    u_x, e_x = window_run(xm_batched, owner_k, cyl, 10)
+    u_xp, e_xp = window_run(xm_batched_plain, owner_p, cyl, 10)
+    torch.cuda.synchronize()
+    k5b_state, k5b_sig = rel_err(u_x, u_xp), rel_err(e_x, e_xp)
+    k5b_abs = float(torch.max(torch.abs(u_x - u_xp)))
+    log("kernels", f"batched K5 radii-only vs plain, 10 steps: rel err state {k5b_state:.3e}, "
+                   f"signal {k5b_sig:.3e} (tol {REL_TOL:g}); {differing_cells(u_x, u_xp)}")
+    check(k5b_state <= REL_TOL and k5b_sig <= REL_TOL, "batched K5 agrees with its plain version")
+    u_x, e_x = window_run(xm_batched, owner_k, cyl, STEPS)
+    identical, sig_err = 0, 0.0
+    for b in range(TOPK):
+        u_b, e_b = window_run(functools.partial(fk.fused_rk4_step, x_matmul=True), owner_k[b],
+                              cyl[b], STEPS, u0[b])
+        identical += int(torch.equal(u_b, u_x[b]))
+        sig_err = max(sig_err, rel_err(e_x[:, b], e_b))
+    log("kernels", f"batched K5 vs K5 on each candidate alone, {STEPS} steps: {identical} of "
+                   f"{TOPK} states identical, signal rel err {sig_err:.3e} (tol {REL_TOL:g})")
+    check(identical == TOPK, "each batched K5 candidate's state is K5's on it, bit for bit")
+    check(sig_err <= REL_TOL, "each batched K5 candidate's signal agrees with K5's")
+
     t_arg = float(tspan[0])
+    k5b_ms = cuda_ms(lambda: xm_batched(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 50)
+    k5b_plain = cuda_ms(lambda: xm_batched_plain(u0, shape, prof, cyl, owner_p, t_arg, ti, tf,
+                                                 cfg), 3)
     k3_ms = cuda_ms(lambda: fk.fused_rk4_step_batched(u0, shape, prof, cyl, owner_k, t_arg, ti,
                                                       tf, cfg), 50)
     k3_plain = cuda_ms(lambda: fk.fused_rk4_step_batched_reference(u0, shape, prof, cyl, owner_p,
@@ -251,7 +307,8 @@ def batched_kernels(env, state, dev):
     own_plain = cuda_ms(lambda: fk.select_owner_batched_reference(cyl, cfg), 3)
     log("kernels", f"ms per batched RK4 step of {TOPK} candidates at {SIZE_RERANK}^2: K3 radii-only "
                    f"{k3_ms:.4f} (plain {k3_plain:.4f}); {TOPK} x K2 steps, the sequential route, "
-                   f"{seq_ms:.4f}; select_owner_batched {own_ms:.4f} (plain {own_plain:.4f})")
+                   f"{seq_ms:.4f}; select_owner_batched {own_ms:.4f} (plain {own_plain:.4f}); "
+                   f"batched K5 radii-only {k5b_ms:.4f} (plain {k5b_plain:.4f})")
 
     n_cyl = cyl.shape[-1]
     part = torch.empty((TOPK, fk.partial_rows(SIZE_RERANK), 3), dtype=torch.float32)
@@ -259,19 +316,22 @@ def batched_kernels(env, state, dev):
     # shape and profile, each candidate's cylinders and energy partials
     io_step = 2 * nbytes(u0) + nbytes(shape, prof, cyl, part)
     k3_bound = bound(io_step, TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True))
+    k5b_bound = bound(io_step, TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True, x_matmul=True))
     own_bound = bound(nbytes(cyl, owner_k), TOPK * SIZE_RERANK * SIZE_RERANK * n_cyl * 9)
     log("kernels", f"K3 bound per batched step {k3_bound[0]:.5f} ms ({k3_bound[1]}; states alone "
                    f"{2 * nbytes(u0) / 1e6:.1f} MB, {2 * nbytes(u0) / HBM_BYTES_PER_S * 1e3:.5f} "
                    f"ms); select_owner_batched {own_bound[0]:.5f} ms ({own_bound[1]})")
     return env_lo, {"k3": (k3_abs, k3_ms, k3_plain, k3_bound),
-                    "own": (owner_err, own_ms, own_plain, own_bound), "seq_ms": seq_ms}
+                    "own": (owner_err, own_ms, own_plain, own_bound), "seq_ms": seq_ms,
+                    "k5b": (k5b_abs, k5b_ms, k5b_plain, k5b_bound)}
 
 
-def batched_general_kernel(env, state, elite, t0, dev):
-    """Phase 4, K3 general on the position-design re-rank window's own
-    inputs: its K states, cylinders and float32 step times, as
-    `make_rerank_rollout` forms them. The kernel against its plain version
-    over the window's first 10 steps. Returns the numbers of its kernel row."""
+def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
+    """Phase 4, K3 general (batched K5 general with `x_matmul`) on the
+    position-design re-rank window's own inputs: its K states, cylinders
+    and float32 step times, as `make_rerank_rollout` forms them. The kernel
+    against its plain version over the window's first 10 steps. Returns the
+    numbers of its kernel row."""
     import numpy as np
     import torch
 
@@ -292,6 +352,10 @@ def batched_general_kernel(env, state, elite, t0, dev):
     ti, tf = float(t_i), float(np.float32(t_i + np.float32(STEPS * cfg.dt)))
     times = [float(ts) for ts in rerank_step_times(t_i, STEPS, cfg.dt)[:10]]
 
+    kernel = functools.partial(fk.fused_rk4_step_batched, x_matmul=x_matmul)
+    reference = functools.partial(fk.fused_rk4_step_batched_reference, x_matmul=x_matmul)
+    name = "batched K5 general" if x_matmul else "K3 general"
+
     def window_run(step_fn):
         u, es = u0, []
         for ts in times:
@@ -299,37 +363,37 @@ def batched_general_kernel(env, state, elite, t0, dev):
             es.append(e)
         return u, torch.stack(es)
 
-    u_k, e_k = window_run(fk.fused_rk4_step_batched)
-    u_p, e_p = window_run(fk.fused_rk4_step_batched_reference)
+    u_k, e_k = window_run(kernel)
+    u_p, e_p = window_run(reference)
     torch.cuda.synchronize()
     state_err, sig_err = rel_err(u_k, u_p), rel_err(e_k, e_p)
     abs_err = float(torch.max(torch.abs(u_k - u_p)))
-    log("main path", f"K3 general vs plain on the re-rank window, K = {k} at {SIZE}^2, "
+    log("main path", f"{name} vs plain on the re-rank window, K = {k} at {SIZE}^2, "
                      f"{len(times)} steps: rel err state {state_err:.3e}, signal {sig_err:.3e} "
-                     f"(tol {REL_TOL:g})")
+                     f"(tol {REL_TOL:g}); {differing_cells(u_k, u_p)}")
     check(state_err <= REL_TOL and sig_err <= REL_TOL,
-          "K3 general agrees with its plain version on the re-rank window")
-    ms = cuda_ms(lambda: fk.fused_rk4_step_batched(u0, shape, prof, cyl, None, times[0], ti, tf,
-                                                   cfg), 20)
-    plain = cuda_ms(lambda: fk.fused_rk4_step_batched_reference(u0, shape, prof, cyl, None,
-                                                                times[0], ti, tf, cfg), 2)
+          f"{name} agrees with its plain version on the re-rank window")
+    ms = cuda_ms(lambda: kernel(u0, shape, prof, cyl, None, times[0], ti, tf, cfg), 20)
+    plain = cuda_ms(lambda: reference(u0, shape, prof, cyl, None, times[0], ti, tf, cfg), 2)
     part = torch.empty((k, fk.partial_rows(SIZE), 3), dtype=torch.float32)
     bnd = bound(2 * nbytes(u0) + nbytes(shape, prof, cyl, part),
-                k * fk.step_flops(SIZE, cyl.shape[-1], False))
-    log("main path", f"ms per batched RK4 step of {k} candidates at {SIZE}^2: K3 general {ms:.4f} "
+                k * fk.step_flops(SIZE, cyl.shape[-1], False, x_matmul=x_matmul))
+    log("main path", f"ms per batched RK4 step of {k} candidates at {SIZE}^2: {name} {ms:.4f} "
                      f"(plain {plain:.4f}), bound {bnd[0]:.5f} ms ({bnd[1]})")
     return abs_err, ms, plain, bnd
 
 
 def hybrid_episode(env, env_lo, space, dev):
     """Phase 5: the hybrid controller at full width. Returns its launch
-    counts."""
+    counts and those of one re-rank with the exact stencil (K3)."""
     import torch
 
-    from waves_jl_tpu_torch.control.mpc import HybridShooting, make_hybrid_action_fused
-    from waves_jl_tpu_torch.env import env_reset
+    from waves_jl_tpu_torch.control.mpc import (HybridShooting, coarsen_env_state,
+                                                make_hybrid_action_fused)
+    from waves_jl_tpu_torch.env import env_reset, env_time
     from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.fused import make_rerank_rollout
     from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
     from waves_jl_tpu_torch.utils.trees import tree_leaves, tree_map
 
@@ -338,8 +402,8 @@ def hybrid_episode(env, env_lo, space, dev):
     ck_step = load_model_checkpoint(model, os.path.join(ROOT, CHECKPOINT_HYBRID))
     log("hybrid", f"pruner loaded from {CHECKPOINT_HYBRID} (step {ck_step})")
     kw = dict(horizon=HORIZON, shots=256, topk=TOPK, alpha=1.0, rerank_env=env_lo)
-    act, step = make_hybrid_action_fused(env, model, **kw)  # batched re-rank, through K3
-    seq = HybridShooting(env, model, batched=False, **kw)  # K rollouts in turn, through K2
+    act, step = make_hybrid_action_fused(env, model, **kw)  # batched re-rank, through batched K5
+    seq = HybridShooting(env, model, batched=False, **kw)  # K rollouts in turn, through K5
     gen = torch.Generator(device=dev).manual_seed(20)
     start = env_reset(env, torch.Generator(device=dev).manual_seed(21))
     warm_s, _ = host_s(lambda: step(start, act(start, gen)[0]))
@@ -363,12 +427,11 @@ def hybrid_episode(env, env_lo, space, dev):
     counts = dict(fk.launch_counts)
     log("hybrid", f"hybrid episode ({WINDOWS} actions, {TOPK} of 256 re-ranked at "
                   f"{SIZE_RERANK}^2 over {HORIZON} windows) {episode_s:.4f} s, launches {counts}")
-    expect = {"fused_rk4_batched_radii_only": WINDOWS * HORIZON * STEPS * fk.STAGES,
-              "select_owner_batched": WINDOWS * HORIZON,
-              "fused_rk4_radii_only": WINDOWS * STEPS * fk.STAGES, "select_owner": WINDOWS,
-              "fused_rk4_batched_general": 0, "fused_rk4_general": 0,
-              "fused_rk4_sharded_radii_only": 0, "fused_rk4_sharded_general": 0,
-              "select_owner_sharded": 0}
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"fused_rk4_batched_xmatmul_radii_only": WINDOWS * HORIZON * STEPS * fk.STAGES,
+                   "select_owner_batched": WINDOWS * HORIZON,
+                   "fused_rk4_xmatmul_radii_only": WINDOWS * STEPS * fk.STAGES,
+                   "select_owner": WINDOWS})
     check(counts == expect, f"hybrid launch counts {counts} == {expect}")
     check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
     check(bool(torch.isfinite(signals).all()), "every hybrid signal is finite")
@@ -399,16 +462,35 @@ def hybrid_episode(env, env_lo, space, dev):
     idx = torch.argmin(ev_cost)
     window_s, _ = host_s(lambda: step(final, tree_map(lambda v: v[idx, 0], ev_actions)))
     log("hybrid", f"one selection apart: surrogate prune {prune_s:.4f} s, re-rank (coarsen + "
-                  f"{TOPK} x {HORIZON} windows through K3) {rerank_s:.4f} s, env window "
+                  f"{TOPK} x {HORIZON} windows through batched K5) {rerank_s:.4f} s, env window "
                   f"{window_s:.4f} s")
 
     seq_s, (_, seq_cost) = host_s(lambda: seq.rerank(final, *pruned, gen))
     seq_rel = rel_err(seq_cost, ev_cost)
-    log("hybrid", f"re-rank, batched {rerank_s:.4f} s vs sequential ({TOPK} x {HORIZON} K2 "
+    log("hybrid", f"re-rank, batched {rerank_s:.4f} s vs sequential ({TOPK} x {HORIZON} K5 "
                   f"windows) {seq_s:.4f} s; costs rel err {seq_rel:.3e} (tol 1e-05), chosen "
                   f"{int(idx)} vs {int(torch.argmin(seq_cost))}")
     check(int(torch.argmin(seq_cost)) == int(idx), "batched and sequential re-ranks choose alike")
     check(seq_rel <= 1e-5, "batched and sequential re-rank costs agree")
+
+    # the same re-rank with the exact stencil (K3), the hybrid's path at
+    # x_matmul=False: its launches, time and costs against batched K5's
+    best = tree_map(lambda v: v[pruned[2]], pruned[0])
+    st_lo, t0 = coarsen_env_state(env_lo, final), env_time(env, final)
+    exact = make_rerank_rollout(env_lo, TOPK, HORIZON, x_matmul=False)
+    exact(st_lo, best, t0)  # warm
+    fk.reset_launch_counts()
+    exact_s, exact_cost = host_s(lambda: exact(st_lo, best, t0))
+    exact_counts = dict(fk.launch_counts)
+    split_s, split_cost = host_s(lambda: act.exact_eval(st_lo, best, t0))
+    split_rel = rel_err(split_cost, exact_cost)
+    log("hybrid", f"re-rank rollout of the {TOPK} pruned, exact stencil (K3) {exact_s:.4f} s vs "
+                  f"split d/dx (batched K5) {split_s:.4f} s; costs rel err {split_rel:.3e} (tol "
+                  f"{REL_TOL:g}); launches {exact_counts}")
+    check(exact_counts["fused_rk4_batched_radii_only"] == HORIZON * STEPS * fk.STAGES
+          and exact_counts["select_owner_batched"] == HORIZON,
+          f"{HORIZON * STEPS * fk.STAGES} K3 radii-only stage launches in the exact re-rank")
+    check(split_rel <= REL_TOL, "the split and exact re-rank costs agree")
 
     rounds = HybridShooting(env, model, exact_rounds=2, **kw)
     rounds_s, (_, r2_cost) = host_s(lambda: rounds.rerank(final, *pruned, gen))
@@ -417,7 +499,7 @@ def hybrid_episode(env, env_lo, space, dev):
                   f"{bool(torch.equal(r2_cost[:TOPK], ev_cost))}")
     check(float(r2_cost.min()) <= float(ev_cost.min()),
           "two exact rounds choose no worse than one from the same draws")
-    return counts
+    return counts, exact_counts
 
 
 def cylinder_grid(moving: bool):
@@ -487,8 +569,9 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
     log("sharded", f"select_owner on shard 1's slab vs plain: max abs err {own_err}")
     check(own_err == 0.0, "the sharded owner pass equals its plain version")
 
-    # the sharded rollout against the whole-grid kernel over the window
-    u_w, _, s_w = make_fused_window(env)(u0, shape, tspan, cyl)
+    # the sharded rollout against the whole-grid kernel over the window (K2,
+    # the exact d/dx that the sharded rollout takes)
+    u_w, _, s_w = make_fused_window(env, x_matmul=False)(u0, shape, tspan, cyl)
     owner_w = fk.select_owner(cyl, cfg)
     d_omega = cfg.spacing * cfg.spacing
     counts = {}
@@ -564,12 +647,13 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
                    f"energies rel err {rel_err(e_a, e_b):.3e}; owner pass identical {o80}")
     check(e80 == 0.0 and rel_err(e_a, e_b) <= REL_TOL and o80, "80 cylinders run without a cap")
 
-    # K1 with no cylinders: a free-field window
+    # K1 with no cylinders: a free-field window with the exact d/dx
     free = build_env(DesignSpace(NoDesign(), NoDesign()), dev)
     gen = torch.Generator(device=dev).manual_seed(60)
     fst = env_reset(free, gen)
     fk.reset_launch_counts()
-    fst, _ = make_env_step_fused(free)(fst, RandomDesignPolicy(free.action_space)(gen))
+    fst, _ = make_env_step_fused(free, x_matmul=False)(fst,
+                                                        RandomDesignPolicy(free.action_space)(gen))
     torch.cuda.synchronize()
     fs = fst.signal
     log("sharded", f"free-field window through K1: launches {fk.launch_counts['fused_rk4_general']}, "
@@ -588,7 +672,7 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         roll = rollout(k, True)
         steps_ms[k] = cuda_ms(lambda: roll(u0, tspan, cyl, shape, prof), 3) / STEPS
         dev_ms[k] = device_ms(lambda: roll(u0, tspan10, cyl, shape, prof), 1) / 10
-    window = make_fused_window(env)
+    window = make_fused_window(env, x_matmul=False)
     win_ms = cuda_ms(lambda: window(u0, shape, tspan, cyl), 3) / STEPS
     win_dev = device_ms(lambda: window(u0, shape, tspan10, cyl), 1) / 10
     k2_dev = device_ms(lambda: fk.fused_rk4_step(u0, shape, prof, cyl, owner_w, times[0], ti, tf,
@@ -655,6 +739,105 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
     return rows, {"radii": counts["fused_rk4_sharded_radii_only"],
                   "owner": counts["select_owner_sharded"],
                   "general": counts_g["fused_rk4_sharded_general"]}
+
+
+def datagen_phase(dev, k5_dev_ms: float):
+    """Phase 7: datagen at bench.py's operating point through the datagen
+    CLI's env and `generate_episodes_chunked`, its checks, the storage
+    round trips and one run of the CLI. Returns the launch counts of the
+    two timed chunks."""
+    import tempfile
+
+    import torch
+
+    from waves_jl_tpu_torch.data import (generate_episodes_chunked, load_episode,
+                                         load_episodes_shard, make_episode_chunk_fused,
+                                         make_episode_fused, save_episode, save_episodes_shard)
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.scripts.datagen import build_env as datagen_env
+    from waves_jl_tpu_torch.utils.trees import tree_leaves, tree_stack
+
+    env = datagen_env(SIZE, STEPS, WINDOWS, dev)
+    policy = RandomDesignPolicy(env.action_space)
+    gen = torch.Generator(device=dev).manual_seed(70)
+    run_chunk = make_episode_chunk_fused(env)
+    warm_s, _ = host_s(lambda: generate_episodes_chunked(env, policy, gen, CHUNK, CHUNK, run_chunk))
+    log("datagen", f"warm chunk of {CHUNK} episodes {warm_s:.3f} s")
+
+    eps = []
+    fk.reset_launch_counts()
+    t = time.time()
+    generate_episodes_chunked(env, policy, gen, 2 * CHUNK, CHUNK, run_chunk,
+                              on_episode=lambda i, ep: eps.append(ep))
+    per_episode = (time.time() - t) / (2 * CHUNK)
+    counts = dict(fk.launch_counts)
+    per_ep = WINDOWS * STEPS * fk.STAGES
+    log("datagen", f"{per_episode:.4f} s per episode (2 chunks of {CHUNK}, {WINDOWS} actions x "
+                   f"{STEPS} steps at {SIZE}^2, host pull included); launches {counts}")
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"fused_rk4_xmatmul_radii_only": 2 * CHUNK * per_ep,
+                   "select_owner": 2 * CHUNK * WINDOWS})
+    check(counts == expect, f"datagen launches K5 {per_ep} times an episode and no K1/K2: "
+                            f"{counts} == {expect}")
+    check(len(eps) == 2 * CHUNK, f"{2 * CHUNK} episodes handed over")
+    check(all(bool(torch.isfinite(x).all()) for ep in eps for x in tree_leaves(ep)),
+          "every leaf of every episode is finite")
+    check(all(tuple(ep.s_wave.shape) == (WINDOWS, 128, 128, 4) for ep in eps),
+          "observations are (20, 128, 128, 4)")
+    first = max(float(ep.y[0, :, 2].abs().max()) for ep in eps)
+    last = min(float(ep.y[-1, :, 2].max()) for ep in eps)
+    log("datagen", f"scattered energy: at most {first} in the first window, at least {last:.4e} "
+                   f"at its peak in the last")
+    check(first == 0.0 and last > 0.0,
+          "the scattered energy is 0 in the first window and positive by the last")
+
+    # does the host stay ahead of the card? one episode issued, then waited for
+    st = env_reset(env, gen)
+    acts = tree_stack([policy(gen) for _ in range(WINDOWS)])
+    one = make_episode_fused(env)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one(st, acts)
+    issue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t
+    log("datagen", f"one episode: the host issues it in {issue:.4f} s, the card finishes at "
+                   f"{total:.4f} s; {WINDOWS * STEPS} K5 steps alone, as device work, "
+                   f"{WINDOWS * STEPS * k5_dev_ms / 1e3:.4f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ep = eps[0]
+        for ext in ("wbin", "npz"):
+            path = os.path.join(tmp, f"episode.{ext}")
+            save_s, _ = host_s(lambda: save_episode(ep, path))
+            back = load_episode(path, device=None)
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(ep), tree_leaves(back)))
+            log("datagen", f".{ext}: saved in {save_s:.4f} s, read back bit for bit {same}")
+            check(same, f"an episode round-trips through .{ext}")
+        path = os.path.join(tmp, "data.wshard")
+        save_episodes_shard(path, eps[:2])
+        back = load_episodes_shard(path)
+        same = len(back) == 2 and all(torch.equal(a, b) for e, r in zip(eps, back)
+                                      for a, b in zip(tree_leaves(e), tree_leaves(r)))
+        log("datagen", f"shard of 2 episodes read back bit for bit {same}")
+        check(same, "episodes round-trip through a shard")
+
+        out = os.path.join(tmp, "cli")
+        t = time.time()
+        proc = subprocess.run([sys.executable, "-m", "waves_jl_tpu_torch.scripts.datagen",
+                               "--episodes", "2", "--format", "shard", "--out", out],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600, check=False)
+        cli_s = time.time() - t
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-1:] or [""]
+        log("datagen", f"CLI --episodes 2 --format shard: exit {proc.returncode} in {cli_s:.2f} s: "
+                       f"{tail[0]}")
+        check(proc.returncode == 0, f"the datagen CLI exits 0:\n{proc.stdout}\n{proc.stderr}")
+        cli_eps = load_episodes_shard(os.path.join(out, "data.wshard"))
+        check(len(cli_eps) == 2 and os.path.exists(os.path.join(out, "env.json"))
+              and all(bool(torch.isfinite(x).all()) for e in cli_eps for x in tree_leaves(e)),
+              "the CLI wrote 2 finite episodes and env.json")
+    return counts
 
 
 def main() -> int:
@@ -755,6 +938,32 @@ def main() -> int:
                    f"signal {kk_sig:.3e} (tol {REL_TOL:g})")
     check(kk_state <= REL_TOL and kk_sig <= REL_TOL, "K1 agrees with K2 on the triple ring")
 
+    # K5: the split d/dx in both rasterisation modes, against its plain
+    # version and against K2 (the exact stencil)
+    xm_step = functools.partial(fk.fused_rk4_step, x_matmul=True)
+    xm_plain = functools.partial(fk.fused_rk4_step_reference, x_matmul=True)
+    xm_abs = {}
+    for radii, own_k, own_p, cyl_, n_steps in ((True, owner_k, owner_p, cyl, STEPS),
+                                               (False, None, None, moved, 10)):
+        u_k5, e_k5 = window_run(xm_step, own_k, cyl_, n_steps)
+        u_p5, e_p5 = window_run(xm_plain, own_p, cyl_, n_steps)
+        torch.cuda.synchronize()
+        k5_state, k5_sig = rel_err(u_k5, u_p5), rel_err(e_k5, e_p5)
+        xm_abs[radii] = float(torch.max(torch.abs(u_k5 - u_p5)))
+        mode = "radii-only" if radii else "general, moving cylinders"
+        log("kernels", f"K5 {mode} vs plain, {n_steps} steps: rel err state {k5_state:.3e}, "
+                       f"signal {k5_sig:.3e} (tol {REL_TOL:g}); {differing_cells(u_k5, u_p5)}")
+        check(k5_state <= REL_TOL and k5_sig <= REL_TOL, f"K5 {mode} agrees with its plain version")
+        if radii:
+            # the split keeps 16 of 24 mantissa bits of each tap, an error of
+            # about 2^-17 |u| / dx in each d/dx, which grows against the
+            # derivative as the grid refines: at 700^2 a window moves the
+            # state about 2e-5 of its largest value from the exact stencil's
+            split_gap = rel_err(u_k5, u_k2)
+            log("kernels", f"K5 against K2 after {STEPS} steps (split against exact d/dx): rel err "
+                           f"state {split_gap:.3e} (a fault shows at 1e-3 or more)")
+            check(0.0 < split_gap <= 1e-3, "K5 takes the split d/dx, near the exact one")
+
     # times per call at the main path's shapes: one RK4 step, one owner pass
     t_arg = float(tspan[0])
     k2_ms = cuda_ms(lambda: fk.fused_rk4_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 50)
@@ -765,8 +974,15 @@ def main() -> int:
                                                            tf, cfg), 3)
     own_ms = cuda_ms(lambda: fk.select_owner(cyl, cfg), 50)
     own_plain = cuda_ms(lambda: fk.select_owner_reference(cyl, cfg), 5)
+    k5_ms = cuda_ms(lambda: xm_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 50)
+    k5_plain = cuda_ms(lambda: xm_plain(u0, shape, prof, cyl, owner_p, t_arg, ti, tf, cfg), 5)
+    k5g_ms = cuda_ms(lambda: xm_step(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 50)
+    k5g_plain = cuda_ms(lambda: xm_plain(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 3)
+    k5_dev = device_ms(lambda: xm_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 20)
     log("kernels", f"ms per RK4 step: K2 {k2_ms:.4f} (plain {k2_plain:.4f}), K1 {k1_ms:.4f} "
-                   f"(plain {k1_plain:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f})")
+                   f"(plain {k1_plain:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f}); "
+                   f"K5 radii-only {k5_ms:.4f} (plain {k5_plain:.4f}; device work {k5_dev:.4f}), "
+                   f"K5 general {k5g_ms:.4f} (plain {k5g_plain:.4f})")
 
     n_cyl = cyl.shape[1]
     part = torch.empty((fk.partial_rows(SIZE), 3), dtype=torch.float32)
@@ -777,7 +993,10 @@ def main() -> int:
     k2_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True))
     k1_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False))
     own_bound = bound(nbytes(cyl, owner_k), SIZE * SIZE * n_cyl * 9)
-    log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}), K1 and K2; K2 reads "
+    k5_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
+    k5g_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False, x_matmul=True))
+    log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}), K1, K2 and K5 "
+                   f"({k5_bound[1]}); K2 reads "
                    f"its owner fields on top, {nbytes(owner_k) / HBM_BYTES_PER_S * 1e3:.5f} ms "
                    f"of bytes once read")
     env_lo, k3 = batched_kernels(env, state, dev)
@@ -803,9 +1022,10 @@ def main() -> int:
     mpc_counts = dict(fk.launch_counts)
     log("main path", f"MPC episode {episode_s:.4f} s, launches {mpc_counts}")
     expect_steps = WINDOWS * STEPS * fk.STAGES
-    check(mpc_counts["fused_rk4_radii_only"] == expect_steps,
-          f"{expect_steps} radii-only stage launches ({WINDOWS} windows x {STEPS} steps x "
-          f"{fk.STAGES} stages)")
+    check(mpc_counts["fused_rk4_xmatmul_radii_only"] == expect_steps
+          and mpc_counts["fused_rk4_radii_only"] == 0,
+          f"{expect_steps} K5 radii-only stage launches ({WINDOWS} windows x {STEPS} steps x "
+          f"{fk.STAGES} stages) and none of K2")
     check(mpc_counts["select_owner"] == WINDOWS, f"{WINDOWS} owner launches, one per window")
     check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
     check(bool(torch.isfinite(signals).all()), "every signal is finite")
@@ -825,78 +1045,115 @@ def main() -> int:
                      f"{mpc.horizon * model.integration_steps} latent RK4 steps) {select_s:.4f} s; "
                      f"{WINDOWS} of them {WINDOWS * select_s:.3f} s of the {episode_s:.3f} s episode")
 
+    # the simulator alone, 20 windows, with the split d/dx (K5, the default)
+    # and the exact one (K2) in turns
     acts = [policy(gen) for _ in range(WINDOWS)]
-    st = env_reset(env, torch.Generator(device=dev).manual_seed(5))
-    torch.cuda.synchronize()
-    t = time.time()
-    for a in acts:
-        st, _ = step(st, a)
-    torch.cuda.synchronize()
-    sim_s = time.time() - t
-    check(bool(torch.isfinite(st.signal).all()), "simulator-only run is finite")
-    log("main path", f"simulator alone: {WINDOWS * STEPS} steps in {sim_s:.4f} s = "
-                     f"{WINDOWS * STEPS / sim_s:.1f} steps/s")
+    start_sim = env_reset(env, torch.Generator(device=dev).manual_seed(5))
+    steps_by_mode = {True: step, False: make_env_step_fused(env, x_matmul=False)}
+    sim_s = {True: [], False: []}
+    for xm in (True, False, False, True):
+        st = start_sim
+        fk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        for a in acts:
+            st, _ = steps_by_mode[xm](st, a)
+        torch.cuda.synchronize()
+        sim_s[xm].append(time.time() - t)
+        if not xm:
+            sim_counts = dict(fk.launch_counts)
+        check(bool(torch.isfinite(st.signal).all()), "simulator-only run is finite")
+    log("main path", f"simulator alone, {WINDOWS * STEPS} steps, in turns: split d/dx (K5) "
+        + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[True])
+        + "; exact (K2) "
+        + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[False]))
+    check(sim_counts["fused_rk4_radii_only"] == expect_steps
+          and sim_counts["fused_rk4_xmatmul_radii_only"] == 0,
+          f"the exact simulator run launches K2 {expect_steps} times and K5 never")
 
+    # the general kernels: a position-design episode and one K = 4 re-rank
+    # window there, each with the split d/dx (K5) and the exact one (K1, K3)
     pos_env = build_env(position_space(space), dev)
     check(not radii_only_ok(pos_env.design_space), "moving cylinders take the general kernel")
-    pos_step = make_env_step_fused(pos_env)
     pos_policy = RandomDesignPolicy(pos_env.action_space)
-    pgen = torch.Generator(device=dev).manual_seed(6)
-    pst = env_reset(pos_env, pgen)
     pos_windows = 2
-    fk.reset_launch_counts()
-    for _ in range(pos_windows):
-        pst, _ = pos_step(pst, pos_policy(pgen))
-    torch.cuda.synchronize()
-    pos_counts = dict(fk.launch_counts)
-    check(pos_counts["fused_rk4_general"] == pos_windows * STEPS * fk.STAGES,
-          f"{pos_windows * STEPS * fk.STAGES} general stage launches")
-    check(bool(torch.isfinite(pst.signal).all()), "position-design signal is finite")
-    log("main path", f"position-design episode, {pos_windows} windows: launches {pos_counts}")
-
     rerank_k = 4
-    roll = make_rerank_rollout(pos_env, rerank_k, 1)
-    elite = pos_env.action_space.sample(pgen, batch=(rerank_k, 1))
-    t_pos = env_time(pos_env, pst)
-    fk.reset_launch_counts()
-    pos_costs = roll(pst, elite, t_pos)
-    torch.cuda.synchronize()
-    roll_counts = dict(fk.launch_counts)
-    check(roll_counts["fused_rk4_batched_general"] == STEPS * fk.STAGES,
-          f"{STEPS * fk.STAGES} batched general stage launches")
-    check(tuple(pos_costs.shape) == (rerank_k,) and bool(torch.isfinite(pos_costs).all()),
-          "position-design re-rank costs are finite")
-    log("main path", f"position-design re-rank window, K = {rerank_k}: launches {roll_counts}")
-    k3["k3g"] = batched_general_kernel(pos_env, pst, elite, t_pos, dev)
+    pos_counts, roll_counts = {}, {}
+    for xm, single, batched in ((True, "fused_rk4_xmatmul_general",
+                                 "fused_rk4_batched_xmatmul_general"),
+                                (False, "fused_rk4_general", "fused_rk4_batched_general")):
+        pos_step = make_env_step_fused(pos_env, x_matmul=xm)
+        pgen = torch.Generator(device=dev).manual_seed(6)
+        pst = env_reset(pos_env, pgen)
+        fk.reset_launch_counts()
+        for _ in range(pos_windows):
+            pst, _ = pos_step(pst, pos_policy(pgen))
+        torch.cuda.synchronize()
+        pos_counts[xm] = dict(fk.launch_counts)
+        check(pos_counts[xm][single] == pos_windows * STEPS * fk.STAGES,
+              f"{pos_windows * STEPS * fk.STAGES} {single} stage launches")
+        check(bool(torch.isfinite(pst.signal).all()), "position-design signal is finite")
+        log("main path", f"position-design episode, {pos_windows} windows, x_matmul={xm}: "
+                         f"launches {pos_counts[xm]}")
+
+        roll = make_rerank_rollout(pos_env, rerank_k, 1, x_matmul=xm)
+        elite = pos_env.action_space.sample(pgen, batch=(rerank_k, 1))
+        t_pos = env_time(pos_env, pst)
+        fk.reset_launch_counts()
+        pos_costs = roll(pst, elite, t_pos)
+        torch.cuda.synchronize()
+        roll_counts[xm] = dict(fk.launch_counts)
+        check(roll_counts[xm][batched] == STEPS * fk.STAGES,
+              f"{STEPS * fk.STAGES} {batched} stage launches")
+        check(tuple(pos_costs.shape) == (rerank_k,) and bool(torch.isfinite(pos_costs).all()),
+              "position-design re-rank costs are finite")
+        log("main path", f"position-design re-rank window, K = {rerank_k}, x_matmul={xm}: "
+                         f"launches {roll_counts[xm]}")
+        k3["k5bg" if xm else "k3g"] = batched_general_kernel(pos_env, pst, elite, t_pos, dev, xm)
 
     # 5. the hybrid controller
-    hyb_counts = hybrid_episode(env, env_lo, space, dev)
+    hyb_counts, exact_rerank_counts = hybrid_episode(env, env_lo, space, dev)
 
     # 6. the y-sharded rollout through K4, at 700^2 from phase 3's state
     k4, k4_counts = sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms)
 
+    # 7. datagen at bench.py's operating point, through K5
+    dg_counts = datagen_phase(dev, k5_dev)
+
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
-    kernels = [
-        {"name": "fused_rk4_radii_only", "route": "cuda", "source": src,
-         "replaces": "waves_jl_tpu/ops/pallas_fd.py:432", "launches": mpc_counts["fused_rk4_radii_only"],
-         "max_abs_err": k2_abs, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
-        {"name": "select_owner", "route": "cuda", "source": src,
-         "replaces": "waves_jl_tpu/ops/pallas_fd.py:247", "launches": mpc_counts["select_owner"],
-         "max_abs_err": owner_err, "ms": own_ms, "plain_ms": own_plain, "bound_ms": own_bound[0],
-         "bound_by": own_bound[1], "library_ms": None},
-        {"name": "fused_rk4_general", "route": "cuda", "source": src,
-         "replaces": "waves_jl_tpu/ops/pallas_fd.py:432", "launches": pos_counts["fused_rk4_general"],
-         "max_abs_err": k1_abs, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
-    ]
+    # launches from the main-path runs: K2 from the exact simulator run,
+    # K1 and K3 general from the position-design runs at x_matmul=False, K3
+    # radii-only from the hybrid's exact re-rank, K5 from datagen, the
+    # position-design runs and the hybrid episode
+    single_rows = (
+        ("fused_rk4_radii_only", "waves_jl_tpu/ops/pallas_fd.py:432",
+         sim_counts["fused_rk4_radii_only"], (k2_abs, k2_ms, k2_plain, k2_bound)),
+        ("select_owner", "waves_jl_tpu/ops/pallas_fd.py:247", mpc_counts["select_owner"],
+         (owner_err, own_ms, own_plain, own_bound)),
+        ("fused_rk4_general", "waves_jl_tpu/ops/pallas_fd.py:432",
+         pos_counts[False]["fused_rk4_general"], (k1_abs, k1_ms, k1_plain, k1_bound)),
+        ("fused_rk4_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278",
+         dg_counts["fused_rk4_xmatmul_radii_only"], (xm_abs[True], k5_ms, k5_plain, k5_bound)),
+        ("fused_rk4_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278",
+         pos_counts[True]["fused_rk4_xmatmul_general"],
+         (xm_abs[False], k5g_ms, k5g_plain, k5g_bound)),
+    )
+    kernels = []
+    for name, replaces, launches, (err, ms, plain, bnd) in single_rows:
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
     batched_rows = (
         ("fused_rk4_batched_radii_only", "waves_jl_tpu/ops/pallas_fd.py:162", "k3",
-         hyb_counts["fused_rk4_batched_radii_only"]),
+         exact_rerank_counts["fused_rk4_batched_radii_only"]),
         ("select_owner_batched", "waves_jl_tpu/ops/pallas_fd.py:247", "own",
          hyb_counts["select_owner_batched"]),
         ("fused_rk4_batched_general", "waves_jl_tpu/ops/pallas_fd.py:162", "k3g",
-         roll_counts["fused_rk4_batched_general"]),
+         roll_counts[False]["fused_rk4_batched_general"]),
+        ("fused_rk4_batched_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278", "k5b",
+         hyb_counts["fused_rk4_batched_xmatmul_radii_only"]),
+        ("fused_rk4_batched_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278", "k5bg",
+         roll_counts[True]["fused_rk4_batched_xmatmul_general"]),
     )
     for name, replaces, key, launches in batched_rows:
         err, ms, plain, bnd = k3[key]

@@ -6,9 +6,10 @@
   (two plain calls against the kernel's two sub-steps), to
   1e-6 relative: both run the same float32 operations in the same order,
   so only sin and the energy sums round apart.
-* The port's fused env window against the JAX `env_step` (XLA) over two
-  chained windows, to 1e-5 relative on signal and frames, the bound the
-  JAX package holds its own fused window to (tests/test_fused.py).
+* The port's fused env window at its default (`x_matmul=True`, the bf16
+  split d/dx) against the JAX `env_step` (XLA) over two chained windows,
+  to 1e-5 relative on signal and frames, the bound the JAX package holds
+  its own default fused window to (tests/test_fused.py).
 * `env_observe` against JAX to atol 2e-5, as tests/test_fused.py holds the
   observation.
 * K1's plain version against K2's on the triple ring.

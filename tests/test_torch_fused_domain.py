@@ -7,7 +7,8 @@ general mode, moving cylinders:
   steps: signal and final state to 1e-6 relative (the same float32
   operations in the same order; only sin and the energy sums round apart);
 * at 1, 2 and 4 shards, against the port's own single-device
-  `make_fused_window` on the same inputs: the final state to 1e-7 relative
+  `make_fused_window(x_matmul=False)`, the exact d/dx the sharded rollout
+  takes, on the same inputs: the final state to 1e-7 relative
   (expected equal: every owned cell takes the whole-grid arithmetic), the
   signal to 1e-6 (its sums run in another order).
 
@@ -101,7 +102,8 @@ def check_against_window(radii_only: bool, shards: int):
     env, inputs = case(radii_only)
     up, sp = port_rollout(env, inputs, shards, radii_only)
     t = {k: torch.from_numpy(v) for k, v in inputs.items() if k != "tspan"}
-    uw, _, sw = make_fused_window(env)(t["u0"], t["shape"], inputs["tspan"], t["cyl"])
+    uw, _, sw = make_fused_window(env, x_matmul=False)(t["u0"], t["shape"], inputs["tspan"],
+                                                       t["cyl"])
     d_omega = step_config(env).spacing ** 2
     assert rel(up, uw.numpy()) <= 1e-7
     assert rel(sp * d_omega, sw.numpy()) <= 1e-6

@@ -10,7 +10,9 @@ operations in the same order (the kernel is built without FMA
 contraction); only sin and the energy sums round apart. Each candidate of
 the batched kernel K3 equals K1 or K2 run on it alone, bit for bit on the
 state, and each owned cell of the y-sharded kernel K4 equals the
-whole-grid kernel's, bit for bit.
+whole-grid kernel's, bit for bit. K5, the split d/dx (`x_matmul=True`), is
+held to the same tolerance against its plain version, single and batched,
+and each batched K5 candidate equals K5 run on it alone, bit for bit.
 """
 import numpy as np
 import pytest
@@ -84,6 +86,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         fk.fused_rk4_step(u.transpose(1, 2), shape, prof, cyl, None, 0.0, 0.0, 1e-3, cfg)
     with pytest.raises(ValueError, match="on cpu"):
         fk.fused_rk4_step(u, shape.cpu(), prof, cyl, None, 0.0, 0.0, 1e-3, cfg)
+    with pytest.raises(ValueError, match="exact d/dx only"):
+        slab = fk.Slab(w=32, col0=-fk.HALO)
+        fk.fused_rk4_step(u, shape, prof, cyl, None, 0.0, 0.0, 1e-3, cfg, slab, x_matmul=True)
 
 
 
@@ -131,6 +136,55 @@ def test_batched_kernel_matches_plain_version_and_single_kernel(card, radii_only
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("radii_only", [True, False])
+@pytest.mark.parametrize("n", [37, 160])
+def test_xmatmul_kernel_matches_plain_version(card, radii_only, n):
+    cfg, cyl, u, shape, prof = _inputs(n, not radii_only, card)
+    owner = fk.select_owner(cyl, cfg) if radii_only else None
+    before = dict(fk.launch_counts)
+    got, want, exact = (u, None), (u, None), (u, None)
+    for t0 in (2e-4, 2.1e-4):  # two chained steps
+        got = fk.fused_rk4_step(got[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg,
+                                x_matmul=True)
+        want = fk.fused_rk4_step_reference(want[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg,
+                                           x_matmul=True)
+        exact = fk.fused_rk4_step(exact[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg)
+    torch.cuda.synchronize()
+    key = "fused_rk4_xmatmul_" + ("radii_only" if radii_only else "general")
+    assert fk.launch_counts[key] - before[key] == 2 * fk.STAGES
+    for a, b in zip(got, want):
+        assert rel(a, b) <= TOL
+    assert not torch.equal(got[0], exact[0])  # the split form, not K1/K2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radii_only", [True, False])
+def test_batched_xmatmul_kernel_matches_plain_version_and_single_kernel(card, radii_only):
+    n = 160
+    cfg, cyl, u, shape, prof = _batched_inputs(n, not radii_only, card)
+    owner = fk.select_owner_batched(cyl, cfg) if radii_only else None
+    before = dict(fk.launch_counts)
+    got, want = (u, None), (u, None)
+    for t0 in (2e-4, 2.1e-4):
+        got = fk.fused_rk4_step_batched(got[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg,
+                                        x_matmul=True)
+        want = fk.fused_rk4_step_batched_reference(want[0], shape, prof, cyl, owner, t0, 0.0,
+                                                   1e-3, cfg, x_matmul=True)
+    torch.cuda.synchronize()
+    key = "fused_rk4_batched_xmatmul_" + ("radii_only" if radii_only else "general")
+    assert fk.launch_counts[key] - before[key] == 2 * fk.STAGES
+    for a, b in zip(got, want):
+        assert rel(a, b) <= TOL
+    for b in range(K3):  # each candidate is K5 run on it alone
+        one = (u[b], None)
+        for t0 in (2e-4, 2.1e-4):
+            one = fk.fused_rk4_step(one[0], shape, prof, cyl[b],
+                                    None if owner is None else owner[b], t0, 0.0, 1e-3, cfg,
+                                    x_matmul=True)
+        assert torch.equal(got[0][b], one[0])
+
+
+@pytest.mark.gpu
 def test_batched_owner_pass_matches_separate_owner_passes(card):
     cfg, cyl, *_ = _batched_inputs(64, False, card)
     before = dict(fk.launch_counts)
@@ -166,9 +220,10 @@ def test_window_with_no_cylinders_runs_on_the_card(card):
     cfg = step_config(env)
     prof = env.integrator.dynamics.pml[:, 0].contiguous()
     want, owner = u0, fk.select_owner_reference(cyl, cfg)
-    for t0 in tspan[:-1]:
+    for t0 in tspan[:-1]:  # the window's default, the split d/dx of K5
         want, _ = fk.fused_rk4_step_reference(want, source.shape, prof, cyl, owner, float(t0),
-                                              float(tspan[0]), float(tspan[-1]), cfg)
+                                              float(tspan[0]), float(tspan[-1]), cfg,
+                                              x_matmul=True)
     torch.cuda.synchronize()
     assert signal.shape == (11, 3) and bool(torch.isfinite(signal).all())
     assert rel(u, want) <= TOL
@@ -317,8 +372,8 @@ def test_free_field_window_runs_the_general_kernel(card):
     for _ in range(2):
         state, _ = step(state, RandomDesignPolicy(env.action_space)(gen))
     torch.cuda.synchronize()
-    assert fk.launch_counts["fused_rk4_general"] - before["fused_rk4_general"] == (
-        2 * steps * fk.STAGES)
+    key = "fused_rk4_xmatmul_general"  # the env step's default: K5 with K1's rasterisation
+    assert fk.launch_counts[key] - before[key] == 2 * steps * fk.STAGES
     sig = state.signal
     assert bool(torch.isfinite(sig).all()) and float(sig[:, 0].max()) > 0.0
     assert torch.equal(sig[:, 0], sig[:, 1])  # tot == inc

@@ -4,11 +4,11 @@ window, horizon 2, 8 shots, top 3, a narrow surrogate with the same weights
 in both packages, and JAX's own candidate draws and refinement noise
 injected into the port through `HybridShooting.candidates` and `.noise`.
 
-JAX's re-rank windows use the two-pass bf16 x-derivative
-(`x_matmul=True`, the JAX default) while the port's stencil is exact f32,
-so the chosen exact cost is held to 1e-4 relative (measured: 2.2e-7), and
-the chosen action must be the same wherever the best two exact costs
-differ by more than 10x that tolerance.
+Both packages' re-rank windows take the two-pass bf16 split x-derivative
+(`x_matmul=True`, the default of each), so only sin and the sums round
+apart; the chosen exact cost is held to 1e-4 relative, and the chosen
+action must be the same wherever the best two exact costs differ by more
+than 10x that tolerance.
 
 This file holds the batched one-round controller; the other cases, one
 JAX program each, are in tests/test_torch_hybrid_act_rounds.py (batched,

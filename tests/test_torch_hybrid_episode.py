@@ -5,12 +5,11 @@ one-round hybrid controller (surrogate prune, 16^2 exact re-rank, fused
 candidate draws injected into the port.
 
 Chosen exact costs are held to 1e-4 relative and the chosen actions must
-agree where decided (see tests/test_torch_hybrid_act.py). JAX's env window
-also takes the two-pass bf16 x-derivative (`x_matmul=True`), so the
-signals and the final wave are held to 1e-5 relative, the bound
-tests/test_torch_fused.py holds the port's window to against JAX's XLA
-window (measured: 3.2e-7 on signals, 1.3e-6 on the final wave, 3.8e-7 on
-the chosen costs).
+agree where decided (see tests/test_torch_hybrid_act.py). Both packages'
+env windows take the two-pass bf16 split x-derivative (`x_matmul=True`,
+the default of each), so the signals and the final wave are held to 1e-5
+relative, the bound tests/test_torch_fused.py holds the port's window to
+against JAX's XLA window.
 """
 import jax
 import numpy as np

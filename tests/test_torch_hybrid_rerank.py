@@ -1,11 +1,13 @@
 """The port's candidate-batched re-rank rollout (`make_rerank_rollout`,
-through K3's plain version here) against the JAX package's
-(`interpret=True, x_matmul=False`) on the same state and elite actions, at
+through K3's plain version here, `x_matmul=False`) against the JAX
+package's (`interpret=True, x_matmul=False`) on the same state and elite
+actions, at
 16^2 with 8 steps a window over a horizon of 2: (K,) costs to 1e-5
 relative, the bound tests/test_windows_and_cem.py holds the JAX package's
 batched re-rank to against its sequential one. The port's sequential
 re-rank (K rollouts in turn through the env window) gives the same costs
-to 1e-5.
+as its batched one to 1e-5, both at the default `x_matmul=True`. The
+defaults against JAX's are in tests/test_torch_xmatmul_rerank.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -31,10 +33,12 @@ def test_rerank_rollout_matches_jax_and_the_sequential_rerank():
     jroll = jax_make_rerank_rollout(je, K, horizon, interpret=True, x_matmul=False)
     want = np.asarray(jroll(js, radii_actions(a, True), jnp.float32(t0)))
     fk.reset_launch_counts()
-    got = make_rerank_rollout(pe, K, horizon)(ps, radii_actions(a, False), t0)
+    got = make_rerank_rollout(pe, K, horizon, x_matmul=False)(ps, radii_actions(a, False), t0)
     assert all(v == 0 for v in fk.launch_counts.values())
     assert got.shape == (K,) and float(got.min()) > 0.0
     assert rel(got.numpy(), want) <= 1e-5
+
+    got = make_rerank_rollout(pe, K, horizon)(ps, radii_actions(a, False), t0)
 
     class Sequential(HybridShooting):
         def __init__(self):

@@ -56,6 +56,28 @@
 // Its bound is the slabs' bytes: at 700^2 and 4 shards the states in and
 // out are 4 x 2 x 12 x 700 x 183 x 4 B = 49.2 MB, 14.7 us at 3.35 TB/s.
 //
+// K5, `x_matmul` (:278-310), the JAX package's default on every fused path
+// but the sharded one (physics/fused.py:79, :154, :225): d/dx as the
+// banded (rows, rows) stencil matrix D times the tile on the MXU, in two
+// bf16 passes with float32 sums, (D bf16(v) + D bf16(v - bf16(v))) / (2 dx).
+// It is an XM template flag of the same `rk4_stage`, with K1's, K2's or
+// K3's rasterisation and candidate axis. Each tap of Vx and of U + f is
+// formed in float32 as before and split into hi = bf16(v) and
+// lo = bf16(v - hi), both rounded to nearest even; the stencil of `d_edge`
+// runs on the hi values and on the lo values in the same tap order, and
+// the two sums are added and scaled. D's entries are small integers and
+// hi and lo are bf16, so every product of the TPU's dot is exact and adding
+// D's zeros is exact: a central row rounds once, as the tap difference
+// does. The one-sided rows 0 and n-1 sum three taps in d_edge's order,
+// which may differ from the dot's by an ulp, as on the MXU (:281-283).
+// d/dy stays exact, as in JAX (:325-329). What bounds it is what bounds
+// K1-K3, bytes: the split adds 4 conversions and a subtract a tap, about
+// 1e8 operations a step at 700^2, under 2 us at 67 TFLOP/s. The TPU put
+// the product on the MXU because its vector unit set the pace there; a row
+// of D has two nonzeros, so a tensor-core product would do 8x the
+// multiply-adds for no byte saved, and this form needs no shared-memory
+// reshuffle. The y-sharded form (SLAB with XM) is not built.
+//
 // Cylinders: the general mode and the owner pass stream the (8, n_cyl)
 // table through shared memory in chunks of CYL_CHUNK, in order, so sums
 // and ties do not depend on the chunking and there is no cap on n_cyl.
@@ -67,6 +89,7 @@
 // order follows `stack_rhs` (:315) and the closed-form combine (:371-374).
 // Energy partials are reduced in a fixed order, so runs are deterministic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -117,6 +140,41 @@ __device__ __forceinline__ float d_edge(const G& g, bool first, bool last, int p
   return d * inv2d;
 }
 
+// K5's split of a tap value: hi = bf16(v), lo = bf16(v - hi), as floats.
+struct Split {
+  float hi, lo;
+};
+
+__device__ __forceinline__ Split split_bf16(float v) {
+  const float hi = __bfloat162float(__float2bfloat16_rn(v));
+  return Split{hi, __bfloat162float(__float2bfloat16_rn(v - hi))};
+}
+
+// First derivative along an axis as K5 takes d/dx: `d_edge`'s stencil on
+// the hi parts of the taps and on their lo parts, (d_hi + d_lo) * inv2d
+// (pallas_fd.py:300-310).
+template <typename G>
+__device__ __forceinline__ float d_split(const G& g, bool first, bool last, int p, int stride,
+                                         float inv2d) {
+  float d_hi, d_lo;
+  if (first) {
+    const Split a = split_bf16(g(p)), b = split_bf16(g(p + stride)),
+                c = split_bf16(g(p + 2 * stride));
+    d_hi = -3.0f * a.hi + 4.0f * b.hi - c.hi;
+    d_lo = -3.0f * a.lo + 4.0f * b.lo - c.lo;
+  } else if (last) {
+    const Split a = split_bf16(g(p)), b = split_bf16(g(p - stride)),
+                c = split_bf16(g(p - 2 * stride));
+    d_hi = 3.0f * a.hi - 4.0f * b.hi + c.hi;
+    d_lo = 3.0f * a.lo - 4.0f * b.lo + c.lo;
+  } else {
+    const Split up = split_bf16(g(p + stride)), um = split_bf16(g(p - stride));
+    d_hi = up.hi - um.hi;
+    d_lo = up.lo - um.lo;
+  }
+  return (d_hi + d_lo) * inv2d;
+}
+
 // Stage cylinders [q0, q0 + cnt) of the (8, n_cyl) table `cyl` into s_cyl,
 // laid out (8, CYL_CHUNK). Every thread of the block calls it.
 __device__ __forceinline__ void load_cylinders(float* s_cyl, const float* __restrict__ cyl,
@@ -153,8 +211,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // (n, w) source shape and the (n) profile are shared. SLAB is false for the
 // whole grid (w = n, col0 = 0), where the slab's column logic folds away
 // and the kernel keeps the registers, and so the occupancy, it has without
-// it.
-template <int MODE, bool RADII, bool SLAB>
+// it. XM takes d/dx in K5's split form (whole grid only).
+template <int MODE, bool RADII, bool SLAB, bool XM>
 __global__ void __launch_bounds__(BX * BY)
 rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
           const float* __restrict__ k1, const float* __restrict__ k2, float sixth,
@@ -247,9 +305,11 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
       auto uf = [&](int q) { return v(o + q) + __ldg(shape + q) * sn; };  // U + f
       auto vx = [&](int q) { return v(o + nn + q); };
       auto vy = [&](int q) { return v(o + 2 * nn + q); };
-      const float Vxx = d_edge(vx, x_first, x_last, p, w, g.inv2d);
+      const float Vxx = XM ? d_split(vx, x_first, x_last, p, w, g.inv2d)
+                           : d_edge(vx, x_first, x_last, p, w, g.inv2d);
       const float Vyy = d_edge(vy, y_first, y_last, p, 1, g.inv2d);
-      const float Ux = d_edge(uf, x_first, x_last, p, w, g.inv2d);
+      const float Ux = XM ? d_split(uf, x_first, x_last, p, w, g.inv2d)
+                          : d_edge(uf, x_first, x_last, p, w, g.inv2d);
       const float Uy = d_edge(uf, y_first, y_last, p, 1, g.inv2d);
       const float U = v(o + p);
       const float Px = v(o + 3 * nn + p);
@@ -385,11 +445,13 @@ int fused_rk4_blocks(int n, int w) {
 
 // One RK4 stage for `batch` candidates (K3; K1 or K2 of a single state
 // when batch is 1; K4 on a slab when (w, col0) is not (n, 0)). `mode` 0,
-// 1 or 2 as for `rk4_stage`, `radii` selects the owner test. u, kp, k1, k2
+// 1 or 2 as for `rk4_stage`, `radii` selects the owner test, `xm` the
+// split d/dx of K5 (not on a slab). u, kp, k1, k2
 // and out are (batch, 12, n, w), cyl (batch, 8, n_cyl), owner
 // (batch, 5, n, w), partials (batch, fused_rk4_blocks(n, w), 3); shape
 // (n, w) and prof (n) are shared. Returns the cudaError_t of the launch.
-int fused_rk4_stage(int batch, int mode, int radii, const float* u, const float* kp, float a,
+int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, const float* kp,
+                    float a,
                     const float* k1, const float* k2, float sixth, float* out, float* partials,
                     const float* shape, const float* prof, const float* cyl, int n_cyl,
                     const float* owner, int n, int w, int col0, float spacing, float inv2d,
@@ -403,19 +465,25 @@ int fused_rk4_stage(int batch, int mode, int radii, const float* u, const float*
   const dim3 block(BX, BY);
   const dim3 gr = grid_for(n, w, batch);
   const bool slab = !(w == n && col0 == 0);
+  if (slab && xm) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define WAVES_LAUNCH(M, R, S)                                                               \
-  rk4_stage<M, R, S><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
-                                          prof, cyl, n_cyl, owner, g, ts, ti, tf)
-#define WAVES_MODES(R, S)                \
-  if (mode == 0) WAVES_LAUNCH(0, R, S);  \
-  else if (mode == 1) WAVES_LAUNCH(1, R, S); \
-  else WAVES_LAUNCH(2, R, S)
+#define WAVES_LAUNCH(M, R, S, X)                                                               \
+  rk4_stage<M, R, S, X><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
+                                             prof, cyl, n_cyl, owner, g, ts, ti, tf)
+#define WAVES_MODES(R, S, X)                   \
+  if (mode == 0) WAVES_LAUNCH(0, R, S, X);     \
+  else if (mode == 1) WAVES_LAUNCH(1, R, S, X); \
+  else WAVES_LAUNCH(2, R, S, X)
+#define WAVES_LAYOUTS(R)                                        \
+  if (slab) { WAVES_MODES(R, true, false); }                    \
+  else if (xm) { WAVES_MODES(R, false, true); }                 \
+  else { WAVES_MODES(R, false, false); }
   if (radii) {
-    if (slab) { WAVES_MODES(true, true); } else { WAVES_MODES(true, false); }
+    WAVES_LAYOUTS(true);
   } else {
-    if (slab) { WAVES_MODES(false, true); } else { WAVES_MODES(false, false); }
+    WAVES_LAYOUTS(false);
   }
+#undef WAVES_LAYOUTS
 #undef WAVES_MODES
 #undef WAVES_LAUNCH
   return (int)cudaGetLastError();

@@ -1,7 +1,9 @@
 """Design system: cylindrical scatterers as the action space (counterpart of
 `waves_jl_tpu/designs.py`).
 
-Designs are frozen dataclasses of tensors. An action has the structure of
+Designs are frozen dataclasses of tensors, registered under the JAX
+package's class names for saved episodes (`utils.trees.decode_structure`).
+An action has the structure of
 the design it acts on, and a batch of designs or actions carries leading
 batch dimensions on every leaf (a (shots, horizon) action set has leaves
 of shape (shots, horizon, ...)).
@@ -16,9 +18,10 @@ import torch
 
 from .constants import DESIGN_SPEED
 from .device import resolve_device
-from .utils.trees import tree_map
+from .utils.trees import register_tree_dataclass, tree_map
 
 
+@register_tree_dataclass
 @dataclass(frozen=True)
 class NoDesign:
     """The empty design of a free-field env: no cylinders."""
@@ -30,6 +33,7 @@ class NoDesign:
         return torch.zeros((0,), dtype=torch.float32, device=device)
 
 
+@register_tree_dataclass
 @dataclass(frozen=True)
 class Cylinders:
     """M cylinders: pos (..., M, 2), radii r (..., M), speed c (..., M)."""
@@ -43,6 +47,7 @@ class Cylinders:
         return torch.cat([self.pos.reshape(*batch, -1), self.r, self.c], dim=-1)
 
 
+@register_tree_dataclass
 @dataclass(frozen=True)
 class AdjustableRadiiScatterers:
     cylinders: Cylinders
@@ -51,6 +56,7 @@ class AdjustableRadiiScatterers:
         return self.cylinders.r
 
 
+@register_tree_dataclass
 @dataclass(frozen=True)
 class AdjustablePositionScatterers:
     cylinders: Cylinders
@@ -59,6 +65,7 @@ class AdjustablePositionScatterers:
         return self.cylinders.pos.reshape(*self.cylinders.r.shape[:-1], -1)
 
 
+@register_tree_dataclass
 @dataclass(frozen=True)
 class Cloak:
     """Adjustable ring + static core."""

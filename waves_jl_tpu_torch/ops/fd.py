@@ -37,13 +37,36 @@ def fd_dy(u: torch.Tensor, dy) -> torch.Tensor:
     return torch.cat([left, interior, right], dim=-1) / (2.0 * dy)
 
 
-def dx_edge_aware(u: torch.Tensor, inv2d: float) -> torch.Tensor:
-    """d/dx along axis -2 in the fused kernel's form and op order: central
-    differences, one-sided at rows 0 and n-1, times 1/(2 dx)."""
+def _dx_taps(u: torch.Tensor) -> torch.Tensor:
+    """2 dx times d/dx along axis -2: central differences, one-sided at rows
+    0 and n-1, in the fused kernel's op order."""
     central = u[..., 2:, :] - u[..., :-2, :]
     left = -3.0 * u[..., :1, :] + 4.0 * u[..., 1:2, :] - u[..., 2:3, :]
     right = 3.0 * u[..., -1:, :] - 4.0 * u[..., -2:-1, :] + u[..., -3:-2, :]
-    return torch.cat([left, central, right], dim=-2) * inv2d
+    return torch.cat([left, central, right], dim=-2)
+
+
+def dx_edge_aware(u: torch.Tensor, inv2d: float) -> torch.Tensor:
+    """d/dx along axis -2 in the fused kernel's form and op order: central
+    differences, one-sided at rows 0 and n-1, times 1/(2 dx)."""
+    return _dx_taps(u) * inv2d
+
+
+def split_bf16(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) float32 tensors with hi = bf16(u) and lo = bf16(u - hi),
+    both rounded to nearest even: 16 of u's 24 mantissa bits."""
+    hi = u.to(torch.bfloat16).to(torch.float32)
+    return hi, (u - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def dx_split_bf16(u: torch.Tensor, inv2d: float) -> torch.Tensor:
+    """d/dx along axis -2 as the JAX fused kernel's default `x_matmul` mode
+    computes it (`waves_jl_tpu/ops/pallas_fd.py:278-310`): the stencil
+    matrix D times bf16(u) and times bf16(u - bf16(u)), each product summed
+    in float32, (D hi + D lo) / (2 dx). D's entries are small integers, so
+    every product is exact and a row's sum rounds as the stencil's taps do."""
+    hi, lo = split_bf16(u)
+    return (_dx_taps(hi) + _dx_taps(lo)) * inv2d
 
 
 def dy_edge_aware(u: torch.Tensor, inv2d: float) -> torch.Tensor:

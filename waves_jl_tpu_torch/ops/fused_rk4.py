@@ -6,7 +6,10 @@ K1, the general rasterisation, K2, the radii-only owner rasterisation, K3,
 either of them for K candidate states in one launch (`batch=K`, the hybrid
 controller's re-rank), and K4, either of them on one column slab of a
 y-sharded grid (`slab=`, the domain-decomposed rollout of
-`parallel/fused_domain.py`). This module builds the kernel with plain
+`parallel/fused_domain.py`). K5, `x_matmul=True`, takes d/dx as the JAX
+kernel's default mode does, a bf16 hi/lo split summed in float32
+(`ops/fd.py::dx_split_bf16`), in K1's, K2's or K3's launch; the JAX
+package's fused paths default to it. This module builds the kernel with plain
 `nvcc` into a shared library with a C interface at first use, binds it with
 `ctypes`, and keeps the plain PyTorch version of the same function beside it.
 
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from ..designs import lerp_weight
-from .fd import dx_edge_aware, dy_edge_aware
+from .fd import dx_edge_aware, dx_split_bf16, dy_edge_aware
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_rk4.cu"
@@ -59,7 +62,10 @@ HALO = 4  # halo columns one RK4 step consumes on each side of a slab (pallas_fd
 launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0,
                  "fused_rk4_batched_general": 0, "fused_rk4_batched_radii_only": 0,
                  "select_owner_batched": 0, "fused_rk4_sharded_general": 0,
-                 "fused_rk4_sharded_radii_only": 0, "select_owner_sharded": 0}
+                 "fused_rk4_sharded_radii_only": 0, "select_owner_sharded": 0,
+                 "fused_rk4_xmatmul_general": 0, "fused_rk4_xmatmul_radii_only": 0,
+                 "fused_rk4_batched_xmatmul_general": 0,
+                 "fused_rk4_batched_xmatmul_radii_only": 0}
 
 
 def reset_launch_counts() -> None:
@@ -113,16 +119,20 @@ def stage_times(t: float, dt: float):
     return t0, t0 + f(0.5 * dt), t0 + f(dt)
 
 
-def step_flops(n: int, n_cyl: int, radii_only: bool, w: int | None = None) -> int:
+def step_flops(n: int, n_cyl: int, radii_only: bool, w: int | None = None,
+               x_matmul: bool = False) -> int:
     """Float32 operations of one RK4 step on an n x w grid (w = n unless
     given): per cell and
     stage, 12 stage inputs u + a k (2 each) and per stack 4 edge derivatives
     (3 each), U + f at the 4 stencil points (2 each) and the right-hand side
     (19), plus the rasterisation (5 for the owner test, 14 per cylinder in
     the general mode); per cell and step, the combine (12 x 6) and the
-    energies (6)."""
+    energies (6). With `x_matmul` each stack's 2 x-derivatives split their
+    2 taps (4 conversions and a subtract each) and take the stencil twice
+    and a sum: 14 operations each in place of 3."""
     raster = 5 if radii_only else 14 * n_cyl
-    per_stage = 12 * 2 + 2 * (4 * 3 + 4 * 2 + 19) + raster
+    split = 2 * 2 * (14 - 3) if x_matmul else 0
+    per_stage = 12 * 2 + 2 * (4 * 3 + 4 * 2 + 19) + split + raster
     return n * (w or n) * (STAGES * per_stage + 12 * 6 + 6)
 
 
@@ -199,12 +209,12 @@ def _dy(u, inv2d: float, lo: int, hi: int):
     return d
 
 
-def _stack_rhs(v, b, f, sx, sy, bc, inv2d, lo, hi):
+def _stack_rhs(v, b, f, sx, sy, bc, inv2d, lo, hi, dx):
     U, Vx, Vy, Px, Py, Om = v
-    Vxx = dx_edge_aware(Vx, inv2d)
+    Vxx = dx(Vx, inv2d)
     Vyy = _dy(Vy, inv2d, lo, hi)
     Uf = U + f
-    Ux = dx_edge_aware(Uf, inv2d)
+    Ux = dx(Uf, inv2d)
     Uy = _dy(Uf, inv2d, lo, hi)
     dU = b * (Vxx + Vyy) + Px + Py - (sx + sy) * U - Om
     dVx = Ux - sx * Vx
@@ -216,11 +226,12 @@ def _stack_rhs(v, b, f, sx, sy, bc, inv2d, lo, hi):
 
 
 def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
-                             slab: Slab | None = None):
+                             slab: Slab | None = None, x_matmul: bool = False):
     """Plain PyTorch version of `fused_rk4_step`: the same equations, op
     order, rasterisation, closed-form RK4 combine and energies, on the whole
     grid or on a slab (columns outside the domain come out 0, energies
-    cover the owned columns). Returns (u_next (12, n, w), energies (3,))."""
+    cover the owned columns); d/dx split in bf16 with `x_matmul`. Returns
+    (u_next (12, n, w), energies (3,))."""
     n = cfg.n
     dev = u.device
     xs, ys = _coords(cfg, dev, slab)
@@ -236,6 +247,7 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
     c0 = float(np.float32(cfg.c0))
     b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
     two_pi_f = np.float32(2.0 * math.pi)
+    dx = dx_split_bf16 if x_matmul else dx_edge_aware
 
     def rhs(v, ts):
         w = lerp_weight(ts, ti, tf)
@@ -246,8 +258,8 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
             c = _rasterize(cyl, x, y, w, c0)
         sn = torch.sin(torch.tensor(two_pi_f * np.float32(ts) * np.float32(cfg.freq), device=dev))
         f = shape * sn
-        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d, lo, hi)
-        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d, lo, hi)
+        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d, lo, hi, dx)
+        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d, lo, hi, dx)
         return torch.stack(d_tot + d_inc)
 
     half, full, sixth = 0.5 * cfg.dt, cfg.dt, cfg.dt / 6.0
@@ -270,11 +282,13 @@ def select_owner_batched_reference(cyl: torch.Tensor, cfg: StepConfig) -> torch.
     return torch.stack([select_owner_reference(c, cfg) for c in cyl])
 
 
-def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
+                                     x_matmul: bool = False):
     """Plain PyTorch version of `fused_rk4_step_batched`: the plain step of
     each candidate in turn. Returns (u_next (K, 12, n, n), energies (K, 3))."""
     steps = [fused_rk4_step_reference(u[b], shape, prof, cyl[b],
-                                      None if owner is None else owner[b], t, ti, tf, cfg)
+                                      None if owner is None else owner[b], t, ti, tf, cfg,
+                                      x_matmul=x_matmul)
              for b in range(u.shape[0])]
     return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
 
@@ -319,8 +333,8 @@ class _Library:
         self.cdll = ctypes.CDLL(str(path))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # both take the candidate count first, 1 for a single state
-        self.stage = self._bind("fused_rk4_stage", [I, I, I, P, P, F, P, P, F, P, P, P, P, P, I,
-                                                    P, I, I, I, F, F, F, F, F, F, F, F, P])
+        self.stage = self._bind("fused_rk4_stage", [I, I, I, I, P, P, F, P, P, F, P, P, P, P, P,
+                                                    I, P, I, I, I, F, F, F, F, F, F, F, F, P])
         self.owner = self._bind("select_owner", [I, P, I, P, I, I, I, F, F, P])
         self.blocks = self._bind("fused_rk4_blocks", [I, I])
 
@@ -384,12 +398,15 @@ def _check_cyl(cyl: torch.Tensor, lead: tuple, device: torch.device) -> int:
     return n_cyl
 
 
-def _key(kernel: str, batch: int | None, slab: Slab | None) -> str:
+def _key(kernel: str, batch: int | None, slab: Slab | None, x_matmul: bool = False) -> str:
     """Launch counter of `kernel` ("fused_rk4" or "select_owner") for a
-    single state, a candidate batch (K3) or a slab (K4)."""
+    single state, a candidate batch (K3) or a slab (K4), with the split
+    d/dx (K5) if `x_matmul`."""
     if slab is not None:
-        return kernel + "_sharded"
-    return kernel if batch is None else kernel + "_batched"
+        key = kernel + "_sharded"
+    else:
+        key = kernel if batch is None else kernel + "_batched"
+    return key + "_xmatmul" if x_matmul else key
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -430,12 +447,14 @@ def select_owner_batched(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
 
 
 def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: int | None,
-                 slab: Slab | None = None):
+                 slab: Slab | None = None, x_matmul: bool = False):
     """Check the inputs and launch the four stages of one RK4 step: of one
     state (K1 or K2) for batch None, else of `batch` candidates (K3); on a
-    slab (K4) if given. Returns (u_next, energy partials (batch or 1,
-    blocks, 3))."""
+    slab (K4) if given; with the split d/dx (K5) if `x_matmul`. Returns
+    (u_next, energy partials (batch or 1, blocks, 3))."""
     n, dev = cfg.n, u.device
+    if slab is not None and x_matmul:
+        raise ValueError("the y-sharded kernel takes the exact d/dx only (x_matmul=False)")
     w, col0 = _extent(cfg, slab)
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, w), dev)
@@ -445,7 +464,7 @@ def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: 
     if owner is not None:
         _check("owner", owner, (*lead, 5, n, w), dev)
     radii = owner is not None
-    key = _key("fused_rk4", batch, slab) + ("_radii_only" if radii else "_general")
+    key = _key("fused_rk4", batch, slab, x_matmul) + ("_radii_only" if radii else "_general")
     stage = _lib().stage
     stream = _stream(dev)
     partials = torch.empty((batch or 1, partial_rows(n, w), 3), dtype=torch.float32, device=dev)
@@ -464,34 +483,42 @@ def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: 
     )
     with torch.cuda.device(dev):  # the launches go to the current device
         for mode, kp, a, dst, part, ts in launches:
-            code = stage(batch or 1, mode, int(radii), _ptr(u), _ptr(kp), a, _ptr(ks[0]),
-                         _ptr(ks[1]), sixth, _ptr(dst), _ptr(part), *fixed, ts, ti, tf, stream)
+            code = stage(batch or 1, mode, int(radii), int(x_matmul), _ptr(u), _ptr(kp), a,
+                         _ptr(ks[0]), _ptr(ks[1]), sixth, _ptr(dst), _ptr(part), *fixed, ts, ti,
+                         tf, stream)
             _raise_on(code, key)
             launch_counts[key] += 1
     return out, partials
 
 
 def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
-                   slab: Slab | None = None):
+                   slab: Slab | None = None, x_matmul: bool = False):
     """Advance the state one RK4 step from time t, with the design lerped
     over [ti, tf]. `owner` (from `select_owner`) selects the radii-only
     kernel K2; None selects the general kernel K1. With a slab, u, shape
     and owner are its (.., n, slab.w) columns and the step is K4's.
-    Returns (u_next, energies (3,))."""
+    `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5; whole
+    grid only). Returns (u_next, energies (3,))."""
     if not _on_card(u):
-        return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab)
-    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None, slab)
+        return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
+                                        x_matmul)
+    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None, slab,
+                                 x_matmul)
     return out, partials[0].sum(dim=0)
 
 
-def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig):
+def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
+                           x_matmul: bool = False):
     """Advance K candidate states (K, 12, n, n) one RK4 step from the same
     time t, one launch a stage (K3), each with its own cylinders
     (K, 8, n_cyl) lerped over [ti, tf]. `owner` (K, 5, n, n) from
     `select_owner_batched` selects the radii-only mode, None the general
-    one. Each candidate's energy partials are summed in a fixed order.
-    Returns (u_next (K, 12, n, n), energies (K, 3))."""
+    one; `x_matmul` the split d/dx (K5). Each candidate's energy partials
+    are summed in a fixed order. Returns (u_next (K, 12, n, n), energies
+    (K, 3))."""
     if not _on_card(u):
-        return fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg)
-    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, u.shape[0])
+        return fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg,
+                                                x_matmul)
+    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, u.shape[0],
+                                 x_matmul=x_matmul)
     return out, partials.sum(dim=1)

@@ -23,13 +23,16 @@ from ..ops.pml import build_pml
 
 
 def build_tspan(ti: float, dt: float, steps: int) -> np.ndarray:
-    """(steps+1,) float32 time points from ti with spacing dt, computed on
-    the host as `jnp.linspace` does: ti*(1-s) + tf*s with s = k/steps."""
-    lo = np.float32(ti)
-    hi = np.float32(ti + steps * dt)
-    s = np.arange(steps, dtype=np.float32) / np.float32(steps)
-    out = lo * (np.float32(1.0) - s) + hi * s
-    return np.concatenate([out, np.array([hi], np.float32)])
+    """(steps+1,) float32 time points from ti to tf = ti + steps dt,
+    computed on the host as XLA compiles `jnp.linspace(ti, tf)`: its
+    ti (1 - k/steps) + tf (k/steps) with the division turned into a product
+    with c = 1/steps and tf (k c) into k (tf c), then tf itself."""
+    f = np.float32
+    lo, hi = f(ti), f(ti + steps * dt)
+    k = np.arange(steps, dtype=f)
+    c = f(1.0) / f(steps)
+    out = lo * (f(1.0) - k * c) + k * (hi * c)
+    return np.concatenate([out, np.array([hi], f)])
 
 
 def runge_kutta(f, u, t, theta, dt):

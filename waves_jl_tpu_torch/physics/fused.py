@@ -6,6 +6,10 @@ fused kernel. The state stays a contiguous (12, n, n) float32 tensor; the
 JAX package's padded TPU layout has no counterpart here.
 `make_rerank_rollout` advances K candidate states at once through the
 candidate-batched kernel K3, the hybrid controller's exact re-rank.
+
+Each takes `x_matmul=True` by default, as in the JAX package: d/dx in the
+bf16 hi/lo split form of the JAX kernel's default mode (K5);
+`x_matmul=False` takes the exact stencil of K1-K3.
 """
 from __future__ import annotations
 
@@ -65,10 +69,10 @@ def step_config(env: WaveEnv) -> StepConfig:
     )
 
 
-def make_fused_window(env: WaveEnv):
+def make_fused_window(env: WaveEnv, x_matmul: bool = True):
     """Action window through the fused kernel, one wrapper call a step;
     radii-only (K2) when `radii_only_ok` holds for the design space, else
-    general (K1).
+    general (K1); with the split d/dx (K5) if `x_matmul`.
 
     Returns window(u, shape, tspan, cyl) -> (u_final, frames, signal): u the
     (12, n, n) state, shape the (n, n) source shape, tspan the window's
@@ -92,7 +96,8 @@ def make_fused_window(env: WaveEnv):
         offset = 0
         for seg in seg_lens:
             for t in tspan[offset:offset + seg]:
-                u, e = fused_rk4_step(u, shape, prof, cyl, owner, float(t), ti, tf, cfg)
+                u, e = fused_rk4_step(u, shape, prof, cyl, owner, float(t), ti, tf, cfg,
+                                      x_matmul=x_matmul)
                 energies.append(e)
             frames.append(u)
             offset += seg
@@ -101,10 +106,10 @@ def make_fused_window(env: WaveEnv):
     return window
 
 
-def make_env_step_fused(env: WaveEnv):
+def make_env_step_fused(env: WaveEnv, x_matmul: bool = True):
     """Fused counterpart of `env_step`: returns step(state, action) ->
-    (state', info)."""
-    window = make_fused_window(env)
+    (state', info). `x_matmul` as for `make_fused_window`."""
+    window = make_fused_window(env, x_matmul)
 
     def step(state: EnvState, action):
         tspan = env_tspan(env, state)
@@ -133,12 +138,13 @@ def rerank_step_times(t_i: np.float32, steps: int, dt: float) -> list[np.float32
             for m in range(0, steps, spc) for s in range(spc)]
 
 
-def make_rerank_rollout(env: WaveEnv, k: int, horizon: int):
+def make_rerank_rollout(env: WaveEnv, k: int, horizon: int, x_matmul: bool = True):
     """K-candidate exact re-rank rollout for the hybrid controller: all K
     action sequences advance through the simulator together, one
     candidate-batched kernel launch (K3) a stage, instead of K rollouts in
     turn. Radii-only when `radii_only_ok` holds for the design space, with
-    one batched owner pass a window; general otherwise.
+    one batched owner pass a window; general otherwise; with the split d/dx
+    (K5) if `x_matmul`.
 
     Returns rollout(state, elite, t0) -> (K,) cumulative scattered energy
     over `horizon` windows, sum_h sum(signal_h[1:, 2]) for each candidate:
@@ -167,7 +173,7 @@ def make_rerank_rollout(env: WaveEnv, k: int, horizon: int):
             sc = []
             for ts in rerank_step_times(t_i, steps, cfg.dt):
                 u, e = fused_rk4_step_batched(u, shape, prof, cyl, owner, float(ts), float(t_i),
-                                              float(tf), cfg)
+                                              float(tf), cfg, x_matmul)
                 sc.append(e[:, 2])
             per_window.append(torch.stack(sc).sum(dim=0))
             designs, t_i = next_designs, tf

@@ -1,14 +1,25 @@
-"""Batched linear interpolation over time knots (counterpart of
+"""Interpolation utilities (counterpart of `flatten_repeated_last_dim` and
 `LinearInterpolation` in `waves_jl_tpu/utils/interp.py`).
 
-X: (B, K) increasing knots; Y: (B, K, E); t: (B,) -> (B, E). t is clamped
-into [X[:, 0], X[:, -1]], as in the JAX package.
+Linear interpolation: X (B, K) increasing knots; Y (B, K, E); t (B,) ->
+(B, E). t is clamped into [X[:, 0], X[:, -1]], as in the JAX package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+
+def flatten_repeated_last_dim(x: torch.Tensor) -> torch.Tensor:
+    """Join K consecutive windows of length T that share endpoints:
+    x (..., K, T) with x[..., i, -1] == x[..., i+1, 0] ->
+    (..., T + (K-1)(T-1)), the first window whole and each later one
+    without its first point."""
+    head = x[..., 0, :]
+    tail = x[..., 1:, 1:]
+    tail = tail.reshape(*tail.shape[:-2], tail.shape[-2] * tail.shape[-1])
+    return torch.cat([head, tail], dim=-1)
 
 
 def linear_interp(X: torch.Tensor, Y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
