@@ -37,14 +37,27 @@ its elapsed seconds:
    against K1, and against the plain sharded rollout (`parallel/domain.py`);
    K1 and the owner pass with 80 cylinders against their plain versions; a
    free-field window through K1; the times of a sharded step, host-driven
-   and as device work, against K2's, and of K4 alone;
+   and as device work, against K2's, and of K4 alone; then K4-XM, the
+   sharded step with K5's split d/dx (`x_matmul=True`): against its plain
+   version in both modes, the split sharded rollout at 1, 2 and 4 shards
+   against the K5 window bit for bit, and its step time against K4's in
+   turns;
 7. datagen at `bench.py`'s operating point (700^2, triple ring, Gaussian
    source at x = -10, 20 actions x 100 steps, random policy, chunks of 10
    episodes): one warm chunk, then two timed chunks, seconds per episode
    with the host pull; every leaf finite, the observations' shape, the
    scattered energy 0 in the first window and positive by the last, K5's
    launches; one episode through `.wbin`, `.npz` and a shard and back, bit
-   for bit; the datagen CLI once, in a subprocess.
+   for bit; the datagen CLI once, in a subprocess;
+8. the record controllers at 700^2: CEM + gradient polish on the pools3
+   surrogate at the record's configuration (256 shots, horizon 5, 3 rounds
+   of 32 elites, 10 polish steps on the top 16 at lr 0.02), one selection
+   split into population and polish, then an episode of 20 actions (5 if 20
+   selections would take more than 90 s), with its checks; a 3-action warm
+   CEM episode whose round-0 candidate 0 is the shifted previous plan; a
+   20-action episode of the behaviour-cloned one-shot policy; one hybrid
+   selection with a CEM searcher, its batched re-rank against the
+   sequential one; the MPC evaluation CLI once, in a subprocess.
 
 The launch counts of each kernel are read from the main-path runs alone.
 The last lines are one JSON object describing every kernel (`ms` with CUDA
@@ -71,6 +84,13 @@ STEPS = 100
 WINDOWS = 20
 CHECKPOINT = "models/ref500_h8s4/checkpoint_step=2600"
 CHECKPOINT_HYBRID = "models/ref500_h8s4_ft/checkpoint_step=1320"
+CHECKPOINT_POOLS3 = "models/ref500_h8s4_pools3/checkpoint_step=1450"  # the CEM + polish record
+CHECKPOINT_POLICY = "models/bc_pools3/checkpoint_step=4500"  # the one-shot policy record
+# the CEM + polish record's controller (mpc_results_pools3_cem_polish10.json; the
+# result does not record the polish's top-k, BASELINE.md:43 gives 16)
+SHOTS = 256  # candidate sequences a selection scores with the surrogate
+CEM_RECORD = dict(horizon=5, shots=SHOTS, alpha=1.0, iters=3, elites=32, polish_steps=10,
+                  polish_topk=16, polish_lr=0.02)
 STRIDE = 4
 TOPK = 16  # candidates the hybrid re-ranks exactly
 HORIZON = 5
@@ -741,6 +761,146 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
                   "general": counts_g["fused_rk4_sharded_general"]}
 
 
+def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
+    """Phase 6, K4-XM: the y-sharded kernel with K5's split d/dx
+    (`x_matmul=True`) from phase 3's state, cylinders and window times,
+    against its plain version in both modes, the fused sharded rollout at
+    1, 2 and 4 shards against the K5 window bit for bit, and its time per
+    4-shard step against K4's, in turns. Returns the numbers of its kernel
+    rows and its launches."""
+    import torch
+
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.parallel import make_fused_sharded_rollout, make_mesh
+    from waves_jl_tpu_torch.parallel.fused_domain import build_rollout, cut_slabs, shard_slabs
+    from waves_jl_tpu_torch.physics.fused import make_fused_window, step_config
+
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    shape = state.source.shape
+    u0 = state.wave[-1]
+    ti, tf = float(tspan[0]), float(tspan[-1])
+    n_cyl = cyl.shape[1]
+    shards = 4
+    tspan10 = tspan[:11]
+    mesh4 = make_mesh(devices=[dev] * shards)
+
+    def rollout(k, radii, x_matmul=True):
+        return make_fused_sharded_rollout(make_mesh(devices=[dev] * k), SIZE, cfg.spacing, cfg.dt,
+                                          cfg.c0, cfg.freq, n_cyl, cfg.x_min, radii_only=radii,
+                                          x_matmul=x_matmul)
+
+    # K4-XM against its plain version: the rollout's own loop, 10 steps, 4 shards
+    errs = {}
+    for radii, cyl_ in ((True, cyl), (False, moved)):
+        u_k, e_k = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step, fk.select_owner,
+                                 x_matmul=True)(u0, tspan10, cyl_, shape, prof)
+        u_p, e_p = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step_reference,
+                                 fk.select_owner_reference, x_matmul=True)(
+            u0, tspan10, cyl_, shape, prof)
+        torch.cuda.synchronize()
+        errs[radii] = float(torch.max(torch.abs(u_k - u_p)))
+        sig = rel_err(e_k, e_p)
+        log("sharded", f"K4-XM {'radii-only' if radii else 'general'} vs plain, {shards} shards at "
+                       f"{SIZE}^2, 10 steps: owned state {differing_cells(u_k, u_p)}, max abs err "
+                       f"{errs[radii]}, signal rel err {sig:.3e} (tol {REL_TOL:g})")
+        check(errs[radii] == 0.0, "K4-XM's owned state equals its plain version's")
+        check(sig <= REL_TOL, "K4-XM's signal agrees with its plain version's")
+
+    # the split sharded rollout against the whole-grid K5 window
+    u_w, _, s_w = make_fused_window(env, x_matmul=True)(u0, shape, tspan, cyl)
+    d_omega = cfg.spacing * cfg.spacing
+    counts = {}
+    for k in (1, 2, 4):
+        roll = rollout(k, True)
+        roll(u0, tspan, cyl, shape, prof)  # warm
+        torch.cuda.synchronize()
+        if k == shards:
+            fk.reset_launch_counts()
+        u_s, s_s = roll(u0, tspan, cyl, shape, prof)
+        torch.cuda.synchronize()
+        if k == shards:
+            counts = dict(fk.launch_counts)
+        sig = rel_err(s_s * d_omega, s_w)
+        log("sharded", f"split radii-only rollout, {k} shard(s), {STEPS} steps, vs the K5 window: "
+                       f"{differing_cells(u_s, u_w)}, signal rel err {sig:.3e} (tol 1e-06)")
+        check(torch.equal(u_s, u_w), f"the {k}-shard split state equals K5's bit for bit")
+        check(sig <= 1e-6, f"the {k}-shard split signal agrees with K5's")
+    log("sharded", f"launches of the {shards}-shard split radii-only rollout: {counts}")
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"fused_rk4_sharded_xmatmul_radii_only": shards * STEPS * fk.STAGES,
+                   "select_owner_sharded": shards})
+    check(counts == expect, f"the split sharded rollout launches K4-XM alone: {counts} == {expect}")
+
+    roll_g = rollout(shards, False)
+    fk.reset_launch_counts()
+    u_g, s_g = roll_g(u0, tspan10, moved, shape, prof)
+    torch.cuda.synchronize()
+    counts_g = dict(fk.launch_counts)
+    check(counts_g["fused_rk4_sharded_xmatmul_general"] == shards * 10 * fk.STAGES,
+          f"{shards * 10 * fk.STAGES} K4-XM general stage launches")
+    ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
+    u1, e1 = u0, []
+    for t in tspan10[:-1]:
+        u1, e = fk.fused_rk4_step(u1, shape, prof, moved, None, float(t), ti10, tf10, cfg,
+                                  x_matmul=True)
+        e1.append(e)
+    torch.cuda.synchronize()
+    sig_g = rel_err(s_g[1:], torch.stack(e1))
+    log("sharded", f"split general rollout, {shards} shards, 10 steps, moving cylinders, vs K5 "
+                   f"general: {differing_cells(u_g, u1)}, signal rel err {sig_g:.3e} (tol 1e-06)")
+    check(torch.equal(u_g, u1) and sig_g <= 1e-6, "the 4-shard split general rollout equals K5")
+
+    # times per 4-shard step in turns, K4 then K4-XM then K4-XM then K4:
+    # events around the 100-step rollout (host-driven), and a 10-step
+    # rollout queued behind a device sleep (device work)
+    step_ms, step_dev = {False: [], True: []}, {False: [], True: []}
+    for xm in (False, True, True, False):
+        roll = rollout(shards, True, xm)
+        step_ms[xm].append(cuda_ms(lambda: roll(u0, tspan, cyl, shape, prof), 3) / STEPS)
+        step_dev[xm].append(device_ms(lambda: roll(u0, tspan10, cyl, shape, prof), 1) / 10)
+    log("sharded", f"ms per {shards}-shard step of the radii-only rollout, in turns, host-driven "
+                   f"(device work): K4 " + ", ".join(
+                       f"{a:.4f} ({b:.4f})" for a, b in zip(step_ms[False], step_dev[False]))
+        + "; K4-XM " + ", ".join(
+            f"{a:.4f} ({b:.4f})" for a, b in zip(step_ms[True], step_dev[True])))
+
+    # K4-XM alone: one step of all 4 slabs (16 launches), no exchange, as
+    # phase 6 times K4
+    slabs = shard_slabs(SIZE, shards)
+    sh, us = cut_slabs(shape, slabs, [dev] * shards), cut_slabs(u0, slabs, [dev] * shards)
+    owners_k = [fk.select_owner(cyl, cfg, s) for s in slabs]
+    owners_p = [fk.select_owner_reference(cyl, cfg, s) for s in slabs]
+    t0 = float(tspan[0])
+
+    def launch_set(step_fn, owners, cyl_, xm):
+        return [step_fn(u, h, prof, cyl_, o, t0, ti, tf, cfg, s, xm)
+                for u, h, o, s in zip(us, sh, owners, slabs)]
+
+    none = [None] * shards
+    part = [torch.empty((fk.partial_rows(SIZE, s.w), 3), dtype=torch.float32) for s in slabs]
+    io = sum(2 * nbytes(u) for u in us) + nbytes(*sh, *part) + shards * nbytes(prof, cyl)
+    rows, turns = {}, {}
+    for name, owners_, ownp, cyl_, radii in (("radii", owners_k, owners_p, cyl, True),
+                                              ("general", none, none, moved, False)):
+        for xm in (False, True, True, False):
+            turns.setdefault((name, xm), []).append(
+                (cuda_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_, xm), 50),
+                 device_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_, xm), 20)))
+        ms, dev_only = turns[(name, True)][0]
+        plain_ms = cuda_ms(lambda: launch_set(fk.fused_rk4_step_reference, ownp, cyl_, True), 3)
+        flops = sum(fk.step_flops(SIZE, n_cyl, radii, s.w, x_matmul=True) for s in slabs)
+        rows[name] = (errs[radii], ms, dev_only, plain_ms, bound(io, flops))
+        log("sharded", f"one step of {shards} slabs (16 launches), {name}, in turns, ms "
+                       f"host-driven (device ms): K4 " + ", ".join(
+                           f"{a:.4f} ({b:.4f})" for a, b in turns[(name, False)])
+            + "; K4-XM " + ", ".join(f"{a:.4f} ({b:.4f})" for a, b in turns[(name, True)])
+            + f"; K4-XM plain {plain_ms:.4f}; bound {rows[name][4][0]:.5f} ms "
+              f"({rows[name][4][1]})")
+    return rows, {"radii": counts["fused_rk4_sharded_xmatmul_radii_only"],
+                  "general": counts_g["fused_rk4_sharded_xmatmul_general"]}
+
+
 def datagen_phase(dev, k5_dev_ms: float):
     """Phase 7: datagen at bench.py's operating point through the datagen
     CLI's env and `generate_episodes_chunked`, its checks, the storage
@@ -838,6 +998,220 @@ def datagen_phase(dev, k5_dev_ms: float):
               and all(bool(torch.isfinite(x).all()) for e in cli_eps for x in tree_leaves(e)),
               "the CLI wrote 2 finite episodes and env.json")
     return counts
+
+
+def record_controllers_phase(env, env_lo, space, dev):
+    """Phase 8: the controllers behind the README's records at 700^2 (triple
+    ring, Gaussian source on x = -10): CEM + gradient polish on the pools3
+    surrogate at the record's configuration, the warm start's carry, the
+    behaviour-cloned one-shot policy, the hybrid with a CEM searcher, and
+    the MPC evaluation CLI once. Each episode's launches are read from its
+    own run. Returns nothing: its kernels are phase 3's."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from waves_jl_tpu_torch.control.mpc import (CEMShooting, HybridShooting,
+                                                make_hybrid_action_fused, make_mpc_episode_fused,
+                                                make_policy_episode_fused)
+    from waves_jl_tpu_torch.env import env_reset
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+    from waves_jl_tpu_torch.models.policy import AmortizedPolicy
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.fused import make_env_step_fused
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint, load_policy_checkpoint
+
+    def surrogate(path):
+        model = AcousticEnergyModel(space, 1000.0, elements=1024, h_size=256, nfreq=500,
+                                    integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE,
+                                    device=dev)
+        log("records", f"surrogate loaded from {path} (step "
+                       f"{load_model_checkpoint(model, os.path.join(ROOT, path))})")
+        return model
+
+    low, high = env.action_space.low.config.cylinders.r, env.action_space.high.config.cylinders.r
+
+    def inside(r):
+        return bool(((r >= low) & (r <= high)).all())
+
+    def expect_window_launches(counts, windows, what):
+        expect = dict.fromkeys(counts, 0)
+        expect.update({"fused_rk4_xmatmul_radii_only": windows * STEPS * fk.STAGES,
+                       "select_owner": windows})
+        check(counts == expect, f"{what} launches K5 radii-only alone: {counts} == {expect}")
+
+    # CEM + polish at the record's configuration (mpc_results_pools3_cem_polish10.json;
+    # the polish's top 16 from BASELINE.md:43)
+    pools3 = surrogate(CHECKPOINT_POOLS3)
+    polished = []
+
+    class RecordCEM(CEMShooting):
+        def polish(self, env_, state_, actions, cost):
+            out = super().polish(env_, state_, actions, cost)
+            polished.append(out[0].config.cylinders.r[self.shots:])
+            return out
+
+    cem = RecordCEM(model=pools3, **CEM_RECORD)
+    shots, topk = CEM_RECORD["shots"], CEM_RECORD["polish_topk"]
+    gen = torch.Generator(device=dev).manual_seed(80)
+    start = env_reset(env, torch.Generator(device=dev).manual_seed(81))
+    st = start
+    step = make_env_step_fused(env)
+    for a in [env.action_space.sample(gen) for _ in range(5)]:  # the wave reaches the cloak
+        st, _ = step(st, a)
+    first_s, _ = host_s(lambda: cem(env, st, gen))  # the first selection, cold
+    actions_n = WINDOWS if WINDOWS * first_s <= 90.0 else 5
+    log("records", f"first CEM + polish selection (cold) {first_s:.4f} s" + (
+        f"; depth cut: {WINDOWS} selections would take about {WINDOWS * first_s:.0f} s (> 90 s), "
+        f"so the episode runs {actions_n} actions, from the state after 5 random windows"
+        if actions_n < WINDOWS else ""))
+    env_n = dataclasses.replace(env, actions=actions_n)
+    run = make_mpc_episode_fused(env_n, cem)
+    polished.clear()
+    fk.reset_launch_counts()
+    ep_s, (final, signals, chosen, costs) = host_s(lambda: run(st, gen))
+    counts = dict(fk.launch_counts)
+    log("records", f"CEM + polish episode ({actions_n} actions x {STEPS} steps at {SIZE}^2) "
+                   f"{ep_s:.4f} s, {ep_s / actions_n:.4f} s an action; launches {counts}")
+    expect_window_launches(counts, actions_n, "the CEM episode")
+    check(tuple(signals.shape) == (actions_n, STEPS + 1, 3) and bool(torch.isfinite(signals).all()),
+          "every CEM episode signal is finite")
+    check(float(signals[:, :, 2].max()) > 0.0, "the scattered field is non-zero")
+    check(tuple(costs.shape) == (actions_n, shots + topk), f"costs shape {tuple(costs.shape)}")
+    check(bool((chosen <= costs[:, :shots].min(dim=1).values).all()),
+          "each chosen cost is at most the lowest unpolished population cost of its selection")
+    check(len(polished) == actions_n and all(inside(r) for r in polished),
+          "every selection's polished actions stay inside the box")
+    log("records", f"signals finite, sc energy max {float(signals[:, :, 2].max()):.4e}; the "
+                   f"polish chose the action in {int((costs.argmin(dim=1) >= shots).sum())} of "
+                   f"{actions_n} selections")
+
+    # one warm selection apart, from the episode's final state
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pop_s, (actions, cost) = host_s(lambda: cem.population(env, final, gen))
+    pop_peak = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    pol_s, (all_actions, all_cost) = host_s(lambda: cem.polish(env, final, actions, cost))
+    pol_peak = torch.cuda.max_memory_allocated(dev) - base
+    gain = float(cost.min() - all_cost[shots:].min())
+    log("records", f"one CEM + polish selection {pop_s + pol_s:.4f} s: population ({shots} shots "
+                   f"x {CEM_RECORD['iters'] + 1} rounds of {HORIZON * STEPS // STRIDE} latent "
+                   f"steps) {pop_s:.4f} s, polish ({CEM_RECORD['polish_steps']} gradient steps on "
+                   f"the top {topk}) {pol_s:.4f} s; peak memory above the state "
+                   f"{pop_peak / 1e6:.1f} MB and {pol_peak / 1e6:.1f} MB; best cost "
+                   f"{float(cost.min()):.6e} -> {float(all_cost.min()):.6e} (the polish lowers it "
+                   f"by {gain:.3e})")
+    check(tuple(all_cost.shape) == (shots + topk,) and bool(torch.isfinite(all_cost).all()),
+          "the polished set's costs are finite")
+    check(inside(all_actions.config.cylinders.r), "polished actions stay inside the box")
+
+    # the warm start's carry: 3 actions, no polish; candidate 0 of each
+    # round-0 population is the previous plan shifted one window left
+    evaluated, plans = [], []
+
+    class WarmCEM(CEMShooting):
+        def _cost(self, env_, state_, n, grad=False):
+            cost_fn = super()._cost(env_, state_, n, grad)
+
+            def recorded(acts):
+                evaluated.append(acts.config.cylinders.r[0].clone())
+                return cost_fn(acts)
+
+            return recorded
+
+        def __call__(self, *args, incumbent=None):
+            out = super().__call__(*args, incumbent=incumbent)
+            plans.append(out[1]["seq"].config.cylinders.r)
+            return out
+
+    warm_kw = {k: v for k, v in CEM_RECORD.items() if not k.startswith("polish")}
+    warm = WarmCEM(model=pools3, warm=True, **warm_kw)
+    fk.reset_launch_counts()
+    warm_s, (_, w_signals, _, _) = host_s(
+        lambda: make_mpc_episode_fused(dataclasses.replace(env, actions=3), warm)(start, gen))
+    w_counts = dict(fk.launch_counts)
+    rounds = CEM_RECORD["iters"] + 1
+    firsts = evaluated[::rounds]
+    carried = [torch.equal(firsts[0], torch.zeros_like(firsts[0]))] + [
+        torch.equal(firsts[i], torch.cat([plans[i - 1][1:], plans[i - 1][-1:]]))
+        for i in range(1, 3)]
+    log("records", f"warm CEM episode, 3 actions, {warm_s:.4f} s; candidate 0 of round 0 is the "
+                   f"box midpoint, then the shifted plan: {carried}; launches {w_counts}")
+    check(len(evaluated) == 3 * rounds and all(carried), "the warm start carries the shifted plan")
+    check(bool(torch.isfinite(w_signals).all()), "the warm CEM episode's signals are finite")
+    expect_window_launches(w_counts, 3, "the warm CEM episode")
+
+    # the behaviour-cloned one-shot policy, tracked weights at h 256
+    policy = AmortizedPolicy.create(space, env.action_space, h_size=256, device=dev)
+    ck = load_policy_checkpoint(policy.net, os.path.join(ROOT, CHECKPOINT_POLICY))
+    log("records", f"policy loaded from {CHECKPOINT_POLICY} (step {ck})")
+    acted = []
+    action = policy.action
+    object.__setattr__(policy, "action",
+                       lambda obs, design: acted.append(action(obs, design)) or acted[-1])
+    run_p = make_policy_episode_fused(env, policy)
+    run_p(start)  # warm
+    torch.cuda.synchronize()
+    acted.clear()
+    fk.reset_launch_counts()
+    pol_ep_s, (_, p_signals, p_costs) = host_s(lambda: run_p(start))
+    p_counts = dict(fk.launch_counts)
+    log("records", f"policy episode ({WINDOWS} actions) {pol_ep_s:.4f} s; launches {p_counts}")
+    expect_window_launches(p_counts, WINDOWS, "the policy episode")
+    check(bool(torch.isfinite(p_signals).all()) and not bool(p_costs.any()),
+          "the policy episode's signals are finite and its costs zero")
+    check(len(acted) == WINDOWS and all(inside(a.config.cylinders.r) for a in acted),
+          "the policy's actions stay inside the box")
+    log("records", f"policy actions inside the box; sc energy max "
+                   f"{float(p_signals[:, :, 2].max()):.4e}")
+
+    # the hybrid with a CEM searcher (--hybrid-cem) at phase 5's configuration
+    ft = surrogate(CHECKPOINT_HYBRID)
+    searcher = CEMShooting(model=ft, horizon=HORIZON, shots=SHOTS, alpha=1.0,
+                           iters=CEM_RECORD["iters"], elites=CEM_RECORD["elites"])
+    kw = dict(horizon=HORIZON, shots=SHOTS, topk=TOPK, alpha=1.0, rerank_env=env_lo,
+              searcher=searcher)
+    act, hstep = make_hybrid_action_fused(env, ft, **kw)
+    seq = HybridShooting(env, ft, batched=False, **kw)
+    act(final, gen)  # warm
+    fk.reset_launch_counts()
+    prune_s, pruned = host_s(lambda: act.prune(final, gen))
+    rerank_s, (ev_actions, ev_cost) = host_s(lambda: act.rerank(final, *pruned, gen))
+    h_counts = dict(fk.launch_counts)
+    seq_cost = seq.rerank(final, *pruned, gen)[1]
+    err = rel_err(seq_cost, ev_cost)
+    log("records", f"hybrid selection with a CEM searcher: prune (CEM population) {prune_s:.4f} s, "
+                   f"re-rank ({TOPK} at {SIZE_RERANK}^2 through batched K5) {rerank_s:.4f} s; "
+                   f"costs against the sequential re-rank rel err {err:.3e} (tol 1e-05), chosen "
+                   f"{int(torch.argmin(ev_cost))} vs {int(torch.argmin(seq_cost))}; launches "
+                   f"{h_counts}")
+    expect = dict.fromkeys(h_counts, 0)
+    expect.update({"fused_rk4_batched_xmatmul_radii_only": HORIZON * STEPS * fk.STAGES,
+                   "select_owner_batched": HORIZON})
+    check(h_counts == expect, f"the searcher's re-rank launches batched K5: {h_counts} == {expect}")
+    check(err <= 1e-5 and int(torch.argmin(seq_cost)) == int(torch.argmin(ev_cost)),
+          "the batched and sequential re-ranks of the searcher's candidates agree")
+
+    # the evaluation CLI once, in a subprocess
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "result.json")
+        t = time.time()
+        proc = subprocess.run([sys.executable, "-m", "waves_jl_tpu_torch.scripts.mpc",
+                               "--controller", "policy", "--checkpoint",
+                               os.path.join(ROOT, CHECKPOINT_POLICY), "--locations", "1",
+                               "--episodes", "1", "--out", out],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600, check=False)
+        cli_s = time.time() - t
+        check(proc.returncode == 0, f"the MPC CLI exits 0:\n{proc.stdout}\n{proc.stderr}")
+        with open(out) as f:
+            result = json.load(f)
+        log("records", f"MPC CLI --controller policy --locations 1 --episodes 1: exit 0 in "
+                       f"{cli_s:.2f} s")
+        print(json.dumps(result), flush=True)
+        check(all(math.isfinite(d) for d in result["percentage_decrease"]),
+              "the CLI's decrease is finite")
 
 
 def main() -> int:
@@ -1116,9 +1490,14 @@ def main() -> int:
 
     # 6. the y-sharded rollout through K4, at 700^2 from phase 3's state
     k4, k4_counts = sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms)
+    k4xm, k4xm_counts = sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev)
 
     # 7. datagen at bench.py's operating point, through K5
     dg_counts = datagen_phase(dev, k5_dev)
+
+    # 8. the record controllers: CEM + polish, the one-shot policy, the
+    # hybrid with a CEM searcher, the MPC CLI
+    record_controllers_phase(env, env_lo, space, dev)
 
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
     # launches from the main-path runs: K2 from the exact simulator run,
@@ -1171,6 +1550,14 @@ def main() -> int:
                         "launches": k4_counts[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                         "device_ms": dev_only})
+    for name, key in (("fused_rk4_sharded_xmatmul_radii_only", "radii"),
+                      ("fused_rk4_sharded_xmatmul_general", "general")):
+        err, ms, dev_only, plain, bnd = k4xm[key]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": "waves_jl_tpu/parallel/fused_domain.py:62",
+                        "launches": k4xm_counts[key], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "library_ms": None, "device_ms": dev_only})
     for k in kernels:
         check(all(isinstance(v, (int, float)) and math.isfinite(v)
                   for key, v in k.items()

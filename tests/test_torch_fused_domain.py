@@ -12,8 +12,9 @@ general mode, moving cylinders:
   (expected equal: every owned cell takes the whole-grid arithmetic), the
   signal to 1e-6 (its sums run in another order).
 
-The radii-only mode is in tests/test_torch_fused_domain_radii.py, which
-imports the helpers below.
+The radii-only mode is in tests/test_torch_fused_domain_radii.py and the
+split d/dx (`x_matmul=True`, K4-XM) in
+tests/test_torch_fused_domain_xmatmul.py, which import the helpers below.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -73,37 +74,41 @@ def case(radii_only: bool):
     return env, inputs
 
 
-def port_rollout(env, inputs, shards: int, radii_only: bool):
+def port_rollout(env, inputs, shards: int, radii_only: bool, x_matmul: bool = False):
     cfg = step_config(env)
     roll = make_fused_sharded_rollout(make_mesh(devices=["cpu"] * shards), N, cfg.spacing,
                                       cfg.dt, cfg.c0, cfg.freq, inputs["cyl"].shape[1],
-                                      cfg.x_min, radii_only=radii_only)
+                                      cfg.x_min, radii_only=radii_only, x_matmul=x_matmul)
     u, sig = roll(*(torch.from_numpy(inputs[k]) if k != "tspan" else inputs[k]
                     for k in ("u0", "tspan", "cyl", "shape", "prof")))
     return u.numpy(), sig.numpy()
 
 
-def check_against_jax(radii_only: bool):
+def check_against_jax(radii_only: bool, x_matmul: bool = False) -> tuple[float, float]:
+    """The port's rollout against JAX's; returns the (state, signal)
+    relative errors."""
     env, inputs = case(radii_only)
     cfg = step_config(env)
     roll = jax_rollout(jax_make_mesh(SHARDS, axis_name="space"), n=N, spacing=cfg.spacing,
                        dt=cfg.dt, c0=cfg.c0, freq=cfg.freq, n_cyl=inputs["cyl"].shape[1],
                        x_min=cfg.x_min, axis_name="space", interpret=True,
-                       radii_only=radii_only, x_matmul=False)
+                       radii_only=radii_only, x_matmul=x_matmul)
     uj, sj = roll(*(jnp.asarray(inputs[k]) for k in ("u0", "tspan", "cyl", "shape", "prof")))
-    up, sp = port_rollout(env, inputs, SHARDS, radii_only)
+    up, sp = port_rollout(env, inputs, SHARDS, radii_only, x_matmul)
     assert up.shape == (12, N, N) and sp.shape == (STEPS + 1, 3)
     assert float(np.abs(sp[:, 2]).max()) > 0.0
-    assert rel(sp, np.asarray(sj)) <= 1e-6
-    assert rel(up, np.asarray(uj)) <= 1e-6
+    errs = rel(up, np.asarray(uj)), rel(sp, np.asarray(sj))
+    assert errs[1] <= 1e-6
+    assert errs[0] <= 1e-6
+    return errs
 
 
-def check_against_window(radii_only: bool, shards: int):
+def check_against_window(radii_only: bool, shards: int, x_matmul: bool = False):
     env, inputs = case(radii_only)
-    up, sp = port_rollout(env, inputs, shards, radii_only)
+    up, sp = port_rollout(env, inputs, shards, radii_only, x_matmul)
     t = {k: torch.from_numpy(v) for k, v in inputs.items() if k != "tspan"}
-    uw, _, sw = make_fused_window(env, x_matmul=False)(t["u0"], t["shape"], inputs["tspan"],
-                                                       t["cyl"])
+    uw, _, sw = make_fused_window(env, x_matmul=x_matmul)(t["u0"], t["shape"], inputs["tspan"],
+                                                          t["cyl"])
     d_omega = step_config(env).spacing ** 2
     assert rel(up, uw.numpy()) <= 1e-7
     assert rel(sp * d_omega, sw.numpy()) <= 1e-6

@@ -76,7 +76,15 @@
 // the product on the MXU because its vector unit set the pace there; a row
 // of D has two nonzeros, so a tensor-core product would do 8x the
 // multiply-adds for no byte saved, and this form needs no shared-memory
-// reshuffle. The y-sharded form (SLAB with XM) is not built.
+// reshuffle.
+//
+// K4-XM, the y-sharded step with K5's split d/dx
+// (waves_jl_tpu/parallel/fused_domain.py:37 with `x_matmul=True`), is the
+// SLAB and XM flags together. A slab cuts columns, not rows, so a slab
+// cell's x-taps are rows i - 1 and i + 1 (i + 2 or i - 2 at rows 0 and
+// n - 1) of its own local column, at stride w: the whole-grid cell's taps,
+// and an owned cell is bit for bit K5's. Its bound is K4's: the split
+// adds arithmetic, not bytes.
 //
 // Cylinders: the general mode and the owner pass stream the (8, n_cyl)
 // table through shared memory in chunks of CYL_CHUNK, in order, so sums
@@ -211,7 +219,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // (n, w) source shape and the (n) profile are shared. SLAB is false for the
 // whole grid (w = n, col0 = 0), where the slab's column logic folds away
 // and the kernel keeps the registers, and so the occupancy, it has without
-// it. XM takes d/dx in K5's split form (whole grid only).
+// it. XM takes d/dx in K5's split form, on the whole grid or a slab.
 template <int MODE, bool RADII, bool SLAB, bool XM>
 __global__ void __launch_bounds__(BX * BY)
 rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
@@ -446,7 +454,7 @@ int fused_rk4_blocks(int n, int w) {
 // One RK4 stage for `batch` candidates (K3; K1 or K2 of a single state
 // when batch is 1; K4 on a slab when (w, col0) is not (n, 0)). `mode` 0,
 // 1 or 2 as for `rk4_stage`, `radii` selects the owner test, `xm` the
-// split d/dx of K5 (not on a slab). u, kp, k1, k2
+// split d/dx of K5 (K4-XM on a slab). u, kp, k1, k2
 // and out are (batch, 12, n, w), cyl (batch, 8, n_cyl), owner
 // (batch, 5, n, w), partials (batch, fused_rk4_blocks(n, w), 3); shape
 // (n, w) and prof (n) are shared. Returns the cudaError_t of the launch.
@@ -465,7 +473,6 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   const dim3 block(BX, BY);
   const dim3 gr = grid_for(n, w, batch);
   const bool slab = !(w == n && col0 == 0);
-  if (slab && xm) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define WAVES_LAUNCH(M, R, S, X)                                                               \
   rk4_stage<M, R, S, X><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
@@ -475,7 +482,8 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   else if (mode == 1) WAVES_LAUNCH(1, R, S, X); \
   else WAVES_LAUNCH(2, R, S, X)
 #define WAVES_LAYOUTS(R)                                        \
-  if (slab) { WAVES_MODES(R, true, false); }                    \
+  if (slab && xm) { WAVES_MODES(R, true, true); }               \
+  else if (slab) { WAVES_MODES(R, true, false); }               \
   else if (xm) { WAVES_MODES(R, false, true); }                 \
   else { WAVES_MODES(R, false, false); }
   if (radii) {

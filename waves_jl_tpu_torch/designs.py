@@ -10,6 +10,7 @@ of shape (shots, horizon, ...)).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -207,6 +208,30 @@ def normalize_design(design, space: DesignSpace) -> torch.Tensor:
     lo = space.low.to_vec()
     hi = space.high.to_vec()
     return 2.0 * (design.to_vec() - lo) / (hi - lo + 1e-3) - 1.0
+
+
+def design_with_vec(template, v: torch.Tensor):
+    """Inverse of `to_vec`: a copy of `template` with its adjustable
+    parameter vector replaced by `v`, laid out as `to_vec` gives it (the
+    one-shot policy turns its output vector into an action with it). `v`
+    may carry leading batch dimensions that the template's leaves lack."""
+    if isinstance(template, NoDesign):
+        return template
+    if isinstance(template, Cylinders):
+        m = template.r.shape[-1]
+        batch = v.shape[:-1]
+        return dataclasses.replace(template, pos=v[..., :2 * m].reshape(*batch, m, 2),
+                                   r=v[..., 2 * m:3 * m], c=v[..., 3 * m:])
+    if isinstance(template, AdjustableRadiiScatterers):
+        return dataclasses.replace(
+            template, cylinders=dataclasses.replace(template.cylinders, r=v))
+    if isinstance(template, AdjustablePositionScatterers):
+        return dataclasses.replace(
+            template, cylinders=dataclasses.replace(template.cylinders,
+                                                    pos=v.reshape(*v.shape[:-1], -1, 2)))
+    if isinstance(template, Cloak):
+        return dataclasses.replace(template, config=design_with_vec(template.config, v))
+    raise TypeError(f"unsupported design {type(template)}")
 
 
 def to_vec(design) -> torch.Tensor:

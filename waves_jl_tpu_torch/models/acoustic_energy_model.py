@@ -81,12 +81,21 @@ class AcousticEnergyModel(nn.Module):
         return z0, (C, F, PML)
 
     @torch.no_grad()
-    @full_float32()
     def predict_shot_energy(self, obs_wave, s_design, actions, t, x=None) -> torch.Tensor:
         """(S,) cumulative scattered latent energy of S candidate action
         sequences from one observation, summed over the time grid t (S, L).
         obs_wave (res, res, C); s_design one design; actions with leading
-        (S, H); x optionally a precomputed `encode_wave`."""
+        (S, H); x optionally a precomputed `encode_wave`. Without gradients:
+        the selection path."""
+        return self.shot_energy(obs_wave, s_design, actions, t, x)
+
+    @full_float32()
+    def shot_energy(self, obs_wave, s_design, actions, t, x=None) -> torch.Tensor:
+        """`predict_shot_energy` where autograd may run through it, as CEM's
+        gradient polish does through the actions. JAX's `remat=True` saves
+        memory, not values; here plain autograd keeps every latent step's
+        activations (tens to hundreds of MB for 16 shots x 125 steps at
+        1,024 elements, well inside the card), so no step is recomputed."""
         z, theta = self._shot_setup(obs_wave, s_design, actions, t, x)
         dx = self.dx
 

@@ -1,8 +1,10 @@
-"""Flagship weights from the JAX package's checkpoints.
+"""Flagship and policy weights from the JAX package's checkpoints.
 
 `from_jax_params` maps the flax named-leaf npz (keys such as
 "['wave_encoder']['params']['CNNBase_0']['ResidualBlock_0']['Conv_0']['kernel']")
-onto the `state_dict` of `AcousticEnergyModel`: conv kernels HWIO -> OIHW,
+onto the `state_dict` of `AcousticEnergyModel`, and `policy_from_jax_params`
+the one-shot policy's ("['params']['MLP_0']['Dense_0']['kernel']") onto
+`PolicyNet`'s: conv kernels HWIO -> OIHW,
 Dense kernels (in, out) -> (out, in). The CNN ends in a global max pool, so
 no flatten order needs permuting; images go channels-last -> NCHW at the
 model's input. Any leaf it cannot map, and any parameter left without a
@@ -72,14 +74,40 @@ def _target(path: tuple) -> str:
     raise KeyError(path)
 
 
+def _policy_target(path: tuple) -> str:
+    """The port's `PolicyNet` parameter name for one flax leaf path."""
+    params, top, *rest = path
+    if params != "params":
+        raise KeyError(path)
+    leaf = {"kernel": "weight", "bias": "bias"}[rest[-1]]
+    if top == "CNNBase_0" and len(rest) == 3:
+        block = _index(rest[0], "ResidualBlock")
+        conv = _index(rest[1], "Conv")
+        return f"cnn.blocks.{block}.conv{conv}.{leaf}"
+    if top == "MLP_0" and len(rest) == 2:
+        return f"mlp.layers.{_index(rest[0], 'Dense')}.{leaf}"
+    raise KeyError(path)
+
+
 def from_jax_params(tree_or_npz, expected: dict | None = None) -> dict:
-    """Port `state_dict` from flax parameters. `expected` (a module's
-    `state_dict()`) makes a leaf left over on either side, or a shape that
-    does not match, an error."""
+    """Port `state_dict` of `AcousticEnergyModel` from flax parameters.
+    `expected` (a module's `state_dict()`) makes a leaf left over on either
+    side, or a shape that does not match, an error."""
+    return _convert(tree_or_npz, _target, expected)
+
+
+def policy_from_jax_params(tree_or_npz, expected: dict | None = None) -> dict:
+    """Port `state_dict` of `models.policy.PolicyNet` from the flax
+    parameters of the JAX package's `PolicyNet`; `expected` as for
+    `from_jax_params`."""
+    return _convert(tree_or_npz, _policy_target, expected)
+
+
+def _convert(tree_or_npz, target, expected: dict | None) -> dict:
     out = {}
     for path, arr in _named_leaves(tree_or_npz).items():
         try:
-            name = _target(path)
+            name = target(path)
         except (KeyError, ValueError, IndexError) as e:
             raise KeyError(f"no port parameter for flax leaf {path}") from e
         if arr.ndim == 4:  # conv HWIO -> OIHW

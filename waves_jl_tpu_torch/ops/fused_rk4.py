@@ -8,10 +8,11 @@ controller's re-rank), and K4, either of them on one column slab of a
 y-sharded grid (`slab=`, the domain-decomposed rollout of
 `parallel/fused_domain.py`). K5, `x_matmul=True`, takes d/dx as the JAX
 kernel's default mode does, a bf16 hi/lo split summed in float32
-(`ops/fd.py::dx_split_bf16`), in K1's, K2's or K3's launch; the JAX
-package's fused paths default to it. This module builds the kernel with plain
-`nvcc` into a shared library with a C interface at first use, binds it with
-`ctypes`, and keeps the plain PyTorch version of the same function beside it.
+(`ops/fd.py::dx_split_bf16`), in K1's, K2's or K3's launch, or on a slab
+(K4-XM); the JAX package's fused paths but the sharded one default to it.
+This module builds the kernel with plain `nvcc` into a shared library with
+a C interface at first use, binds it with `ctypes`, and keeps the plain
+PyTorch version of the same function beside it.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
@@ -65,7 +66,9 @@ launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owne
                  "fused_rk4_sharded_radii_only": 0, "select_owner_sharded": 0,
                  "fused_rk4_xmatmul_general": 0, "fused_rk4_xmatmul_radii_only": 0,
                  "fused_rk4_batched_xmatmul_general": 0,
-                 "fused_rk4_batched_xmatmul_radii_only": 0}
+                 "fused_rk4_batched_xmatmul_radii_only": 0,
+                 "fused_rk4_sharded_xmatmul_general": 0,
+                 "fused_rk4_sharded_xmatmul_radii_only": 0}
 
 
 def reset_launch_counts() -> None:
@@ -453,8 +456,6 @@ def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: 
     slab (K4) if given; with the split d/dx (K5) if `x_matmul`. Returns
     (u_next, energy partials (batch or 1, blocks, 3))."""
     n, dev = cfg.n, u.device
-    if slab is not None and x_matmul:
-        raise ValueError("the y-sharded kernel takes the exact d/dx only (x_matmul=False)")
     w, col0 = _extent(cfg, slab)
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, w), dev)
@@ -497,8 +498,8 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
     over [ti, tf]. `owner` (from `select_owner`) selects the radii-only
     kernel K2; None selects the general kernel K1. With a slab, u, shape
     and owner are its (.., n, slab.w) columns and the step is K4's.
-    `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5; whole
-    grid only). Returns (u_next, energies (3,))."""
+    `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
+    K4-XM on a slab). Returns (u_next, energies (3,))."""
     if not _on_card(u):
         return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
                                         x_matmul)

@@ -8,6 +8,8 @@ every step each slab's halos take its neighbours' owned edge columns; the
 kernel applies one-sided stencils only at the true domain edges and zeroes
 the columns outside the domain, so an owned cell is bit for bit the
 whole-grid kernel's. One process drives every shard, in shard order.
+With `x_matmul=True` each slab steps through K4-XM, K5's split d/dx: the
+split acts along x, which is not sharded, so an owned cell is K5's.
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ def _energies(u: torch.Tensor) -> torch.Tensor:
 
 
 def make_fused_sharded_rollout(mesh: Mesh, n: int, spacing: float, dt: float, c0: float,
-                               freq: float, n_cyl: int, x_min: float, radii_only: bool = False):
+                               freq: float, n_cyl: int, x_min: float, radii_only: bool = False,
+                               x_matmul: bool = False):
     """Build a y-sharded fused rollout over the mesh's devices.
 
     rollout(u0, tspan, cyl, shape, prof) -> (u_final, signal) with
@@ -70,15 +73,19 @@ def make_fused_sharded_rollout(mesh: Mesh, n: int, spacing: float, dt: float, c0
     signal the (steps+1, 3) [tot, inc, sc] energies, not multiplied by the
     cell area. `radii_only` selects the owner rasterisation (one owner pass
     per shard a rollout), valid where `physics.fused.radii_only_ok` holds.
+    `x_matmul` takes d/dx in the bf16 split form (K4-XM); the default is
+    the exact stencil, as JAX's sharded rollout defaults to.
     """
     cfg = StepConfig(n=n, spacing=spacing, x_min=x_min, dt=dt, c0=c0, freq=freq)
-    return build_rollout(mesh, cfg, n_cyl, radii_only, fused_rk4_step, select_owner)
+    return build_rollout(mesh, cfg, n_cyl, radii_only, fused_rk4_step, select_owner, x_matmul)
 
 
-def build_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool, step, owner):
+def build_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool, step, owner,
+                  x_matmul: bool = False):
     """The rollout of `make_fused_sharded_rollout`, stepping each slab
     through `step` with owner fields from `owner`: `fused_rk4_step` and
-    `select_owner` (K4), or their `*_reference` plain versions."""
+    `select_owner` (K4, K4-XM with `x_matmul`), or their `*_reference`
+    plain versions."""
     n = cfg.n
     slabs = shard_slabs(n, mesh.size)
     ny_local = n // mesh.size
@@ -96,7 +103,7 @@ def build_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool, ste
         signal = [sum_in_order([_energies(u[:, :, HALO:HALO + ny_local]) for u in us], devs[0])]
         for t in tspan[:-1]:
             exchange_halos(us, ny_local)
-            stepped = [step(u, sh, pr, c, ow, float(t), ti, tf, cfg, s)
+            stepped = [step(u, sh, pr, c, ow, float(t), ti, tf, cfg, s, x_matmul)
                        for u, sh, pr, c, ow, s in zip(us, shapes, profs, cyls, owners, slabs)]
             us = [u for u, _ in stepped]
             signal.append(sum_in_order([e for _, e in stepped], devs[0]))

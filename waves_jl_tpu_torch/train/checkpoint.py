@@ -1,7 +1,8 @@
 """Read the JAX package's npz checkpoints (counterpart of the reading half
 of `waves_jl_tpu/train/checkpoint.py`). A checkpoint directory holds
 params.npz, the parameter pytree's leaves named by their key paths, and
-meta.json with the training step."""
+meta.json with the training step. `load_model_checkpoint` fills the
+flagship surrogate, `load_policy_checkpoint` the one-shot policy's net."""
 from __future__ import annotations
 
 import json
@@ -10,7 +11,7 @@ import os
 import numpy as np
 import torch
 
-from ..models.convert import from_jax_params
+from ..models.convert import from_jax_params, policy_from_jax_params
 
 
 def load_params(path: str) -> dict:
@@ -29,4 +30,12 @@ def load_model_checkpoint(model: torch.nn.Module, path: str) -> int:
     parameter filled; returns the training step."""
     state = from_jax_params(load_params(path), expected=model.state_dict())
     model.load_state_dict(state, strict=True)
+    return load_step(path)
+
+
+def load_policy_checkpoint(net: torch.nn.Module, path: str) -> int:
+    """Load a one-shot policy checkpoint into `net` (a `PolicyNet`), every
+    leaf mapped and every parameter filled; returns the training step."""
+    state = policy_from_jax_params(load_params(path), expected=net.state_dict())
+    net.load_state_dict(state, strict=True)
     return load_step(path)

@@ -92,6 +92,12 @@ def tree_clamp(x, low, high):
     return tree_map(lambda v, lo, hi: torch.minimum(torch.maximum(v, lo), hi), x, low, high)
 
 
+def tree_zeros_like(tree):
+    """A tree of zeros with `tree`'s structure, leaf shapes, dtypes and
+    devices."""
+    return tree_map(torch.zeros_like, tree)
+
+
 def tree_normal(generator: torch.Generator, like):
     """Standard-normal tree with `like`'s leaf shapes, dtypes and devices,
     drawn leaf by leaf in field order (the counterpart of the JAX
