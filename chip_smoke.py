@@ -8,12 +8,17 @@ its elapsed seconds:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, with
-   ptxas's register and spill report;
+   ptxas's register and spill report, and for the one-launch step
+   `rk4_step_tiled` its registers, spills, shared memory and resident
+   blocks an SM;
 3. kernels: each kernel against its plain PyTorch version at 700^2, K5
    (the split d/dx, `x_matmul=True`) in both rasterisation modes with the
-   count of cells that differ, and the candidate-batched kernels K3 and K5
-   (16 candidates at 350^2, coarsened from the 700^2 state) against their
-   plain versions and against K2 or K5 run on each candidate alone;
+   count of cells that differ (none for K5 radii-only, one launch a step),
+   and the candidate-batched kernels K3 and K5 (16 candidates at 350^2,
+   coarsened from the 700^2 state) against their plain versions and
+   against K2 or K5 run on each candidate alone; the time of a step of K5
+   radii-only and of batched K5 as one call, as device work, and inside a
+   100-step window with the host's issue time;
 4. main path: a warm 20-action x 100-step MPC control episode at 700^2
    (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
    surrogate with the tracked weights), the simulator's steps/s over 20
@@ -59,10 +64,12 @@ its elapsed seconds:
    selection with a CEM searcher, its batched re-rank against the
    sequential one; the MPC evaluation CLI once, in a subprocess.
 
-The launch counts of each kernel are read from the main-path runs alone.
-The last lines are one JSON object describing every kernel (`ms` with CUDA
-events around calls as the host drives them; K4's rows add `device_ms`, the
-same launches queued behind a device sleep, without the host's issue cost), then
+The launch counts of each kernel are read from the main-path runs alone:
+K5 radii-only and batched K5 take one launch a step, every other mode one
+a stage. The last lines are one JSON object describing every kernel (`ms`
+with CUDA events around calls as the host drives them; the rows of K4 and
+of K5 radii-only add `device_ms`, the same launches queued behind a device
+sleep, without the host's issue cost), then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
 """
@@ -191,6 +198,28 @@ def host_s(fn):
     return time.time() - t, out
 
 
+def window_step_ms(u, shape, prof, cyl, owner, times, ti, tf, cfg) -> tuple[float, float, float]:
+    """(ms a step as the host drives a window of K5 radii-only through
+    `fused_rk4_window`, ms a step as device work, ms the host takes to issue
+    a step), single or batched by u's shape."""
+    import torch
+
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+
+    def run(steps):
+        return fk.fused_rk4_window(u, shape, prof, cyl, owner, times[:steps], ti, tf, cfg,
+                                   [steps - 1], True)
+
+    ms = cuda_ms(lambda: run(len(times)), 3) / len(times)
+    dev = device_ms(lambda: run(20), 1) / 20
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run(len(times))
+    issue = (time.perf_counter() - t) * 1e3 / len(times)
+    torch.cuda.synchronize()
+    return ms, dev, issue
+
+
 def build_env(space, device, n=SIZE):
     from waves_jl_tpu_torch.dims import build_grid, two_dim
     from waves_jl_tpu_torch.env import make_wave_env
@@ -301,6 +330,9 @@ def batched_kernels(env, state, dev):
     log("kernels", f"batched K5 radii-only vs plain, 10 steps: rel err state {k5b_state:.3e}, "
                    f"signal {k5b_sig:.3e} (tol {REL_TOL:g}); {differing_cells(u_x, u_xp)}")
     check(k5b_state <= REL_TOL and k5b_sig <= REL_TOL, "batched K5 agrees with its plain version")
+    check(torch.equal(u_x, u_xp) and k5b_sig <= 1e-6,
+          "batched K5 radii-only (one launch a step) equals its plain version bit for bit, its "
+          "signal within 1e-6")
     u_x, e_x = window_run(xm_batched, owner_k, cyl, STEPS)
     identical, sig_err = 0, 0.0
     for b in range(TOPK):
@@ -317,6 +349,9 @@ def batched_kernels(env, state, dev):
     k5b_ms = cuda_ms(lambda: xm_batched(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 50)
     k5b_plain = cuda_ms(lambda: xm_batched_plain(u0, shape, prof, cyl, owner_p, t_arg, ti, tf,
                                                  cfg), 3)
+    k5b_dev = device_ms(lambda: xm_batched(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 20)
+    k5b_win = window_step_ms(u0, shape, prof, cyl, owner_k, [float(x) for x in tspan[:-1]], ti,
+                             tf, cfg)
     k3_ms = cuda_ms(lambda: fk.fused_rk4_step_batched(u0, shape, prof, cyl, owner_k, t_arg, ti,
                                                       tf, cfg), 50)
     k3_plain = cuda_ms(lambda: fk.fused_rk4_step_batched_reference(u0, shape, prof, cyl, owner_p,
@@ -328,22 +363,26 @@ def batched_kernels(env, state, dev):
     log("kernels", f"ms per batched RK4 step of {TOPK} candidates at {SIZE_RERANK}^2: K3 radii-only "
                    f"{k3_ms:.4f} (plain {k3_plain:.4f}); {TOPK} x K2 steps, the sequential route, "
                    f"{seq_ms:.4f}; select_owner_batched {own_ms:.4f} (plain {own_plain:.4f}); "
-                   f"batched K5 radii-only {k5b_ms:.4f} (plain {k5b_plain:.4f})")
+                   f"batched K5 radii-only {k5b_ms:.4f} (plain {k5b_plain:.4f}; device work "
+                   f"{k5b_dev:.4f}; inside a {STEPS}-step window {k5b_win[0]:.4f} a step, device "
+                   f"work {k5b_win[1]:.4f}, the host issues a step in {k5b_win[2]:.4f})")
 
     n_cyl = cyl.shape[-1]
     part = torch.empty((TOPK, fk.partial_rows(SIZE_RERANK), 3), dtype=torch.float32)
+    part_t = torch.empty((TOPK, fk.step_partial_rows(SIZE_RERANK), 3), dtype=torch.float32)
     # K times what an RK4 step needs: the states in and out, the shared
     # shape and profile, each candidate's cylinders and energy partials
-    io_step = 2 * nbytes(u0) + nbytes(shape, prof, cyl, part)
-    k3_bound = bound(io_step, TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True))
-    k5b_bound = bound(io_step, TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True, x_matmul=True))
+    io_step = 2 * nbytes(u0) + nbytes(shape, prof, cyl)
+    k3_bound = bound(io_step + nbytes(part), TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True))
+    k5b_bound = bound(io_step + nbytes(part_t),
+                      TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True, x_matmul=True))
     own_bound = bound(nbytes(cyl, owner_k), TOPK * SIZE_RERANK * SIZE_RERANK * n_cyl * 9)
     log("kernels", f"K3 bound per batched step {k3_bound[0]:.5f} ms ({k3_bound[1]}; states alone "
                    f"{2 * nbytes(u0) / 1e6:.1f} MB, {2 * nbytes(u0) / HBM_BYTES_PER_S * 1e3:.5f} "
                    f"ms); select_owner_batched {own_bound[0]:.5f} ms ({own_bound[1]})")
     return env_lo, {"k3": (k3_abs, k3_ms, k3_plain, k3_bound),
                     "own": (owner_err, own_ms, own_plain, own_bound), "seq_ms": seq_ms,
-                    "k5b": (k5b_abs, k5b_ms, k5b_plain, k5b_bound)}
+                    "k5b": (k5b_abs, k5b_ms, k5b_plain, k5b_bound), "k5b_dev": k5b_dev}
 
 
 def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
@@ -448,9 +487,10 @@ def hybrid_episode(env, env_lo, space, dev):
     log("hybrid", f"hybrid episode ({WINDOWS} actions, {TOPK} of 256 re-ranked at "
                   f"{SIZE_RERANK}^2 over {HORIZON} windows) {episode_s:.4f} s, launches {counts}")
     expect = dict.fromkeys(counts, 0)
-    expect.update({"fused_rk4_batched_xmatmul_radii_only": WINDOWS * HORIZON * STEPS * fk.STAGES,
+    # batched K5 and K5 radii-only take one launch a step
+    expect.update({"fused_rk4_batched_xmatmul_radii_only": WINDOWS * HORIZON * STEPS,
                    "select_owner_batched": WINDOWS * HORIZON,
-                   "fused_rk4_xmatmul_radii_only": WINDOWS * STEPS * fk.STAGES,
+                   "fused_rk4_xmatmul_radii_only": WINDOWS * STEPS,
                    "select_owner": WINDOWS})
     check(counts == expect, f"hybrid launch counts {counts} == {expect}")
     check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
@@ -932,7 +972,7 @@ def datagen_phase(dev, k5_dev_ms: float):
                               on_episode=lambda i, ep: eps.append(ep))
     per_episode = (time.time() - t) / (2 * CHUNK)
     counts = dict(fk.launch_counts)
-    per_ep = WINDOWS * STEPS * fk.STAGES
+    per_ep = WINDOWS * STEPS  # K5 radii-only takes one launch a step
     log("datagen", f"{per_episode:.4f} s per episode (2 chunks of {CHUNK}, {WINDOWS} actions x "
                    f"{STEPS} steps at {SIZE}^2, host pull included); launches {counts}")
     expect = dict.fromkeys(counts, 0)
@@ -1037,7 +1077,7 @@ def record_controllers_phase(env, env_lo, space, dev):
 
     def expect_window_launches(counts, windows, what):
         expect = dict.fromkeys(counts, 0)
-        expect.update({"fused_rk4_xmatmul_radii_only": windows * STEPS * fk.STAGES,
+        expect.update({"fused_rk4_xmatmul_radii_only": windows * STEPS,  # one launch a step
                        "select_owner": windows})
         check(counts == expect, f"{what} launches K5 radii-only alone: {counts} == {expect}")
 
@@ -1188,7 +1228,7 @@ def record_controllers_phase(env, env_lo, space, dev):
                    f"{int(torch.argmin(ev_cost))} vs {int(torch.argmin(seq_cost))}; launches "
                    f"{h_counts}")
     expect = dict.fromkeys(h_counts, 0)
-    expect.update({"fused_rk4_batched_xmatmul_radii_only": HORIZON * STEPS * fk.STAGES,
+    expect.update({"fused_rk4_batched_xmatmul_radii_only": HORIZON * STEPS,  # one a step
                    "select_owner_batched": HORIZON})
     check(h_counts == expect, f"the searcher's re-rank launches batched K5: {h_counts} == {expect}")
     check(err <= 1e-5 and int(torch.argmin(seq_cost)) == int(torch.argmin(ev_cost)),
@@ -1246,6 +1286,15 @@ def main() -> int:
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    " + line.strip(), flush=True)
+    lines = report.splitlines()
+    tiled = [i for i, line in enumerate(lines) if "Compiling entry" in line and "rk4_step_tiled" in line]
+    ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in lines[tiled[0] + 1:tiled[0] + 4]
+                      if "registers" in line or "spill" in line) if tiled else "already built"
+    occ = fk.tiled_kernel_report()
+    log("build", f"rk4_step_tiled (K5 radii-only, one launch a step): ptxas {ptxas}; dynamic "
+                 f"shared memory {occ['smem_bytes']} B a block of 256 threads; "
+                 f"{occ['blocks_per_sm']} blocks an SM")
+    check(occ["blocks_per_sm"] >= 1, "the one-launch step fits an SM")
 
     # 3. kernels against their plain versions, 700^2
     space = build_triple_ring_design_space(device=dev)
@@ -1329,6 +1378,9 @@ def main() -> int:
                        f"signal {k5_sig:.3e} (tol {REL_TOL:g}); {differing_cells(u_k5, u_p5)}")
         check(k5_state <= REL_TOL and k5_sig <= REL_TOL, f"K5 {mode} agrees with its plain version")
         if radii:
+            check(torch.equal(u_k5, u_p5) and k5_sig <= 1e-6,
+                  "K5 radii-only (one launch a step) equals its plain version bit for bit, its "
+                  "signal within 1e-6")
             # the split keeps 16 of 24 mantissa bits of each tap, an error of
             # about 2^-17 |u| / dx in each d/dx, which grows against the
             # derivative as the grid refines: at 700^2 a window moves the
@@ -1353,6 +1405,11 @@ def main() -> int:
     k5g_ms = cuda_ms(lambda: xm_step(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 50)
     k5g_plain = cuda_ms(lambda: xm_plain(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 3)
     k5_dev = device_ms(lambda: xm_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 20)
+    k5_win = window_step_ms(u0, shape, prof, cyl, owner_k, [float(x) for x in tspan[:-1]], ti, tf,
+                            cfg)
+    log("kernels", f"K5 radii-only inside a {STEPS}-step window (`fused_rk4_window`, one launch "
+                   f"a step): {k5_win[0]:.4f} ms a step, device work {k5_win[1]:.4f} ms, the "
+                   f"host issues a step in {k5_win[2]:.4f} ms")
     log("kernels", f"ms per RK4 step: K2 {k2_ms:.4f} (plain {k2_plain:.4f}), K1 {k1_ms:.4f} "
                    f"(plain {k1_plain:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f}); "
                    f"K5 radii-only {k5_ms:.4f} (plain {k5_plain:.4f}; device work {k5_dev:.4f}), "
@@ -1367,7 +1424,9 @@ def main() -> int:
     k2_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True))
     k1_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False))
     own_bound = bound(nbytes(cyl, owner_k), SIZE * SIZE * n_cyl * 9)
-    k5_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
+    part_t = torch.empty((fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
+    k5_bound = bound(nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t),
+                     fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
     k5g_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False, x_matmul=True))
     log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}), K1, K2 and K5 "
                    f"({k5_bound[1]}); K2 reads "
@@ -1395,11 +1454,11 @@ def main() -> int:
     episode_s = time.time() - t
     mpc_counts = dict(fk.launch_counts)
     log("main path", f"MPC episode {episode_s:.4f} s, launches {mpc_counts}")
-    expect_steps = WINDOWS * STEPS * fk.STAGES
+    expect_steps = WINDOWS * STEPS
     check(mpc_counts["fused_rk4_xmatmul_radii_only"] == expect_steps
           and mpc_counts["fused_rk4_radii_only"] == 0,
-          f"{expect_steps} K5 radii-only stage launches ({WINDOWS} windows x {STEPS} steps x "
-          f"{fk.STAGES} stages) and none of K2")
+          f"{expect_steps} K5 radii-only launches ({WINDOWS} windows x {STEPS} steps, one "
+          f"launch a step) and none of K2")
     check(mpc_counts["select_owner"] == WINDOWS, f"{WINDOWS} owner launches, one per window")
     check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
     check(bool(torch.isfinite(signals).all()), "every signal is finite")
@@ -1441,9 +1500,10 @@ def main() -> int:
         + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[True])
         + "; exact (K2) "
         + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[False]))
-    check(sim_counts["fused_rk4_radii_only"] == expect_steps
+    check(sim_counts["fused_rk4_radii_only"] == expect_steps * fk.STAGES
           and sim_counts["fused_rk4_xmatmul_radii_only"] == 0,
-          f"the exact simulator run launches K2 {expect_steps} times and K5 never")
+          f"the exact simulator run launches K2 {expect_steps * fk.STAGES} times (one a stage) "
+          f"and K5 never")
 
     # the general kernels: a position-design episode and one K = 4 re-rank
     # window there, each with the split d/dx (K5) and the exact one (K1, K3)
@@ -1517,6 +1577,9 @@ def main() -> int:
          pos_counts[True]["fused_rk4_xmatmul_general"],
          (xm_abs[False], k5g_ms, k5g_plain, k5g_bound)),
     )
+    # the one-launch step's rows add `device_ms`, as K4's do
+    dev_rows = {"fused_rk4_xmatmul_radii_only": k5_dev,
+                "fused_rk4_batched_xmatmul_radii_only": k3["k5b_dev"]}
     kernels = []
     for name, replaces, launches, (err, ms, plain, bnd) in single_rows:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1539,6 +1602,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
+    for k in kernels:
+        if k["name"] in dev_rows:
+            k["device_ms"] = dev_rows[k["name"]]
     sharded_rows = (
         ("fused_rk4_sharded_radii_only", "waves_jl_tpu/ops/pallas_fd.py:195", "radii"),
         ("select_owner_sharded", "waves_jl_tpu/ops/pallas_fd.py:247", "owner"),

@@ -15,7 +15,11 @@ held to the same tolerance against its plain version, single and batched,
 and each batched K5 candidate equals K5 run on it alone, bit for bit.
 K4-XM, the y-sharded step with the split d/dx, is held against its plain
 version and, on each owned cell, against K5 on the whole grid, bit for
-bit. The surrogate's gradient path (`shot_energy`, CEM's polish) on the
+bit. K5 radii-only, one launch a step (`rk4_step_tiled`), equals its plain
+version bit for bit on the state, single and batched, at sizes whose edge
+tiles are partial or one cell wide; the windows that drive it give the
+plain path's signal and re-rank costs within 1e-6 (the energy partials are
+summed in another order), with frames of their own. The surrogate's gradient path (`shot_energy`, CEM's polish) on the
 card agrees with the CPU's at narrow width to 1e-4 relative.
 """
 import dataclasses
@@ -153,7 +157,8 @@ def test_xmatmul_kernel_matches_plain_version(card, radii_only, n):
         exact = fk.fused_rk4_step(exact[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg)
     torch.cuda.synchronize()
     key = "fused_rk4_xmatmul_" + ("radii_only" if radii_only else "general")
-    assert fk.launch_counts[key] - before[key] == 2 * fk.STAGES
+    # K5 radii-only takes one launch a step, the general mode one a stage
+    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
     assert not torch.equal(got[0], exact[0])  # the split form, not K1/K2
@@ -174,7 +179,7 @@ def test_batched_xmatmul_kernel_matches_plain_version_and_single_kernel(card, ra
                                                    1e-3, cfg, x_matmul=True)
     torch.cuda.synchronize()
     key = "fused_rk4_batched_xmatmul_" + ("radii_only" if radii_only else "general")
-    assert fk.launch_counts[key] - before[key] == 2 * fk.STAGES
+    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
     for b in range(K3):  # each candidate is K5 run on it alone
@@ -420,3 +425,168 @@ def test_shot_energy_gradient_matches_cpu(card):
     (e_cpu, g_cpu), (e_card, g_card) = out["cpu"], out[str(card)]
     assert float(g_cpu.abs().max()) > 0.0
     assert rel(e_card, e_cpu) <= 1e-4 and rel(g_card, g_cpu) <= 1e-4
+
+
+def _one_launch_inputs(n, k, device):
+    """Inputs of K5 radii-only: one state for k None, else k candidates,
+    each with its own state and radii; owner fields from the kernel's pass."""
+    cfg, cyl, u, shape, prof = _inputs(n, False, device)
+    if k is None:
+        return cfg, u, shape, prof, cyl, fk.select_owner(cyl, cfg)
+    rng = np.random.default_rng(n + k)
+    cyls = cyl.expand(k, -1, -1).clone()
+    cyls[:, [2, 6]] *= torch.from_numpy(
+        rng.uniform(0.7, 1.0, (k, 1, cyl.shape[-1])).astype(np.float32)).to(device)
+    us = torch.from_numpy((rng.standard_normal((k, 12, n, n)) * 1e-3).astype(np.float32))
+    return cfg, us.to(device), shape, prof, cyls, fk.select_owner_batched(cyls, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [None, 1, 3, 16])
+@pytest.mark.parametrize("n", [33, 45, 48, 350, 700])
+def test_one_launch_step_equals_plain_version_bit_for_bit(card, n, k):
+    # 33 = 2 x 16 + 1 = 24 + 9: a one-row and a one-column edge tile; 45, 350
+    # and 700 end in partial tiles; 48 is whole tiles
+    cfg, u, shape, prof, cyl, owner = _one_launch_inputs(n, k, card)
+    step = fk.fused_rk4_step if k is None else fk.fused_rk4_step_batched
+    plain = fk.fused_rk4_step_reference if k is None else fk.fused_rk4_step_batched_reference
+    key = "fused_rk4_xmatmul_radii_only" if k is None else "fused_rk4_batched_xmatmul_radii_only"
+    before = dict(fk.launch_counts)
+    got, want = (u, None), (u, None)
+    for t0 in (2e-4, 2.1e-4):  # two chained steps
+        got = step(got[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg, x_matmul=True)
+        want = plain(want[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg, x_matmul=True)
+    torch.cuda.synchronize()
+    assert fk.launch_counts[key] - before[key] == 2  # one launch a step
+    assert fk.step_partial_rows(n) == -(-n // fk.TILE[0]) * -(-n // fk.TILE[1])
+    assert torch.equal(got[0], want[0])
+    assert rel(got[1], want[1]) <= 1e-6  # the energy partials sum in another order
+    for b in range(k or 0):  # each candidate is the single-state kernel on it
+        one = (u[b], None)
+        for t0 in (2e-4, 2.1e-4):
+            one = fk.fused_rk4_step(one[0], shape, prof, cyl[b], owner[b], t0, 0.0, 1e-3, cfg,
+                                    x_matmul=True)
+        assert torch.equal(got[0][b], one[0])
+
+
+@pytest.mark.gpu
+def test_windows_match_plain_path_with_frames_of_their_own(card):
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.dims import build_grid, two_dim
+    from waves_jl_tpu_torch.env import env_reset, env_time, env_tspan, frame_segments, make_wave_env
+    from waves_jl_tpu_torch.physics.fused import (cyl_params, make_fused_window,
+                                                  make_rerank_rollout, rerank_step_times,
+                                                  step_config)
+    from waves_jl_tpu_torch.sources import GaussianSource
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    n, steps, k, horizon = 48, 24, 3, 2
+    dim = two_dim(15.0, n, device=card)
+    source = GaussianSource.create(build_grid(dim), [[-10.0, -10.0]], [[-10.0, 10.0]], [0.3],
+                                   [1.0], 1000.0)
+    env = make_wave_env(dim, build_triple_ring_design_space(device=card), source,
+                        resolution=(16, 16), integration_steps=steps)
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    gen = torch.Generator(device=card).manual_seed(3)
+    rng = np.random.default_rng(3)
+    wave = torch.from_numpy((rng.standard_normal((3, 12, n, n)) * 1e-3).astype(np.float32))
+    state = dataclasses.replace(env_reset(env, gen), wave=wave.to(card))
+    u0, shape = state.wave[-1], state.source.shape
+    untouched = u0.clone()
+
+    # the env window: frames at the segment ends, the signal, the input kept
+    tspan = env_tspan(env, state)
+    nxt = env.design_space(state.design, env.action_space.sample(gen))
+    cyl = cyl_params(state.design, nxt, env.device).contiguous()
+    before = dict(fk.launch_counts)
+    u, frames, signal = make_fused_window(env)(u0, shape, tspan, cyl)
+    torch.cuda.synchronize()
+    assert fk.launch_counts["fused_rk4_xmatmul_radii_only"] - before[
+        "fused_rk4_xmatmul_radii_only"] == steps
+    ti, tf = float(tspan[0]), float(tspan[-1])
+    owner = fk.select_owner_reference(cyl, cfg)
+    want, es, want_frames = u0, [], []
+    for s, t0 in enumerate(tspan[:-1]):
+        want, e = fk.fused_rk4_step_reference(want, shape, prof, cyl, owner, float(t0), ti, tf,
+                                              cfg, x_matmul=True)
+        es.append(e)
+        if s + 1 in np.cumsum(frame_segments(steps)):
+            want_frames.append(want)
+    sc = u0[0] - u0[6]
+    e0 = torch.stack([torch.sum(u0[0] ** 2), torch.sum(u0[6] ** 2), torch.sum(sc ** 2)])
+    want_signal = torch.stack([e0, *es]) * cfg.spacing * cfg.spacing
+    assert torch.equal(u0, untouched)  # the input is never written
+    assert len({f.data_ptr() for f in frames} | {u0.data_ptr()}) == len(frames) + 1
+    assert all(torch.equal(a, b) for a, b in zip(frames, want_frames))
+    assert u is frames[-1] and len(frames) == len(want_frames)
+    assert rel(signal, want_signal) <= 1e-6
+
+    # the re-rank rollout: K candidates over `horizon` windows
+    elite = env.action_space.sample(gen, batch=(k, horizon))
+    t_start = env_time(env, state)
+    before = dict(fk.launch_counts)
+    cost = make_rerank_rollout(env, k, horizon)(state, elite, t_start)
+    torch.cuda.synchronize()
+    key = "fused_rk4_batched_xmatmul_radii_only"
+    assert fk.launch_counts[key] - before[key] == horizon * steps
+    assert torch.equal(u0, untouched)
+    f32 = np.float32
+    ub = u0.expand(k, *u0.shape).contiguous()
+    designs = tree_map(lambda x: x.expand(k, *x.shape), state.design)
+    t_i, want_cost = f32(t_start), torch.zeros(k, device=card)
+    for h in range(horizon):
+        nxt = env.design_space(designs, tree_map(lambda x: x[:, h], elite))
+        cyl_k = cyl_params(designs, nxt, env.device).contiguous()
+        owner_k = fk.select_owner_batched_reference(cyl_k, cfg)
+        tf_h = f32(t_i + f32(steps * cfg.dt))
+        for ts in rerank_step_times(t_i, steps, cfg.dt):
+            ub, e = fk.fused_rk4_step_batched_reference(ub, shape, prof, cyl_k, owner_k, float(ts),
+                                                        float(t_i), float(tf_h), cfg, True)
+            want_cost = want_cost + e[:, 2]
+        designs, t_i = nxt, tf_h
+    want_cost = want_cost * cfg.spacing * cfg.spacing
+    assert rel(cost, want_cost) <= 1e-6
+    assert int(torch.argmin(cost)) == int(torch.argmin(want_cost))
+
+
+@pytest.mark.gpu
+def test_one_launch_step_raises_on_what_it_does_not_take(card):
+    cfg, u, shape, prof, cyl, owner = _one_launch_inputs(32, None, card)
+    args = (0.0, 0.0, 1e-3, cfg)
+    with pytest.raises(ValueError, match="owner has shape"):
+        fk.fused_rk4_step(u, shape, prof, cyl, owner[:4], *args, x_matmul=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.fused_rk4_step(u.transpose(1, 2), shape, prof, cyl, owner, *args, x_matmul=True)
+    with pytest.raises(ValueError, match="on cpu"):
+        fk.fused_rk4_step(u, shape, prof, cyl, owner.cpu(), *args, x_matmul=True)
+    with pytest.raises(ValueError, match="dtype"):
+        fk.fused_rk4_window(u.double(), shape, prof, cyl, owner, [0.0], 0.0, 1e-3, cfg, [0], True)
+    # a launch the kernel refuses surfaces as a raise: two rows are fewer than
+    # a one-sided stencil's three
+    tiny = dataclasses.replace(cfg, n=2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk.fused_rk4_step(torch.zeros((12, 2, 2), device=card), torch.zeros((2, 2), device=card),
+                          torch.zeros(2, device=card), cyl, torch.zeros((5, 2, 2), device=card),
+                          0.0, 0.0, 1e-3, tiny, x_matmul=True)
+
+
+@pytest.mark.gpu
+def test_one_launch_step_runs_on_each_of_several_cards_across_cards(card, cards):
+    # the kernel takes its shared memory by a per-device opt-in, and the
+    # launches go to the state's card, not the current one
+    n, k = 48, 3
+    for d in range(cards):
+        dev = torch.device("cuda", d)
+        cfg, u, shape, prof, cyl, owner = _one_launch_inputs(n, k, dev)
+        times = [2e-4, 2.1e-4]
+        kept, energies = fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0, 1e-3, cfg,
+                                             [1], True)
+        want, es = u, []
+        for t0 in times:
+            want, e = fk.fused_rk4_step_batched_reference(want, shape, prof, cyl, owner, t0, 0.0,
+                                                          1e-3, cfg, x_matmul=True)
+            es.append(e)
+        torch.cuda.synchronize(dev)
+        assert kept[0].device == dev and torch.equal(kept[0], want)
+        assert rel(energies, torch.stack(es)) <= 1e-6

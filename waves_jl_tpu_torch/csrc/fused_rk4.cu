@@ -26,7 +26,8 @@
 // u + dt/6 (k1 + 2k2 + 2k3 + k4) with the per-block energy partials. That
 // moves about 14 state-sized arrays a step instead of 2 (the neighbour
 // reads mostly hit L1/L2), so the kernel runs several times above its
-// bound. Fusing the four stages behind shared-memory halos is later work.
+// bound. K5 radii-only, the main paths' mode, fuses the four stages
+// behind shared-memory halos (`rk4_step_tiled`, below).
 //
 // K3, candidate-batched (`batch=K`, :121-127, :162-170, :403-406, :431,
 // :450-456), in both rasterisation modes: K independent states advance
@@ -60,8 +61,10 @@
 // but the sharded one (physics/fused.py:79, :154, :225): d/dx as the
 // banded (rows, rows) stencil matrix D times the tile on the MXU, in two
 // bf16 passes with float32 sums, (D bf16(v) + D bf16(v - bf16(v))) / (2 dx).
-// It is an XM template flag of the same `rk4_stage`, with K1's, K2's or
-// K3's rasterisation and candidate axis. Each tap of Vx and of U + f is
+// It is an XM template flag of the same `rk4_stage`, with K1's or K3's
+// general rasterisation and candidate axis; K5 radii-only, single or
+// batched, is `rk4_step_tiled` below, with the same d/dx. Each tap of Vx
+// and of U + f is
 // formed in float32 as before and split into hi = bf16(v) and
 // lo = bf16(v - hi), both rounded to nearest even; the stencil of `d_edge`
 // runs on the hi values and on the lo values in the same tap order, and
@@ -86,6 +89,58 @@
 // and an owned cell is bit for bit K5's. Its bound is K4's: the split
 // adds arithmetic, not bytes.
 //
+// K5 radii-only, single and batched, one launch per RK4 step
+// (`rk4_step_tiled`). It replaces the same Pallas modes as `rk4_stage`
+// with RADII, XM and the candidate axis (pallas_fd.py:88, the owner test
+// `rasterize_fast` :271, the split d/dx :278-310), in the form the Pallas
+// kernel has and the stage-a-launch port did not: all four stages of a
+// step on a tile held in fast memory with HALO ghost cells (:343-377).
+// They are the main paths' modes: every env window, datagen episode and
+// controller's window (K5 radii-only at 700^2) and the hybrid's re-rank
+// (batched K5 at 16 x 350^2).
+//   What bounds it: bytes. A step must read the state and the owner
+// fields and write the state: at 700^2, 23.5 + 9.8 + 23.5 MB, 17 us at
+// 3.35 TB/s; at 16 x 350^2, 94 + 39 + 94 MB, 68 us. `rk4_stage` moves
+// about 14 state-sized arrays a step (k1..k3 out and back, u + a k formed
+// at every tap from two loads): 10-12x its bound, and at 16 x 350^2 the
+// 94 MB states overflow the 50 MB L2, so that traffic goes to HBM.
+//   What the design does about it. Block (bx, by, z) owns a TX x TY =
+// 16 x 24 tile of candidate z and loads once, into shared memory, its
+// region: the tile with HALO = 4 cells on each side (24 x 32, one warp
+// wide), 0 outside the domain. The four stages then run inside the block
+// on regions that shrink by one cell a side a stage (k1 on the tile + 3,
+// k2 + 2, k3 + 1, k4 on the tile), except on a side at the domain's edge,
+// whose one-sided stencil reads inward only; a one-cell tile on the last
+// row or column takes one more cell of halo, as its stencil reaches five
+// cells inward. Each thread works one column and three rows of the region,
+// two of them the tile's. It computes a cell's k and at once writes the
+// next stage's input u + a k: U, Vx and Vy, which the stencils read at the
+// neighbours, into the other of two buffers, and Psix, Psiy and Omega,
+// read at the cell alone, in place; so one barrier a stage suffices and
+// no k outlives its cell. The tile cells' k1 + 2 k2 + 2 k3 + k4
+// accumulates in registers, left to right as the closed form rounds it.
+// The two stacks (tot with c^2, inc with c0^2) run one after the other
+// through the same buffers, stack 0's new U kept in registers for sc.
+// Shared memory: the stack's state and stage input, the second buffer of
+// U, Vx and Vy, the source shape and the wavespeed at the three stage
+// times, 19 x 768 floats = 58,368 bytes a block of 256 threads, above the
+// 48 KB a kernel gets unasked (`configure_tiled`). ptxas (-v, sm_90a):
+// 80 registers under the cap for three blocks an SM (`TILED_MIN_BLOCKS`)
+// with 12 bytes spilled; three blocks fit the shared memory too, 24 warps
+// an SM. A cap for four blocks (64 registers) spills more, and both stacks
+// at once (104 KB, two blocks an SM, half the barriers) or k held in
+// registers across a second barrier a stage measured slower on the card:
+// the kernel is bound by the latency of its shared-memory reads and
+// barriers more than by bytes, so resident warps count most. HBM sees the
+// state and owner fields once (halo re-reads hit L2) and the state
+// written once; the stages redo 1.35x the tile's cells. Each cell runs
+// `rk4_stage`'s op order, so the state is bit for bit `rk4_stage`'s and
+// the plain version's; the energy partials, one row a block, are summed in
+// another order. The other modes stay on `rk4_stage`, one launch a stage:
+// off the default paths (K1, K2, K3 and the general K5 run where
+// `x_matmul=False` or the cylinders move), or sharded (K4, K4-XM), where a
+// slab's halo exchange sits between steps.
+//
 // Cylinders: the general mode and the owner pass stream the (8, n_cyl)
 // table through shared memory in chunks of CYL_CHUNK, in order, so sums
 // and ties do not depend on the chunking and there is no cap on n_cyl.
@@ -107,6 +162,18 @@ constexpr int BY = 8;   // threads along x
 constexpr int CYL_CHUNK = 64;  // cylinders staged in shared memory at a time
 constexpr int HALO = 4;  // halo columns a slab carries on each side
 constexpr float TWO_PI = 6.28318530717958647692f;
+
+// `rk4_step_tiled`: a block's tile, its region (the tile and HALO cells
+// on each side) and the region's shared-memory footprint.
+constexpr int TX = 2 * BY;         // tile rows (x): two of a thread's row slots
+constexpr int TY = BX - 2 * HALO;  // tile columns (y): the region is one warp wide
+constexpr int SH = TX + 2 * HALO;  // region rows, 24
+constexpr int SW = TY + 2 * HALO;  // region columns, 32
+constexpr int SC = SH * SW;        // region cells, 768
+constexpr int TILED_SMEM = 19 * SC * (int)sizeof(float);  // 58,368 bytes; see the kernel
+constexpr int TILED_MIN_BLOCKS = 3;  // resident blocks an SM the registers must allow
+static_assert(SH == 3 * BY, "a thread works three region rows");
+static_assert(SW == BX, "a warp spans the region's columns");
 
 struct Geometry {
   int n;     // rows, and columns of the whole domain
@@ -422,8 +489,255 @@ select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict_
   owner[4 * nn + p] = dc;
 }
 
+// ---------------------------------------------------------------------------
+// K5 radii-only, one launch per RK4 step (`rk4_step_tiled`)
+// ---------------------------------------------------------------------------
+
+// Rows or columns [lo, hi] of the whole grid.
+struct Span {
+  int lo, hi;
+  __device__ __forceinline__ bool has(int k) const { return k >= lo && k <= hi; }
+};
+
+// Where the next stage's outputs are valid, given where its input is: one
+// cell in from each side, except a side on the domain's edge, where the
+// one-sided stencil reads inward only.
+__device__ __forceinline__ Span shrink(Span s, int n) {
+  return Span{s.lo == 0 ? 0 : s.lo + 1, s.hi == n - 1 ? s.hi : s.hi - 1};
+}
+
+// The step's parameters that do not change within a window.
+struct StepParams {
+  int n;
+  float inv2d;
+  float c0;
+  float freq;
+  float half;   // dt / 2: the k2 and k3 stage-input coefficient and time offset
+  float full;   // dt
+  float sixth;  // dt / 6
+  float ti, tf;  // the design lerp's window
+};
+
+// The right-hand side of one stack (6 channels) at region cell l, from the
+// stage input in shared memory, [U, Vx, Vy] in `nb` (read at the stencil's
+// neighbours) and [Psix, Psiy, Omega] in `pw` (read at l alone), each
+// channel SC floats on, in `rk4_stage`'s op order: `stack_rhs`
+// (pallas_fd.py:315) with K5's split d/dx and the exact d/dy.
+__device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw,
+                                                const float* s_f, float sn, float b, int l,
+                                                bool x_first, bool x_last, bool y_first,
+                                                bool y_last, float sx, float sy, float bc,
+                                                float inv2d, float* k) {
+  auto uf = [&](int q) { return nb[q] + s_f[q] * sn; };  // U + f
+  auto vx = [&](int q) { return nb[SC + q]; };
+  auto vy = [&](int q) { return nb[2 * SC + q]; };
+  const float Vxx = d_split(vx, x_first, x_last, l, SW, inv2d);
+  const float Vyy = d_edge(vy, y_first, y_last, l, 1, inv2d);
+  const float Ux = d_split(uf, x_first, x_last, l, SW, inv2d);
+  const float Uy = d_edge(uf, y_first, y_last, l, 1, inv2d);
+  const float U = nb[l];
+  const float Px = pw[l];
+  const float Py = pw[SC + l];
+  const float Om = pw[2 * SC + l];
+  k[0] = bc * (b * (Vxx + Vyy) + Px + Py - (sx + sy) * U - Om);
+  k[1] = Ux - sx * vx(l);
+  k[2] = Uy - sy * vy(l);
+  k[3] = b * sx * Vyy;
+  k[4] = b * sy * Vxx;
+  k[5] = sx * sy * U;
+}
+
+// One whole RK4 step of K5 radii-only for `gridDim.z` candidates (see the
+// note at the top). Block (bx, by, z) owns the TX x TY tile of candidate z
+// from row by * TX and column bx * TY. Its region, the tile with HALO cells
+// on every side (one more row or column above or left of a one-cell tile on
+// the domain's last row or column, whose one-sided stencil reaches five
+// cells), lies in shared memory as SH x SW cells from global (r0, c0g);
+// thread (tx, ty) works region column tx and rows HALO + ty, HALO + BY + ty
+// (the tile's rows, slots 0 and 1) and ty or 2 BY + ty (the halo rows,
+// slot 2). Dynamic shared memory, TILED_SMEM bytes:
+//   s_u [6][SC]  the state of the stack in work, 0 outside the region
+//   s_v [6][SC]  the stage input u + a k of that stack
+//   s_w [3][SC]  the other buffer of the stage input's U, Vx and Vy
+//   s_f [SC]     the source shape
+//   s_c [3][SC]  the wavespeed at the k1, k2/k3 and k4 times
+// A stage reads U, Vx and Vy at the stencil's neighbours from one buffer
+// and writes the next stage's into the other (k2's and k4's inputs into
+// s_v, k3's into s_w), so one barrier a stage parts its writes from the
+// next stage's reads; Psix, Psiy and Omega, read at the cell alone by the
+// thread that writes them, stay in s_v. The two stacks (tot with c^2, inc
+// with c0^2) run one after the other through the same buffers; stack 0's
+// new U stays in registers for sc.
+__global__ void __launch_bounds__(BX * BY, TILED_MIN_BLOCKS)
+rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
+               float* __restrict__ partials, const float* __restrict__ shape,
+               const float* __restrict__ prof, const float* __restrict__ owner, StepParams g,
+               float t) {
+  extern __shared__ float smem[];
+  float* s_u = smem;
+  float* s_v = s_u + 6 * SC;
+  float* s_w = s_v + 6 * SC;
+  float* s_f = s_w + 3 * SC;
+  float* s_c = s_f + SC;
+  const int n = g.n;
+  const int nn = n * n;
+  const size_t cand = blockIdx.z;
+  u += cand * 12 * (size_t)nn;
+  out += cand * 12 * (size_t)nn;
+  owner += cand * 5 * (size_t)nn;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+
+  const int ti0 = blockIdx.y * TX, tj0 = blockIdx.x * TY;
+  const Span tile_r{ti0, min(ti0 + TX, n) - 1};
+  const Span tile_c{tj0, min(tj0 + TY, n) - 1};
+  const int r0 = ti0 - HALO - (ti0 == n - 1 ? 1 : 0);  // global row of region row 0
+  const int c0g = tj0 - HALO - (tj0 == n - 1 ? 1 : 0);  // global column of region column 0
+  const Span load_r{max(r0, 0), min(tile_r.hi + HALO, n - 1)};
+  const Span load_c{max(c0g, 0), min(tile_c.hi + HALO, n - 1)};
+  const int rows[3] = {HALO + ty, HALO + BY + ty, ty < HALO ? ty : 2 * BY + ty};
+  const int gj = c0g + tx;
+  const bool col_in = load_c.has(gj);
+
+  // the stage times (`stage_times`), their lerp weights and source phases
+  const float t0 = t, th = t0 + g.half, t1 = t0 + g.full;
+  const float ts3[3] = {t0, th, t1};
+  const float span = g.tf - g.ti;
+  const float denom = span > 0.0f ? span : 1.0f;
+  float lw[3], sn[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    lw[m] = (fminf(fmaxf(ts3[m], g.ti), g.tf) - g.ti) / denom;
+    sn[m] = sinf(TWO_PI * ts3[m] * g.freq);
+  }
+
+  // load once: the source shape and the wavespeed at the three times
+  float sx[3];
+  const float sy = __ldg(prof + min(max(gj, 0), n - 1));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int gi = r0 + rows[a];
+    const int l = rows[a] * SW + tx;
+    const bool in = col_in && load_r.has(gi);
+    const int q = in ? gi * n + gj : 0;
+    sx[a] = __ldg(prof + min(max(gi, 0), n - 1));
+    s_f[l] = in ? __ldg(shape + q) : 0.0f;
+    const float d2 = in ? __ldg(owner + q) : 0.0f;
+    const float r1 = in ? __ldg(owner + nn + q) : 0.0f;
+    const float dr = in ? __ldg(owner + 2 * nn + q) : 0.0f;
+    const float c1 = in ? __ldg(owner + 3 * nn + q) : 0.0f;
+    const float dc = in ? __ldg(owner + 4 * nn + q) : 0.0f;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const float r = r1 + lw[m] * dr;
+      s_c[m * SC + l] = (in && d2 < r * r) ? c1 + lw[m] * dc : g.c0;
+    }
+  }
+
+  float u_tot[2] = {0.0f, 0.0f};  // stack 0's new U at the tile cells
+  float e_tot = 0.0f, e_inc = 0.0f, e_sc = 0.0f;
+#pragma unroll 1
+  for (int stack = 0; stack < 2; ++stack) {
+    __syncthreads();  // the previous stack no longer reads s_u or s_v
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int gi = r0 + rows[a];
+      const int l = rows[a] * SW + tx;
+      const bool in = col_in && load_r.has(gi);
+      const float* src = u + (size_t)6 * stack * nn + (in ? gi * n + gj : 0);
+#pragma unroll
+      for (int ch = 0; ch < 6; ++ch) s_u[ch * SC + l] = in ? __ldg(src + ch * nn) : 0.0f;
+    }
+    __syncthreads();
+
+    float acc[2][6];
+    Span vr = load_r, vc = load_c;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      vr = shrink(vr, n);
+      vc = shrink(vc, n);
+      const float* nb = s == 0 ? s_u : (s == 2 ? s_w : s_v);  // this stage's U, Vx, Vy
+      const float* pw = s == 0 ? s_u + 3 * SC : s_v + 3 * SC;
+      float* next = s == 1 ? s_w : s_v;  // the next stage's U, Vx, Vy
+      const int m = s == 0 ? 0 : (s == 3 ? 2 : 1);  // which stage time
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int gi = r0 + rows[a];
+        const bool tile = a < 2 && tile_r.has(gi) && tile_c.has(gj);
+        // the last stage computes the tile alone (slots 0 and 1)
+        if (s == 3 ? !tile : !(vr.has(gi) && vc.has(gj))) continue;
+        const int l = rows[a] * SW + tx;
+        const float c = s_c[m * SC + l];
+        const float b = stack == 0 ? c * c : g.c0 * g.c0;
+        const float bc = (gi > 0 && gi < n - 1 && gj > 0 && gj < n - 1) ? 1.0f : 0.0f;
+        float k[6];
+        stack_rhs_tiled(nb, pw, s_f, sn[m], b, l, gi == 0, gi == n - 1, gj == 0, gj == n - 1,
+                        sx[a], sy, bc, g.inv2d, k);
+        if (s < 3) {
+          const float coef = s == 2 ? g.full : g.half;
+#pragma unroll
+          for (int ch = 0; ch < 6; ++ch) {
+            if (a < 2 && tile) acc[a][ch] = s == 0 ? k[ch] : acc[a][ch] + 2.0f * k[ch];
+            const float v = s_u[ch * SC + l] + coef * k[ch];
+            if (ch < 3) {
+              next[ch * SC + l] = v;
+            } else {
+              s_v[ch * SC + l] = v;  // read at this cell alone, by this thread
+            }
+          }
+        } else if (a < 2) {
+          // u + dt/6 (k1 + 2 k2 + 2 k3 + k4), left to right as the closed form
+          float* dst = out + (size_t)6 * stack * nn + gi * n + gj;
+          float un = 0.0f;
+#pragma unroll
+          for (int ch = 0; ch < 6; ++ch) {
+            const float v = s_u[ch * SC + l] + g.sixth * (acc[a][ch] + k[ch]);
+            dst[ch * nn] = v;
+            if (ch == 0) un = v;
+          }
+          if (stack == 0) {
+            u_tot[a] = un;
+          } else {
+            const float sc = u_tot[a] - un;
+            e_tot += u_tot[a] * u_tot[a];
+            e_inc += un * un;
+            e_sc += sc * sc;
+          }
+        }
+      }
+      if (s < 3) __syncthreads();  // the next stage reads what this one wrote
+    }
+  }
+
+  // s_c is free: stack 1 does not read it
+  const float s_tot = block_sum(e_tot, s_c);
+  const float s_inc = block_sum(e_inc, s_c);
+  const float s_sc = block_sum(e_sc, s_c);
+  if (tx == 0 && ty == 0) {
+    const size_t blocks = (size_t)gridDim.x * gridDim.y;
+    float* dst = partials + 3 * (cand * blocks + blockIdx.y * gridDim.x + blockIdx.x);
+    dst[0] = s_tot;
+    dst[1] = s_inc;
+    dst[2] = s_sc;
+  }
+}
+
 dim3 grid_for(int n, int w, int batch) {
   return dim3((w + BX - 1) / BX, (n + BY - 1) / BY, batch);
+}
+
+dim3 tiled_grid(int n, int batch) { return dim3((n + TY - 1) / TY, (n + TX - 1) / TX, batch); }
+
+// Lets `rk4_step_tiled` take TILED_SMEM bytes of dynamic shared memory, more
+// than the 48 KB a kernel gets unasked, on the current device, once a device.
+cudaError_t configure_tiled() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  e = cudaFuncSetAttribute(rk4_step_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           TILED_SMEM);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
 }
 
 // The whole grid is w == n with col0 == 0. Any other (w, col0) is a slab
@@ -454,7 +768,8 @@ int fused_rk4_blocks(int n, int w) {
 // One RK4 stage for `batch` candidates (K3; K1 or K2 of a single state
 // when batch is 1; K4 on a slab when (w, col0) is not (n, 0)). `mode` 0,
 // 1 or 2 as for `rk4_stage`, `radii` selects the owner test, `xm` the
-// split d/dx of K5 (K4-XM on a slab). u, kp, k1, k2
+// split d/dx of K5 (K4-XM on a slab). K5 radii-only on the whole grid is
+// refused: it is `fused_rk4_step_tiled`. u, kp, k1, k2
 // and out are (batch, 12, n, w), cyl (batch, 8, n_cyl), owner
 // (batch, 5, n, w), partials (batch, fused_rk4_blocks(n, w), 3); shape
 // (n, w) and prof (n) are shared. Returns the cudaError_t of the launch.
@@ -473,6 +788,9 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   const dim3 block(BX, BY);
   const dim3 gr = grid_for(n, w, batch);
   const bool slab = !(w == n && col0 == 0);
+  if (radii && xm && !slab) {
+    return (int)cudaErrorInvalidValue;  // K5 radii-only: `fused_rk4_step_tiled`, one launch a step
+  }
   cudaStream_t s = (cudaStream_t)stream;
 #define WAVES_LAUNCH(M, R, S, X)                                                               \
   rk4_stage<M, R, S, X><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
@@ -481,19 +799,71 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   if (mode == 0) WAVES_LAUNCH(0, R, S, X);     \
   else if (mode == 1) WAVES_LAUNCH(1, R, S, X); \
   else WAVES_LAUNCH(2, R, S, X)
-#define WAVES_LAYOUTS(R)                                        \
-  if (slab && xm) { WAVES_MODES(R, true, true); }               \
-  else if (slab) { WAVES_MODES(R, true, false); }               \
-  else if (xm) { WAVES_MODES(R, false, true); }                 \
-  else { WAVES_MODES(R, false, false); }
   if (radii) {
-    WAVES_LAYOUTS(true);
+    if (slab && xm) { WAVES_MODES(true, true, true); }
+    else if (slab) { WAVES_MODES(true, true, false); }
+    else { WAVES_MODES(true, false, false); }
   } else {
-    WAVES_LAYOUTS(false);
+    if (slab && xm) { WAVES_MODES(false, true, true); }
+    else if (slab) { WAVES_MODES(false, true, false); }
+    else if (xm) { WAVES_MODES(false, false, true); }
+    else { WAVES_MODES(false, false, false); }
   }
-#undef WAVES_LAYOUTS
 #undef WAVES_MODES
 #undef WAVES_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// What `fused_rk4_step_tiled` takes that is fixed for a window: built once
+// by the caller, so that a step marshals four pointers and a time. The
+// layout is that of `_TiledWindow` in ops/fused_rk4.py.
+struct TiledWindow {
+  const float* shape;  // (n, n), shared by the candidates
+  const float* prof;   // (n)
+  const float* owner;  // (batch, 5, n, n)
+  void* stream;
+  int batch;
+  int n;
+  float inv2d, c0, freq, half, full, sixth, ti, tf;
+};
+
+// Energy-partial rows (blocks) of one candidate's tiled step on an n x n grid.
+int fused_rk4_step_blocks(int n) {
+  const dim3 gr = tiled_grid(n, 1);
+  return (int)(gr.x * gr.y);
+}
+
+// Dynamic shared memory of a block of the tiled step, in bytes.
+int fused_rk4_step_smem() { return TILED_SMEM; }
+
+// Blocks of the tiled step resident on one SM of the current device, as
+// the occupancy calculator gives it for the kernel's registers and shared
+// memory; negative on an error.
+int fused_rk4_step_occupancy() {
+  int blocks = 0;
+  cudaError_t e = configure_tiled();
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rk4_step_tiled, BX * BY,
+                                                      TILED_SMEM);
+  }
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// One whole RK4 step of K5 radii-only (batch 1) or batched K5 radii-only
+// (batch K) on the whole grid, in one launch: u and out (batch, 12, n, n),
+// partials (batch, fused_rk4_step_blocks(n), 3), t the step's start time.
+// Returns the cudaError_t of the launch.
+int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float* partials,
+                         float t) {
+  if (w == nullptr || w->n < 3 || w->batch < 1 || w->batch > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = configure_tiled();
+  if (e != cudaSuccess) return (int)e;
+  const StepParams p{w->n, w->inv2d, w->c0, w->freq, w->half, w->full, w->sixth, w->ti, w->tf};
+  rk4_step_tiled<<<tiled_grid(w->n, w->batch), dim3(BX, BY), TILED_SMEM,
+                   (cudaStream_t)w->stream>>>(u, out, partials, w->shape, w->prof, w->owner, p,
+                                              t);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,15 @@ This module builds the kernel with plain `nvcc` into a shared library with
 a C interface at first use, binds it with `ctypes`, and keeps the plain
 PyTorch version of the same function beside it.
 
+K5 radii-only on the whole grid, single or batched (the default path of
+the env window, datagen, the controllers and the hybrid's re-rank), runs a
+whole RK4 step in one launch (`rk4_step_tiled`: each block keeps its tile
+and a 4-cell halo in shared memory through the four stages). Every other
+mode runs one launch per RK4 stage, `STAGES` a step. `fused_rk4_window`
+drives a window's steps as the env window and the re-rank do: for the
+one-launch step it makes its two state buffers and its energy partials
+once a window and marshals the window's fixed inputs once.
+
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
 kernel launches per kernel.
@@ -57,8 +66,11 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",
 )
-STAGES = 4  # kernel launches per RK4 step
-HALO = 4  # halo columns one RK4 step consumes on each side of a slab (pallas_fd.py:31)
+# RK4 stages a step: the launches a step of every mode but K5 radii-only on
+# the whole grid (single or batched), which takes one launch a step
+STAGES = 4
+HALO = 4  # halo cells one RK4 step consumes on each side (pallas_fd.py:31)
+TILE = (16, 24)  # rows and columns of a block's tile in `rk4_step_tiled` (TX, TY)
 
 launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0,
                  "fused_rk4_batched_general": 0, "fused_rk4_batched_radii_only": 0,
@@ -296,6 +308,83 @@ def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg:
     return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
 
 
+def _tile_region(start: int, size: int, n: int) -> tuple[int, int, int]:
+    """(tile's last index, region's first, region's last) along one axis for
+    the tile of `size` from `start`, as `rk4_step_tiled` takes them: HALO
+    cells a side, one more before a one-cell tile on the last index (its
+    one-sided stencil reaches five cells inward), cut at the domain."""
+    end = min(start + size, n) - 1
+    return end, max(start - HALO - (start == n - 1), 0), min(end + HALO, n - 1)
+
+
+def _shrink(lo: int, hi: int, n: int) -> tuple[int, int]:
+    """Where a stage's outputs are valid, given where its input is: one cell
+    in from each side but a side on the domain's edge."""
+    return (lo if lo == 0 else lo + 1), (hi if hi == n - 1 else hi - 1)
+
+
+def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepConfig,
+                                   tile: tuple[int, int] = TILE):
+    """K5 radii-only computed tile by tile as the one-launch kernel
+    `rk4_step_tiled` decomposes the step, in plain PyTorch with the whole-grid
+    plain version's own `_stack_rhs` and split d/dx. Each tile's region (the
+    tile and its halo, `_tile_region`) runs the four stages on regions that
+    shrink by one cell a side a stage (`_shrink`): the stencils run on the
+    stage input's whole region, and its cells on a side inside the domain,
+    one-sided there, are dropped. The tile keeps the closed-form combine; no
+    cell outside the domain is held or read. For the tests alone, which hold
+    it equal to `fused_rk4_step_reference(..., x_matmul=True)` without a
+    card. Returns (u_next (12, n, n), energies (3,))."""
+    n = cfg.n
+    dev = u.device
+    c0 = float(np.float32(cfg.c0))
+    b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
+    two_pi_f = np.float32(2.0 * math.pi)
+    half, full, sixth = 0.5 * cfg.dt, cfg.dt, cfg.dt / 6.0
+    t0, th, t1 = stage_times(t, cfg.dt)
+    idx = torch.arange(n, device=dev)
+    interior = (idx > 0) & (idx < n - 1)
+    out = torch.empty_like(u)
+    parts = []
+
+    def rhs(v, ts, rows, cols):
+        w = lerp_weight(ts, ti, tf)
+        own = owner[:, rows, cols]
+        r = own[1] + w * own[2]
+        c = torch.where(own[0] < r * r, own[3] + w * own[4], torch.full_like(r, c0))
+        sn = torch.sin(torch.tensor(two_pi_f * np.float32(ts) * np.float32(cfg.freq), device=dev))
+        f = shape[rows, cols] * sn
+        sx, sy = prof[rows][:, None], prof[cols][None, :]
+        bc = (interior[rows][:, None] & interior[cols][None, :]).to(torch.float32)
+        lo, hi = -cols.start, n - 1 - cols.start  # local columns of the domain's edges
+        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d, lo, hi, dx_split_bf16)
+        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d, lo, hi, dx_split_bf16)
+        return torch.stack(d_tot + d_inc)
+
+    for i0 in range(0, n, tile[0]):
+        i1, rlo, rhi = _tile_region(i0, tile[0], n)
+        for j0 in range(0, n, tile[1]):
+            j1, clo, chi = _tile_region(j0, tile[1], n)
+            span = (rlo, rhi, clo, chi)
+            v = u[:, rlo:rhi + 1, clo:chi + 1]  # the stage-1 input on the region
+            ks = []
+            for ts, a in ((t0, half), (th, half), (th, full), (t1, None)):
+                k = rhs(v, ts, slice(span[0], span[1] + 1), slice(span[2], span[3] + 1))
+                new = (*_shrink(span[0], span[1], n), *_shrink(span[2], span[3], n))
+                k = k[:, new[0] - span[0]:new[1] - span[0] + 1, new[2] - span[2]:new[3] - span[2] + 1]
+                span = new
+                ks.append(k[:, i0 - span[0]:i1 - span[0] + 1, j0 - span[2]:j1 - span[2] + 1])
+                if a is not None:
+                    v = u[:, span[0]:span[1] + 1, span[2]:span[3] + 1] + a * k
+            k1, k2, k3, k4 = ks
+            own = u[:, i0:i1 + 1, j0:j1 + 1] + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+            out[:, i0:i1 + 1, j0:j1 + 1] = own
+            sc = own[0] - own[6]
+            parts.append(torch.stack([torch.sum(own[0] * own[0]), torch.sum(own[6] * own[6]),
+                                      torch.sum(sc * sc)]))
+    return out, torch.stack(parts).sum(dim=0)
+
+
 # ---------------------------------------------------------------------------
 # the kernel: build, bind, launch
 # ---------------------------------------------------------------------------
@@ -340,6 +429,11 @@ class _Library:
                                                     I, P, I, I, I, F, F, F, F, F, F, F, F, P])
         self.owner = self._bind("select_owner", [I, P, I, P, I, I, I, F, F, P])
         self.blocks = self._bind("fused_rk4_blocks", [I, I])
+        # the one-launch step: the window's struct, u, out, partials, t
+        self.step_tiled = self._bind("fused_rk4_step_tiled", [P, P, P, P, F])
+        self.step_blocks = self._bind("fused_rk4_step_blocks", [I])
+        self.step_smem = self._bind("fused_rk4_step_smem", [])
+        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [])
 
     def _bind(self, name: str, argtypes: list):
         fn = getattr(self.cdll, name)
@@ -363,6 +457,20 @@ def partial_rows(n: int, w: int | None = None) -> int:
     """Rows of energy partials (one per thread block) a step writes on an
     n x w grid (w = n unless given)."""
     return _lib().blocks(n, w or n)
+
+
+def step_partial_rows(n: int) -> int:
+    """Rows of energy partials (one per tile) a one-launch step writes on an
+    n x n grid, per candidate."""
+    return _lib().step_blocks(n)
+
+
+def tiled_kernel_report() -> dict:
+    """The one-launch kernel's dynamic shared memory a block, in bytes, and
+    its resident blocks an SM on the current device (the CUDA occupancy
+    calculator, from its registers and shared memory)."""
+    lib = _lib()
+    return {"smem_bytes": lib.step_smem(), "blocks_per_sm": lib.step_occupancy()}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -449,19 +557,65 @@ def select_owner_batched(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
     return _launch_owner(cyl, cfg, cyl.shape[0])
 
 
+class _TiledWindow(ctypes.Structure):
+    """`TiledWindow` of csrc/fused_rk4.cu: what the one-launch step takes
+    that is fixed for a window."""
+
+    _fields_ = [("shape", ctypes.c_void_p), ("prof", ctypes.c_void_p),
+                ("owner", ctypes.c_void_p), ("stream", ctypes.c_void_p),
+                ("batch", ctypes.c_int), ("n", ctypes.c_int),
+                *((name, ctypes.c_float)
+                  for name in ("inv2d", "c0", "freq", "half", "full", "sixth", "ti", "tf"))]
+
+
+class _TiledStep:
+    """K5 radii-only on the whole grid, of one state (batch None) or of
+    `batch` candidates, over one window: the inputs fixed for the window are
+    checked and marshalled once, and `launch` runs one RK4 step in one
+    launch on the current stream of `dev`, the state's device."""
+
+    def __init__(self, shape, prof, owner, ti: float, tf: float, cfg: StepConfig,
+                 batch: int | None, dev: torch.device):
+        n = cfg.n
+        _check("shape", shape, (n, n), dev)
+        _check("prof", prof, (n,), dev)
+        _check("owner", owner, (*(() if batch is None else (batch,)), 5, n, n), dev)
+        f = np.float32
+        self.args = _TiledWindow(shape.data_ptr(), prof.data_ptr(), owner.data_ptr(),
+                                 _stream(dev).value, batch or 1, n, cfg.inv2d, cfg.c0, cfg.freq,
+                                 f(0.5 * cfg.dt), f(cfg.dt), f(cfg.dt / 6.0), ti, tf)
+        self.ref = ctypes.addressof(self.args)
+        self.inputs = (shape, prof, owner)  # alive while the struct points at them
+        self.fn = _lib().step_tiled
+        self.key = _key("fused_rk4", batch, None, True) + "_radii_only"
+        self.rows = step_partial_rows(n)
+
+    def launch(self, u_ptr: int, out_ptr: int, partials_ptr: int, t: float) -> None:
+        _raise_on(self.fn(self.ref, u_ptr, out_ptr, partials_ptr, t), self.key)
+        launch_counts[self.key] += 1
+
+
 def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: int | None,
                  slab: Slab | None = None, x_matmul: bool = False):
-    """Check the inputs and launch the four stages of one RK4 step: of one
-    state (K1 or K2) for batch None, else of `batch` candidates (K3); on a
-    slab (K4) if given; with the split d/dx (K5) if `x_matmul`. Returns
-    (u_next, energy partials (batch or 1, blocks, 3))."""
+    """Check the inputs and launch one RK4 step: of one state (K1 or K2) for
+    batch None, else of `batch` candidates (K3); on a slab (K4) if given;
+    with the split d/dx (K5) if `x_matmul`. K5 radii-only on the whole grid
+    takes one launch, every other mode one a stage. Returns (u_next, energy
+    partials (batch or 1, blocks, 3))."""
     n, dev = cfg.n, u.device
     w, col0 = _extent(cfg, slab)
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, w), dev)
+    n_cyl = _check_cyl(cyl, lead, dev)
+    if owner is not None and x_matmul and slab is None:
+        step = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev)
+        out = torch.empty_like(u)
+        partials = torch.empty((batch or 1, step.rows, 3), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):  # the launch goes to the current device
+            step.launch(u.data_ptr(), out.data_ptr(), partials.data_ptr(), float(t))
+        return out, partials
     _check("shape", shape, (n, w), dev)
     _check("prof", prof, (n,), dev)
-    n_cyl = _check_cyl(cyl, lead, dev)
     if owner is not None:
         _check("owner", owner, (*lead, 5, n, w), dev)
     radii = owner is not None
@@ -499,7 +653,8 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
     kernel K2; None selects the general kernel K1. With a slab, u, shape
     and owner are its (.., n, slab.w) columns and the step is K4's.
     `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
-    K4-XM on a slab). Returns (u_next, energies (3,))."""
+    K4-XM on a slab); K5 radii-only takes one launch a step, every other
+    mode one a stage. Returns (u_next, energies (3,))."""
     if not _on_card(u):
         return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
                                         x_matmul)
@@ -511,7 +666,8 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
 def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
                            x_matmul: bool = False):
     """Advance K candidate states (K, 12, n, n) one RK4 step from the same
-    time t, one launch a stage (K3), each with its own cylinders
+    time t, one launch a stage (K3; one launch a step for batched K5
+    radii-only), each with its own cylinders
     (K, 8, n_cyl) lerped over [ti, tf]. `owner` (K, 5, n, n) from
     `select_owner_batched` selects the radii-only mode, None the general
     one; `x_matmul` the split d/dx (K5). Each candidate's energy partials
@@ -523,3 +679,49 @@ def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfi
     out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, u.shape[0],
                                  x_matmul=x_matmul)
     return out, partials.sum(dim=1)
+
+
+def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
+                     keep, x_matmul: bool = False):
+    """Advance one state (12, n, n), or K candidates (K, 12, n, n) with
+    their own cylinders and owner fields, through a window's steps from the
+    float32 start times `times`, with the design lerped over [ti, tf], as
+    `fused_rk4_step` or `fused_rk4_step_batched` would step by step. The new
+    state of each step whose index is in `keep` is kept, in a tensor of its
+    own. On the card, K5 radii-only takes one launch a step, its window's
+    fixed inputs marshalled once, its steps alternating between two state
+    buffers made once (the input u is never written), and its energy
+    partials (steps, K, blocks, 3) made once and reduced once. Every other
+    mode, and the CPU's plain version, goes step by step. Returns (the kept
+    states in order, energies (steps, 3) or (steps, K, 3))."""
+    batch = u.shape[0] if u.dim() == 4 else None
+    if not (_on_card(u) and owner is not None and x_matmul):
+        step = fused_rk4_step if batch is None else fused_rk4_step_batched
+        kept, energies = [], []
+        for s, t in enumerate(times):
+            u, e = step(u, shape, prof, cyl, owner, t, ti, tf, cfg, x_matmul=x_matmul)
+            energies.append(e)
+            if s in keep:
+                kept.append(u)
+        return kept, torch.stack(energies)
+    n, dev = cfg.n, u.device
+    lead = () if batch is None else (batch,)
+    _check("u", u, (*lead, 12, n, n), dev)
+    _check_cyl(cyl, lead, dev)
+    launcher = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev)
+    partials = torch.empty((len(times), batch or 1, launcher.rows, 3), dtype=torch.float32,
+                           device=dev)
+    base, row_bytes = partials.data_ptr(), partials.stride(0) * partials.element_size()
+    buffers = (torch.empty_like(u), torch.empty_like(u))
+    keep, kept = set(keep), []
+    with torch.cuda.device(dev):  # the launches go to the current device
+        for s, t in enumerate(times):
+            if s in keep:
+                dst = torch.empty_like(u)
+                kept.append(dst)
+            else:
+                dst = buffers[1] if u is buffers[0] else buffers[0]
+            launcher.launch(u.data_ptr(), dst.data_ptr(), base + s * row_bytes, float(t))
+            u = dst
+    energies = partials.sum(dim=2)
+    return kept, energies if batch is not None else energies[:, 0]

@@ -9,7 +9,10 @@ candidate-batched kernel K3, the hybrid controller's exact re-rank.
 
 Each takes `x_matmul=True` by default, as in the JAX package: d/dx in the
 bf16 hi/lo split form of the JAX kernel's default mode (K5);
-`x_matmul=False` takes the exact stencil of K1-K3.
+`x_matmul=False` takes the exact stencil of K1-K3. Both drive a window
+through `fused_rk4_window`: on the card, K5 radii-only (the triple ring's
+default) takes one launch a step, with the window's state buffers and
+energy partials made once and reduced once.
 """
 from __future__ import annotations
 
@@ -18,8 +21,7 @@ import torch
 
 from ..designs import design_cylinders
 from ..env import EnvState, WaveEnv, env_tspan, frame_segments
-from ..ops.fused_rk4 import (StepConfig, fused_rk4_step, fused_rk4_step_batched, select_owner,
-                             select_owner_batched)
+from ..ops.fused_rk4 import StepConfig, fused_rk4_window, select_owner, select_owner_batched
 from ..utils.trees import tree_map
 
 
@@ -70,9 +72,9 @@ def step_config(env: WaveEnv) -> StepConfig:
 
 
 def make_fused_window(env: WaveEnv, x_matmul: bool = True):
-    """Action window through the fused kernel, one wrapper call a step;
-    radii-only (K2) when `radii_only_ok` holds for the design space, else
-    general (K1); with the split d/dx (K5) if `x_matmul`.
+    """Action window through the fused kernel; radii-only (K2) when
+    `radii_only_ok` holds for the design space, else general (K1); with the
+    split d/dx (K5) if `x_matmul`.
 
     Returns window(u, shape, tspan, cyl) -> (u_final, frames, signal): u the
     (12, n, n) state, shape the (n, n) source shape, tspan the window's
@@ -81,7 +83,8 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True):
     energies times the cell area.
     """
     cfg = step_config(env)
-    seg_lens = frame_segments(env.integration_steps)
+    frame_ends = (np.cumsum(frame_segments(env.integration_steps)) - 1).tolist()
+    stepped = sorted({e for e in frame_ends if e >= 0})  # steps that end a frame segment
     radii = radii_only_ok(env.design_space)
     prof = env.integrator.dynamics.pml[:, 0].contiguous()
     d_omega = cfg.spacing * cfg.spacing
@@ -90,18 +93,13 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True):
         ti, tf = float(tspan[0]), float(tspan[-1])
         owner = select_owner(cyl, cfg) if radii else None
         sc = u[0] - u[6]
-        energies = [torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]),
-                                 torch.sum(sc * sc)])]
-        frames = []
-        offset = 0
-        for seg in seg_lens:
-            for t in tspan[offset:offset + seg]:
-                u, e = fused_rk4_step(u, shape, prof, cyl, owner, float(t), ti, tf, cfg,
-                                      x_matmul=x_matmul)
-                energies.append(e)
-            frames.append(u)
-            offset += seg
-        return u, frames, torch.stack(energies) * d_omega
+        e0 = torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
+        kept, energies = fused_rk4_window(u, shape, prof, cyl, owner,
+                                          [float(t) for t in tspan[:-1]], ti, tf, cfg, stepped,
+                                          x_matmul)
+        after = dict(zip(stepped, kept))  # an empty segment's frame is the state before it
+        frames = [after.get(e, u) for e in frame_ends]
+        return frames[-1], frames, torch.cat([e0[None], energies]) * d_omega
 
     return window
 
@@ -141,10 +139,10 @@ def rerank_step_times(t_i: np.float32, steps: int, dt: float) -> list[np.float32
 def make_rerank_rollout(env: WaveEnv, k: int, horizon: int, x_matmul: bool = True):
     """K-candidate exact re-rank rollout for the hybrid controller: all K
     action sequences advance through the simulator together, one
-    candidate-batched kernel launch (K3) a stage, instead of K rollouts in
-    turn. Radii-only when `radii_only_ok` holds for the design space, with
-    one batched owner pass a window; general otherwise; with the split d/dx
-    (K5) if `x_matmul`.
+    candidate-batched kernel launch (K3) a stage, or a step for batched K5
+    radii-only, instead of K rollouts in turn. Radii-only when
+    `radii_only_ok` holds for the design space, with one batched owner pass
+    a window; general otherwise; with the split d/dx (K5) if `x_matmul`.
 
     Returns rollout(state, elite, t0) -> (K,) cumulative scattered energy
     over `horizon` windows, sum_h sum(signal_h[1:, 2]) for each candidate:
@@ -170,12 +168,10 @@ def make_rerank_rollout(env: WaveEnv, k: int, horizon: int, x_matmul: bool = Tru
             cyl = cyl_params(designs, next_designs, env.device).contiguous()
             owner = select_owner_batched(cyl, cfg) if radii else None
             tf = f(t_i + f(steps * cfg.dt))
-            sc = []
-            for ts in rerank_step_times(t_i, steps, cfg.dt):
-                u, e = fused_rk4_step_batched(u, shape, prof, cyl, owner, float(ts), float(t_i),
-                                              float(tf), cfg, x_matmul)
-                sc.append(e[:, 2])
-            per_window.append(torch.stack(sc).sum(dim=0))
+            times = [float(ts) for ts in rerank_step_times(t_i, steps, cfg.dt)]
+            (u,), e = fused_rk4_window(u, shape, prof, cyl, owner, times, float(t_i), float(tf),
+                                       cfg, [steps - 1], x_matmul)
+            per_window.append(e[:, :, 2].sum(dim=0))
             designs, t_i = next_designs, tf
         return torch.stack(per_window).sum(dim=0) * d_omega
 
