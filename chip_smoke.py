@@ -8,17 +8,18 @@ its elapsed seconds:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, with
-   ptxas's register and spill report, and for the one-launch step
-   `rk4_step_tiled` its registers, spills, shared memory and resident
-   blocks an SM;
+   ptxas's register and spill report, and for both instances of the
+   one-launch step `rk4_step_tiled` (the split d/dx and the exact one)
+   their registers, spills, shared memory and resident blocks an SM;
 3. kernels: each kernel against its plain PyTorch version at 700^2, K5
    (the split d/dx, `x_matmul=True`) in both rasterisation modes with the
-   count of cells that differ (none for K5 radii-only, one launch a step),
-   and the candidate-batched kernels K3 and K5 (16 candidates at 350^2,
-   coarsened from the 700^2 state) against their plain versions and
-   against K2 or K5 run on each candidate alone; the time of a step of K5
-   radii-only and of batched K5 as one call, as device work, and inside a
-   100-step window with the host's issue time;
+   count of cells that differ (none for K2 and K5 radii-only, one launch a
+   step), and the candidate-batched kernels K3 and K5 (16 candidates at
+   350^2, coarsened from the 700^2 state) against their plain versions
+   (none differing for either in the radii-only mode) and against K2 or K5
+   run on each candidate alone; the time of a step of K2, K5, K3 and
+   batched K5 radii-only as one call, as device work, and inside a 100-step
+   window with the host's issue time;
 4. main path: a warm 20-action x 100-step MPC control episode at 700^2
    (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
    surrogate with the tracked weights), the simulator's steps/s over 20
@@ -65,10 +66,11 @@ its elapsed seconds:
    sequential one; the MPC evaluation CLI once, in a subprocess.
 
 The launch counts of each kernel are read from the main-path runs alone:
-K5 radii-only and batched K5 take one launch a step, every other mode one
-a stage. The last lines are one JSON object describing every kernel (`ms`
-with CUDA events around calls as the host drives them; the rows of K4 and
-of K5 radii-only add `device_ms`, the same launches queued behind a device
+radii-only on the whole grid (K2, K3, K5, batched K5) takes one launch a
+step, the general modes and the slabs one a stage. The last lines are one
+JSON object describing every kernel (`ms` with CUDA events around calls as
+the host drives them; the rows of K4 and of the radii-only modes on the
+whole grid add `device_ms`, the same launches queued behind a device
 sleep, without the host's issue cost), then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
@@ -198,17 +200,19 @@ def host_s(fn):
     return time.time() - t, out
 
 
-def window_step_ms(u, shape, prof, cyl, owner, times, ti, tf, cfg) -> tuple[float, float, float]:
-    """(ms a step as the host drives a window of K5 radii-only through
-    `fused_rk4_window`, ms a step as device work, ms the host takes to issue
-    a step), single or batched by u's shape."""
+def window_step_ms(u, shape, prof, cyl, owner, times, ti, tf, cfg,
+                   x_matmul: bool) -> tuple[float, float, float]:
+    """(ms a step as the host drives a window of the radii-only mode
+    through `fused_rk4_window`, ms a step as device work, ms the host takes
+    to issue a step), single or batched by u's shape, with the split d/dx
+    (K5) if `x_matmul`, else the exact one (K2, K3)."""
     import torch
 
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
 
     def run(steps):
         return fk.fused_rk4_window(u, shape, prof, cyl, owner, times[:steps], ti, tf, cfg,
-                                   [steps - 1], True)
+                                   [steps - 1], x_matmul)
 
     ms = cuda_ms(lambda: run(len(times)), 3) / len(times)
     dev = device_ms(lambda: run(20), 1) / 20
@@ -294,8 +298,11 @@ def batched_kernels(env, state, dev):
     k3_state, k3_sig = rel_err(u_k, u_p), rel_err(e_k, e_p)
     k3_abs = float(torch.max(torch.abs(u_k - u_p)))
     log("kernels", f"K3 radii-only vs plain, {STEPS} steps: rel err state {k3_state:.3e}, "
-                   f"signal {k3_sig:.3e} (tol {REL_TOL:g})")
+                   f"signal {k3_sig:.3e} (tol {REL_TOL:g}); {differing_cells(u_k, u_p)}")
     check(k3_state <= REL_TOL and k3_sig <= REL_TOL, "K3 radii-only agrees with its plain version")
+    check(torch.equal(u_k, u_p) and k3_sig <= 1e-6,
+          "K3 radii-only (one launch a step) equals its plain version bit for bit, its signal "
+          "within 1e-6")
 
     identical, sig_err = 0, 0.0
     for b in range(TOPK):
@@ -351,9 +358,13 @@ def batched_kernels(env, state, dev):
                                                  cfg), 3)
     k5b_dev = device_ms(lambda: xm_batched(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 20)
     k5b_win = window_step_ms(u0, shape, prof, cyl, owner_k, [float(x) for x in tspan[:-1]], ti,
-                             tf, cfg)
+                             tf, cfg, True)
     k3_ms = cuda_ms(lambda: fk.fused_rk4_step_batched(u0, shape, prof, cyl, owner_k, t_arg, ti,
                                                       tf, cfg), 50)
+    k3_dev = device_ms(lambda: fk.fused_rk4_step_batched(u0, shape, prof, cyl, owner_k, t_arg, ti,
+                                                         tf, cfg), 20)
+    k3_win = window_step_ms(u0, shape, prof, cyl, owner_k, [float(x) for x in tspan[:-1]], ti,
+                            tf, cfg, False)
     k3_plain = cuda_ms(lambda: fk.fused_rk4_step_batched_reference(u0, shape, prof, cyl, owner_p,
                                                                    t_arg, ti, tf, cfg), 3)
     seq_ms = cuda_ms(lambda: [fk.fused_rk4_step(u0[b], shape, prof, cyl[b], owner_k[b], t_arg, ti,
@@ -361,26 +372,27 @@ def batched_kernels(env, state, dev):
     own_ms = cuda_ms(lambda: fk.select_owner_batched(cyl, cfg), 50)
     own_plain = cuda_ms(lambda: fk.select_owner_batched_reference(cyl, cfg), 3)
     log("kernels", f"ms per batched RK4 step of {TOPK} candidates at {SIZE_RERANK}^2: K3 radii-only "
-                   f"{k3_ms:.4f} (plain {k3_plain:.4f}); {TOPK} x K2 steps, the sequential route, "
+                   f"{k3_ms:.4f} (plain {k3_plain:.4f}; device work {k3_dev:.4f}; inside a "
+                   f"{STEPS}-step window {k3_win[0]:.4f} a step, device work {k3_win[1]:.4f}, the "
+                   f"host issues a step in {k3_win[2]:.4f}); {TOPK} x K2 steps, the sequential route, "
                    f"{seq_ms:.4f}; select_owner_batched {own_ms:.4f} (plain {own_plain:.4f}); "
                    f"batched K5 radii-only {k5b_ms:.4f} (plain {k5b_plain:.4f}; device work "
                    f"{k5b_dev:.4f}; inside a {STEPS}-step window {k5b_win[0]:.4f} a step, device "
                    f"work {k5b_win[1]:.4f}, the host issues a step in {k5b_win[2]:.4f})")
 
     n_cyl = cyl.shape[-1]
-    part = torch.empty((TOPK, fk.partial_rows(SIZE_RERANK), 3), dtype=torch.float32)
     part_t = torch.empty((TOPK, fk.step_partial_rows(SIZE_RERANK), 3), dtype=torch.float32)
     # K times what an RK4 step needs: the states in and out, the shared
     # shape and profile, each candidate's cylinders and energy partials
     io_step = 2 * nbytes(u0) + nbytes(shape, prof, cyl)
-    k3_bound = bound(io_step + nbytes(part), TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True))
+    k3_bound = bound(io_step + nbytes(part_t), TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True))
     k5b_bound = bound(io_step + nbytes(part_t),
                       TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True, x_matmul=True))
     own_bound = bound(nbytes(cyl, owner_k), TOPK * SIZE_RERANK * SIZE_RERANK * n_cyl * 9)
     log("kernels", f"K3 bound per batched step {k3_bound[0]:.5f} ms ({k3_bound[1]}; states alone "
                    f"{2 * nbytes(u0) / 1e6:.1f} MB, {2 * nbytes(u0) / HBM_BYTES_PER_S * 1e3:.5f} "
                    f"ms); select_owner_batched {own_bound[0]:.5f} ms ({own_bound[1]})")
-    return env_lo, {"k3": (k3_abs, k3_ms, k3_plain, k3_bound),
+    return env_lo, {"k3": (k3_abs, k3_ms, k3_plain, k3_bound), "k3_dev": k3_dev,
                     "own": (owner_err, own_ms, own_plain, own_bound), "seq_ms": seq_ms,
                     "k5b": (k5b_abs, k5b_ms, k5b_plain, k5b_bound), "k5b_dev": k5b_dev}
 
@@ -544,13 +556,17 @@ def hybrid_episode(env, env_lo, space, dev):
     exact_counts = dict(fk.launch_counts)
     split_s, split_cost = host_s(lambda: act.exact_eval(st_lo, best, t0))
     split_rel = rel_err(split_cost, exact_cost)
+    same_choice = int(torch.argmin(split_cost)) == int(torch.argmin(exact_cost))
     log("hybrid", f"re-rank rollout of the {TOPK} pruned, exact stencil (K3) {exact_s:.4f} s vs "
                   f"split d/dx (batched K5) {split_s:.4f} s; costs rel err {split_rel:.3e} (tol "
-                  f"{REL_TOL:g}); launches {exact_counts}")
-    check(exact_counts["fused_rk4_batched_radii_only"] == HORIZON * STEPS * fk.STAGES
-          and exact_counts["select_owner_batched"] == HORIZON,
-          f"{HORIZON * STEPS * fk.STAGES} K3 radii-only stage launches in the exact re-rank")
-    check(split_rel <= REL_TOL, "the split and exact re-rank costs agree")
+                  f"1e-06), same choice {same_choice}; launches {exact_counts}")
+    expect = dict.fromkeys(exact_counts, 0)
+    # K3 radii-only takes one launch a step
+    expect.update({"fused_rk4_batched_radii_only": HORIZON * STEPS,
+                   "select_owner_batched": HORIZON})
+    check(exact_counts == expect, f"exact re-rank launch counts {exact_counts} == {expect}")
+    check(split_rel <= 1e-6 and same_choice,
+          "the split and exact re-rank costs agree within 1e-6 and choose alike")
 
     rounds = HybridShooting(env, model, exact_rounds=2, **kw)
     rounds_s, (_, r2_cost) = host_s(lambda: rounds.rerank(final, *pruned, gen))
@@ -1287,14 +1303,19 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    " + line.strip(), flush=True)
     lines = report.splitlines()
-    tiled = [i for i, line in enumerate(lines) if "Compiling entry" in line and "rk4_step_tiled" in line]
-    ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in lines[tiled[0] + 1:tiled[0] + 4]
-                      if "registers" in line or "spill" in line) if tiled else "already built"
     occ = fk.tiled_kernel_report()
-    log("build", f"rk4_step_tiled (K5 radii-only, one launch a step): ptxas {ptxas}; dynamic "
-                 f"shared memory {occ['smem_bytes']} B a block of 256 threads; "
-                 f"{occ['blocks_per_sm']} blocks an SM")
-    check(occ["blocks_per_sm"] >= 1, "the one-launch step fits an SM")
+    # the two instances of the one-launch step: rk4_step_tiled<true> (split
+    # d/dx, K5) and rk4_step_tiled<false> (exact, K2 and K3)
+    for xm, name, blocks in ((True, "split d/dx, K5 and batched K5", occ["blocks_per_sm"]),
+                             (False, "exact d/dx, K2 and K3", occ["blocks_per_sm_exact"])):
+        mangled = f"rk4_step_tiledILb{int(xm)}E"
+        at = [i for i, line in enumerate(lines) if "Compiling entry" in line and mangled in line]
+        ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in lines[at[0] + 1:at[0] + 4]
+                          if "registers" in line or "spill" in line) if at else "already built"
+        log("build", f"rk4_step_tiled<{str(xm).lower()}> ({name}, one launch a step): ptxas "
+                     f"{ptxas}; dynamic shared memory {occ['smem_bytes']} B a block of 256 "
+                     f"threads; {blocks} blocks an SM")
+        check(blocks >= 1, f"the one-launch step ({name}) fits an SM")
 
     # 3. kernels against their plain versions, 700^2
     space = build_triple_ring_design_space(device=dev)
@@ -1338,8 +1359,11 @@ def main() -> int:
     k2_state, k2_sig = rel_err(u_k2, u_p2), rel_err(e_k2, e_p2)
     k2_abs = float(torch.max(torch.abs(u_k2 - u_p2)))
     log("kernels", f"K2 radii-only vs plain, {STEPS} steps: rel err state {k2_state:.3e}, "
-                   f"signal {k2_sig:.3e} (tol {REL_TOL:g})")
+                   f"signal {k2_sig:.3e} (tol {REL_TOL:g}); {differing_cells(u_k2, u_p2)}")
     check(k2_state <= REL_TOL and k2_sig <= REL_TOL, "K2 agrees with its plain version")
+    check(torch.equal(u_k2, u_p2) and k2_sig <= 1e-6,
+          "K2 radii-only (one launch a step) equals its plain version bit for bit, its signal "
+          "within 1e-6")
 
     moved = cyl.clone()
     moved[4] += 0.3  # p2x != p1x: the cylinders move within the window
@@ -1405,26 +1429,33 @@ def main() -> int:
     k5g_ms = cuda_ms(lambda: xm_step(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 50)
     k5g_plain = cuda_ms(lambda: xm_plain(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 3)
     k5_dev = device_ms(lambda: xm_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 20)
-    k5_win = window_step_ms(u0, shape, prof, cyl, owner_k, [float(x) for x in tspan[:-1]], ti, tf,
-                            cfg)
-    log("kernels", f"K5 radii-only inside a {STEPS}-step window (`fused_rk4_window`, one launch "
-                   f"a step): {k5_win[0]:.4f} ms a step, device work {k5_win[1]:.4f} ms, the "
-                   f"host issues a step in {k5_win[2]:.4f} ms")
-    log("kernels", f"ms per RK4 step: K2 {k2_ms:.4f} (plain {k2_plain:.4f}), K1 {k1_ms:.4f} "
+    k2_dev = device_ms(lambda: fk.fused_rk4_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf,
+                                                 cfg), 20)
+    times = [float(x) for x in tspan[:-1]]
+    for name, xm in (("K5", True), ("K2", False)):
+        win = window_step_ms(u0, shape, prof, cyl, owner_k, times, ti, tf, cfg, xm)
+        log("kernels", f"{name} radii-only inside a {STEPS}-step window (`fused_rk4_window`, one "
+                       f"launch a step): {win[0]:.4f} ms a step, device work {win[1]:.4f} ms, the "
+                       f"host issues a step in {win[2]:.4f} ms")
+    log("kernels", f"ms per RK4 step: K2 {k2_ms:.4f} (plain {k2_plain:.4f}; device work "
+                   f"{k2_dev:.4f}), K1 {k1_ms:.4f} "
                    f"(plain {k1_plain:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f}); "
                    f"K5 radii-only {k5_ms:.4f} (plain {k5_plain:.4f}; device work {k5_dev:.4f}), "
                    f"K5 general {k5g_ms:.4f} (plain {k5g_plain:.4f})")
 
     n_cyl = cyl.shape[1]
     part = torch.empty((fk.partial_rows(SIZE), 3), dtype=torch.float32)
-    # what an RK4 step needs, K1 and K2 alike: state, source shape, profile and
-    # cylinders in, state and energy partials out. K2's owner fields are a
-    # layout of this design, made once a window, and stay out of the bound.
+    # what an RK4 step needs: state, source shape, profile and cylinders in,
+    # state and energy partials out (a row a block for K1, a tile for K2 and
+    # K5). K2's owner fields are a layout of this design, made once a window,
+    # and stay out of the bound.
     io_step = nbytes(u0, shape, prof, cyl) + nbytes(u0, part)
-    k2_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True))
     k1_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False))
     own_bound = bound(nbytes(cyl, owner_k), SIZE * SIZE * n_cyl * 9)
+    # the one-launch step (K2, K5) writes one partial row a tile
     part_t = torch.empty((fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
+    k2_bound = bound(nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t),
+                     fk.step_flops(SIZE, n_cyl, True))
     k5_bound = bound(nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t),
                      fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
     k5g_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False, x_matmul=True))
@@ -1500,10 +1531,9 @@ def main() -> int:
         + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[True])
         + "; exact (K2) "
         + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[False]))
-    check(sim_counts["fused_rk4_radii_only"] == expect_steps * fk.STAGES
+    check(sim_counts["fused_rk4_radii_only"] == expect_steps
           and sim_counts["fused_rk4_xmatmul_radii_only"] == 0,
-          f"the exact simulator run launches K2 {expect_steps * fk.STAGES} times (one a stage) "
-          f"and K5 never")
+          f"the exact simulator run launches K2 {expect_steps} times (one a step) and K5 never")
 
     # the general kernels: a position-design episode and one K = 4 re-rank
     # window there, each with the split d/dx (K5) and the exact one (K1, K3)
@@ -1578,7 +1608,8 @@ def main() -> int:
          (xm_abs[False], k5g_ms, k5g_plain, k5g_bound)),
     )
     # the one-launch step's rows add `device_ms`, as K4's do
-    dev_rows = {"fused_rk4_xmatmul_radii_only": k5_dev,
+    dev_rows = {"fused_rk4_radii_only": k2_dev, "fused_rk4_xmatmul_radii_only": k5_dev,
+                "fused_rk4_batched_radii_only": k3["k3_dev"],
                 "fused_rk4_batched_xmatmul_radii_only": k3["k5b_dev"]}
     kernels = []
     for name, replaces, launches, (err, ms, plain, bnd) in single_rows:

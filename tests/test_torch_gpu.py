@@ -15,12 +15,15 @@ held to the same tolerance against its plain version, single and batched,
 and each batched K5 candidate equals K5 run on it alone, bit for bit.
 K4-XM, the y-sharded step with the split d/dx, is held against its plain
 version and, on each owned cell, against K5 on the whole grid, bit for
-bit. K5 radii-only, one launch a step (`rk4_step_tiled`), equals its plain
-version bit for bit on the state, single and batched, at sizes whose edge
-tiles are partial or one cell wide; the windows that drive it give the
-plain path's signal and re-rank costs within 1e-6 (the energy partials are
-summed in another order), with frames of their own. The surrogate's gradient path (`shot_energy`, CEM's polish) on the
-card agrees with the CPU's at narrow width to 1e-4 relative.
+bit. Radii-only on the whole grid takes one launch a step
+(`rk4_step_tiled`) in both d/dx forms, K5's split one and K2's and K3's
+exact one: each equals its plain version bit for bit on the state, single
+and batched, at sizes whose edge tiles are partial or one cell wide; the
+windows that drive it give the plain path's signal and re-rank costs
+within 1e-6 (the energy partials are summed in another order), with frames
+of their own; the stage-a-launch entry point refuses that mode. The
+surrogate's gradient path (`shot_energy`, CEM's polish) on the card agrees
+with the CPU's at narrow width to 1e-4 relative.
 """
 import dataclasses
 
@@ -82,7 +85,8 @@ def test_kernel_matches_plain_version(card, radii_only, n):
         want = fk.fused_rk4_step_reference(want[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg)
     torch.cuda.synchronize()
     key = "fused_rk4_radii_only" if radii_only else "fused_rk4_general"
-    assert fk.launch_counts[key] - before[key] == 2 * fk.STAGES
+    # K2 takes one launch a step (`rk4_step_tiled`), K1 one a stage
+    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
 
@@ -127,7 +131,8 @@ def test_batched_kernel_matches_plain_version_and_single_kernel(card, radii_only
                                                    1e-3, cfg)
     torch.cuda.synchronize()
     key = "fused_rk4_batched_radii_only" if radii_only else "fused_rk4_batched_general"
-    assert fk.launch_counts[key] - before[key] == 2 * fk.STAGES
+    # K3 radii-only takes one launch a step, K3 general one a stage
+    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
     assert got[0].shape == (K3, 12, n, n) and got[1].shape == (K3, 3)
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
@@ -441,21 +446,19 @@ def _one_launch_inputs(n, k, device):
     return cfg, us.to(device), shape, prof, cyls, fk.select_owner_batched(cyls, cfg)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("k", [None, 1, 3, 16])
-@pytest.mark.parametrize("n", [33, 45, 48, 350, 700])
-def test_one_launch_step_equals_plain_version_bit_for_bit(card, n, k):
-    # 33 = 2 x 16 + 1 = 24 + 9: a one-row and a one-column edge tile; 45, 350
-    # and 700 end in partial tiles; 48 is whole tiles
+def _check_one_launch_step(card, n, k, x_matmul):
+    """Two chained one-launch steps of the radii-only mode in the given
+    d/dx form against the plain version, bit for bit on the state; each
+    candidate against the single-state kernel on it."""
     cfg, u, shape, prof, cyl, owner = _one_launch_inputs(n, k, card)
     step = fk.fused_rk4_step if k is None else fk.fused_rk4_step_batched
     plain = fk.fused_rk4_step_reference if k is None else fk.fused_rk4_step_batched_reference
-    key = "fused_rk4_xmatmul_radii_only" if k is None else "fused_rk4_batched_xmatmul_radii_only"
+    key = fk._key("fused_rk4", k, None, x_matmul) + "_radii_only"
     before = dict(fk.launch_counts)
     got, want = (u, None), (u, None)
     for t0 in (2e-4, 2.1e-4):  # two chained steps
-        got = step(got[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg, x_matmul=True)
-        want = plain(want[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg, x_matmul=True)
+        got = step(got[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg, x_matmul=x_matmul)
+        want = plain(want[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg, x_matmul=x_matmul)
     torch.cuda.synchronize()
     assert fk.launch_counts[key] - before[key] == 2  # one launch a step
     assert fk.step_partial_rows(n) == -(-n // fk.TILE[0]) * -(-n // fk.TILE[1])
@@ -465,12 +468,47 @@ def test_one_launch_step_equals_plain_version_bit_for_bit(card, n, k):
         one = (u[b], None)
         for t0 in (2e-4, 2.1e-4):
             one = fk.fused_rk4_step(one[0], shape, prof, cyl[b], owner[b], t0, 0.0, 1e-3, cfg,
-                                    x_matmul=True)
+                                    x_matmul=x_matmul)
         assert torch.equal(got[0][b], one[0])
 
 
+# 33 = 2 x 16 + 1 = 24 + 9: a one-row and a one-column edge tile; 45, 350 and
+# 700 end in partial tiles; 48 is whole tiles
 @pytest.mark.gpu
-def test_windows_match_plain_path_with_frames_of_their_own(card):
+@pytest.mark.parametrize("k", [None, 1, 3, 16])
+@pytest.mark.parametrize("n", [33, 45, 48, 350, 700])
+def test_one_launch_step_equals_plain_version_bit_for_bit(card, n, k):
+    _check_one_launch_step(card, n, k, x_matmul=True)  # K5, batched K5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [None, 1, 3, 16])
+@pytest.mark.parametrize("n", [33, 45, 48, 350, 700])
+def test_exact_one_launch_step_equals_plain_version_bit_for_bit(card, n, k):
+    _check_one_launch_step(card, n, k, x_matmul=False)  # K2, K3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xm", [0, 1])
+def test_stage_entry_point_refuses_whole_grid_radii_only(card, xm):
+    # radii-only on the whole grid is the one-launch step's, in both d/dx
+    # forms: a stage launch of it is refused, and the refusal raises
+    cfg, u, shape, prof, cyl, owner = _one_launch_inputs(48, None, card)
+    n = cfg.n
+    code = fk._lib().stage(1, 0, 1, xm, fk._ptr(u), fk._ptr(None), 0.0, fk._ptr(None),
+                           fk._ptr(None), 0.0, fk._ptr(torch.empty_like(u)), fk._ptr(None),
+                           fk._ptr(shape), fk._ptr(prof), fk._ptr(cyl), cyl.shape[1],
+                           fk._ptr(owner), n, n, 0, cfg.spacing, cfg.inv2d, cfg.x_min, cfg.c0,
+                           cfg.freq, 0.0, 0.0, 1e-3, fk._stream(card))
+    assert code != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk._raise_on(code, "fused_rk4_stage")
+
+
+def _check_windows(card, x_matmul):
+    """The env window and the re-rank rollout in the given d/dx form, one
+    launch a step, against the plain path: frames bit for bit, of their own,
+    the input never written; signal and costs within 1e-6."""
     from waves_jl_tpu_torch.designs import build_triple_ring_design_space
     from waves_jl_tpu_torch.dims import build_grid, two_dim
     from waves_jl_tpu_torch.env import env_reset, env_time, env_tspan, frame_segments, make_wave_env
@@ -500,16 +538,16 @@ def test_windows_match_plain_path_with_frames_of_their_own(card):
     nxt = env.design_space(state.design, env.action_space.sample(gen))
     cyl = cyl_params(state.design, nxt, env.device).contiguous()
     before = dict(fk.launch_counts)
-    u, frames, signal = make_fused_window(env)(u0, shape, tspan, cyl)
+    u, frames, signal = make_fused_window(env, x_matmul)(u0, shape, tspan, cyl)
     torch.cuda.synchronize()
-    assert fk.launch_counts["fused_rk4_xmatmul_radii_only"] - before[
-        "fused_rk4_xmatmul_radii_only"] == steps
+    key = fk._key("fused_rk4", None, None, x_matmul) + "_radii_only"
+    assert fk.launch_counts[key] - before[key] == steps
     ti, tf = float(tspan[0]), float(tspan[-1])
     owner = fk.select_owner_reference(cyl, cfg)
     want, es, want_frames = u0, [], []
     for s, t0 in enumerate(tspan[:-1]):
         want, e = fk.fused_rk4_step_reference(want, shape, prof, cyl, owner, float(t0), ti, tf,
-                                              cfg, x_matmul=True)
+                                              cfg, x_matmul=x_matmul)
         es.append(e)
         if s + 1 in np.cumsum(frame_segments(steps)):
             want_frames.append(want)
@@ -526,9 +564,9 @@ def test_windows_match_plain_path_with_frames_of_their_own(card):
     elite = env.action_space.sample(gen, batch=(k, horizon))
     t_start = env_time(env, state)
     before = dict(fk.launch_counts)
-    cost = make_rerank_rollout(env, k, horizon)(state, elite, t_start)
+    cost = make_rerank_rollout(env, k, horizon, x_matmul)(state, elite, t_start)
     torch.cuda.synchronize()
-    key = "fused_rk4_batched_xmatmul_radii_only"
+    key = fk._key("fused_rk4", k, None, x_matmul) + "_radii_only"
     assert fk.launch_counts[key] - before[key] == horizon * steps
     assert torch.equal(u0, untouched)
     f32 = np.float32
@@ -542,12 +580,22 @@ def test_windows_match_plain_path_with_frames_of_their_own(card):
         tf_h = f32(t_i + f32(steps * cfg.dt))
         for ts in rerank_step_times(t_i, steps, cfg.dt):
             ub, e = fk.fused_rk4_step_batched_reference(ub, shape, prof, cyl_k, owner_k, float(ts),
-                                                        float(t_i), float(tf_h), cfg, True)
+                                                        float(t_i), float(tf_h), cfg, x_matmul)
             want_cost = want_cost + e[:, 2]
         designs, t_i = nxt, tf_h
     want_cost = want_cost * cfg.spacing * cfg.spacing
     assert rel(cost, want_cost) <= 1e-6
     assert int(torch.argmin(cost)) == int(torch.argmin(want_cost))
+
+
+@pytest.mark.gpu
+def test_windows_match_plain_path_with_frames_of_their_own(card):
+    _check_windows(card, x_matmul=True)  # K5, batched K5
+
+
+@pytest.mark.gpu
+def test_exact_windows_match_plain_path_with_frames_of_their_own(card):
+    _check_windows(card, x_matmul=False)  # K2, K3
 
 
 @pytest.mark.gpu
@@ -565,28 +613,32 @@ def test_one_launch_step_raises_on_what_it_does_not_take(card):
     # a launch the kernel refuses surfaces as a raise: two rows are fewer than
     # a one-sided stencil's three
     tiny = dataclasses.replace(cfg, n=2)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        fk.fused_rk4_step(torch.zeros((12, 2, 2), device=card), torch.zeros((2, 2), device=card),
-                          torch.zeros(2, device=card), cyl, torch.zeros((5, 2, 2), device=card),
-                          0.0, 0.0, 1e-3, tiny, x_matmul=True)
+    for x_matmul in (True, False):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fk.fused_rk4_step(torch.zeros((12, 2, 2), device=card),
+                              torch.zeros((2, 2), device=card), torch.zeros(2, device=card), cyl,
+                              torch.zeros((5, 2, 2), device=card), 0.0, 0.0, 1e-3, tiny,
+                              x_matmul=x_matmul)
 
 
 @pytest.mark.gpu
 def test_one_launch_step_runs_on_each_of_several_cards_across_cards(card, cards):
     # the kernel takes its shared memory by a per-device opt-in, and the
     # launches go to the state's card, not the current one
+    # (each instance, split and exact, its own)
     n, k = 48, 3
     for d in range(cards):
         dev = torch.device("cuda", d)
         cfg, u, shape, prof, cyl, owner = _one_launch_inputs(n, k, dev)
         times = [2e-4, 2.1e-4]
-        kept, energies = fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0, 1e-3, cfg,
-                                             [1], True)
-        want, es = u, []
-        for t0 in times:
-            want, e = fk.fused_rk4_step_batched_reference(want, shape, prof, cyl, owner, t0, 0.0,
-                                                          1e-3, cfg, x_matmul=True)
-            es.append(e)
-        torch.cuda.synchronize(dev)
-        assert kept[0].device == dev and torch.equal(kept[0], want)
-        assert rel(energies, torch.stack(es)) <= 1e-6
+        for x_matmul in (True, False):
+            kept, energies = fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0, 1e-3,
+                                                 cfg, [1], x_matmul)
+            want, es = u, []
+            for t0 in times:
+                want, e = fk.fused_rk4_step_batched_reference(want, shape, prof, cyl, owner, t0,
+                                                              0.0, 1e-3, cfg, x_matmul=x_matmul)
+                es.append(e)
+            torch.cuda.synchronize(dev)
+            assert kept[0].device == dev and torch.equal(kept[0], want)
+            assert rel(energies, torch.stack(es)) <= 1e-6

@@ -10,7 +10,8 @@
 //   K2, radii-only (`radii_only=True`): `select_owner` (:247) picks each
 //       cell's owning cylinder once per window into five per-cell fields
 //       [d2, r1, dr, c1, dc]; each stage then does one compare
-//       (`rasterize_fast`, :271).
+//       (`rasterize_fast`, :271). On the whole grid it takes a whole RK4
+//       step in one launch (`rk4_step_tiled`, below).
 //
 // What bounds it on the card: bytes. One RK4 step must at least read and
 // write the 12 x n x n float32 state; at 700^2 that is 2 x 23.52 MB =
@@ -18,16 +19,18 @@
 // operations a step at 700^2 (`step_flops` in ops/fused_rk4.py), takes
 // about 3 us at 67 TFLOP/s.
 //
-// What this simple design does about it: one launch per RK4 stage and one
-// thread per cell. A thread forms the stage input u + a*k_prev at its cell
+// What the simple design, `rk4_stage`, does about it: one launch per RK4
+// stage and one thread per cell. A thread forms the stage input u + a*k_prev at its cell
 // and at the +-1 neighbours (+-2 at the edges) that the stencils read, and
 // writes all 12 channels of the stage's right-hand side. Stages 1-3 write
 // k1..k3 to device memory; stage 4 forms k4 in registers and writes
 // u + dt/6 (k1 + 2k2 + 2k3 + k4) with the per-block energy partials. That
 // moves about 14 state-sized arrays a step instead of 2 (the neighbour
 // reads mostly hit L1/L2), so the kernel runs several times above its
-// bound. K5 radii-only, the main paths' mode, fuses the four stages
-// behind shared-memory halos (`rk4_step_tiled`, below).
+// bound. It serves the general modes (K1, K3 general, K5 general, batched
+// K5 general) and the slabs (K4, K4-XM). Radii-only on the whole grid (K2,
+// K3, K5, batched K5) fuses the four stages behind shared-memory halos
+// (`rk4_step_tiled`, below).
 //
 // K3, candidate-batched (`batch=K`, :121-127, :162-170, :403-406, :431,
 // :450-456), in both rasterisation modes: K independent states advance
@@ -35,7 +38,9 @@
 // it offsets the state, k1..k3, out, cylinder, owner and energy-partial
 // pointers, while the source shape and the PML profile are shared. A
 // launch with one candidate is K1 or K2, so each candidate's state is bit
-// for bit what K1 or K2 computes for it alone. The TPU kernel's padded
+// for bit what K1 or K2 computes for it alone. K3 general runs on
+// `rk4_stage`, one launch a stage; K3 radii-only on `rk4_step_tiled`, one
+// launch a step. The TPU kernel's padded
 // layout and DMA semaphores have no counterpart here: a 350^2 grid is only
 // 11 x 44 = 484 blocks against 132 SMs, and 16 candidates make 7,744.
 // Its bound is K times a step's: at 350^2 and K = 16 the states in and out
@@ -89,15 +94,19 @@
 // and an owned cell is bit for bit K5's. Its bound is K4's: the split
 // adds arithmetic, not bytes.
 //
-// K5 radii-only, single and batched, one launch per RK4 step
-// (`rk4_step_tiled`). It replaces the same Pallas modes as `rk4_stage`
-// with RADII, XM and the candidate axis (pallas_fd.py:88, the owner test
-// `rasterize_fast` :271, the split d/dx :278-310), in the form the Pallas
-// kernel has and the stage-a-launch port did not: all four stages of a
-// step on a tile held in fast memory with HALO ghost cells (:343-377).
-// They are the main paths' modes: every env window, datagen episode and
-// controller's window (K5 radii-only at 700^2) and the hybrid's re-rank
-// (batched K5 at 16 x 350^2).
+// Radii-only on the whole grid, single and batched, one launch per RK4
+// step (`rk4_step_tiled<XM>`): K2 and K3 with the exact d/dx (XM false),
+// K5 and batched K5 with the split one (XM true). It replaces the Pallas
+// modes `radii_only=True` on one device (pallas_fd.py:88, the owner test
+// `rasterize_fast` :271, the candidate axis `batch=K`), with the exact
+// d/dx `_dx_edge_aware` (:59-73, taken at :312-313) or the split one
+// (:278-310), in the form the Pallas kernel has and the stage-a-launch
+// port did not: all four stages of a step on a tile held in fast memory
+// with HALO ghost cells (:343-377). K5 and batched K5 are the main paths'
+// modes: every env window, datagen episode and controller's window (K5 at
+// 700^2) and the hybrid's re-rank (batched K5 at 16 x 350^2). K2 and K3
+// are the accuracy mode, `x_matmul=False`: the exact simulator window and
+// the exact re-rank.
 //   What bounds it: bytes. A step must read the state and the owner
 // fields and write the state: at 700^2, 23.5 + 9.8 + 23.5 MB, 17 us at
 // 3.35 TB/s; at 16 x 350^2, 94 + 39 + 94 MB, 68 us. `rk4_stage` moves
@@ -124,10 +133,14 @@
 // Shared memory: the stack's state and stage input, the second buffer of
 // U, Vx and Vy, the source shape and the wavespeed at the three stage
 // times, 19 x 768 floats = 58,368 bytes a block of 256 threads, above the
-// 48 KB a kernel gets unasked (`configure_tiled`). ptxas (-v, sm_90a):
-// 80 registers under the cap for three blocks an SM (`TILED_MIN_BLOCKS`)
-// with 12 bytes spilled; three blocks fit the shared memory too, 24 warps
-// an SM. A cap for four blocks (64 registers) spills more, and both stacks
+// 48 KB a kernel gets unasked (`configure_tiled`, an attribute each
+// instance sets for itself, once a device). ptxas (-v, sm_90a): both
+// instances at 80 registers, the cap for three blocks an SM
+// (`TILED_MIN_BLOCKS`), the split one with 12 bytes spilled, the exact one
+// with 8 (it drops the split's conversions, not enough to fit unspilled).
+// Three blocks fit the shared memory too (3 x (58,368 + 1,024 reserved)
+// bytes of 228 KB), 24 warps an SM, so `TILED_MIN_BLOCKS` stays 3 for
+// both. A cap for four blocks (64 registers) spills more, and both stacks
 // at once (104 KB, two blocks an SM, half the barriers) or k held in
 // registers across a second barrier a stage measured slower on the card:
 // the kernel is bound by the latency of its shared-memory reads and
@@ -137,9 +150,9 @@
 // `rk4_stage`'s op order, so the state is bit for bit `rk4_stage`'s and
 // the plain version's; the energy partials, one row a block, are summed in
 // another order. The other modes stay on `rk4_stage`, one launch a stage:
-// off the default paths (K1, K2, K3 and the general K5 run where
-// `x_matmul=False` or the cylinders move), or sharded (K4, K4-XM), where a
-// slab's halo exchange sits between steps.
+// the general ones (K1, K3 general, K5 general, batched K5 general), which
+// lerp and rasterise every cylinder at each stage's time, and the slabs
+// (K4, K4-XM), whose halo exchange sits between steps.
 //
 // Cylinders: the general mode and the owner pass stream the (8, n_cyl)
 // table through shared memory in chunks of CYL_CHUNK, in order, so sums
@@ -287,6 +300,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // whole grid (w = n, col0 = 0), where the slab's column logic folds away
 // and the kernel keeps the registers, and so the occupancy, it has without
 // it. XM takes d/dx in K5's split form, on the whole grid or a slab.
+// RADII is built with SLAB alone: radii-only on the whole grid is
+// `rk4_step_tiled`.
 template <int MODE, bool RADII, bool SLAB, bool XM>
 __global__ void __launch_bounds__(BX * BY)
 rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
@@ -490,7 +505,7 @@ select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// K5 radii-only, one launch per RK4 step (`rk4_step_tiled`)
+// Radii-only on the whole grid, one launch per RK4 step (`rk4_step_tiled`)
 // ---------------------------------------------------------------------------
 
 // Rows or columns [lo, hi] of the whole grid.
@@ -522,7 +537,9 @@ struct StepParams {
 // stage input in shared memory, [U, Vx, Vy] in `nb` (read at the stencil's
 // neighbours) and [Psix, Psiy, Omega] in `pw` (read at l alone), each
 // channel SC floats on, in `rk4_stage`'s op order: `stack_rhs`
-// (pallas_fd.py:315) with K5's split d/dx and the exact d/dy.
+// (pallas_fd.py:315) with K5's split d/dx if XM, else the exact one, and
+// the exact d/dy.
+template <bool XM>
 __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw,
                                                 const float* s_f, float sn, float b, int l,
                                                 bool x_first, bool x_last, bool y_first,
@@ -531,9 +548,11 @@ __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw
   auto uf = [&](int q) { return nb[q] + s_f[q] * sn; };  // U + f
   auto vx = [&](int q) { return nb[SC + q]; };
   auto vy = [&](int q) { return nb[2 * SC + q]; };
-  const float Vxx = d_split(vx, x_first, x_last, l, SW, inv2d);
+  const float Vxx = XM ? d_split(vx, x_first, x_last, l, SW, inv2d)
+                       : d_edge(vx, x_first, x_last, l, SW, inv2d);
   const float Vyy = d_edge(vy, y_first, y_last, l, 1, inv2d);
-  const float Ux = d_split(uf, x_first, x_last, l, SW, inv2d);
+  const float Ux = XM ? d_split(uf, x_first, x_last, l, SW, inv2d)
+                      : d_edge(uf, x_first, x_last, l, SW, inv2d);
   const float Uy = d_edge(uf, y_first, y_last, l, 1, inv2d);
   const float U = nb[l];
   const float Px = pw[l];
@@ -547,12 +566,13 @@ __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw
   k[5] = sx * sy * U;
 }
 
-// One whole RK4 step of K5 radii-only for `gridDim.z` candidates (see the
-// note at the top). Block (bx, by, z) owns the TX x TY tile of candidate z
-// from row by * TX and column bx * TY. Its region, the tile with HALO cells
-// on every side (one more row or column above or left of a one-cell tile on
-// the domain's last row or column, whose one-sided stencil reaches five
-// cells), lies in shared memory as SH x SW cells from global (r0, c0g);
+// One whole RK4 step of the radii-only mode for `gridDim.z` candidates
+// (see the note at the top): K5's split d/dx if XM, else K2's exact one.
+// Block (bx, by, z) owns the TX x TY tile of candidate z from row by * TX
+// and column bx * TY. Its region, the tile with HALO cells on every side
+// (one more row or column above or left of a one-cell tile on the domain's
+// last row or column, whose one-sided stencil reaches five cells), lies in
+// shared memory as SH x SW cells from global (r0, c0g);
 // thread (tx, ty) works region column tx and rows HALO + ty, HALO + BY + ty
 // (the tile's rows, slots 0 and 1) and ty or 2 BY + ty (the halo rows,
 // slot 2). Dynamic shared memory, TILED_SMEM bytes:
@@ -568,6 +588,7 @@ __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw
 // thread that writes them, stay in s_v. The two stacks (tot with c^2, inc
 // with c0^2) run one after the other through the same buffers; stack 0's
 // new U stays in registers for sc.
+template <bool XM>
 __global__ void __launch_bounds__(BX * BY, TILED_MIN_BLOCKS)
 rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
                float* __restrict__ partials, const float* __restrict__ shape,
@@ -670,8 +691,8 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
         const float b = stack == 0 ? c * c : g.c0 * g.c0;
         const float bc = (gi > 0 && gi < n - 1 && gj > 0 && gj < n - 1) ? 1.0f : 0.0f;
         float k[6];
-        stack_rhs_tiled(nb, pw, s_f, sn[m], b, l, gi == 0, gi == n - 1, gj == 0, gj == n - 1,
-                        sx[a], sy, bc, g.inv2d, k);
+        stack_rhs_tiled<XM>(nb, pw, s_f, sn[m], b, l, gi == 0, gi == n - 1, gj == 0,
+                            gj == n - 1, sx[a], sy, bc, g.inv2d, k);
         if (s < 3) {
           const float coef = s == 2 ? g.full : g.half;
 #pragma unroll
@@ -727,14 +748,16 @@ dim3 grid_for(int n, int w, int batch) {
 
 dim3 tiled_grid(int n, int batch) { return dim3((n + TY - 1) / TY, (n + TX - 1) / TX, batch); }
 
-// Lets `rk4_step_tiled` take TILED_SMEM bytes of dynamic shared memory, more
-// than the 48 KB a kernel gets unasked, on the current device, once a device.
+// Lets `rk4_step_tiled<XM>` take TILED_SMEM bytes of dynamic shared memory,
+// more than the 48 KB a kernel gets unasked, on the current device, once a
+// device. The attribute is an instance's own, and so is its cache.
+template <bool XM>
 cudaError_t configure_tiled() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(rk4_step_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(rk4_step_tiled<XM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            TILED_SMEM);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
@@ -756,6 +779,46 @@ bool make_geometry(int n, int w, int col0, float spacing, float inv2d, float x_m
 
 }  // namespace
 
+// What `fused_rk4_step_tiled` takes that is fixed for a window: built once
+// by the caller, so that a step marshals four pointers and a time. The
+// layout is that of `_TiledWindow` in ops/fused_rk4.py.
+struct TiledWindow {
+  const float* shape;  // (n, n), shared by the candidates
+  const float* prof;   // (n)
+  const float* owner;  // (batch, 5, n, n)
+  void* stream;
+  int batch;
+  int n;
+  int xm;  // 1: K5's split d/dx; 0: the exact one (K2, K3)
+  float inv2d, c0, freq, half, full, sixth, ti, tf;
+};
+
+namespace {
+
+template <bool XM>
+int step_occupancy() {
+  int blocks = 0;
+  cudaError_t e = configure_tiled<XM>();
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rk4_step_tiled<XM>, BX * BY,
+                                                      TILED_SMEM);
+  }
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+template <bool XM>
+int step_tiled(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
+  const cudaError_t e = configure_tiled<XM>();
+  if (e != cudaSuccess) return (int)e;
+  const StepParams p{w->n, w->inv2d, w->c0, w->freq, w->half, w->full, w->sixth, w->ti, w->tf};
+  rk4_step_tiled<XM><<<tiled_grid(w->n, w->batch), dim3(BX, BY), TILED_SMEM,
+                       (cudaStream_t)w->stream>>>(u, out, partials, w->shape, w->prof, w->owner,
+                                                  p, t);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
 // Number of energy-partial rows (blocks) a final stage writes for an n x w
@@ -765,11 +828,12 @@ int fused_rk4_blocks(int n, int w) {
   return (int)(gr.x * gr.y);
 }
 
-// One RK4 stage for `batch` candidates (K3; K1 or K2 of a single state
+// One RK4 stage for `batch` candidates (K3 general; K1 of a single state
 // when batch is 1; K4 on a slab when (w, col0) is not (n, 0)). `mode` 0,
 // 1 or 2 as for `rk4_stage`, `radii` selects the owner test, `xm` the
-// split d/dx of K5 (K4-XM on a slab). K5 radii-only on the whole grid is
-// refused: it is `fused_rk4_step_tiled`. u, kp, k1, k2
+// split d/dx of K5 (K4-XM on a slab). Radii-only on the whole grid (K2,
+// K3, K5 and batched K5 radii-only) is refused in both d/dx forms: it is
+// `fused_rk4_step_tiled`. u, kp, k1, k2
 // and out are (batch, 12, n, w), cyl (batch, 8, n_cyl), owner
 // (batch, 5, n, w), partials (batch, fused_rk4_blocks(n, w), 3); shape
 // (n, w) and prof (n) are shared. Returns the cudaError_t of the launch.
@@ -788,8 +852,8 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   const dim3 block(BX, BY);
   const dim3 gr = grid_for(n, w, batch);
   const bool slab = !(w == n && col0 == 0);
-  if (radii && xm && !slab) {
-    return (int)cudaErrorInvalidValue;  // K5 radii-only: `fused_rk4_step_tiled`, one launch a step
+  if (radii && !slab) {
+    return (int)cudaErrorInvalidValue;  // radii-only: `fused_rk4_step_tiled`, one launch a step
   }
   cudaStream_t s = (cudaStream_t)stream;
 #define WAVES_LAUNCH(M, R, S, X)                                                               \
@@ -800,9 +864,8 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   else if (mode == 1) WAVES_LAUNCH(1, R, S, X); \
   else WAVES_LAUNCH(2, R, S, X)
   if (radii) {
-    if (slab && xm) { WAVES_MODES(true, true, true); }
-    else if (slab) { WAVES_MODES(true, true, false); }
-    else { WAVES_MODES(true, false, false); }
+    if (xm) { WAVES_MODES(true, true, true); }
+    else { WAVES_MODES(true, true, false); }
   } else {
     if (slab && xm) { WAVES_MODES(false, true, true); }
     else if (slab) { WAVES_MODES(false, true, false); }
@@ -814,19 +877,6 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   return (int)cudaGetLastError();
 }
 
-// What `fused_rk4_step_tiled` takes that is fixed for a window: built once
-// by the caller, so that a step marshals four pointers and a time. The
-// layout is that of `_TiledWindow` in ops/fused_rk4.py.
-struct TiledWindow {
-  const float* shape;  // (n, n), shared by the candidates
-  const float* prof;   // (n)
-  const float* owner;  // (batch, 5, n, n)
-  void* stream;
-  int batch;
-  int n;
-  float inv2d, c0, freq, half, full, sixth, ti, tf;
-};
-
 // Energy-partial rows (blocks) of one candidate's tiled step on an n x n grid.
 int fused_rk4_step_blocks(int n) {
   const dim3 gr = tiled_grid(n, 1);
@@ -836,35 +886,26 @@ int fused_rk4_step_blocks(int n) {
 // Dynamic shared memory of a block of the tiled step, in bytes.
 int fused_rk4_step_smem() { return TILED_SMEM; }
 
-// Blocks of the tiled step resident on one SM of the current device, as
-// the occupancy calculator gives it for the kernel's registers and shared
-// memory; negative on an error.
-int fused_rk4_step_occupancy() {
-  int blocks = 0;
-  cudaError_t e = configure_tiled();
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rk4_step_tiled, BX * BY,
-                                                      TILED_SMEM);
-  }
-  return e == cudaSuccess ? blocks : -(int)e;
+// Blocks of the tiled step's instance (xm 1: split d/dx, 0: exact)
+// resident on one SM of the current device, as the occupancy calculator
+// gives it for the instance's registers and shared memory; negative on an
+// error.
+int fused_rk4_step_occupancy(int xm) {
+  return xm ? step_occupancy<true>() : step_occupancy<false>();
 }
 
-// One whole RK4 step of K5 radii-only (batch 1) or batched K5 radii-only
-// (batch K) on the whole grid, in one launch: u and out (batch, 12, n, n),
-// partials (batch, fused_rk4_step_blocks(n), 3), t the step's start time.
-// Returns the cudaError_t of the launch.
+// One whole RK4 step of the radii-only mode on the whole grid, in one
+// launch: K2 (batch 1) or K3 (batch K) with the exact d/dx for w->xm 0, K5
+// or batched K5 with the split one for w->xm 1. u and out
+// (batch, 12, n, n), partials (batch, fused_rk4_step_blocks(n), 3), t the
+// step's start time. Returns the cudaError_t of the launch.
 int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float* partials,
                          float t) {
-  if (w == nullptr || w->n < 3 || w->batch < 1 || w->batch > 65535) {
+  if (w == nullptr || w->n < 3 || w->batch < 1 || w->batch > 65535 || w->xm < 0 || w->xm > 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t e = configure_tiled();
-  if (e != cudaSuccess) return (int)e;
-  const StepParams p{w->n, w->inv2d, w->c0, w->freq, w->half, w->full, w->sixth, w->ti, w->tf};
-  rk4_step_tiled<<<tiled_grid(w->n, w->batch), dim3(BX, BY), TILED_SMEM,
-                   (cudaStream_t)w->stream>>>(u, out, partials, w->shape, w->prof, w->owner, p,
-                                              t);
-  return (int)cudaGetLastError();
+  return w->xm ? step_tiled<true>(w, u, out, partials, t)
+               : step_tiled<false>(w, u, out, partials, t);
 }
 
 // Owner fields (batch, 5, n, w) of `batch` candidates' cylinders

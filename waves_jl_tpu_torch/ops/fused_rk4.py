@@ -14,14 +14,16 @@ This module builds the kernel with plain `nvcc` into a shared library with
 a C interface at first use, binds it with `ctypes`, and keeps the plain
 PyTorch version of the same function beside it.
 
-K5 radii-only on the whole grid, single or batched (the default path of
-the env window, datagen, the controllers and the hybrid's re-rank), runs a
-whole RK4 step in one launch (`rk4_step_tiled`: each block keeps its tile
-and a 4-cell halo in shared memory through the four stages). Every other
-mode runs one launch per RK4 stage, `STAGES` a step. `fused_rk4_window`
-drives a window's steps as the env window and the re-rank do: for the
-one-launch step it makes its two state buffers and its energy partials
-once a window and marshals the window's fixed inputs once.
+Radii-only on the whole grid, single or batched, in either d/dx form (K2
+and K3 with the exact one, K5 and batched K5 with the split one: the
+default path of the env window, datagen, the controllers and the hybrid's
+re-rank), runs a whole RK4 step in one launch (`rk4_step_tiled`: each
+block keeps its tile and a 4-cell halo in shared memory through the four
+stages). The general modes and the slabs run one launch per RK4 stage,
+`STAGES` a step. `fused_rk4_window` drives a window's steps as the env
+window and the re-rank do: for the one-launch step it makes its two state
+buffers and its energy partials once a window and marshals the window's
+fixed inputs once.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
@@ -66,8 +68,8 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",
 )
-# RK4 stages a step: the launches a step of every mode but K5 radii-only on
-# the whole grid (single or batched), which takes one launch a step
+# RK4 stages a step: the launches a step of the general modes and the slabs;
+# radii-only on the whole grid (K2, K3, K5, batched K5) takes one a step
 STAGES = 4
 HALO = 4  # halo cells one RK4 step consumes on each side (pallas_fd.py:31)
 TILE = (16, 24)  # rows and columns of a block's tile in `rk4_step_tiled` (TX, TY)
@@ -324,19 +326,21 @@ def _shrink(lo: int, hi: int, n: int) -> tuple[int, int]:
 
 
 def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepConfig,
-                                   tile: tuple[int, int] = TILE):
-    """K5 radii-only computed tile by tile as the one-launch kernel
-    `rk4_step_tiled` decomposes the step, in plain PyTorch with the whole-grid
-    plain version's own `_stack_rhs` and split d/dx. Each tile's region (the
+                                   tile: tuple[int, int] = TILE, x_matmul: bool = True):
+    """The radii-only step computed tile by tile as the one-launch kernel
+    `rk4_step_tiled` decomposes it, in plain PyTorch with the whole-grid
+    plain version's own `_stack_rhs` and d/dx: split in bf16 (K5) with
+    `x_matmul`, else exact (K2). Each tile's region (the
     tile and its halo, `_tile_region`) runs the four stages on regions that
     shrink by one cell a side a stage (`_shrink`): the stencils run on the
     stage input's whole region, and its cells on a side inside the domain,
     one-sided there, are dropped. The tile keeps the closed-form combine; no
     cell outside the domain is held or read. For the tests alone, which hold
-    it equal to `fused_rk4_step_reference(..., x_matmul=True)` without a
+    it equal to `fused_rk4_step_reference(..., x_matmul=x_matmul)` without a
     card. Returns (u_next (12, n, n), energies (3,))."""
     n = cfg.n
     dev = u.device
+    dx = dx_split_bf16 if x_matmul else dx_edge_aware
     c0 = float(np.float32(cfg.c0))
     b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
     two_pi_f = np.float32(2.0 * math.pi)
@@ -357,8 +361,8 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
         sx, sy = prof[rows][:, None], prof[cols][None, :]
         bc = (interior[rows][:, None] & interior[cols][None, :]).to(torch.float32)
         lo, hi = -cols.start, n - 1 - cols.start  # local columns of the domain's edges
-        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d, lo, hi, dx_split_bf16)
-        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d, lo, hi, dx_split_bf16)
+        d_tot = _stack_rhs(v[0:6], c * c, f, sx, sy, bc, cfg.inv2d, lo, hi, dx)
+        d_inc = _stack_rhs(v[6:12], b_inc, f, sx, sy, bc, cfg.inv2d, lo, hi, dx)
         return torch.stack(d_tot + d_inc)
 
     for i0 in range(0, n, tile[0]):
@@ -433,7 +437,7 @@ class _Library:
         self.step_tiled = self._bind("fused_rk4_step_tiled", [P, P, P, P, F])
         self.step_blocks = self._bind("fused_rk4_step_blocks", [I])
         self.step_smem = self._bind("fused_rk4_step_smem", [])
-        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [])
+        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [I])
 
     def _bind(self, name: str, argtypes: list):
         fn = getattr(self.cdll, name)
@@ -467,10 +471,13 @@ def step_partial_rows(n: int) -> int:
 
 def tiled_kernel_report() -> dict:
     """The one-launch kernel's dynamic shared memory a block, in bytes, and
-    its resident blocks an SM on the current device (the CUDA occupancy
-    calculator, from its registers and shared memory)."""
+    the resident blocks an SM of each of its instances on the current device
+    (the CUDA occupancy calculator, from the instance's registers and shared
+    memory): "blocks_per_sm" of the split d/dx (K5), "blocks_per_sm_exact"
+    of the exact one (K2, K3)."""
     lib = _lib()
-    return {"smem_bytes": lib.step_smem(), "blocks_per_sm": lib.step_occupancy()}
+    return {"smem_bytes": lib.step_smem(), "blocks_per_sm": lib.step_occupancy(1),
+            "blocks_per_sm_exact": lib.step_occupancy(0)}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -563,31 +570,33 @@ class _TiledWindow(ctypes.Structure):
 
     _fields_ = [("shape", ctypes.c_void_p), ("prof", ctypes.c_void_p),
                 ("owner", ctypes.c_void_p), ("stream", ctypes.c_void_p),
-                ("batch", ctypes.c_int), ("n", ctypes.c_int),
+                ("batch", ctypes.c_int), ("n", ctypes.c_int), ("xm", ctypes.c_int),
                 *((name, ctypes.c_float)
                   for name in ("inv2d", "c0", "freq", "half", "full", "sixth", "ti", "tf"))]
 
 
 class _TiledStep:
-    """K5 radii-only on the whole grid, of one state (batch None) or of
-    `batch` candidates, over one window: the inputs fixed for the window are
-    checked and marshalled once, and `launch` runs one RK4 step in one
-    launch on the current stream of `dev`, the state's device."""
+    """Radii-only on the whole grid, of one state (batch None: K2, or K5
+    with `x_matmul`) or of `batch` candidates (K3, or batched K5), over one
+    window: the inputs fixed for the window are checked and marshalled once,
+    and `launch` runs one RK4 step in one launch on the current stream of
+    `dev`, the state's device."""
 
     def __init__(self, shape, prof, owner, ti: float, tf: float, cfg: StepConfig,
-                 batch: int | None, dev: torch.device):
+                 batch: int | None, dev: torch.device, x_matmul: bool):
         n = cfg.n
         _check("shape", shape, (n, n), dev)
         _check("prof", prof, (n,), dev)
         _check("owner", owner, (*(() if batch is None else (batch,)), 5, n, n), dev)
         f = np.float32
         self.args = _TiledWindow(shape.data_ptr(), prof.data_ptr(), owner.data_ptr(),
-                                 _stream(dev).value, batch or 1, n, cfg.inv2d, cfg.c0, cfg.freq,
-                                 f(0.5 * cfg.dt), f(cfg.dt), f(cfg.dt / 6.0), ti, tf)
+                                 _stream(dev).value, batch or 1, n, int(x_matmul), cfg.inv2d,
+                                 cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt), f(cfg.dt / 6.0),
+                                 ti, tf)
         self.ref = ctypes.addressof(self.args)
         self.inputs = (shape, prof, owner)  # alive while the struct points at them
         self.fn = _lib().step_tiled
-        self.key = _key("fused_rk4", batch, None, True) + "_radii_only"
+        self.key = _key("fused_rk4", batch, None, x_matmul) + "_radii_only"
         self.rows = step_partial_rows(n)
 
     def launch(self, u_ptr: int, out_ptr: int, partials_ptr: int, t: float) -> None:
@@ -599,16 +608,16 @@ def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: 
                  slab: Slab | None = None, x_matmul: bool = False):
     """Check the inputs and launch one RK4 step: of one state (K1 or K2) for
     batch None, else of `batch` candidates (K3); on a slab (K4) if given;
-    with the split d/dx (K5) if `x_matmul`. K5 radii-only on the whole grid
-    takes one launch, every other mode one a stage. Returns (u_next, energy
-    partials (batch or 1, blocks, 3))."""
+    with the split d/dx (K5) if `x_matmul`. Radii-only on the whole grid
+    takes one launch, the general modes and the slabs one a stage. Returns
+    (u_next, energy partials (batch or 1, blocks, 3))."""
     n, dev = cfg.n, u.device
     w, col0 = _extent(cfg, slab)
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, w), dev)
     n_cyl = _check_cyl(cyl, lead, dev)
-    if owner is not None and x_matmul and slab is None:
-        step = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev)
+    if owner is not None and slab is None:
+        step = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev, x_matmul)
         out = torch.empty_like(u)
         partials = torch.empty((batch or 1, step.rows, 3), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):  # the launch goes to the current device
@@ -653,8 +662,9 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
     kernel K2; None selects the general kernel K1. With a slab, u, shape
     and owner are its (.., n, slab.w) columns and the step is K4's.
     `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
-    K4-XM on a slab); K5 radii-only takes one launch a step, every other
-    mode one a stage. Returns (u_next, energies (3,))."""
+    K4-XM on a slab); radii-only on the whole grid takes one launch a step,
+    the general mode and the slabs one a stage. Returns (u_next, energies
+    (3,))."""
     if not _on_card(u):
         return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
                                         x_matmul)
@@ -666,8 +676,8 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
 def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
                            x_matmul: bool = False):
     """Advance K candidate states (K, 12, n, n) one RK4 step from the same
-    time t, one launch a stage (K3; one launch a step for batched K5
-    radii-only), each with its own cylinders
+    time t, one launch a step in the radii-only mode (K3, or batched K5)
+    and one a stage in the general one, each with its own cylinders
     (K, 8, n_cyl) lerped over [ti, tf]. `owner` (K, 5, n, n) from
     `select_owner_batched` selects the radii-only mode, None the general
     one; `x_matmul` the split d/dx (K5). Each candidate's energy partials
@@ -688,14 +698,15 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
     float32 start times `times`, with the design lerped over [ti, tf], as
     `fused_rk4_step` or `fused_rk4_step_batched` would step by step. The new
     state of each step whose index is in `keep` is kept, in a tensor of its
-    own. On the card, K5 radii-only takes one launch a step, its window's
-    fixed inputs marshalled once, its steps alternating between two state
-    buffers made once (the input u is never written), and its energy
-    partials (steps, K, blocks, 3) made once and reduced once. Every other
-    mode, and the CPU's plain version, goes step by step. Returns (the kept
-    states in order, energies (steps, 3) or (steps, K, 3))."""
+    own. On the card, the radii-only mode, in either d/dx form, takes one
+    launch a step, its window's fixed inputs marshalled once, its steps
+    alternating between two state buffers made once (the input u is never
+    written), and its energy partials (steps, K, blocks, 3) made once and
+    reduced once. The general mode, and the CPU's plain version, goes step
+    by step. Returns (the kept states in order, energies (steps, 3) or
+    (steps, K, 3))."""
     batch = u.shape[0] if u.dim() == 4 else None
-    if not (_on_card(u) and owner is not None and x_matmul):
+    if not (_on_card(u) and owner is not None):
         step = fused_rk4_step if batch is None else fused_rk4_step_batched
         kept, energies = [], []
         for s, t in enumerate(times):
@@ -708,7 +719,7 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, n), dev)
     _check_cyl(cyl, lead, dev)
-    launcher = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev)
+    launcher = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev, x_matmul)
     partials = torch.empty((len(times), batch or 1, launcher.rows, 3), dtype=torch.float32,
                            device=dev)
     base, row_bytes = partials.data_ptr(), partials.stride(0) * partials.element_size()

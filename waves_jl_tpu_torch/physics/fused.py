@@ -10,9 +10,9 @@ candidate-batched kernel K3, the hybrid controller's exact re-rank.
 Each takes `x_matmul=True` by default, as in the JAX package: d/dx in the
 bf16 hi/lo split form of the JAX kernel's default mode (K5);
 `x_matmul=False` takes the exact stencil of K1-K3. Both drive a window
-through `fused_rk4_window`: on the card, K5 radii-only (the triple ring's
-default) takes one launch a step, with the window's state buffers and
-energy partials made once and reduced once.
+through `fused_rk4_window`: on the card, the radii-only mode (the triple
+ring's), in either d/dx form, takes one launch a step, with the window's
+state buffers and energy partials made once and reduced once.
 """
 from __future__ import annotations
 
@@ -139,10 +139,11 @@ def rerank_step_times(t_i: np.float32, steps: int, dt: float) -> list[np.float32
 def make_rerank_rollout(env: WaveEnv, k: int, horizon: int, x_matmul: bool = True):
     """K-candidate exact re-rank rollout for the hybrid controller: all K
     action sequences advance through the simulator together, one
-    candidate-batched kernel launch (K3) a stage, or a step for batched K5
-    radii-only, instead of K rollouts in turn. Radii-only when
-    `radii_only_ok` holds for the design space, with one batched owner pass
-    a window; general otherwise; with the split d/dx (K5) if `x_matmul`.
+    candidate-batched kernel launch a step in the radii-only mode (K3, or
+    batched K5) and one a stage in the general one, instead of K rollouts
+    in turn. Radii-only when `radii_only_ok` holds for the design space,
+    with one batched owner pass a window; general otherwise; with the split
+    d/dx (K5) if `x_matmul`.
 
     Returns rollout(state, elite, t0) -> (K,) cumulative scattered energy
     over `horizon` windows, sum_h sum(signal_h[1:, 2]) for each candidate:
