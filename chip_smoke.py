@@ -8,18 +8,20 @@ its elapsed seconds:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, with
-   ptxas's register and spill report, and for both instances of the
-   one-launch step `rk4_step_tiled` (the split d/dx and the exact one)
-   their registers, spills, shared memory and resident blocks an SM;
-3. kernels: each kernel against its plain PyTorch version at 700^2, K5
-   (the split d/dx, `x_matmul=True`) in both rasterisation modes with the
-   count of cells that differ (none for K2 and K5 radii-only, one launch a
-   step), and the candidate-batched kernels K3 and K5 (16 candidates at
-   350^2, coarsened from the 700^2 state) against their plain versions
-   (none differing for either in the radii-only mode) and against K2 or K5
-   run on each candidate alone; the time of a step of K2, K5, K3 and
-   batched K5 radii-only as one call, as device work, and inside a 100-step
-   window with the host's issue time;
+   ptxas's register and spill report, and for the four instances of the
+   one-launch step `rk4_step_tiled` (the split d/dx or the exact one, the
+   owner test or the general rasterisation) their registers, spills,
+   shared memory and resident blocks an SM;
+3. kernels: each kernel against its plain PyTorch version at 700^2, K1,
+   K2 and K5 (the split d/dx, `x_matmul=True`, in both rasterisation
+   modes) with the count of cells that differ (none: one launch a step,
+   bit for bit), and the candidate-batched kernels K3 and K5 (16
+   candidates at 350^2, coarsened from the 700^2 state) against their
+   plain versions (none differing for either in the radii-only mode) and
+   against K2 or K5 run on each candidate alone; the time of a step of
+   K1, K2 and K5 in both modes, K3 and batched K5 radii-only as one call,
+   as device work, and inside a 100-step window with the host's issue
+   time;
 4. main path: a warm 20-action x 100-step MPC control episode at 700^2
    (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
    surrogate with the tracked weights), the simulator's steps/s over 20
@@ -28,7 +30,9 @@ its elapsed seconds:
    of the general kernels (K5 general, and K1 with `x_matmul=False`), with
    one K = 4 re-rank window there in each mode (K5 and K3 general), each
    batched kernel held against its plain version on that window's own
-   states, cylinders and step times;
+   states, cylinders and step times (bit for bit) and against the
+   single-state kernel on each candidate, and timed alone and inside the
+   window;
 5. hybrid: a 20-action episode of the hybrid controller at full width
    (256 shots pruned by the fine-tuned stride-4 flagship, the best 16
    re-ranked exactly at 350^2 through batched K5, the winner applied at
@@ -39,15 +43,17 @@ its elapsed seconds:
 6. sharded: from phase 3's state, cylinders and window times, the y-sharded
    kernel K4 (4 shards of 175 columns) against its plain version in both
    modes, the fused sharded rollout (`parallel/fused_domain.py`) at 1, 2 and
-   4 shards against the K2 window bit for bit on the state, at 4 shards
-   against K1, and against the plain sharded rollout (`parallel/domain.py`);
+   4 shards against the K2 window bit for bit on the state, the general
+   one at 1, 2 and 4 shards against the K1 window (its slabs on
+   `rk4_stage`, the window on `rk4_step_tiled`), and against the plain
+   sharded rollout (`parallel/domain.py`);
    K1 and the owner pass with 80 cylinders against their plain versions; a
    free-field window through K1; the times of a sharded step, host-driven
    and as device work, against K2's, and of K4 alone; then K4-XM, the
    sharded step with K5's split d/dx (`x_matmul=True`): against its plain
    version in both modes, the split sharded rollout at 1, 2 and 4 shards
-   against the K5 window bit for bit, and its step time against K4's in
-   turns;
+   against the K5 window and the split general one against the K5
+   general window, bit for bit, and its step time against K4's in turns;
 7. datagen at `bench.py`'s operating point (700^2, triple ring, Gaussian
    source at x = -10, 20 actions x 100 steps, random policy, chunks of 10
    episodes): one warm chunk, then two timed chunks, seconds per episode
@@ -66,12 +72,12 @@ its elapsed seconds:
    sequential one; the MPC evaluation CLI once, in a subprocess.
 
 The launch counts of each kernel are read from the main-path runs alone:
-radii-only on the whole grid (K2, K3, K5, batched K5) takes one launch a
-step, the general modes and the slabs one a stage. The last lines are one
-JSON object describing every kernel (`ms` with CUDA events around calls as
-the host drives them; the rows of K4 and of the radii-only modes on the
-whole grid add `device_ms`, the same launches queued behind a device
-sleep, without the host's issue cost), then
+every mode on the whole grid (K1, K2, K3, K5, batched K5, radii-only and
+general) takes one launch a step, the slabs (K4, K4-XM) one a stage. The
+last lines are one JSON object describing every kernel (`ms` with CUDA
+events around calls as the host drives them; the rows of K4 and of the
+modes on the whole grid add `device_ms`, the same launches queued behind
+a device sleep, without the host's issue cost), then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
 """
@@ -202,10 +208,10 @@ def host_s(fn):
 
 def window_step_ms(u, shape, prof, cyl, owner, times, ti, tf, cfg,
                    x_matmul: bool) -> tuple[float, float, float]:
-    """(ms a step as the host drives a window of the radii-only mode
-    through `fused_rk4_window`, ms a step as device work, ms the host takes
-    to issue a step), single or batched by u's shape, with the split d/dx
-    (K5) if `x_matmul`, else the exact one (K2, K3)."""
+    """(ms a step as the host drives a window through `fused_rk4_window`,
+    ms a step as device work, ms the host takes to issue a step), single or
+    batched by u's shape, radii-only on `owner` or general where it is None,
+    with the split d/dx (K5) if `x_matmul`, else the exact one (K1-K3)."""
     import torch
 
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
@@ -322,8 +328,11 @@ def batched_kernels(env, state, dev):
     torch.cuda.synchronize()
     k3g_state, k3g_sig = rel_err(u_kg, u_pg), rel_err(e_kg, e_pg)
     log("kernels", f"K3 general vs plain, 10 steps, moving cylinders: rel err state "
-                   f"{k3g_state:.3e}, signal {k3g_sig:.3e} (tol {REL_TOL:g})")
+                   f"{k3g_state:.3e}, signal {k3g_sig:.3e} (tol {REL_TOL:g}); "
+                   f"{differing_cells(u_kg, u_pg)}")
     check(k3g_state <= REL_TOL and k3g_sig <= REL_TOL, "K3 general agrees with its plain version")
+    check(torch.equal(u_kg, u_pg) and k3g_sig <= 1e-6,
+          "K3 general (one launch a step) equals its plain version bit for bit")
 
     # batched K5: against its plain version over 10 steps, and each
     # candidate against K5 alone over the window
@@ -401,8 +410,10 @@ def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
     """Phase 4, K3 general (batched K5 general with `x_matmul`) on the
     position-design re-rank window's own inputs: its K states, cylinders
     and float32 step times, as `make_rerank_rollout` forms them. The kernel
-    against its plain version over the window's first 10 steps. Returns the
-    numbers of its kernel row."""
+    (one launch a step) against its plain version over the window's first
+    10 steps, bit for bit on the state, and each candidate against the
+    single-state kernel on it; its time a step alone and inside the window.
+    Returns the numbers of its kernel row and its device ms a step."""
     import numpy as np
     import torch
 
@@ -421,7 +432,8 @@ def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
     check(bool((cyl[:, 0:2] != cyl[:, 4:6]).any()), "the re-rank window's cylinders move")
     t_i = np.float32(t0)
     ti, tf = float(t_i), float(np.float32(t_i + np.float32(STEPS * cfg.dt)))
-    times = [float(ts) for ts in rerank_step_times(t_i, STEPS, cfg.dt)[:10]]
+    all_times = [float(ts) for ts in rerank_step_times(t_i, STEPS, cfg.dt)]
+    times = all_times[:10]
 
     kernel = functools.partial(fk.fused_rk4_step_batched, x_matmul=x_matmul)
     reference = functools.partial(fk.fused_rk4_step_batched_reference, x_matmul=x_matmul)
@@ -444,14 +456,31 @@ def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
                      f"(tol {REL_TOL:g}); {differing_cells(u_k, u_p)}")
     check(state_err <= REL_TOL and sig_err <= REL_TOL,
           f"{name} agrees with its plain version on the re-rank window")
+    check(torch.equal(u_k, u_p) and sig_err <= 1e-6,
+          f"{name} (one launch a step) equals its plain version bit for bit, its signal within "
+          "1e-6")
+    identical = 0
+    for b in range(k):
+        u_b = u0[b]
+        for ts in times:
+            u_b, _ = fk.fused_rk4_step(u_b, shape, prof, cyl[b], None, ts, ti, tf, cfg,
+                                       x_matmul=x_matmul)
+        identical += int(torch.equal(u_b, u_k[b]))
+    log("main path", f"{name} vs the single-state kernel on each candidate alone, {len(times)} "
+                     f"steps: {identical} of {k} states identical")
+    check(identical == k, f"each {name} candidate's state is the single-state kernel's on it")
     ms = cuda_ms(lambda: kernel(u0, shape, prof, cyl, None, times[0], ti, tf, cfg), 20)
+    dev_ms = device_ms(lambda: kernel(u0, shape, prof, cyl, None, times[0], ti, tf, cfg), 20)
+    win = window_step_ms(u0, shape, prof, cyl, None, all_times, ti, tf, cfg, x_matmul)
     plain = cuda_ms(lambda: reference(u0, shape, prof, cyl, None, times[0], ti, tf, cfg), 2)
-    part = torch.empty((k, fk.partial_rows(SIZE), 3), dtype=torch.float32)
+    part = torch.empty((k, fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
     bnd = bound(2 * nbytes(u0) + nbytes(shape, prof, cyl, part),
                 k * fk.step_flops(SIZE, cyl.shape[-1], False, x_matmul=x_matmul))
     log("main path", f"ms per batched RK4 step of {k} candidates at {SIZE}^2: {name} {ms:.4f} "
-                     f"(plain {plain:.4f}), bound {bnd[0]:.5f} ms ({bnd[1]})")
-    return abs_err, ms, plain, bnd
+                     f"(plain {plain:.4f}; device work {dev_ms:.4f}; inside a {STEPS}-step window "
+                     f"{win[0]:.4f} a step, device work {win[1]:.4f}, the host issues a step in "
+                     f"{win[2]:.4f}), bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return (abs_err, ms, plain, bnd), dev_ms
 
 
 def hybrid_episode(env, env_lo, space, dev):
@@ -674,24 +703,27 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
     check(all(v == 0 for key, v in counts.items() if "sharded" not in key),
           "the sharded rollout launches no whole-grid kernel")
 
-    roll_g = rollout(shards, False)
-    fk.reset_launch_counts()
-    u_g, s_g = roll_g(u0, tspan10, moved, shape, prof)
-    torch.cuda.synchronize()
-    counts_g = dict(fk.launch_counts)
+    # the general rollout's slabs (`rk4_stage`) against the whole-grid K1
+    # window (`rk4_step_tiled`): the two kernels keep one op order
+    ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
+    times10 = [float(t) for t in tspan10[:-1]]
+    (u1,), e1 = fk.fused_rk4_window(u0, shape, prof, moved, None, times10, ti10, tf10, cfg, [9])
+    counts_g = {}
+    for k in (1, 2, 4):
+        roll_g = rollout(k, False)
+        if k == shards:
+            fk.reset_launch_counts()
+        u_g, s_g = roll_g(u0, tspan10, moved, shape, prof)
+        torch.cuda.synchronize()
+        if k == shards:
+            counts_g = dict(fk.launch_counts)
+        sig_g = rel_err(s_g[1:], e1)
+        log("sharded", f"general rollout, {k} shard(s), 10 steps, moving cylinders, vs the K1 "
+                       f"window: {differing_cells(u_g, u1)}, signal rel err {sig_g:.3e} "
+                       f"(tol 1e-06)")
+        check(torch.equal(u_g, u1) and sig_g <= 1e-6, f"the {k}-shard general rollout equals K1")
     check(counts_g["fused_rk4_sharded_general"] == shards * 10 * fk.STAGES,
           f"{shards * 10 * fk.STAGES} K4 general stage launches")
-    ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
-    u1, e1 = u0, []
-    for t in tspan10[:-1]:
-        u1, e = fk.fused_rk4_step(u1, shape, prof, moved, None, float(t), ti10, tf10, cfg)
-        e1.append(e)
-    torch.cuda.synchronize()
-    err_g = float(torch.max(torch.abs(u_g - u1)))
-    sig_g = rel_err(s_g[1:], torch.stack(e1))
-    log("sharded", f"general rollout, {shards} shards, 10 steps, moving cylinders, vs K1: state max "
-                   f"abs err {err_g}, signal rel err {sig_g:.3e} (tol 1e-06)")
-    check(err_g == 0.0 and sig_g <= 1e-6, "the 4-shard general rollout equals K1")
 
     # the plain sharded rollout (domain.py) against the fused one
     dyn = env.integrator.dynamics
@@ -735,7 +767,8 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
     log("sharded", f"free-field window through K1: launches {fk.launch_counts['fused_rk4_general']}, "
                    f"tot max {float(fs[:, 0].max()):.4e}, tot == inc {torch.equal(fs[:, 0], fs[:, 1])}, "
                    f"sc max {float(fs[:, 2].max())}")
-    check(fk.launch_counts["fused_rk4_general"] == STEPS * fk.STAGES, "the free field takes K1")
+    check(fk.launch_counts["fused_rk4_general"] == STEPS,
+          "the free field takes K1, one launch a step")
     check(bool(torch.isfinite(fs).all()) and float(fs[:, 0].max()) > 0.0
           and torch.equal(fs[:, 0], fs[:, 1]) and float(fs[:, 2].max()) == 0.0,
           "free field: tot == inc, sc == 0")
@@ -888,24 +921,29 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
                    "select_owner_sharded": shards})
     check(counts == expect, f"the split sharded rollout launches K4-XM alone: {counts} == {expect}")
 
-    roll_g = rollout(shards, False)
-    fk.reset_launch_counts()
-    u_g, s_g = roll_g(u0, tspan10, moved, shape, prof)
-    torch.cuda.synchronize()
-    counts_g = dict(fk.launch_counts)
+    # the split general rollout's slabs (`rk4_stage`) against the whole-grid
+    # K5 general window (`rk4_step_tiled`)
+    ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
+    times10 = [float(t) for t in tspan10[:-1]]
+    (u1,), e1 = fk.fused_rk4_window(u0, shape, prof, moved, None, times10, ti10, tf10, cfg, [9],
+                                    x_matmul=True)
+    counts_g = {}
+    for k in (1, 2, 4):
+        roll_g = rollout(k, False)
+        if k == shards:
+            fk.reset_launch_counts()
+        u_g, s_g = roll_g(u0, tspan10, moved, shape, prof)
+        torch.cuda.synchronize()
+        if k == shards:
+            counts_g = dict(fk.launch_counts)
+        sig_g = rel_err(s_g[1:], e1)
+        log("sharded", f"split general rollout, {k} shard(s), 10 steps, moving cylinders, vs "
+                       f"the K5 general window: {differing_cells(u_g, u1)}, signal rel err {sig_g:.3e} "
+                       f"(tol 1e-06)")
+        check(torch.equal(u_g, u1) and sig_g <= 1e-6,
+              f"the {k}-shard split general rollout equals K5 general")
     check(counts_g["fused_rk4_sharded_xmatmul_general"] == shards * 10 * fk.STAGES,
           f"{shards * 10 * fk.STAGES} K4-XM general stage launches")
-    ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
-    u1, e1 = u0, []
-    for t in tspan10[:-1]:
-        u1, e = fk.fused_rk4_step(u1, shape, prof, moved, None, float(t), ti10, tf10, cfg,
-                                  x_matmul=True)
-        e1.append(e)
-    torch.cuda.synchronize()
-    sig_g = rel_err(s_g[1:], torch.stack(e1))
-    log("sharded", f"split general rollout, {shards} shards, 10 steps, moving cylinders, vs K5 "
-                   f"general: {differing_cells(u_g, u1)}, signal rel err {sig_g:.3e} (tol 1e-06)")
-    check(torch.equal(u_g, u1) and sig_g <= 1e-6, "the 4-shard split general rollout equals K5")
 
     # times per 4-shard step in turns, K4 then K4-XM then K4-XM then K4:
     # events around the 100-step rollout (host-driven), and a 10-step
@@ -1304,18 +1342,22 @@ def main() -> int:
             print("    " + line.strip(), flush=True)
     lines = report.splitlines()
     occ = fk.tiled_kernel_report()
-    # the two instances of the one-launch step: rk4_step_tiled<true> (split
-    # d/dx, K5) and rk4_step_tiled<false> (exact, K2 and K3)
-    for xm, name, blocks in ((True, "split d/dx, K5 and batched K5", occ["blocks_per_sm"]),
-                             (False, "exact d/dx, K2 and K3", occ["blocks_per_sm_exact"])):
-        mangled = f"rk4_step_tiledILb{int(xm)}E"
+    # the four instances of the one-launch step rk4_step_tiled<XM, GENERAL>:
+    # the split d/dx (K5) or the exact one (K1, K2, K3), the owner test or
+    # the general rasterisation
+    names = {"split": "split d/dx, radii-only: K5 and batched K5",
+             "exact": "exact d/dx, radii-only: K2 and K3",
+             "split_general": "split d/dx, general: K5 general and batched K5 general",
+             "exact_general": "exact d/dx, general: K1 and K3 general"}
+    for key, (xm, general) in fk.TILED_INSTANCES.items():
+        mangled = f"rk4_step_tiledILb{int(xm)}ELb{int(general)}E"
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and mangled in line]
         ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in lines[at[0] + 1:at[0] + 4]
                           if "registers" in line or "spill" in line) if at else "already built"
-        log("build", f"rk4_step_tiled<{str(xm).lower()}> ({name}, one launch a step): ptxas "
-                     f"{ptxas}; dynamic shared memory {occ['smem_bytes']} B a block of 256 "
-                     f"threads; {blocks} blocks an SM")
-        check(blocks >= 1, f"the one-launch step ({name}) fits an SM")
+        log("build", f"rk4_step_tiled<{str(xm).lower()}, {str(general).lower()}> ({names[key]}, "
+                     f"one launch a step): ptxas {ptxas}; dynamic shared memory "
+                     f"{occ['smem_bytes']} B a block of 256 threads; {occ[key]} blocks an SM")
+        check(occ[key] >= 1, f"the one-launch step ({names[key]}) fits an SM")
 
     # 3. kernels against their plain versions, 700^2
     space = build_triple_ring_design_space(device=dev)
@@ -1374,8 +1416,12 @@ def main() -> int:
     k1_state, k1_sig = rel_err(u_k1, u_p1), rel_err(e_k1, e_p1)
     k1_abs = float(torch.max(torch.abs(u_k1 - u_p1)))
     log("kernels", f"K1 general vs plain, 10 steps, moving cylinders: rel err state "
-                   f"{k1_state:.3e}, signal {k1_sig:.3e} (tol {REL_TOL:g})")
+                   f"{k1_state:.3e}, signal {k1_sig:.3e} (tol {REL_TOL:g}); "
+                   f"{differing_cells(u_k1, u_p1)}")
     check(k1_state <= REL_TOL and k1_sig <= REL_TOL, "K1 agrees with its plain version")
+    check(torch.equal(u_k1, u_p1) and k1_sig <= 1e-6,
+          "K1 general (one launch a step) equals its plain version bit for bit, its signal "
+          "within 1e-6")
 
     u_g, e_g = window_run(fk.fused_rk4_step, None, cyl, 10)
     u_r, e_r = window_run(fk.fused_rk4_step, owner_k, cyl, 10)
@@ -1401,10 +1447,10 @@ def main() -> int:
         log("kernels", f"K5 {mode} vs plain, {n_steps} steps: rel err state {k5_state:.3e}, "
                        f"signal {k5_sig:.3e} (tol {REL_TOL:g}); {differing_cells(u_k5, u_p5)}")
         check(k5_state <= REL_TOL and k5_sig <= REL_TOL, f"K5 {mode} agrees with its plain version")
+        check(torch.equal(u_k5, u_p5) and k5_sig <= 1e-6,
+              f"K5 {mode} (one launch a step) equals its plain version bit for bit, its signal "
+              "within 1e-6")
         if radii:
-            check(torch.equal(u_k5, u_p5) and k5_sig <= 1e-6,
-                  "K5 radii-only (one launch a step) equals its plain version bit for bit, its "
-                  "signal within 1e-6")
             # the split keeps 16 of 24 mantissa bits of each tap, an error of
             # about 2^-17 |u| / dx in each d/dx, which grows against the
             # derivative as the grid refines: at 700^2 a window moves the
@@ -1431,33 +1477,35 @@ def main() -> int:
     k5_dev = device_ms(lambda: xm_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 20)
     k2_dev = device_ms(lambda: fk.fused_rk4_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf,
                                                  cfg), 20)
+    k1_dev = device_ms(lambda: fk.fused_rk4_step(u0, shape, prof, moved, None, t_arg, ti, tf,
+                                                 cfg), 20)
+    k5g_dev = device_ms(lambda: xm_step(u0, shape, prof, moved, None, t_arg, ti, tf, cfg), 20)
     times = [float(x) for x in tspan[:-1]]
-    for name, xm in (("K5", True), ("K2", False)):
-        win = window_step_ms(u0, shape, prof, cyl, owner_k, times, ti, tf, cfg, xm)
-        log("kernels", f"{name} radii-only inside a {STEPS}-step window (`fused_rk4_window`, one "
+    for name, xm, own, cyl_ in (("K5 radii-only", True, owner_k, cyl),
+                                ("K2 radii-only", False, owner_k, cyl),
+                                ("K5 general", True, None, moved),
+                                ("K1 general", False, None, moved)):
+        win = window_step_ms(u0, shape, prof, cyl_, own, times, ti, tf, cfg, xm)
+        log("kernels", f"{name} inside a {STEPS}-step window (`fused_rk4_window`, one "
                        f"launch a step): {win[0]:.4f} ms a step, device work {win[1]:.4f} ms, the "
                        f"host issues a step in {win[2]:.4f} ms")
     log("kernels", f"ms per RK4 step: K2 {k2_ms:.4f} (plain {k2_plain:.4f}; device work "
-                   f"{k2_dev:.4f}), K1 {k1_ms:.4f} "
-                   f"(plain {k1_plain:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f}); "
+                   f"{k2_dev:.4f}), K1 {k1_ms:.4f} (plain {k1_plain:.4f}; device work "
+                   f"{k1_dev:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f}); "
                    f"K5 radii-only {k5_ms:.4f} (plain {k5_plain:.4f}; device work {k5_dev:.4f}), "
-                   f"K5 general {k5g_ms:.4f} (plain {k5g_plain:.4f})")
+                   f"K5 general {k5g_ms:.4f} (plain {k5g_plain:.4f}; device work {k5g_dev:.4f})")
 
     n_cyl = cyl.shape[1]
-    part = torch.empty((fk.partial_rows(SIZE), 3), dtype=torch.float32)
     # what an RK4 step needs: state, source shape, profile and cylinders in,
-    # state and energy partials out (a row a block for K1, a tile for K2 and
-    # K5). K2's owner fields are a layout of this design, made once a window,
+    # state and energy partials out (a row a tile of the one-launch step).
+    # K2's owner fields are a layout of this design, made once a window,
     # and stay out of the bound.
-    io_step = nbytes(u0, shape, prof, cyl) + nbytes(u0, part)
+    part_t = torch.empty((fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
+    io_step = nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t)
     k1_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False))
     own_bound = bound(nbytes(cyl, owner_k), SIZE * SIZE * n_cyl * 9)
-    # the one-launch step (K2, K5) writes one partial row a tile
-    part_t = torch.empty((fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
-    k2_bound = bound(nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t),
-                     fk.step_flops(SIZE, n_cyl, True))
-    k5_bound = bound(nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t),
-                     fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
+    k2_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True))
+    k5_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
     k5g_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False, x_matmul=True))
     log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}), K1, K2 and K5 "
                    f"({k5_bound[1]}); K2 reads "
@@ -1554,8 +1602,8 @@ def main() -> int:
             pst, _ = pos_step(pst, pos_policy(pgen))
         torch.cuda.synchronize()
         pos_counts[xm] = dict(fk.launch_counts)
-        check(pos_counts[xm][single] == pos_windows * STEPS * fk.STAGES,
-              f"{pos_windows * STEPS * fk.STAGES} {single} stage launches")
+        check(pos_counts[xm][single] == pos_windows * STEPS,
+              f"{pos_windows * STEPS} {single} launches (one a step)")
         check(bool(torch.isfinite(pst.signal).all()), "position-design signal is finite")
         log("main path", f"position-design episode, {pos_windows} windows, x_matmul={xm}: "
                          f"launches {pos_counts[xm]}")
@@ -1567,13 +1615,14 @@ def main() -> int:
         pos_costs = roll(pst, elite, t_pos)
         torch.cuda.synchronize()
         roll_counts[xm] = dict(fk.launch_counts)
-        check(roll_counts[xm][batched] == STEPS * fk.STAGES,
-              f"{STEPS * fk.STAGES} {batched} stage launches")
+        check(roll_counts[xm][batched] == STEPS,
+              f"{STEPS} {batched} launches (one a step)")
         check(tuple(pos_costs.shape) == (rerank_k,) and bool(torch.isfinite(pos_costs).all()),
               "position-design re-rank costs are finite")
         log("main path", f"position-design re-rank window, K = {rerank_k}, x_matmul={xm}: "
                          f"launches {roll_counts[xm]}")
-        k3["k5bg" if xm else "k3g"] = batched_general_kernel(pos_env, pst, elite, t_pos, dev, xm)
+        key = "k5bg" if xm else "k3g"
+        k3[key], k3[key + "_dev"] = batched_general_kernel(pos_env, pst, elite, t_pos, dev, xm)
 
     # 5. the hybrid controller
     hyb_counts, exact_rerank_counts = hybrid_episode(env, env_lo, space, dev)
@@ -1609,8 +1658,11 @@ def main() -> int:
     )
     # the one-launch step's rows add `device_ms`, as K4's do
     dev_rows = {"fused_rk4_radii_only": k2_dev, "fused_rk4_xmatmul_radii_only": k5_dev,
+                "fused_rk4_general": k1_dev, "fused_rk4_xmatmul_general": k5g_dev,
                 "fused_rk4_batched_radii_only": k3["k3_dev"],
-                "fused_rk4_batched_xmatmul_radii_only": k3["k5b_dev"]}
+                "fused_rk4_batched_xmatmul_radii_only": k3["k5b_dev"],
+                "fused_rk4_batched_general": k3["k3g_dev"],
+                "fused_rk4_batched_xmatmul_general": k3["k5bg_dev"]}
     kernels = []
     for name, replaces, launches, (err, ms, plain, bnd) in single_rows:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -15,13 +15,15 @@ held to the same tolerance against its plain version, single and batched,
 and each batched K5 candidate equals K5 run on it alone, bit for bit.
 K4-XM, the y-sharded step with the split d/dx, is held against its plain
 version and, on each owned cell, against K5 on the whole grid, bit for
-bit. Radii-only on the whole grid takes one launch a step
-(`rk4_step_tiled`) in both d/dx forms, K5's split one and K2's and K3's
-exact one: each equals its plain version bit for bit on the state, single
-and batched, at sizes whose edge tiles are partial or one cell wide; the
-windows that drive it give the plain path's signal and re-rank costs
-within 1e-6 (the energy partials are summed in another order), with frames
-of their own; the stage-a-launch entry point refuses that mode. The
+bit. Every mode on the whole grid takes one launch a step
+(`rk4_step_tiled`) in both d/dx forms, K5's split one and K1's, K2's and
+K3's exact one, radii-only and general: each equals its plain version bit
+for bit on the state, single and batched, at sizes whose edge tiles are
+partial or one cell wide, the general mode with no cylinder, 18 and 80
+(more than one chunk); the windows that drive it give the plain path's
+signal and re-rank costs within 1e-6 (the energy partials are summed in
+another order), with frames of their own; the stage-a-launch entry point
+refuses the whole grid in every mode. The
 surrogate's gradient path (`shot_energy`, CEM's polish) on the card agrees
 with the CPU's at narrow width to 1e-4 relative.
 """
@@ -85,8 +87,8 @@ def test_kernel_matches_plain_version(card, radii_only, n):
         want = fk.fused_rk4_step_reference(want[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg)
     torch.cuda.synchronize()
     key = "fused_rk4_radii_only" if radii_only else "fused_rk4_general"
-    # K2 takes one launch a step (`rk4_step_tiled`), K1 one a stage
-    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
+    # K2 and K1 take one launch a step (`rk4_step_tiled`)
+    assert fk.launch_counts[key] - before[key] == 2
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
 
@@ -131,8 +133,8 @@ def test_batched_kernel_matches_plain_version_and_single_kernel(card, radii_only
                                                    1e-3, cfg)
     torch.cuda.synchronize()
     key = "fused_rk4_batched_radii_only" if radii_only else "fused_rk4_batched_general"
-    # K3 radii-only takes one launch a step, K3 general one a stage
-    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
+    # K3 takes one launch a step in both modes
+    assert fk.launch_counts[key] - before[key] == 2
     assert got[0].shape == (K3, 12, n, n) and got[1].shape == (K3, 3)
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
@@ -162,8 +164,8 @@ def test_xmatmul_kernel_matches_plain_version(card, radii_only, n):
         exact = fk.fused_rk4_step(exact[0], shape, prof, cyl, owner, t0, 0.0, 1e-3, cfg)
     torch.cuda.synchronize()
     key = "fused_rk4_xmatmul_" + ("radii_only" if radii_only else "general")
-    # K5 radii-only takes one launch a step, the general mode one a stage
-    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
+    # K5 takes one launch a step in both modes
+    assert fk.launch_counts[key] - before[key] == 2
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
     assert not torch.equal(got[0], exact[0])  # the split form, not K1/K2
@@ -184,7 +186,7 @@ def test_batched_xmatmul_kernel_matches_plain_version_and_single_kernel(card, ra
                                                    1e-3, cfg, x_matmul=True)
     torch.cuda.synchronize()
     key = "fused_rk4_batched_xmatmul_" + ("radii_only" if radii_only else "general")
-    assert fk.launch_counts[key] - before[key] == 2 * (1 if radii_only else fk.STAGES)
+    assert fk.launch_counts[key] - before[key] == 2  # one launch a step
     for a, b in zip(got, want):
         assert rel(a, b) <= TOL
     for b in range(K3):  # each candidate is K5 run on it alone
@@ -391,7 +393,7 @@ def test_free_field_window_runs_the_general_kernel(card):
         state, _ = step(state, RandomDesignPolicy(env.action_space)(gen))
     torch.cuda.synchronize()
     key = "fused_rk4_xmatmul_general"  # the env step's default: K5 with K1's rasterisation
-    assert fk.launch_counts[key] - before[key] == 2 * steps * fk.STAGES
+    assert fk.launch_counts[key] - before[key] == 2 * steps  # one launch a step
     sig = state.signal
     assert bool(torch.isfinite(sig).all()) and float(sig[:, 0].max()) > 0.0
     assert torch.equal(sig[:, 0], sig[:, 1])  # tot == inc
@@ -486,6 +488,84 @@ def test_one_launch_step_equals_plain_version_bit_for_bit(card, n, k):
 @pytest.mark.parametrize("n", [33, 45, 48, 350, 700])
 def test_exact_one_launch_step_equals_plain_version_bit_for_bit(card, n, k):
     _check_one_launch_step(card, n, k, x_matmul=False)  # K2, K3
+
+
+def _general_inputs(n, k, n_cyl, device):
+    """Inputs of the general mode: one state for k None, else k candidates,
+    each with its own state and its own moving cylinders (radii scaled,
+    positions shifted): none, 18 in three rings about (5, 0) that overlap
+    and move in the window, or the 80 of `chip_smoke.cylinder_grid`."""
+    from chip_smoke import cylinder_grid
+
+    cfg, _, u, shape, prof = _inputs(n, True, device)
+    rng = np.random.default_rng(n + n_cyl)
+    if n_cyl == 0:
+        cyl = np.zeros((8, 0))
+    elif n_cyl == 80:
+        cyl = cylinder_grid(True)
+    else:
+        ang = np.arange(6) * np.pi / 3
+        pos = np.concatenate([np.c_[5.0 + rr * np.cos(ang + off), rr * np.sin(ang + off)]
+                              for rr, off in ((1.5, 0.0), (3.0, np.pi / 6), (4.5, 0.0))])
+        r1, r2 = rng.uniform(0.3, 0.9, 18), rng.uniform(0.3, 0.9, 18)
+        c = np.full(18, 1032.0)
+        pos2 = pos + np.array([0.6, -0.3])
+        cyl = np.stack([pos[:, 0], pos[:, 1], r1, c, pos2[:, 0], pos2[:, 1], r2, c])
+    if k is not None:
+        cyl = np.repeat(cyl[None], k, axis=0)
+        cyl[:, [2, 6]] *= rng.uniform(0.7, 1.0, (k, 1, n_cyl))
+        cyl[:, [0, 1, 4, 5]] += rng.uniform(-0.5, 0.5, (k, 4, 1))
+        u = torch.from_numpy((rng.standard_normal((k, 12, n, n)) * 1e-3).astype(np.float32))
+    cyl = torch.from_numpy(np.ascontiguousarray(cyl, np.float32)).to(device)
+    return cfg, u.to(device), shape, prof, cyl
+
+
+# n as for the radii-only step; 18 cylinders fit one chunk of 64, 80 take two
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cyl", [0, 18, 80])
+@pytest.mark.parametrize("x_matmul", [False, True])
+@pytest.mark.parametrize("k", [None, 1, 3, 16])
+@pytest.mark.parametrize("n", [33, 45, 48, 350, 700])
+def test_general_one_launch_step_equals_plain_version_bit_for_bit(card, n, k, x_matmul, n_cyl):
+    # K1 and K3 general (exact d/dx), K5 and batched K5 general (split):
+    # two chained one-launch steps against the plain version, bit for bit on
+    # the state; each candidate against the single-state kernel on it
+    cfg, u, shape, prof, cyl = _general_inputs(n, k, n_cyl, card)
+    step = fk.fused_rk4_step if k is None else fk.fused_rk4_step_batched
+    plain = fk.fused_rk4_step_reference if k is None else fk.fused_rk4_step_batched_reference
+    key = fk._key("fused_rk4", k, None, x_matmul) + "_general"
+    before = dict(fk.launch_counts)
+    got, want = (u, None), (u, None)
+    for t0 in (2e-4, 2.1e-4):  # two chained steps
+        got = step(got[0], shape, prof, cyl, None, t0, 0.0, 1e-3, cfg, x_matmul=x_matmul)
+        want = plain(want[0], shape, prof, cyl, None, t0, 0.0, 1e-3, cfg, x_matmul=x_matmul)
+    torch.cuda.synchronize()
+    assert fk.launch_counts[key] - before[key] == 2  # one launch a step
+    assert torch.equal(got[0], want[0])
+    assert rel(got[1], want[1]) <= 1e-6  # the energy partials sum in another order
+    for b in range(k or 0):
+        one = (u[b], None)
+        for t0 in (2e-4, 2.1e-4):
+            one = fk.fused_rk4_step(one[0], shape, prof, cyl[b], None, t0, 0.0, 1e-3, cfg,
+                                    x_matmul=x_matmul)
+        assert torch.equal(got[0][b], one[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xm", [0, 1])
+def test_stage_entry_point_refuses_whole_grid_general(card, xm):
+    # the general mode on the whole grid is the one-launch step's too, in
+    # both d/dx forms: a stage launch of it is refused, and the refusal raises
+    cfg, u, shape, prof, cyl = _general_inputs(48, None, 18, card)
+    n = cfg.n
+    code = fk._lib().stage(1, 0, 0, xm, fk._ptr(u), fk._ptr(None), 0.0, fk._ptr(None),
+                           fk._ptr(None), 0.0, fk._ptr(torch.empty_like(u)), fk._ptr(None),
+                           fk._ptr(shape), fk._ptr(prof), fk._ptr(cyl), cyl.shape[1],
+                           fk._ptr(None), n, n, 0, cfg.spacing, cfg.inv2d, cfg.x_min, cfg.c0,
+                           cfg.freq, 0.0, 0.0, 1e-3, fk._stream(card))
+    assert code != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk._raise_on(code, "fused_rk4_stage")
 
 
 @pytest.mark.gpu
@@ -625,20 +705,24 @@ def test_one_launch_step_raises_on_what_it_does_not_take(card):
 def test_one_launch_step_runs_on_each_of_several_cards_across_cards(card, cards):
     # the kernel takes its shared memory by a per-device opt-in, and the
     # launches go to the state's card, not the current one
-    # (each instance, split and exact, its own)
+    # (each of the four instances, split and exact, radii-only and general,
+    # its own)
     n, k = 48, 3
     for d in range(cards):
         dev = torch.device("cuda", d)
-        cfg, u, shape, prof, cyl, owner = _one_launch_inputs(n, k, dev)
+        radii = _one_launch_inputs(n, k, dev)
+        general = (*_general_inputs(n, k, 18, dev), None)
         times = [2e-4, 2.1e-4]
-        for x_matmul in (True, False):
-            kept, energies = fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0, 1e-3,
-                                                 cfg, [1], x_matmul)
-            want, es = u, []
-            for t0 in times:
-                want, e = fk.fused_rk4_step_batched_reference(want, shape, prof, cyl, owner, t0,
-                                                              0.0, 1e-3, cfg, x_matmul=x_matmul)
-                es.append(e)
-            torch.cuda.synchronize(dev)
-            assert kept[0].device == dev and torch.equal(kept[0], want)
-            assert rel(energies, torch.stack(es)) <= 1e-6
+        for cfg, u, shape, prof, cyl, owner in (radii, general):
+            for x_matmul in (True, False):
+                kept, energies = fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0,
+                                                     1e-3, cfg, [1], x_matmul)
+                want, es = u, []
+                for t0 in times:
+                    want, e = fk.fused_rk4_step_batched_reference(want, shape, prof, cyl, owner,
+                                                                  t0, 0.0, 1e-3, cfg,
+                                                                  x_matmul=x_matmul)
+                    es.append(e)
+                torch.cuda.synchronize(dev)
+                assert kept[0].device == dev and torch.equal(kept[0], want)
+                assert rel(energies, torch.stack(es)) <= 1e-6

@@ -10,8 +10,9 @@
 //   K2, radii-only (`radii_only=True`): `select_owner` (:247) picks each
 //       cell's owning cylinder once per window into five per-cell fields
 //       [d2, r1, dr, c1, dc]; each stage then does one compare
-//       (`rasterize_fast`, :271). On the whole grid it takes a whole RK4
-//       step in one launch (`rk4_step_tiled`, below).
+//       (`rasterize_fast`, :271).
+// On the whole grid either takes a whole RK4 step in one launch
+// (`rk4_step_tiled`, below).
 //
 // What bounds it on the card: bytes. One RK4 step must at least read and
 // write the 12 x n x n float32 state; at 700^2 that is 2 x 23.52 MB =
@@ -27,10 +28,10 @@
 // u + dt/6 (k1 + 2k2 + 2k3 + k4) with the per-block energy partials. That
 // moves about 14 state-sized arrays a step instead of 2 (the neighbour
 // reads mostly hit L1/L2), so the kernel runs several times above its
-// bound. It serves the general modes (K1, K3 general, K5 general, batched
-// K5 general) and the slabs (K4, K4-XM). Radii-only on the whole grid (K2,
-// K3, K5, batched K5) fuses the four stages behind shared-memory halos
-// (`rk4_step_tiled`, below).
+// bound. It serves the slabs (K4, K4-XM) alone, whose halo exchange sits
+// between steps. Every mode on the whole grid (K1, K2, K3 and K5, single
+// and batched, in both rasterisations) fuses the four stages behind
+// shared-memory halos (`rk4_step_tiled`, below).
 //
 // K3, candidate-batched (`batch=K`, :121-127, :162-170, :403-406, :431,
 // :450-456), in both rasterisation modes: K independent states advance
@@ -38,9 +39,8 @@
 // it offsets the state, k1..k3, out, cylinder, owner and energy-partial
 // pointers, while the source shape and the PML profile are shared. A
 // launch with one candidate is K1 or K2, so each candidate's state is bit
-// for bit what K1 or K2 computes for it alone. K3 general runs on
-// `rk4_stage`, one launch a stage; K3 radii-only on `rk4_step_tiled`, one
-// launch a step. The TPU kernel's padded
+// for bit what K1 or K2 computes for it alone. K3, in both rasterisations,
+// runs on `rk4_step_tiled`, one launch a step. The TPU kernel's padded
 // layout and DMA semaphores have no counterpart here: a 350^2 grid is only
 // 11 x 44 = 484 blocks against 132 SMs, and 16 candidates make 7,744.
 // Its bound is K times a step's: at 350^2 and K = 16 the states in and out
@@ -49,12 +49,12 @@
 // K4, y-sharded (`ny_local`, `y_ghost`, :129-133, :152, :195-204, :351,
 // :391), driven by `waves_jl_tpu/parallel/fused_domain.py`: the same step
 // on one column slab (12, n, w) of the global n x n grid, w = ny_local +
-// 2 HALO. Local column j is global column jg = col0 + j. It is not a second
-// kernel: `Geometry` carries w and col0, every flat index is i * w + j, and
-// K1/K2/K3 are the whole grid, w = n and col0 = 0. The one-sided y
-// stencils, the Dirichlet mask, the y coordinate and the PML profile are
-// taken at jg, so an owned cell of a slab is bit for bit the whole-grid
-// kernel's. At a slab's local edge (j = 0 or w - 1, jg interior) the
+// 2 HALO, one `rk4_stage` launch a stage. Local column j is global column
+// jg = col0 + j: `Geometry` carries w and col0, and every flat index is
+// i * w + j. The one-sided y stencils, the Dirichlet mask, the y
+// coordinate and the PML profile are taken at jg, in the op order of the
+// whole grid's `rk4_step_tiled`, so an owned cell of a slab is bit for bit
+// the whole-grid kernel's. At a slab's local edge (j = 0 or w - 1, jg interior) the
 // stencil turns one-sided on local data: those are halo cells, stale after
 // the step and refreshed by the next exchange, and no thread reads outside
 // the slab. Columns outside the domain (jg < 0 or jg >= n) are written 0,
@@ -66,10 +66,9 @@
 // but the sharded one (physics/fused.py:79, :154, :225): d/dx as the
 // banded (rows, rows) stencil matrix D times the tile on the MXU, in two
 // bf16 passes with float32 sums, (D bf16(v) + D bf16(v - bf16(v))) / (2 dx).
-// It is an XM template flag of the same `rk4_stage`, with K1's or K3's
-// general rasterisation and candidate axis; K5 radii-only, single or
-// batched, is `rk4_step_tiled` below, with the same d/dx. Each tap of Vx
-// and of U + f is
+// It is an XM template flag of `rk4_step_tiled` below, in both
+// rasterisations, single or batched, and of `rk4_stage` on a slab
+// (K4-XM). Each tap of Vx and of U + f is
 // formed in float32 as before and split into hi = bf16(v) and
 // lo = bf16(v - hi), both rounded to nearest even; the stencil of `d_edge`
 // runs on the hi values and on the lo values in the same tap order, and
@@ -87,32 +86,37 @@
 // reshuffle.
 //
 // K4-XM, the y-sharded step with K5's split d/dx
-// (waves_jl_tpu/parallel/fused_domain.py:37 with `x_matmul=True`), is the
-// SLAB and XM flags together. A slab cuts columns, not rows, so a slab
+// (waves_jl_tpu/parallel/fused_domain.py:37 with `x_matmul=True`), is
+// `rk4_stage`'s XM flag. A slab cuts columns, not rows, so a slab
 // cell's x-taps are rows i - 1 and i + 1 (i + 2 or i - 2 at rows 0 and
 // n - 1) of its own local column, at stride w: the whole-grid cell's taps,
 // and an owned cell is bit for bit K5's. Its bound is K4's: the split
 // adds arithmetic, not bytes.
 //
-// Radii-only on the whole grid, single and batched, one launch per RK4
-// step (`rk4_step_tiled<XM>`): K2 and K3 with the exact d/dx (XM false),
-// K5 and batched K5 with the split one (XM true). It replaces the Pallas
-// modes `radii_only=True` on one device (pallas_fd.py:88, the owner test
-// `rasterize_fast` :271, the candidate axis `batch=K`), with the exact
-// d/dx `_dx_edge_aware` (:59-73, taken at :312-313) or the split one
+// Every mode on the whole grid, single and batched, one launch per RK4
+// step (`rk4_step_tiled<XM, GENERAL>`): the exact d/dx (XM false) or the
+// split one (XM true), the owner test (GENERAL false: K2, K3, K5, batched
+// K5) or the general rasterisation (GENERAL true: K1, K3 general, K5
+// general, batched K5 general). It replaces the Pallas kernel's modes on
+// one device (pallas_fd.py:88, the owner test `rasterize_fast` :271 or
+// `rasterize` :227, the candidate axis `batch=K`), with the exact d/dx
+// `_dx_edge_aware` (:59-73, taken at :312-313) or the split one
 // (:278-310), in the form the Pallas kernel has and the stage-a-launch
 // port did not: all four stages of a step on a tile held in fast memory
 // with HALO ghost cells (:343-377). K5 and batched K5 are the main paths'
 // modes: every env window, datagen episode and controller's window (K5 at
 // 700^2) and the hybrid's re-rank (batched K5 at 16 x 350^2). K2 and K3
 // are the accuracy mode, `x_matmul=False`: the exact simulator window and
-// the exact re-rank.
-//   What bounds it: bytes. A step must read the state and the owner
-// fields and write the state: at 700^2, 23.5 + 9.8 + 23.5 MB, 17 us at
-// 3.35 TB/s; at 16 x 350^2, 94 + 39 + 94 MB, 68 us. `rk4_stage` moves
-// about 14 state-sized arrays a step (k1..k3 out and back, u + a k formed
-// at every tap from two loads): 10-12x its bound, and at 16 x 350^2 the
-// 94 MB states overflow the 50 MB L2, so that traffic goes to HBM.
+// the exact re-rank. The general instances serve every design space where
+// the owner test is not exact: moving cylinders, the free field, radii
+// whose circles overlap.
+//   What bounds it: bytes. A step must read the state (and the owner
+// fields) and write the state: at 700^2, 23.5 (+ 9.8) + 23.5 MB, 14 (17)
+// us at 3.35 TB/s; at 16 x 350^2, 94 + 39 + 94 MB, 68 us. `rk4_stage`
+// moves about 14 state-sized arrays a step (k1..k3 out and back, u + a k
+// formed at every tap from two loads): 10-12x its bound, and at
+// 16 x 350^2 the 94 MB states overflow the 50 MB L2, so that traffic goes
+// to HBM.
 //   What the design does about it. Block (bx, by, z) owns a TX x TY =
 // 16 x 24 tile of candidate z and loads once, into shared memory, its
 // region: the tile with HALO = 4 cells on each side (24 x 32, one warp
@@ -134,13 +138,15 @@
 // U, Vx and Vy, the source shape and the wavespeed at the three stage
 // times, 19 x 768 floats = 58,368 bytes a block of 256 threads, above the
 // 48 KB a kernel gets unasked (`configure_tiled`, an attribute each
-// instance sets for itself, once a device). ptxas (-v, sm_90a): both
-// instances at 80 registers, the cap for three blocks an SM
+// instance sets for itself, once a device). ptxas (-v, sm_90a), radii-only:
+// both instances at 80 registers, the cap for three blocks an SM
 // (`TILED_MIN_BLOCKS`), the split one with 12 bytes spilled, the exact one
-// with 8 (it drops the split's conversions, not enough to fit unspilled).
-// Three blocks fit the shared memory too (3 x (58,368 + 1,024 reserved)
+// with 8 (it drops the split's conversions, not enough to fit unspilled);
+// the general ones at 80 with 12 bytes spilled each (the cylinder loop
+// kept rolled; filling the three stage times in turn spills 8 and 16
+// instead). Three blocks fit the shared memory too (3 x (58,368 + 1,024 reserved)
 // bytes of 228 KB), 24 warps an SM, so `TILED_MIN_BLOCKS` stays 3 for
-// both. A cap for four blocks (64 registers) spills more, and both stacks
+// all. A cap for four blocks (64 registers) spills more, and both stacks
 // at once (104 KB, two blocks an SM, half the barriers) or k held in
 // registers across a second barrier a stage measured slower on the card:
 // the kernel is bound by the latency of its shared-memory reads and
@@ -149,16 +155,29 @@
 // written once; the stages redo 1.35x the tile's cells. Each cell runs
 // `rk4_stage`'s op order, so the state is bit for bit `rk4_stage`'s and
 // the plain version's; the energy partials, one row a block, are summed in
-// another order. The other modes stay on `rk4_stage`, one launch a stage:
-// the general ones (K1, K3 general, K5 general, batched K5 general), which
-// lerp and rasterise every cylinder at each stage's time, and the slabs
-// (K4, K4-XM), whose halo exchange sits between steps.
+// another order.
+//   The general rasterisation (`rasterize`, :227) fills the wavespeed at
+// the three stage times before the stacks, where the radii-only one reads
+// the owner fields: each cylinder lerped to the time's weight, summed in
+// order where it covers a cell, c0 where none does. Most tiles meet no
+// cylinder (the triple ring's 18 lie in 13 x 13 of the 30 x 30 domain), so
+// the block culls, as the Pallas kernel does per row block (:218-225) but
+// on both axes: the first threads of the block lerp a chunk of cylinders
+// once, one cylinder each, into shared memory, with a bit for each stage
+// time whose box [p - |r|, p + |r|], widened by one spacing on both axes,
+// meets the region's; every thread then tests its cells against the
+// cylinders whose bit is set, the same for the whole block. A cylinder
+// that covers a cell has |x - px| < |r| and |y - py| < |r| up to a
+// rounding far below a spacing, so no covering cylinder is skipped, and a
+// skipped one adds 0 to the plain version's sum: the cull keeps the state
+// bit for bit. A block that meets no box fills c0 alone.
 //
 // Cylinders: the general mode and the owner pass stream the (8, n_cyl)
 // table through shared memory in chunks of CYL_CHUNK, in order, so sums
-// and ties do not depend on the chunking and there is no cap on n_cyl.
-// Every thread of a block reaches each chunk's barriers; threads outside
-// the grid skip only the arithmetic.
+// and ties do not depend on the chunking and there is no cap on n_cyl
+// (the one-launch step stages each chunk in its stage-input buffer, free
+// until the first stage). Every thread of a block reaches each chunk's
+// barriers; threads outside the grid skip only the arithmetic.
 //
 // Numerics: the library is compiled with -fmad=false, so every a*b+c
 // rounds twice, as in the plain PyTorch version and the JAX kernel. The op
@@ -294,15 +313,12 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // MODE 2: k4 = rhs(u + a*kp) with kp = k3; out = u + sixth*(k1+2k2+2k3+k4),
 //         and partials[block] = [sum u_tot^2, sum u_inc^2, sum (u_tot-u_inc)^2]
 //         over the block's owned cells.
+// On a slab (K4): the whole grid, in every mode, is `rk4_step_tiled`.
 // Candidate blockIdx.z reads and writes its own (12, n, w) state slices,
 // (8, n_cyl) cylinders, (5, n, w) owner fields and partial rows; the
-// (n, w) source shape and the (n) profile are shared. SLAB is false for the
-// whole grid (w = n, col0 = 0), where the slab's column logic folds away
-// and the kernel keeps the registers, and so the occupancy, it has without
-// it. XM takes d/dx in K5's split form, on the whole grid or a slab.
-// RADII is built with SLAB alone: radii-only on the whole grid is
-// `rk4_step_tiled`.
-template <int MODE, bool RADII, bool SLAB, bool XM>
+// (n, w) source shape and the (n) profile are shared. XM takes d/dx in
+// K5's split form (K4-XM).
+template <int MODE, bool RADII, bool XM>
 __global__ void __launch_bounds__(BX * BY)
 rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
           const float* __restrict__ k1, const float* __restrict__ k2, float sixth,
@@ -313,7 +329,7 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
   __shared__ float s_cyl[8 * CYL_CHUNK];
   __shared__ float red[BX * BY / 32];
   const int n = g.n;
-  const int w = SLAB ? g.w : n;
+  const int w = g.w;
   const int nn = n * w;
   const size_t cand = blockIdx.z;
   const size_t so = cand * 12 * (size_t)nn;
@@ -331,9 +347,9 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
   }
   const int j = blockIdx.x * BX + threadIdx.x;  // local column (y)
   const int i = blockIdx.y * BY + threadIdx.y;  // row (x)
-  const int jg = SLAB ? g.col0 + j : j;        // global column
+  const int jg = g.col0 + j;  // global column
   const bool inside = i < n && j < w;
-  const bool live = SLAB ? inside && jg >= 0 && jg < n : inside;
+  const bool live = inside && jg >= 0 && jg < n;
   const int p = i * w + j;
 
   const float span = tf - ti;
@@ -374,7 +390,7 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
   }
 
   float e_tot = 0.0f, e_inc = 0.0f, e_sc = 0.0f;
-  if (SLAB && inside && !live) {
+  if (inside && !live) {
     // outside the domain: every stage output and the new state are 0
 #pragma unroll
     for (int ch = 0; ch < 12; ++ch) out[ch * nn + p] = 0.0f;
@@ -385,8 +401,8 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
     const float sy = __ldg(prof + jg);
     const float bc = (i > 0 && i < n - 1 && jg > 0 && jg < n - 1) ? 1.0f : 0.0f;
     const bool x_first = i == 0, x_last = i == n - 1;
-    const bool y_first = jg == 0 || (SLAB && j == 0);
-    const bool y_last = jg == n - 1 || (SLAB && j == w - 1);
+    const bool y_first = jg == 0 || j == 0;
+    const bool y_last = jg == n - 1 || j == w - 1;
 
 #pragma unroll
     for (int stack = 0; stack < 2; ++stack) {
@@ -428,7 +444,7 @@ rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
       }
     }
     if (MODE == 2) {
-      if (!SLAB || (j >= HALO && j < w - HALO)) {  // owned columns
+      if (j >= HALO && j < w - HALO) {  // owned columns
         const float sc = e_tot - e_inc;
         e_sc = sc * sc;
         e_tot = e_tot * e_tot;
@@ -505,7 +521,7 @@ select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// Radii-only on the whole grid, one launch per RK4 step (`rk4_step_tiled`)
+// Every mode on the whole grid, one launch per RK4 step (`rk4_step_tiled`)
 // ---------------------------------------------------------------------------
 
 // Rows or columns [lo, hi] of the whole grid.
@@ -531,6 +547,11 @@ struct StepParams {
   float full;   // dt
   float sixth;  // dt / 6
   float ti, tf;  // the design lerp's window
+  // the general mode's: the (batch, 8, n_cyl) lerp endpoints, and the
+  // coordinate x_min + i * spacing of row or column i
+  const float* cyl;
+  int n_cyl;
+  float x_min, spacing;
 };
 
 // The right-hand side of one stack (6 channels) at region cell l, from the
@@ -566,8 +587,99 @@ __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw
   k[5] = sx * sy * U;
 }
 
-// One whole RK4 step of the radii-only mode for `gridDim.z` candidates
-// (see the note at the top): K5's split d/dx if XM, else K2's exact one.
+// The general mode's wavespeed at the three stage times (lerp weights lw)
+// on this thread's region cells, rows r0 + rows[a] of column gj, into
+// s_c (c0 outside the loaded rows load_r and columns), in `rk4_stage`'s op
+// order (`rasterize`,
+// pallas_fd.py:227): each cylinder lerped to the weight, its speed summed
+// in order where d2 < r^2, c0 where no cylinder covers the cell. A chunk
+// of CYL_CHUNK cylinders is lerped once, one cylinder a thread, into s_cyl
+// ([px, py, r^2, c] a stage time), with a bit a stage time in s_hit: its
+// box [p - |r|, p + |r|], widened by one spacing, meets the region's on
+// both axes (the cull, see the note at the top). The block then tests
+// only those, each thread the same ones. Every thread calls it. Inlined:
+// as a call (`__noinline__`) the general instances spill nothing but take
+// a 120-byte stack frame, and measured about 7% slower on the card.
+__device__ __forceinline__ void fill_general(float* s_c, float* s_cyl, int* s_hit,
+                                             const float* __restrict__ cyl, const StepParams& g,
+                                             const float (&lw)[3], int r0, int c0g,
+                                             const int (&rows)[3], bool col_in, Span load_r,
+                                             int gj) {
+  const float sp = g.spacing;
+  const float bx0 = g.x_min + (float)r0 * sp, bx1 = g.x_min + (float)(r0 + SH - 1) * sp;
+  const float by0 = g.x_min + (float)c0g * sp, by1 = g.x_min + (float)(c0g + SW - 1) * sp;
+  const float y = g.x_min + (float)gj * sp;
+  float x[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) x[a] = g.x_min + (float)(r0 + rows[a]) * sp;
+  float csum[3][3] = {};  // [row slot][stage time]
+  int covered = 0;        // bit 3 a + m: a cylinder covers row slot a at time m
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  const int nc = g.n_cyl;
+  for (int q0 = 0; q0 < nc; q0 += CYL_CHUNK) {
+    const int cnt = min(CYL_CHUNK, nc - q0);
+    __syncthreads();  // no thread still reads the previous chunk
+    if (tid < cnt) {
+      const float* cq = cyl + q0 + tid;  // rows [p1x, p1y, r1, c1, p2x, p2y, r2, c2]
+      const float p1x = __ldg(cq), p1y = __ldg(cq + nc), r1 = __ldg(cq + 2 * nc),
+                  c1 = __ldg(cq + 3 * nc), p2x = __ldg(cq + 4 * nc), p2y = __ldg(cq + 5 * nc),
+                  r2 = __ldg(cq + 6 * nc), c2 = __ldg(cq + 7 * nc);
+      int hit = 0;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const float px = p1x + lw[m] * (p2x - p1x);
+        const float py = p1y + lw[m] * (p2y - p1y);
+        const float r = r1 + lw[m] * (r2 - r1);
+        float* dst = s_cyl + 4 * m * CYL_CHUNK + tid;
+        dst[0] = px;
+        dst[CYL_CHUNK] = py;
+        dst[2 * CYL_CHUNK] = r * r;
+        dst[3 * CYL_CHUNK] = c1 + lw[m] * (c2 - c1);
+        const float reach = fabsf(r) + sp;
+        if (px - reach <= bx1 && px + reach >= bx0 && py - reach <= by1 && py + reach >= by0) {
+          hit |= 1 << m;
+        }
+      }
+      s_hit[tid] = hit;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int q = 0; q < cnt; ++q) {
+      const int hit = s_hit[q];
+      if (hit == 0) continue;  // culled at every stage time, for the whole block
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        if (((hit >> m) & 1) == 0) continue;
+        const float* cq = s_cyl + 4 * m * CYL_CHUNK + q;
+        const float ddy = y - cq[CYL_CHUNK];
+        const float ddy2 = ddy * ddy;
+        const float rr = cq[2 * CYL_CHUNK];
+        const float c = cq[3 * CYL_CHUNK];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float ddx = x[a] - cq[0];
+          if (ddx * ddx + ddy2 < rr) {
+            csum[a][m] = csum[a][m] + c;
+            covered |= 1 << (3 * a + m);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const bool cov = col_in && load_r.has(r0 + rows[a]) && ((covered >> (3 * a + m)) & 1) != 0;
+      s_c[m * SC + rows[a] * SW + threadIdx.x] = cov ? csum[a][m] : g.c0;
+    }
+  }
+}
+
+// One whole RK4 step for `gridDim.z` candidates (see the note at the
+// top): K5's split d/dx if XM, else the exact one; the general
+// rasterisation of the (8, n_cyl) cylinders `g.cyl` if GENERAL, else the
+// owner test on the (5, n, n) fields `owner`.
 // Block (bx, by, z) owns the TX x TY tile of candidate z from row by * TX
 // and column bx * TY. Its region, the tile with HALO cells on every side
 // (one more row or column above or left of a one-cell tile on the domain's
@@ -581,6 +693,7 @@ __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw
 //   s_w [3][SC]  the other buffer of the stage input's U, Vx and Vy
 //   s_f [SC]     the source shape
 //   s_c [3][SC]  the wavespeed at the k1, k2/k3 and k4 times
+// (the general mode stages its cylinders in s_v before the first stage).
 // A stage reads U, Vx and Vy at the stencil's neighbours from one buffer
 // and writes the next stage's into the other (k2's and k4's inputs into
 // s_v, k3's into s_w), so one barrier a stage parts its writes from the
@@ -588,7 +701,7 @@ __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw
 // thread that writes them, stay in s_v. The two stacks (tot with c^2, inc
 // with c0^2) run one after the other through the same buffers; stack 0's
 // new U stays in registers for sc.
-template <bool XM>
+template <bool XM, bool GENERAL>
 __global__ void __launch_bounds__(BX * BY, TILED_MIN_BLOCKS)
 rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
                float* __restrict__ partials, const float* __restrict__ shape,
@@ -605,7 +718,7 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
   const size_t cand = blockIdx.z;
   u += cand * 12 * (size_t)nn;
   out += cand * 12 * (size_t)nn;
-  owner += cand * 5 * (size_t)nn;
+  if constexpr (!GENERAL) owner += cand * 5 * (size_t)nn;
   const int tx = threadIdx.x, ty = threadIdx.y;
 
   const int ti0 = blockIdx.y * TX, tj0 = blockIdx.x * TY;
@@ -642,16 +755,23 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
     const int q = in ? gi * n + gj : 0;
     sx[a] = __ldg(prof + min(max(gi, 0), n - 1));
     s_f[l] = in ? __ldg(shape + q) : 0.0f;
-    const float d2 = in ? __ldg(owner + q) : 0.0f;
-    const float r1 = in ? __ldg(owner + nn + q) : 0.0f;
-    const float dr = in ? __ldg(owner + 2 * nn + q) : 0.0f;
-    const float c1 = in ? __ldg(owner + 3 * nn + q) : 0.0f;
-    const float dc = in ? __ldg(owner + 4 * nn + q) : 0.0f;
+    if constexpr (!GENERAL) {
+      const float d2 = in ? __ldg(owner + q) : 0.0f;
+      const float r1 = in ? __ldg(owner + nn + q) : 0.0f;
+      const float dr = in ? __ldg(owner + 2 * nn + q) : 0.0f;
+      const float c1 = in ? __ldg(owner + 3 * nn + q) : 0.0f;
+      const float dc = in ? __ldg(owner + 4 * nn + q) : 0.0f;
 #pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      const float r = r1 + lw[m] * dr;
-      s_c[m * SC + l] = (in && d2 < r * r) ? c1 + lw[m] * dc : g.c0;
+      for (int m = 0; m < 3; ++m) {
+        const float r = r1 + lw[m] * dr;
+        s_c[m * SC + l] = (in && d2 < r * r) ? c1 + lw[m] * dc : g.c0;
+      }
     }
+  }
+  if constexpr (GENERAL) {
+    // the cylinders' chunk in s_v, free until stack 0's first stage
+    fill_general(s_c, s_v, reinterpret_cast<int*>(s_v + 12 * CYL_CHUNK),
+                 g.cyl + cand * 8 * (size_t)g.n_cyl, g, lw, r0, c0g, rows, col_in, load_r, gj);
   }
 
   float u_tot[2] = {0.0f, 0.0f};  // stack 0's new U at the tile cells
@@ -748,17 +868,18 @@ dim3 grid_for(int n, int w, int batch) {
 
 dim3 tiled_grid(int n, int batch) { return dim3((n + TY - 1) / TY, (n + TX - 1) / TX, batch); }
 
-// Lets `rk4_step_tiled<XM>` take TILED_SMEM bytes of dynamic shared memory,
-// more than the 48 KB a kernel gets unasked, on the current device, once a
-// device. The attribute is an instance's own, and so is its cache.
-template <bool XM>
+// Lets `rk4_step_tiled<XM, GENERAL>` take TILED_SMEM bytes of dynamic
+// shared memory, more than the 48 KB a kernel gets unasked, on the current
+// device, once a device. The attribute is an instance's own, and so is its
+// cache.
+template <bool XM, bool GENERAL>
 cudaError_t configure_tiled() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(rk4_step_tiled<XM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           TILED_SMEM);
+  e = cudaFuncSetAttribute(rk4_step_tiled<XM, GENERAL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, TILED_SMEM);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
 }
@@ -785,35 +906,38 @@ bool make_geometry(int n, int w, int col0, float spacing, float inv2d, float x_m
 struct TiledWindow {
   const float* shape;  // (n, n), shared by the candidates
   const float* prof;   // (n)
-  const float* owner;  // (batch, 5, n, n)
+  const float* owner;  // (batch, 5, n, n) of the radii-only mode; null: the general mode
+  const float* cyl;    // (batch, 8, n_cyl) of the general mode
   void* stream;
   int batch;
   int n;
-  int xm;  // 1: K5's split d/dx; 0: the exact one (K2, K3)
-  float inv2d, c0, freq, half, full, sixth, ti, tf;
+  int xm;  // 1: K5's split d/dx; 0: the exact one (K1, K2, K3)
+  int n_cyl;
+  float inv2d, c0, freq, half, full, sixth, ti, tf, x_min, spacing;
 };
 
 namespace {
 
-template <bool XM>
+template <bool XM, bool GENERAL>
 int step_occupancy() {
   int blocks = 0;
-  cudaError_t e = configure_tiled<XM>();
+  cudaError_t e = configure_tiled<XM, GENERAL>();
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rk4_step_tiled<XM>, BX * BY,
-                                                      TILED_SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rk4_step_tiled<XM, GENERAL>,
+                                                      BX * BY, TILED_SMEM);
   }
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
-template <bool XM>
+template <bool XM, bool GENERAL>
 int step_tiled(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
-  const cudaError_t e = configure_tiled<XM>();
+  const cudaError_t e = configure_tiled<XM, GENERAL>();
   if (e != cudaSuccess) return (int)e;
-  const StepParams p{w->n, w->inv2d, w->c0, w->freq, w->half, w->full, w->sixth, w->ti, w->tf};
-  rk4_step_tiled<XM><<<tiled_grid(w->n, w->batch), dim3(BX, BY), TILED_SMEM,
-                       (cudaStream_t)w->stream>>>(u, out, partials, w->shape, w->prof, w->owner,
-                                                  p, t);
+  const StepParams p{w->n,  w->inv2d, w->c0,  w->freq,  w->half,  w->full,
+                     w->sixth, w->ti, w->tf, w->cyl, w->n_cyl, w->x_min, w->spacing};
+  rk4_step_tiled<XM, GENERAL><<<tiled_grid(w->n, w->batch), dim3(BX, BY), TILED_SMEM,
+                                (cudaStream_t)w->stream>>>(u, out, partials, w->shape, w->prof,
+                                                           w->owner, p, t);
   return (int)cudaGetLastError();
 }
 
@@ -828,12 +952,11 @@ int fused_rk4_blocks(int n, int w) {
   return (int)(gr.x * gr.y);
 }
 
-// One RK4 stage for `batch` candidates (K3 general; K1 of a single state
-// when batch is 1; K4 on a slab when (w, col0) is not (n, 0)). `mode` 0,
-// 1 or 2 as for `rk4_stage`, `radii` selects the owner test, `xm` the
-// split d/dx of K5 (K4-XM on a slab). Radii-only on the whole grid (K2,
-// K3, K5 and batched K5 radii-only) is refused in both d/dx forms: it is
-// `fused_rk4_step_tiled`. u, kp, k1, k2
+// One RK4 stage of K4 on a slab, (w, col0) not (n, 0), for `batch`
+// candidates. `mode` 0, 1 or 2 as for `rk4_stage`, `radii` selects the
+// owner test, `xm` the split d/dx of K5 (K4-XM). The whole grid is refused
+// in every mode and both d/dx forms: it is `fused_rk4_step_tiled`, one
+// launch a step. u, kp, k1, k2
 // and out are (batch, 12, n, w), cyl (batch, 8, n_cyl), owner
 // (batch, 5, n, w), partials (batch, fused_rk4_blocks(n, w), 3); shape
 // (n, w) and prof (n) are shared. Returns the cudaError_t of the launch.
@@ -851,26 +974,23 @@ int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, cons
   }
   const dim3 block(BX, BY);
   const dim3 gr = grid_for(n, w, batch);
-  const bool slab = !(w == n && col0 == 0);
-  if (radii && !slab) {
-    return (int)cudaErrorInvalidValue;  // radii-only: `fused_rk4_step_tiled`, one launch a step
+  if (w == n && col0 == 0) {
+    return (int)cudaErrorInvalidValue;  // the whole grid: `fused_rk4_step_tiled`
   }
   cudaStream_t s = (cudaStream_t)stream;
-#define WAVES_LAUNCH(M, R, S, X)                                                               \
-  rk4_stage<M, R, S, X><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
-                                             prof, cyl, n_cyl, owner, g, ts, ti, tf)
-#define WAVES_MODES(R, S, X)                   \
-  if (mode == 0) WAVES_LAUNCH(0, R, S, X);     \
-  else if (mode == 1) WAVES_LAUNCH(1, R, S, X); \
-  else WAVES_LAUNCH(2, R, S, X)
+#define WAVES_LAUNCH(M, R, X)                                                               \
+  rk4_stage<M, R, X><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
+                                          prof, cyl, n_cyl, owner, g, ts, ti, tf)
+#define WAVES_MODES(R, X)                   \
+  if (mode == 0) WAVES_LAUNCH(0, R, X);     \
+  else if (mode == 1) WAVES_LAUNCH(1, R, X); \
+  else WAVES_LAUNCH(2, R, X)
   if (radii) {
-    if (xm) { WAVES_MODES(true, true, true); }
-    else { WAVES_MODES(true, true, false); }
+    if (xm) { WAVES_MODES(true, true); }
+    else { WAVES_MODES(true, false); }
   } else {
-    if (slab && xm) { WAVES_MODES(false, true, true); }
-    else if (slab) { WAVES_MODES(false, true, false); }
-    else if (xm) { WAVES_MODES(false, false, true); }
-    else { WAVES_MODES(false, false, false); }
+    if (xm) { WAVES_MODES(false, true); }
+    else { WAVES_MODES(false, false); }
   }
 #undef WAVES_MODES
 #undef WAVES_LAUNCH
@@ -886,26 +1006,33 @@ int fused_rk4_step_blocks(int n) {
 // Dynamic shared memory of a block of the tiled step, in bytes.
 int fused_rk4_step_smem() { return TILED_SMEM; }
 
-// Blocks of the tiled step's instance (xm 1: split d/dx, 0: exact)
-// resident on one SM of the current device, as the occupancy calculator
-// gives it for the instance's registers and shared memory; negative on an
-// error.
-int fused_rk4_step_occupancy(int xm) {
-  return xm ? step_occupancy<true>() : step_occupancy<false>();
+// Blocks of the tiled step's instance (xm 1: split d/dx, 0: exact;
+// general 1: the general rasterisation, 0: the owner test) resident on one
+// SM of the current device, as the occupancy calculator gives it for the
+// instance's registers and shared memory; negative on an error.
+int fused_rk4_step_occupancy(int xm, int general) {
+  if (general) return xm ? step_occupancy<true, true>() : step_occupancy<false, true>();
+  return xm ? step_occupancy<true, false>() : step_occupancy<false, false>();
 }
 
-// One whole RK4 step of the radii-only mode on the whole grid, in one
-// launch: K2 (batch 1) or K3 (batch K) with the exact d/dx for w->xm 0, K5
-// or batched K5 with the split one for w->xm 1. u and out
+// One whole RK4 step on the whole grid, in one launch, with the exact d/dx
+// for w->xm 0 (K1, K2, K3) or the split one for w->xm 1 (K5, batched K5);
+// radii-only on w->owner's fields, or general on w->cyl's n_cyl cylinders
+// where w->owner is null (a null w->cyl only with no cylinder). u and out
 // (batch, 12, n, n), partials (batch, fused_rk4_step_blocks(n), 3), t the
 // step's start time. Returns the cudaError_t of the launch.
 int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float* partials,
                          float t) {
-  if (w == nullptr || w->n < 3 || w->batch < 1 || w->batch > 65535 || w->xm < 0 || w->xm > 1) {
+  if (w == nullptr || w->n < 3 || w->batch < 1 || w->batch > 65535 || w->xm < 0 || w->xm > 1 ||
+      w->n_cyl < 0 || (w->owner == nullptr && w->n_cyl > 0 && w->cyl == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  return w->xm ? step_tiled<true>(w, u, out, partials, t)
-               : step_tiled<false>(w, u, out, partials, t);
+  if (w->owner == nullptr) {
+    return w->xm ? step_tiled<true, true>(w, u, out, partials, t)
+                 : step_tiled<false, true>(w, u, out, partials, t);
+  }
+  return w->xm ? step_tiled<true, false>(w, u, out, partials, t)
+               : step_tiled<false, false>(w, u, out, partials, t);
 }
 
 // Owner fields (batch, 5, n, w) of `batch` candidates' cylinders

@@ -14,16 +14,17 @@ This module builds the kernel with plain `nvcc` into a shared library with
 a C interface at first use, binds it with `ctypes`, and keeps the plain
 PyTorch version of the same function beside it.
 
-Radii-only on the whole grid, single or batched, in either d/dx form (K2
-and K3 with the exact one, K5 and batched K5 with the split one: the
-default path of the env window, datagen, the controllers and the hybrid's
-re-rank), runs a whole RK4 step in one launch (`rk4_step_tiled`: each
-block keeps its tile and a 4-cell halo in shared memory through the four
-stages). The general modes and the slabs run one launch per RK4 stage,
-`STAGES` a step. `fused_rk4_window` drives a window's steps as the env
-window and the re-rank do: for the one-launch step it makes its two state
-buffers and its energy partials once a window and marshals the window's
-fixed inputs once.
+Every mode on the whole grid, single or batched, in either d/dx form and
+either rasterisation (K1, K2, K3 and K5: radii-only is the default path
+of the env window, datagen, the controllers and the hybrid's re-rank,
+general that of moving cylinders and the free field), runs a whole RK4
+step in one launch (`rk4_step_tiled`: each block keeps its tile and a
+4-cell halo in shared memory through the four stages, and the general
+mode rasterises only the cylinders that reach its tile). The slabs (K4,
+K4-XM) run one launch per RK4 stage, `STAGES` a step. `fused_rk4_window`
+drives a window's steps as the env window and the re-rank do: it makes
+its two state buffers and its energy partials once a window and marshals
+the window's fixed inputs once.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
@@ -68,8 +69,8 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",
 )
-# RK4 stages a step: the launches a step of the general modes and the slabs;
-# radii-only on the whole grid (K2, K3, K5, batched K5) takes one a step
+# RK4 stages a step: the launches a step of the slabs (K4, K4-XM); every
+# mode on the whole grid takes one a step
 STAGES = 4
 HALO = 4  # halo cells one RK4 step consumes on each side (pallas_fd.py:31)
 TILE = (16, 24)  # rows and columns of a block's tile in `rk4_step_tiled` (TX, TY)
@@ -325,12 +326,29 @@ def _shrink(lo: int, hi: int, n: int) -> tuple[int, int]:
     return (lo if lo == 0 else lo + 1), (hi if hi == n - 1 else hi - 1)
 
 
+def cull_cylinders(cyl, w: float, xs, ys, spacing: float) -> torch.Tensor:
+    """(n_cyl,) bool: the cylinders, lerped to weight w, whose box
+    [p - |r|, p + |r|] widened by `spacing` meets the box of the region
+    with row coordinates xs and column coordinates ys on both axes, in the
+    float32 arithmetic of `rk4_step_tiled`'s cull. A cylinder that covers a
+    cell of the region is never dropped."""
+    px = cyl[0] + w * (cyl[4] - cyl[0])
+    py = cyl[1] + w * (cyl[5] - cyl[1])
+    reach = torch.abs(cyl[2] + w * (cyl[6] - cyl[2])) + spacing
+    return ((px - reach <= xs[-1]) & (px + reach >= xs[0])
+            & (py - reach <= ys[-1]) & (py + reach >= ys[0]))
+
+
 def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepConfig,
-                                   tile: tuple[int, int] = TILE, x_matmul: bool = True):
-    """The radii-only step computed tile by tile as the one-launch kernel
+                                   tile: tuple[int, int] = TILE, x_matmul: bool = True,
+                                   cyl=None):
+    """The step computed tile by tile as the one-launch kernel
     `rk4_step_tiled` decomposes it, in plain PyTorch with the whole-grid
-    plain version's own `_stack_rhs` and d/dx: split in bf16 (K5) with
-    `x_matmul`, else exact (K2). Each tile's region (the
+    plain version's own `_stack_rhs`, d/dx and rasterisation: split in bf16
+    (K5) with `x_matmul`, else exact (K1, K2); radii-only on `owner`, or
+    general on `cyl` where owner is None, each stage rasterising the region
+    with the cylinders that `cull_cylinders` keeps for the tile's region at
+    the stage's weight. Each tile's region (the
     tile and its halo, `_tile_region`) runs the four stages on regions that
     shrink by one cell a side a stage (`_shrink`): the stencils run on the
     stage input's whole region, and its cells on a side inside the domain,
@@ -348,14 +366,20 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
     t0, th, t1 = stage_times(t, cfg.dt)
     idx = torch.arange(n, device=dev)
     interior = (idx > 0) & (idx < n - 1)
+    coord = _coords(cfg, dev)[0]
     out = torch.empty_like(u)
     parts = []
 
-    def rhs(v, ts, rows, cols):
+    def rhs(v, ts, rows, cols, region):
         w = lerp_weight(ts, ti, tf)
-        own = owner[:, rows, cols]
-        r = own[1] + w * own[2]
-        c = torch.where(own[0] < r * r, own[3] + w * own[4], torch.full_like(r, c0))
+        if owner is None:
+            xs, ys = coord[region[0]:region[1] + 1], coord[region[2]:region[3] + 1]
+            keep = cull_cylinders(cyl, w, xs, ys, cfg.spacing)
+            c = _rasterize(cyl[:, keep], coord[rows][:, None], coord[cols][None, :], w, c0)
+        else:
+            own = owner[:, rows, cols]
+            r = own[1] + w * own[2]
+            c = torch.where(own[0] < r * r, own[3] + w * own[4], torch.full_like(r, c0))
         sn = torch.sin(torch.tensor(two_pi_f * np.float32(ts) * np.float32(cfg.freq), device=dev))
         f = shape[rows, cols] * sn
         sx, sy = prof[rows][:, None], prof[cols][None, :]
@@ -369,11 +393,11 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
         i1, rlo, rhi = _tile_region(i0, tile[0], n)
         for j0 in range(0, n, tile[1]):
             j1, clo, chi = _tile_region(j0, tile[1], n)
-            span = (rlo, rhi, clo, chi)
+            region = span = (rlo, rhi, clo, chi)
             v = u[:, rlo:rhi + 1, clo:chi + 1]  # the stage-1 input on the region
             ks = []
             for ts, a in ((t0, half), (th, half), (th, full), (t1, None)):
-                k = rhs(v, ts, slice(span[0], span[1] + 1), slice(span[2], span[3] + 1))
+                k = rhs(v, ts, slice(span[0], span[1] + 1), slice(span[2], span[3] + 1), region)
                 new = (*_shrink(span[0], span[1], n), *_shrink(span[2], span[3], n))
                 k = k[:, new[0] - span[0]:new[1] - span[0] + 1, new[2] - span[2]:new[3] - span[2] + 1]
                 span = new
@@ -437,7 +461,7 @@ class _Library:
         self.step_tiled = self._bind("fused_rk4_step_tiled", [P, P, P, P, F])
         self.step_blocks = self._bind("fused_rk4_step_blocks", [I])
         self.step_smem = self._bind("fused_rk4_step_smem", [])
-        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [I])
+        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [I, I])
 
     def _bind(self, name: str, argtypes: list):
         fn = getattr(self.cdll, name)
@@ -469,15 +493,22 @@ def step_partial_rows(n: int) -> int:
     return _lib().step_blocks(n)
 
 
+# the one-launch step's instances, `rk4_step_tiled<XM, GENERAL>`, by name
+TILED_INSTANCES = {"split": (True, False), "exact": (False, False),
+                   "split_general": (True, True), "exact_general": (False, True)}
+
+
 def tiled_kernel_report() -> dict:
-    """The one-launch kernel's dynamic shared memory a block, in bytes, and
-    the resident blocks an SM of each of its instances on the current device
-    (the CUDA occupancy calculator, from the instance's registers and shared
-    memory): "blocks_per_sm" of the split d/dx (K5), "blocks_per_sm_exact"
-    of the exact one (K2, K3)."""
+    """The one-launch kernel's dynamic shared memory a block, in bytes
+    ("smem_bytes"), and the resident blocks an SM of each of its instances
+    on the current device (the CUDA occupancy calculator, from the
+    instance's registers and shared memory), by the names of
+    `TILED_INSTANCES`: "split" (K5), "exact" (K2, K3), "split_general" (K5
+    general) and "exact_general" (K1, K3 general)."""
     lib = _lib()
-    return {"smem_bytes": lib.step_smem(), "blocks_per_sm": lib.step_occupancy(1),
-            "blocks_per_sm_exact": lib.step_occupancy(0)}
+    return {"smem_bytes": lib.step_smem(),
+            **{name: lib.step_occupancy(int(xm), int(general))
+               for name, (xm, general) in TILED_INSTANCES.items()}}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -569,34 +600,43 @@ class _TiledWindow(ctypes.Structure):
     that is fixed for a window."""
 
     _fields_ = [("shape", ctypes.c_void_p), ("prof", ctypes.c_void_p),
-                ("owner", ctypes.c_void_p), ("stream", ctypes.c_void_p),
+                ("owner", ctypes.c_void_p), ("cyl", ctypes.c_void_p), ("stream", ctypes.c_void_p),
                 ("batch", ctypes.c_int), ("n", ctypes.c_int), ("xm", ctypes.c_int),
+                ("n_cyl", ctypes.c_int),
                 *((name, ctypes.c_float)
-                  for name in ("inv2d", "c0", "freq", "half", "full", "sixth", "ti", "tf"))]
+                  for name in ("inv2d", "c0", "freq", "half", "full", "sixth", "ti", "tf",
+                               "x_min", "spacing"))]
 
 
 class _TiledStep:
-    """Radii-only on the whole grid, of one state (batch None: K2, or K5
-    with `x_matmul`) or of `batch` candidates (K3, or batched K5), over one
-    window: the inputs fixed for the window are checked and marshalled once,
-    and `launch` runs one RK4 step in one launch on the current stream of
-    `dev`, the state's device."""
+    """One launch a RK4 step on the whole grid, of one state (batch None:
+    K1, K2, or K5 with `x_matmul`) or of `batch` candidates (K3, or batched
+    K5), over one window: radii-only with `owner`, general on `cyl` where
+    owner is None. The inputs fixed for the window are checked and
+    marshalled once, and `launch` runs one RK4 step in one launch on the
+    current stream of `dev`, the state's device."""
 
-    def __init__(self, shape, prof, owner, ti: float, tf: float, cfg: StepConfig,
+    def __init__(self, shape, prof, owner, cyl, ti: float, tf: float, cfg: StepConfig,
                  batch: int | None, dev: torch.device, x_matmul: bool):
         n = cfg.n
+        lead = () if batch is None else (batch,)
         _check("shape", shape, (n, n), dev)
         _check("prof", prof, (n,), dev)
-        _check("owner", owner, (*(() if batch is None else (batch,)), 5, n, n), dev)
+        if owner is None:
+            n_cyl, held = _check_cyl(cyl, lead, dev), cyl
+        else:
+            _check("owner", owner, (*lead, 5, n, n), dev)
+            n_cyl, held = 0, owner
         f = np.float32
-        self.args = _TiledWindow(shape.data_ptr(), prof.data_ptr(), owner.data_ptr(),
-                                 _stream(dev).value, batch or 1, n, int(x_matmul), cfg.inv2d,
-                                 cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt), f(cfg.dt / 6.0),
-                                 ti, tf)
+        self.args = _TiledWindow(shape.data_ptr(), prof.data_ptr(), _ptr(owner), _ptr(cyl),
+                                 _stream(dev).value, batch or 1, n, int(x_matmul), n_cyl,
+                                 cfg.inv2d, cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt),
+                                 f(cfg.dt / 6.0), ti, tf, cfg.x_min, cfg.spacing)
         self.ref = ctypes.addressof(self.args)
-        self.inputs = (shape, prof, owner)  # alive while the struct points at them
+        self.inputs = (shape, prof, held)  # alive while the struct points at them
         self.fn = _lib().step_tiled
-        self.key = _key("fused_rk4", batch, None, x_matmul) + "_radii_only"
+        self.key = (_key("fused_rk4", batch, None, x_matmul)
+                    + ("_general" if owner is None else "_radii_only"))
         self.rows = step_partial_rows(n)
 
     def launch(self, u_ptr: int, out_ptr: int, partials_ptr: int, t: float) -> None:
@@ -608,16 +648,16 @@ def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: 
                  slab: Slab | None = None, x_matmul: bool = False):
     """Check the inputs and launch one RK4 step: of one state (K1 or K2) for
     batch None, else of `batch` candidates (K3); on a slab (K4) if given;
-    with the split d/dx (K5) if `x_matmul`. Radii-only on the whole grid
-    takes one launch, the general modes and the slabs one a stage. Returns
-    (u_next, energy partials (batch or 1, blocks, 3))."""
+    with the split d/dx (K5) if `x_matmul`. The whole grid takes one
+    launch, a slab one a stage. Returns (u_next, energy partials
+    (batch or 1, blocks, 3))."""
     n, dev = cfg.n, u.device
     w, col0 = _extent(cfg, slab)
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, w), dev)
     n_cyl = _check_cyl(cyl, lead, dev)
-    if owner is not None and slab is None:
-        step = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev, x_matmul)
+    if slab is None:
+        step = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul)
         out = torch.empty_like(u)
         partials = torch.empty((batch or 1, step.rows, 3), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):  # the launch goes to the current device
@@ -662,9 +702,8 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
     kernel K2; None selects the general kernel K1. With a slab, u, shape
     and owner are its (.., n, slab.w) columns and the step is K4's.
     `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
-    K4-XM on a slab); radii-only on the whole grid takes one launch a step,
-    the general mode and the slabs one a stage. Returns (u_next, energies
-    (3,))."""
+    K4-XM on a slab); the whole grid takes one launch a step, a slab one a
+    stage. Returns (u_next, energies (3,))."""
     if not _on_card(u):
         return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
                                         x_matmul)
@@ -676,8 +715,7 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
 def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
                            x_matmul: bool = False):
     """Advance K candidate states (K, 12, n, n) one RK4 step from the same
-    time t, one launch a step in the radii-only mode (K3, or batched K5)
-    and one a stage in the general one, each with its own cylinders
+    time t in one launch (K3, or batched K5), each with its own cylinders
     (K, 8, n_cyl) lerped over [ti, tf]. `owner` (K, 5, n, n) from
     `select_owner_batched` selects the radii-only mode, None the general
     one; `x_matmul` the split d/dx (K5). Each candidate's energy partials
@@ -698,15 +736,14 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
     float32 start times `times`, with the design lerped over [ti, tf], as
     `fused_rk4_step` or `fused_rk4_step_batched` would step by step. The new
     state of each step whose index is in `keep` is kept, in a tensor of its
-    own. On the card, the radii-only mode, in either d/dx form, takes one
-    launch a step, its window's fixed inputs marshalled once, its steps
-    alternating between two state buffers made once (the input u is never
-    written), and its energy partials (steps, K, blocks, 3) made once and
-    reduced once. The general mode, and the CPU's plain version, goes step
-    by step. Returns (the kept states in order, energies (steps, 3) or
-    (steps, K, 3))."""
+    own. On the card, either mode in either d/dx form takes one launch a
+    step, its window's fixed inputs marshalled once, its steps alternating
+    between two state buffers made once (the input u is never written),
+    and its energy partials (steps, K, blocks, 3) made once and reduced
+    once. The CPU's plain version goes step by step. Returns (the kept
+    states in order, energies (steps, 3) or (steps, K, 3))."""
     batch = u.shape[0] if u.dim() == 4 else None
-    if not (_on_card(u) and owner is not None):
+    if not _on_card(u):
         step = fused_rk4_step if batch is None else fused_rk4_step_batched
         kept, energies = [], []
         for s, t in enumerate(times):
@@ -719,7 +756,7 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, n), dev)
     _check_cyl(cyl, lead, dev)
-    launcher = _TiledStep(shape, prof, owner, ti, tf, cfg, batch, dev, x_matmul)
+    launcher = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul)
     partials = torch.empty((len(times), batch or 1, launcher.rows, 3), dtype=torch.float32,
                            device=dev)
     base, row_bytes = partials.data_ptr(), partials.stride(0) * partials.element_size()

@@ -11,8 +11,9 @@ Each takes `x_matmul=True` by default, as in the JAX package: d/dx in the
 bf16 hi/lo split form of the JAX kernel's default mode (K5);
 `x_matmul=False` takes the exact stencil of K1-K3. Both drive a window
 through `fused_rk4_window`: on the card, the radii-only mode (the triple
-ring's), in either d/dx form, takes one launch a step, with the window's
-state buffers and energy partials made once and reduced once.
+ring's) and the general one (moving cylinders, the free field), in either
+d/dx form, take one launch a step, with the window's state buffers and
+energy partials made once and reduced once.
 """
 from __future__ import annotations
 
@@ -72,9 +73,9 @@ def step_config(env: WaveEnv) -> StepConfig:
 
 
 def make_fused_window(env: WaveEnv, x_matmul: bool = True):
-    """Action window through the fused kernel; radii-only (K2) when
-    `radii_only_ok` holds for the design space, else general (K1); with the
-    split d/dx (K5) if `x_matmul`.
+    """Action window through the fused kernel, one launch a step on the
+    card; radii-only (K2) when `radii_only_ok` holds for the design space,
+    else general (K1); with the split d/dx (K5) if `x_matmul`.
 
     Returns window(u, shape, tspan, cyl) -> (u_final, frames, signal): u the
     (12, n, n) state, shape the (n, n) source shape, tspan the window's
@@ -139,9 +140,8 @@ def rerank_step_times(t_i: np.float32, steps: int, dt: float) -> list[np.float32
 def make_rerank_rollout(env: WaveEnv, k: int, horizon: int, x_matmul: bool = True):
     """K-candidate exact re-rank rollout for the hybrid controller: all K
     action sequences advance through the simulator together, one
-    candidate-batched kernel launch a step in the radii-only mode (K3, or
-    batched K5) and one a stage in the general one, instead of K rollouts
-    in turn. Radii-only when `radii_only_ok` holds for the design space,
+    candidate-batched kernel launch a step (K3, or batched K5), instead of
+    K rollouts in turn. Radii-only when `radii_only_ok` holds for the design space,
     with one batched owner pass a window; general otherwise; with the split
     d/dx (K5) if `x_matmul`.
 

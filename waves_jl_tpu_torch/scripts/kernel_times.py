@@ -1,0 +1,147 @@
+"""Time a step of each fused RK4 mode on the card, to compare two checkouts.
+
+    python waves_jl_tpu_torch/scripts/kernel_times.py [--root DIR] [--out FILE]
+
+imports `waves_jl_tpu_torch` from the checkout at DIR (by default the one
+this file lies in), so that one copy of the script times an older
+checkout's kernels and a newer one's in one call, in turns. At the main
+paths' shapes, on the same seeded inputs in every checkout:
+
+* one state at 700^2: K2 and K5 radii-only on the triple ring's
+  cylinders, K1 and K5 general on the same cylinders moving by (0.3, -0.2)
+  within the window;
+* K3 and batched K5 radii-only with 16 candidates at 350^2, K3 general and
+  batched K5 general with 4 candidates at 700^2 (the position-design
+  re-rank window's size), each candidate's radii its own;
+* one step of the 4 slabs of a 700^2 grid (K4, K4-XM), radii-only and
+  general.
+
+For each row it gives ms a step with CUDA events around calls as the host
+drives them ("ms"), the same calls queued behind a device sleep
+("device_ms"), both with `chip_smoke.py`'s timers, and for the whole
+grid ms a step of device work inside a 20-step window driven by
+`fused_rk4_window` ("window_device_ms"). It prints a line a row and,
+last, one JSON object with the card's name and power limit, and writes
+that object to FILE if given. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # checkout
+N, N_RERANK, K_GENERAL, K_RADII, SHARDS = 700, 350, 4, 16, 4
+T0, TI, TF, DT = 2e-4, 0.0, 1e-3, 1e-5
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=HERE, help="checkout whose waves_jl_tpu_torch to time")
+    parser.add_argument("--out", help="also write the JSON object here")
+    args = parser.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from chip_smoke import cuda_ms, device_ms  # this checkout's timers, whichever port is timed
+
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs, shard_slabs
+    from waves_jl_tpu_torch.physics.fused import cyl_params
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(11)
+
+    def on_card(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    def config(n):
+        return fk.StepConfig(n=n, spacing=30.0 / (n - 1), x_min=-15.0, dt=DT, c0=1531.0,
+                             freq=1000.0)
+
+    space = build_triple_ring_design_space(device=dev)
+    ring = cyl_params(space.low, space.high, dev).cpu().numpy()  # radii low to high, fixed places
+    moved = ring.copy()
+    moved[4] += 0.3  # the cylinders move within the window
+    moved[5] -= 0.2
+
+    def candidates(cyl, k):
+        c = np.repeat(cyl[None], k, axis=0)
+        c[:, [2, 6]] *= rng.uniform(0.7, 1.0, (k, 1, cyl.shape[-1]))
+        return on_card(c)
+
+    times = [float(np.float32(T0) + np.float32(s * DT)) for s in range(20)]
+    rows = {}
+
+    def row(name, step, window=None, reps=20):
+        rows[name] = {"ms": cuda_ms(step, reps), "device_ms": device_ms(step, reps)}
+        if window is not None:
+            rows[name]["window_device_ms"] = device_ms(window, 1) / len(times)
+        print(name, json.dumps(rows[name]), flush=True)
+
+    for n, k_radii in ((N, None), (N_RERANK, K_RADII)):
+        cfg = config(n)
+        lead = () if k_radii is None else (k_radii,)
+        u = on_card(rng.standard_normal((*lead, 12, n, n)) * 1e-3)
+        shape, prof = on_card(rng.random((n, n))), on_card(rng.random(n) * 100.0)
+        if k_radii is None:
+            cyl = on_card(ring)
+            owner = fk.select_owner(cyl, cfg)
+            step = fk.fused_rk4_step
+            names = {False: "K2", True: "K5"}
+        else:
+            cyl = candidates(ring, k_radii)
+            owner = fk.select_owner_batched(cyl, cfg)
+            step = fk.fused_rk4_step_batched
+            names = {False: "K3", True: "batched K5"}
+        for xm in (False, True):
+            row(names[xm], lambda: step(u, shape, prof, cyl, owner, T0, TI, TF, cfg, x_matmul=xm),
+                lambda: fk.fused_rk4_window(u, shape, prof, cyl, owner, times, TI, TF, cfg,
+                                            [len(times) - 1], xm))
+
+    cfg = config(N)
+    shape, prof = on_card(rng.random((N, N))), on_card(rng.random(N) * 100.0)
+    for k in (None, K_GENERAL):
+        lead = () if k is None else (k,)
+        u = on_card(rng.standard_normal((*lead, 12, N, N)) * 1e-3)
+        cyl = on_card(moved) if k is None else candidates(moved, k)
+        step = fk.fused_rk4_step if k is None else fk.fused_rk4_step_batched
+        names = ({False: "K1", True: "K5 general"} if k is None
+                 else {False: "K3 general", True: "batched K5 general"})
+        for xm in (False, True):
+            row(names[xm], lambda: step(u, shape, prof, cyl, None, T0, TI, TF, cfg, x_matmul=xm),
+                lambda: fk.fused_rk4_window(u, shape, prof, cyl, None, times, TI, TF, cfg,
+                                            [len(times) - 1], xm))
+
+    slabs = shard_slabs(N, SHARDS)
+    u = on_card(rng.standard_normal((12, N, N)) * 1e-3)
+    us, sh = cut_slabs(u, slabs, [dev] * SHARDS), cut_slabs(shape, slabs, [dev] * SHARDS)
+    for radii, cyl_np in ((True, ring), (False, moved)):
+        cyl = on_card(cyl_np)
+        owners = ([fk.select_owner(cyl, cfg, s) for s in slabs] if radii else [None] * SHARDS)
+        for xm in (False, True):
+            name = ("K4-XM" if xm else "K4") + (" radii-only" if radii else " general")
+            row(name, lambda: [fk.fused_rk4_step(u_k, h, prof, cyl, o, T0, TI, TF, cfg, s, xm)
+                               for u_k, h, o, s in zip(us, sh, owners, slabs)])
+
+    result = {"root": root, "card": smi, "rows": rows}
+    print(json.dumps(result), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
