@@ -41,19 +41,22 @@ its elapsed seconds:
    window, the batched re-rank against the sequential one and against the
    exact-stencil re-rank (K3), and two exact-CEM rounds against one;
 6. sharded: from phase 3's state, cylinders and window times, the y-sharded
-   kernel K4 (4 shards of 175 columns) against its plain version in both
-   modes, the fused sharded rollout (`parallel/fused_domain.py`) at 1, 2 and
-   4 shards against the K2 window bit for bit on the state, the general
-   one at 1, 2 and 4 shards against the K1 window (its slabs on
-   `rk4_stage`, the window on `rk4_step_tiled`), and against the plain
-   sharded rollout (`parallel/domain.py`);
-   K1 and the owner pass with 80 cylinders against their plain versions; a
+   rollout (`parallel/fused_domain.py`, 4 shards of 175 columns on one
+   card, all four slabs stacked and stepped by K4 in one launch a step)
+   against the slab-by-slab plain rollout in both modes; the fused sharded
+   rollout at 1, 2 and 4 shards against the K2 window bit for bit on the
+   state, the general one at 1, 2 and 4 shards against the K1 window, and
+   against the plain sharded rollout (`parallel/domain.py`); K1 and the
+   owner pass with 80 cylinders against their plain versions; a
    free-field window through K1; the times of a sharded step, host-driven
-   and as device work, against K2's, and of K4 alone; then K4-XM, the
-   sharded step with K5's split d/dx (`x_matmul=True`): against its plain
+   and as device work, against K2's, the host's issue time, and one step
+   of K4 on the 4 stacked slabs (one launch), each slab bit for bit its
+   plain version's, halo columns included; then K4-XM, the sharded step
+   with K5's split d/dx (`x_matmul=True`): the rollout against its plain
    version in both modes, the split sharded rollout at 1, 2 and 4 shards
-   against the K5 window and the split general one against the K5
-   general window, bit for bit, and its step time against K4's in turns;
+   against the K5 window and the split general one against the K5 general
+   window, bit for bit, its step time against K4's in turns, and one
+   step of the stacked slabs against the plain version;
 7. datagen at `bench.py`'s operating point (700^2, triple ring, Gaussian
    source at x = -10, 20 actions x 100 steps, random policy, chunks of 10
    episodes): one warm chunk, then two timed chunks, seconds per episode
@@ -72,12 +75,12 @@ its elapsed seconds:
    sequential one; the MPC evaluation CLI once, in a subprocess.
 
 The launch counts of each kernel are read from the main-path runs alone:
-every mode on the whole grid (K1, K2, K3, K5, batched K5, radii-only and
-general) takes one launch a step, the slabs (K4, K4-XM) one a stage. The
-last lines are one JSON object describing every kernel (`ms` with CUDA
-events around calls as the host drives them; the rows of K4 and of the
-modes on the whole grid add `device_ms`, the same launches queued behind
-a device sleep, without the host's issue cost), then
+every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
+(K1, K2, K3, K5, batched K5, radii-only and general) and on the slabs of
+one card (K4, K4-XM). The last lines are one JSON object describing every
+kernel (`ms` with CUDA events around calls as the host drives them; the
+rows of the step add `device_ms`, the same launches queued behind a
+device sleep, without the host's issue cost), then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
 """
@@ -622,6 +625,22 @@ def cylinder_grid(moving: bool):
     return np.stack([pos[:, 0], pos[:, 1], r1, c, pos2[:, 0], pos2[:, 1], r2, c])
 
 
+def stacked_slabs(u0, shape, cyl, cfg, slabs, dev):
+    """Phase 6's inputs of one step of the slabs stacked on one card: the
+    state and source shape (S, .., n, w) cut from the global ones, and the
+    owner fields of each slab from the kernel's pass and from its plain
+    version."""
+    import torch
+
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs
+
+    devs = [dev] * len(slabs)
+    return (torch.stack(cut_slabs(u0, slabs, devs)), torch.stack(cut_slabs(shape, slabs, devs)),
+            torch.stack([fk.select_owner(cyl, cfg, s) for s in slabs]),
+            torch.stack([fk.select_owner_reference(cyl, cfg, s) for s in slabs]))
+
+
 def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
     """Phase 6: K4 and the `parallel/` rollouts at 700^2 from phase 3's
     state, cylinders and window times; the 80-cylinder K1 and a free-field
@@ -633,7 +652,7 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
     from waves_jl_tpu_torch.parallel import (make_fused_sharded_rollout, make_mesh,
                                              make_sharded_rollout)
-    from waves_jl_tpu_torch.parallel.fused_domain import build_rollout, cut_slabs, shard_slabs
+    from waves_jl_tpu_torch.parallel.fused_domain import build_rollout, shard_slabs
     from waves_jl_tpu_torch.physics.fused import make_env_step_fused, make_fused_window, step_config
 
     cfg = step_config(env)
@@ -650,13 +669,13 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         return make_fused_sharded_rollout(make_mesh(devices=[dev] * k), SIZE, cfg.spacing, cfg.dt,
                                           cfg.c0, cfg.freq, n_cyl, cfg.x_min, radii_only=radii)
 
-    # K4 against its plain version: the rollout's own loop, 10 steps, 4 shards
+    # K4 against its plain version: the rollout (the 4 slabs stacked, one
+    # launch a step) against the slab-by-slab plain rollout, 10 steps
     mesh4 = make_mesh(devices=[dev] * shards)
     tspan10 = tspan[:11]
     errs = {}
     for radii, cyl_ in ((True, cyl), (False, moved)):
-        u_k, e_k = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step, fk.select_owner)(
-            u0, tspan10, cyl_, shape, prof)
+        u_k, e_k = rollout(shards, radii)(u0, tspan10, cyl_, shape, prof)
         u_p, e_p = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step_reference,
                                  fk.select_owner_reference)(u0, tspan10, cyl_, shape, prof)
         torch.cuda.synchronize()
@@ -697,14 +716,15 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         check(err == 0.0, f"the {k}-shard state equals K2's bit for bit")
         check(sig <= 1e-6, f"the {k}-shard signal agrees with K2's")
     log("sharded", f"launches of the {shards}-shard radii-only rollout: {counts}")
-    check(counts["fused_rk4_sharded_radii_only"] == shards * STEPS * fk.STAGES
+    check(counts["fused_rk4_sharded_radii_only"] == STEPS
           and counts["select_owner_sharded"] == shards,
-          f"{shards * STEPS * fk.STAGES} K4 radii-only stage launches and {shards} owner passes")
+          f"{STEPS} K4 radii-only launches (one a step for the {shards} slabs) and {shards} owner "
+          "passes")
     check(all(v == 0 for key, v in counts.items() if "sharded" not in key),
           "the sharded rollout launches no whole-grid kernel")
 
-    # the general rollout's slabs (`rk4_stage`) against the whole-grid K1
-    # window (`rk4_step_tiled`): the two kernels keep one op order
+    # the general rollout's slabs against the whole-grid K1 window: one
+    # kernel, its tiles cut apart differently
     ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
     times10 = [float(t) for t in tspan10[:-1]]
     (u1,), e1 = fk.fused_rk4_window(u0, shape, prof, moved, None, times10, ti10, tf10, cfg, [9])
@@ -722,8 +742,8 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
                        f"window: {differing_cells(u_g, u1)}, signal rel err {sig_g:.3e} "
                        f"(tol 1e-06)")
         check(torch.equal(u_g, u1) and sig_g <= 1e-6, f"the {k}-shard general rollout equals K1")
-    check(counts_g["fused_rk4_sharded_general"] == shards * 10 * fk.STAGES,
-          f"{shards * 10 * fk.STAGES} K4 general stage launches")
+    check(counts_g["fused_rk4_sharded_general"] == 10,
+          f"10 K4 general launches (one a step for the {shards} slabs)")
 
     # the plain sharded rollout (domain.py) against the fused one
     dyn = env.integrator.dynamics
@@ -788,7 +808,8 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
                                                  cfg), 20)
     log("sharded", f"ms per RK4 step, events around the {STEPS}-step rollout: K2 window "
                    f"{win_ms:.4f}; sharded " + ", ".join(
-                       f"{k} shard(s) {v:.4f} ({v / win_ms:.3f}x)" for k, v in steps_ms.items()))
+                       f"{k} shard(s) {v:.4f} ({v / win_ms:.3f}x; {v / dev_ms[k]:.3f}x its device "
+                       "ms below)" for k, v in steps_ms.items()))
     log("sharded", f"device ms per RK4 step, 10-step rollout queued behind a device sleep: K2 "
                    f"window {win_dev:.4f} (K2 step alone {k2_dev:.4f}, {k2_ms:.4f} as the host "
                    f"drives it); sharded " + ", ".join(
@@ -801,43 +822,50 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         roll(u0, tspan[:21], cyl, shape, prof)
         host.append((time.perf_counter() - t_h) * 1e3 / 20)
     torch.cuda.synchronize()
-    log("sharded", f"host time to issue one {shards}-shard step (16 ctypes launches, 6 halo "
-                   f"copies, 4 partial sums, 3 adds, 20 allocations), 20-step rollouts left "
-                   f"unsynchronised, setup included: " + ", ".join(f"{h:.4f}" for h in host)
-        + " ms")
+    log("sharded", f"host time to issue one {shards}-shard step (one ctypes launch, 2 halo "
+                   f"copies, no allocation), 20-step rollouts left unsynchronised, setup "
+                   f"included: " + ", ".join(f"{h:.4f}" for h in host) + " ms")
 
-    # K4 alone: one step of all 4 slabs (16 launches), no exchange
+    # K4 alone: one step of the 4 slabs stacked (one launch), no exchange,
+    # each slab bit for bit its plain version's, halo columns included
     slabs = shard_slabs(SIZE, shards)
-    sh, us = cut_slabs(shape, slabs, [dev] * shards), cut_slabs(u0, slabs, [dev] * shards)
-    owners_k = [fk.select_owner(cyl, cfg, s) for s in slabs]
-    owners_p = [fk.select_owner_reference(cyl, cfg, s) for s in slabs]
+    us, sh, owners_k, owners_p = stacked_slabs(u0, shape, cyl, cfg, slabs, dev)
     t0 = times[0]
-
-    def launch_set(step_fn, owners, cyl_):
-        return [step_fn(u, h, prof, cyl_, o, t0, ti, tf, cfg, s)
-                for u, h, o, s in zip(us, sh, owners, slabs)]
-
-    none = [None] * shards
     rows = {}
-    part = [torch.empty((fk.partial_rows(SIZE, s.w), 3), dtype=torch.float32) for s in slabs]
-    io = sum(2 * nbytes(u) for u in us) + nbytes(*sh, *part) + shards * nbytes(prof, cyl)
+    part = torch.empty((shards, fk.step_partial_rows(SIZE, ny), 3), dtype=torch.float32)
+    io = 2 * nbytes(us) + nbytes(sh, part, prof, cyl)
     # `ms` as for K1-K3 (events around host-driven calls); `device_ms` the
     # same launches queued behind a device sleep, without the host's issue cost
-    for name, owners_, ownp, cyl_, radii in (("radii", owners_k, owners_p, cyl, True),
-                                              ("general", none, none, moved, False)):
-        ms = cuda_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_), 50)
-        dev_only = device_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_), 20)
-        plain_ms = cuda_ms(lambda: launch_set(fk.fused_rk4_step_reference, ownp, cyl_), 3)
-        flops = sum(fk.step_flops(SIZE, n_cyl, radii, s.w) for s in slabs)
-        rows[name] = (errs[radii], ms, dev_only, plain_ms, bound(io, flops))
+    for name, own_k, own_p, cyl_, radii in (("radii", owners_k, owners_p, cyl, True),
+                                            ("general", None, None, moved, False)):
+        def kernel():
+            return fk.fused_rk4_step_slabs(us, sh, prof, cyl_, own_k, t0, ti, tf, cfg, slabs)
+
+        got = kernel()
+        want = fk.fused_rk4_step_slabs_reference(us, sh, prof, cyl_, own_p, t0, ti, tf, cfg,
+                                                 slabs, False)
+        torch.cuda.synchronize()
+        e_rel = rel_err(got[1], want[1])
+        log("sharded", f"K4 {'radii-only' if radii else 'general'}, one step of the {shards} "
+                       f"stacked slabs (one launch) vs plain: {differing_cells(got[0], want[0])}, "
+                       f"halo columns included; energies rel err {e_rel:.3e} (tol 1e-06)")
+        check(torch.equal(got[0], want[0]) and e_rel <= 1e-6,
+              "K4 on the stacked slabs equals its plain version bit for bit")
+        ms = cuda_ms(kernel, 50)
+        dev_only = device_ms(kernel, 20)
+        plain_ms = cuda_ms(lambda: fk.fused_rk4_step_slabs_reference(
+            us, sh, prof, cyl_, own_p, t0, ti, tf, cfg, slabs, False), 3)
+        flops = shards * fk.step_flops(SIZE, n_cyl, radii, ny)
+        err = max(errs[radii], float(torch.max(torch.abs(got[0] - want[0]))))
+        rows[name] = (err, ms, dev_only, plain_ms, bound(io, flops))
     own_ms = cuda_ms(lambda: [fk.select_owner(cyl, cfg, s) for s in slabs], 50)
     own_dev = device_ms(lambda: [fk.select_owner(cyl, cfg, s) for s in slabs], 20)
     own_plain = cuda_ms(lambda: [fk.select_owner_reference(cyl, cfg, s) for s in slabs], 3)
-    own_bound = bound(shards * nbytes(cyl) + sum(nbytes(o) for o in owners_k),
+    own_bound = bound(shards * nbytes(cyl) + nbytes(owners_k),
                       sum(SIZE * s.w for s in slabs) * n_cyl * 9)
     rows["owner"] = (own_err, own_ms, own_dev, own_plain, own_bound)
-    states_mb = sum(2 * nbytes(u) for u in us) / 1e6
-    log("sharded", f"K4, one step of {shards} slabs (16 launches), ms as the host drives it "
+    states_mb = 2 * nbytes(us) / 1e6
+    log("sharded", f"K4, one step of {shards} stacked slabs (one launch), ms as the host drives it "
                    f"(device ms queued behind a sleep): radii-only {rows['radii'][1]:.4f} "
                    f"({rows['radii'][2]:.4f}; plain {rows['radii'][3]:.4f}), general "
                    f"{rows['general'][1]:.4f} ({rows['general'][2]:.4f}; plain "
@@ -861,7 +889,7 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
 
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
     from waves_jl_tpu_torch.parallel import make_fused_sharded_rollout, make_mesh
-    from waves_jl_tpu_torch.parallel.fused_domain import build_rollout, cut_slabs, shard_slabs
+    from waves_jl_tpu_torch.parallel.fused_domain import build_rollout, shard_slabs
     from waves_jl_tpu_torch.physics.fused import make_fused_window, step_config
 
     cfg = step_config(env)
@@ -879,11 +907,11 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
                                           cfg.c0, cfg.freq, n_cyl, cfg.x_min, radii_only=radii,
                                           x_matmul=x_matmul)
 
-    # K4-XM against its plain version: the rollout's own loop, 10 steps, 4 shards
+    # K4-XM against its plain version: the rollout (the 4 slabs stacked, one
+    # launch a step) against the slab-by-slab plain rollout, 10 steps
     errs = {}
     for radii, cyl_ in ((True, cyl), (False, moved)):
-        u_k, e_k = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step, fk.select_owner,
-                                 x_matmul=True)(u0, tspan10, cyl_, shape, prof)
+        u_k, e_k = rollout(shards, radii)(u0, tspan10, cyl_, shape, prof)
         u_p, e_p = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step_reference,
                                  fk.select_owner_reference, x_matmul=True)(
             u0, tspan10, cyl_, shape, prof)
@@ -917,12 +945,12 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
         check(sig <= 1e-6, f"the {k}-shard split signal agrees with K5's")
     log("sharded", f"launches of the {shards}-shard split radii-only rollout: {counts}")
     expect = dict.fromkeys(counts, 0)
-    expect.update({"fused_rk4_sharded_xmatmul_radii_only": shards * STEPS * fk.STAGES,
+    expect.update({"fused_rk4_sharded_xmatmul_radii_only": STEPS,  # one launch a step
                    "select_owner_sharded": shards})
     check(counts == expect, f"the split sharded rollout launches K4-XM alone: {counts} == {expect}")
 
-    # the split general rollout's slabs (`rk4_stage`) against the whole-grid
-    # K5 general window (`rk4_step_tiled`)
+    # the split general rollout's slabs against the whole-grid K5 general
+    # window
     ti10, tf10 = float(tspan10[0]), float(tspan10[-1])
     times10 = [float(t) for t in tspan10[:-1]]
     (u1,), e1 = fk.fused_rk4_window(u0, shape, prof, moved, None, times10, ti10, tf10, cfg, [9],
@@ -942,8 +970,8 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
                        f"(tol 1e-06)")
         check(torch.equal(u_g, u1) and sig_g <= 1e-6,
               f"the {k}-shard split general rollout equals K5 general")
-    check(counts_g["fused_rk4_sharded_xmatmul_general"] == shards * 10 * fk.STAGES,
-          f"{shards * 10 * fk.STAGES} K4-XM general stage launches")
+    check(counts_g["fused_rk4_sharded_xmatmul_general"] == 10,
+          f"10 K4-XM general launches (one a step for the {shards} slabs)")
 
     # times per 4-shard step in turns, K4 then K4-XM then K4-XM then K4:
     # events around the 100-step rollout (host-driven), and a 10-step
@@ -959,33 +987,40 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
         + "; K4-XM " + ", ".join(
             f"{a:.4f} ({b:.4f})" for a, b in zip(step_ms[True], step_dev[True])))
 
-    # K4-XM alone: one step of all 4 slabs (16 launches), no exchange, as
-    # phase 6 times K4
+    # K4-XM alone: one step of the 4 slabs stacked (one launch), no
+    # exchange, as phase 6 times K4, against its plain version bit for bit
     slabs = shard_slabs(SIZE, shards)
-    sh, us = cut_slabs(shape, slabs, [dev] * shards), cut_slabs(u0, slabs, [dev] * shards)
-    owners_k = [fk.select_owner(cyl, cfg, s) for s in slabs]
-    owners_p = [fk.select_owner_reference(cyl, cfg, s) for s in slabs]
+    us, sh, owners_k, owners_p = stacked_slabs(u0, shape, cyl, cfg, slabs, dev)
     t0 = float(tspan[0])
-
-    def launch_set(step_fn, owners, cyl_, xm):
-        return [step_fn(u, h, prof, cyl_, o, t0, ti, tf, cfg, s, xm)
-                for u, h, o, s in zip(us, sh, owners, slabs)]
-
-    none = [None] * shards
-    part = [torch.empty((fk.partial_rows(SIZE, s.w), 3), dtype=torch.float32) for s in slabs]
-    io = sum(2 * nbytes(u) for u in us) + nbytes(*sh, *part) + shards * nbytes(prof, cyl)
+    ny = SIZE // shards
+    part = torch.empty((shards, fk.step_partial_rows(SIZE, ny), 3), dtype=torch.float32)
+    io = 2 * nbytes(us) + nbytes(sh, part, prof, cyl)
     rows, turns = {}, {}
-    for name, owners_, ownp, cyl_, radii in (("radii", owners_k, owners_p, cyl, True),
-                                              ("general", none, none, moved, False)):
+    for name, own_k, own_p, cyl_, radii in (("radii", owners_k, owners_p, cyl, True),
+                                            ("general", None, None, moved, False)):
+        def kernel(xm):
+            return fk.fused_rk4_step_slabs(us, sh, prof, cyl_, own_k, t0, ti, tf, cfg, slabs, xm)
+
+        got = kernel(True)
+        want = fk.fused_rk4_step_slabs_reference(us, sh, prof, cyl_, own_p, t0, ti, tf, cfg,
+                                                 slabs, True)
+        torch.cuda.synchronize()
+        e_rel = rel_err(got[1], want[1])
+        log("sharded", f"K4-XM {'radii-only' if radii else 'general'}, one step of the {shards} "
+                       f"stacked slabs (one launch) vs plain: {differing_cells(got[0], want[0])}, "
+                       f"halo columns included; energies rel err {e_rel:.3e} (tol 1e-06)")
+        check(torch.equal(got[0], want[0]) and e_rel <= 1e-6,
+              "K4-XM on the stacked slabs equals its plain version bit for bit")
         for xm in (False, True, True, False):
             turns.setdefault((name, xm), []).append(
-                (cuda_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_, xm), 50),
-                 device_ms(lambda: launch_set(fk.fused_rk4_step, owners_, cyl_, xm), 20)))
+                (cuda_ms(lambda: kernel(xm), 50), device_ms(lambda: kernel(xm), 20)))
         ms, dev_only = turns[(name, True)][0]
-        plain_ms = cuda_ms(lambda: launch_set(fk.fused_rk4_step_reference, ownp, cyl_, True), 3)
-        flops = sum(fk.step_flops(SIZE, n_cyl, radii, s.w, x_matmul=True) for s in slabs)
-        rows[name] = (errs[radii], ms, dev_only, plain_ms, bound(io, flops))
-        log("sharded", f"one step of {shards} slabs (16 launches), {name}, in turns, ms "
+        plain_ms = cuda_ms(lambda: fk.fused_rk4_step_slabs_reference(
+            us, sh, prof, cyl_, own_p, t0, ti, tf, cfg, slabs, True), 3)
+        flops = shards * fk.step_flops(SIZE, n_cyl, radii, ny, x_matmul=True)
+        err = max(errs[radii], float(torch.max(torch.abs(got[0] - want[0]))))
+        rows[name] = (err, ms, dev_only, plain_ms, bound(io, flops))
+        log("sharded", f"one step of {shards} stacked slabs (one launch), {name}, in turns, ms "
                        f"host-driven (device ms): K4 " + ", ".join(
                            f"{a:.4f} ({b:.4f})" for a, b in turns[(name, False)])
             + "; K4-XM " + ", ".join(f"{a:.4f} ({b:.4f})" for a, b in turns[(name, True)])
@@ -1342,19 +1377,24 @@ def main() -> int:
             print("    " + line.strip(), flush=True)
     lines = report.splitlines()
     occ = fk.tiled_kernel_report()
-    # the four instances of the one-launch step rk4_step_tiled<XM, GENERAL>:
-    # the split d/dx (K5) or the exact one (K1, K2, K3), the owner test or
-    # the general rasterisation
+    # the eight instances of the one-launch step rk4_step_tiled<XM, GENERAL,
+    # SLAB>: the split d/dx (K5) or the exact one (K1-K4), the owner test or
+    # the general rasterisation, the whole grid or slabs
     names = {"split": "split d/dx, radii-only: K5 and batched K5",
              "exact": "exact d/dx, radii-only: K2 and K3",
              "split_general": "split d/dx, general: K5 general and batched K5 general",
-             "exact_general": "exact d/dx, general: K1 and K3 general"}
-    for key, (xm, general) in fk.TILED_INSTANCES.items():
-        mangled = f"rk4_step_tiledILb{int(xm)}ELb{int(general)}E"
+             "exact_general": "exact d/dx, general: K1 and K3 general",
+             "split_slab": "split d/dx, radii-only, slabs: K4-XM",
+             "exact_slab": "exact d/dx, radii-only, slabs: K4",
+             "split_general_slab": "split d/dx, general, slabs: K4-XM general",
+             "exact_general_slab": "exact d/dx, general, slabs: K4 general"}
+    for key, flags in fk.TILED_INSTANCES.items():
+        mangled = "rk4_step_tiled" + "".join(f"ILb{int(f)}E" if i == 0 else f"Lb{int(f)}E"
+                                             for i, f in enumerate(flags)) + "E"
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and mangled in line]
         ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in lines[at[0] + 1:at[0] + 4]
                           if "registers" in line or "spill" in line) if at else "already built"
-        log("build", f"rk4_step_tiled<{str(xm).lower()}, {str(general).lower()}> ({names[key]}, "
+        log("build", f"rk4_step_tiled<{', '.join(str(f).lower() for f in flags)}> ({names[key]}, "
                      f"one launch a step): ptxas {ptxas}; dynamic shared memory "
                      f"{occ['smem_bytes']} B a block of 256 threads; {occ[key]} blocks an SM")
         check(occ[key] >= 1, f"the one-launch step ({names[key]}) fits an SM")

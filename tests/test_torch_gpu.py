@@ -9,21 +9,23 @@ Tolerance 1e-5 relative: kernel and plain version run the same float32
 operations in the same order (the kernel is built without FMA
 contraction); only sin and the energy sums round apart. Each candidate of
 the batched kernel K3 equals K1 or K2 run on it alone, bit for bit on the
-state, and each owned cell of the y-sharded kernel K4 equals the
-whole-grid kernel's, bit for bit. K5, the split d/dx (`x_matmul=True`), is
-held to the same tolerance against its plain version, single and batched,
-and each batched K5 candidate equals K5 run on it alone, bit for bit.
-K4-XM, the y-sharded step with the split d/dx, is held against its plain
-version and, on each owned cell, against K5 on the whole grid, bit for
-bit. Every mode on the whole grid takes one launch a step
-(`rk4_step_tiled`) in both d/dx forms, K5's split one and K1's, K2's and
-K3's exact one, radii-only and general: each equals its plain version bit
-for bit on the state, single and batched, at sizes whose edge tiles are
-partial or one cell wide, the general mode with no cylinder, 18 and 80
-(more than one chunk); the windows that drive it give the plain path's
-signal and re-rank costs within 1e-6 (the energy partials are summed in
-another order), with frames of their own; the stage-a-launch entry point
-refuses the whole grid in every mode. The
+state. K5, the split d/dx (`x_matmul=True`), is held to the same
+tolerance against its plain version, single and batched, and each batched
+K5 candidate equals K5 run on it alone, bit for bit. Every mode takes one
+launch a step (`rk4_step_tiled`) in both d/dx forms, K5's split one and
+K1's, K2's and K3's exact one, radii-only and general: on the whole grid
+each equals its plain version bit for bit on the state, single and
+batched, at sizes whose edge tiles are partial or one cell wide, the
+general mode with no cylinder, 18 and 80 (more than one chunk); the
+windows that drive it give the plain path's signal and re-rank costs
+within 1e-6 (the energy partials are summed in another order), with
+frames of their own. On the slabs of a y-sharded grid (K4, and K4-XM with
+the split d/dx) the step equals its plain version bit for bit on the whole
+slab, halo columns (written 0) included, the slabs of a card stacked in
+one launch equal each slab stepped alone, each owned cell equals the
+whole-grid kernel's, and the sharded rollout takes one launch a card a
+step; the step refuses slabs that are not consecutive, too thin or outside
+the domain. The
 surrogate's gradient path (`shot_energy`, CEM's polish) on the card agrees
 with the CPU's at narrow width to 1e-4 relative.
 """
@@ -258,8 +260,10 @@ def test_sharded_kernel_matches_plain_version_and_whole_grid(card, radii_only, x
     owner = fk.select_owner(cyl, cfg) if radii_only else None
     whole, e_whole = fk.fused_rk4_step(u, shape, prof, cyl, owner, ti, ti, tf, cfg,
                                        x_matmul=x_matmul)
-    # one K4 step on each slab, cut from the global state with its halos
+    # one K4 step on each slab, cut from the global state with its halos:
+    # the whole slab bit for bit its plain version's, the halo columns 0
     slabs = shard_slabs(n, shards)
+    us, shapes, owners, singles = [], [], [], []
     for k, (slab, u_k, shape_k) in enumerate(zip(slabs, cut_slabs(u, slabs, [card] * shards),
                                                  cut_slabs(shape, slabs, [card] * shards))):
         own = fk.select_owner(cyl, cfg, slab) if radii_only else None
@@ -268,11 +272,27 @@ def test_sharded_kernel_matches_plain_version_and_whole_grid(card, radii_only, x
         args = (u_k, shape_k, prof, cyl, own, ti, ti, tf, cfg, slab, x_matmul)
         got, want = fk.fused_rk4_step(*args), fk.fused_rk4_step_reference(*args)
         torch.cuda.synchronize()
-        assert rel(got[0], want[0]) <= TOL and rel(got[1], want[1]) <= TOL
+        assert torch.equal(got[0], want[0]) and rel(got[1], want[1]) <= TOL
         owned = slice(fk.HALO, fk.HALO + ny)
         assert torch.equal(got[0][:, :, owned], whole[:, :, k * ny:(k + 1) * ny])
-        outside = (slab.columns(card) < 0) | (slab.columns(card) >= n)
-        assert bool((got[0][:, :, outside] == 0).all())
+        halo = torch.ones(slab.w, dtype=torch.bool, device=card)
+        halo[owned] = False
+        assert bool((got[0][:, :, halo] == 0).all())
+        us.append(u_k)
+        shapes.append(shape_k)
+        owners.append(own)
+        singles.append(got)
+    # the slabs stacked, one launch: each slab as stepped alone
+    key = ("fused_rk4_sharded_" + ("xmatmul_" if x_matmul else "")
+           + ("radii_only" if radii_only else "general"))
+    before = dict(fk.launch_counts)
+    stacked = fk.fused_rk4_step_slabs(torch.stack(us), torch.stack(shapes), prof, cyl,
+                                      torch.stack(owners) if radii_only else None, ti, ti, tf,
+                                      cfg, slabs, x_matmul)
+    torch.cuda.synchronize()
+    assert fk.launch_counts[key] - before[key] == 1
+    for k, (u_one, e_one) in enumerate(singles):
+        assert torch.equal(stacked[0][k], u_one) and rel(stacked[1][k], e_one) <= 1e-6
     # the rollout over 4 shards on one card against the whole-grid kernel
     roll = make_fused_sharded_rollout(make_mesh(devices=[card] * shards), n, cfg.spacing, cfg.dt,
                                       cfg.c0, cfg.freq, cyl.shape[1], cfg.x_min, radii_only,
@@ -280,9 +300,7 @@ def test_sharded_kernel_matches_plain_version_and_whole_grid(card, radii_only, x
     before = dict(fk.launch_counts)
     u_sh, sig = roll(u, tspan, cyl, shape, prof)
     torch.cuda.synchronize()
-    key = ("fused_rk4_sharded_" + ("xmatmul_" if x_matmul else "")
-           + ("radii_only" if radii_only else "general"))
-    assert fk.launch_counts[key] - before[key] == shards * steps * fk.STAGES
+    assert fk.launch_counts[key] - before[key] == steps  # one launch a step for the card
     assert (fk.launch_counts["select_owner_sharded"] - before["select_owner_sharded"]
             == (shards if radii_only else 0))
     want, es = u, []
@@ -324,8 +342,15 @@ def test_sharded_rollouts_across_cards_equal_one_card(card, cards, radii_only, x
                                           cyl.shape[1], cfg.x_min, radii_only, x_matmul)(
             u, tspan, cyl, shape, prof)
 
-    got, want = fused(many), fused(one)
+    key = ("fused_rk4_sharded_" + ("xmatmul_" if x_matmul else "")
+           + ("radii_only" if radii_only else "general"))
+    before = fk.launch_counts[key]
+    got = fused(many)
+    middle = fk.launch_counts[key]
+    want = fused(one)
     torch.cuda.synchronize()
+    # one launch a card a step
+    assert middle - before == cards * steps and fk.launch_counts[key] - middle == steps
     assert got[0].device == want[0].device == many.devices[0]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -552,37 +577,27 @@ def test_general_one_launch_step_equals_plain_version_bit_for_bit(card, n, k, x_
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("xm", [0, 1])
-def test_stage_entry_point_refuses_whole_grid_general(card, xm):
-    # the general mode on the whole grid is the one-launch step's too, in
-    # both d/dx forms: a stage launch of it is refused, and the refusal raises
-    cfg, u, shape, prof, cyl = _general_inputs(48, None, 18, card)
-    n = cfg.n
-    code = fk._lib().stage(1, 0, 0, xm, fk._ptr(u), fk._ptr(None), 0.0, fk._ptr(None),
-                           fk._ptr(None), 0.0, fk._ptr(torch.empty_like(u)), fk._ptr(None),
-                           fk._ptr(shape), fk._ptr(prof), fk._ptr(cyl), cyl.shape[1],
-                           fk._ptr(None), n, n, 0, cfg.spacing, cfg.inv2d, cfg.x_min, cfg.c0,
-                           cfg.freq, 0.0, 0.0, 1e-3, fk._stream(card))
-    assert code != 0
-    with pytest.raises(RuntimeError, match="launch failed"):
-        fk._raise_on(code, "fused_rk4_stage")
+def test_slab_step_raises_on_slabs_it_does_not_take(card):
+    from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs, shard_slabs
 
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("xm", [0, 1])
-def test_stage_entry_point_refuses_whole_grid_radii_only(card, xm):
-    # radii-only on the whole grid is the one-launch step's, in both d/dx
-    # forms: a stage launch of it is refused, and the refusal raises
-    cfg, u, shape, prof, cyl, owner = _one_launch_inputs(48, None, card)
-    n = cfg.n
-    code = fk._lib().stage(1, 0, 1, xm, fk._ptr(u), fk._ptr(None), 0.0, fk._ptr(None),
-                           fk._ptr(None), 0.0, fk._ptr(torch.empty_like(u)), fk._ptr(None),
-                           fk._ptr(shape), fk._ptr(prof), fk._ptr(cyl), cyl.shape[1],
-                           fk._ptr(owner), n, n, 0, cfg.spacing, cfg.inv2d, cfg.x_min, cfg.c0,
-                           cfg.freq, 0.0, 0.0, 1e-3, fk._stream(card))
-    assert code != 0
-    with pytest.raises(RuntimeError, match="launch failed"):
-        fk._raise_on(code, "fused_rk4_stage")
+    cfg, cyl, u, shape, prof = _inputs(48, True, card)
+    slabs = shard_slabs(48, 4)
+    us = torch.stack(cut_slabs(u, slabs, [card] * 4))
+    shapes = torch.stack(cut_slabs(shape, slabs, [card] * 4))
+    args = (prof, cyl, None, 2e-4, 0.0, 1e-3, cfg)
+    with pytest.raises(ValueError, match="not consecutive"):
+        fk.fused_rk4_step_slabs(us[[0, 2]].contiguous(), shapes[[0, 2]].contiguous(), *args,
+                                [slabs[0], slabs[2]])
+    # the kernel refuses what the wrapper passes on, and the refusal raises:
+    # slabs of 4 owned columns, thinner than the two halos a tile reads, and
+    # a slab whose owned columns pass the domain's last column
+    thin = [fk.Slab(w=4 + 2 * fk.HALO, col0=k * 4 - fk.HALO) for k in range(2)]
+    outside = [fk.Slab(w=slabs[0].w, col0=slabs[3].col0 + slabs[0].ny)]
+    for bad in (thin, outside):
+        w = bad[0].w
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fk.fused_rk4_step_slabs(torch.zeros((len(bad), 12, 48, w), device=card),
+                                    torch.zeros((len(bad), 48, w), device=card), *args, bad)
 
 
 def _check_windows(card, x_matmul):

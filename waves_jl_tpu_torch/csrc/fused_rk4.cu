@@ -2,8 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel built by `make_fused_acoustic_step`
-// (waves_jl_tpu/ops/pallas_fd.py:88, `pl.pallas_call` at :432) in its
-// single-device modes:
+// (waves_jl_tpu/ops/pallas_fd.py:88, `pl.pallas_call` at :432) in every
+// mode, each in one launch a RK4 step (`rk4_step_tiled<XM, GENERAL,
+// SLAB>`, below):
 //   K1, general (`radii_only=False`): every stage lerps all cylinders and
 //       rasterises the wavespeed, summing where cylinders overlap and using
 //       c0 where none covers a cell (`rasterize`, :227).
@@ -11,8 +12,6 @@
 //       cell's owning cylinder once per window into five per-cell fields
 //       [d2, r1, dr, c1, dc]; each stage then does one compare
 //       (`rasterize_fast`, :271).
-// On the whole grid either takes a whole RK4 step in one launch
-// (`rk4_step_tiled`, below).
 //
 // What bounds it on the card: bytes. One RK4 step must at least read and
 // write the 12 x n x n float32 state; at 700^2 that is 2 x 23.52 MB =
@@ -20,106 +19,92 @@
 // operations a step at 700^2 (`step_flops` in ops/fused_rk4.py), takes
 // about 3 us at 67 TFLOP/s.
 //
-// What the simple design, `rk4_stage`, does about it: one launch per RK4
-// stage and one thread per cell. A thread forms the stage input u + a*k_prev at its cell
-// and at the +-1 neighbours (+-2 at the edges) that the stencils read, and
-// writes all 12 channels of the stage's right-hand side. Stages 1-3 write
-// k1..k3 to device memory; stage 4 forms k4 in registers and writes
-// u + dt/6 (k1 + 2k2 + 2k3 + k4) with the per-block energy partials. That
-// moves about 14 state-sized arrays a step instead of 2 (the neighbour
-// reads mostly hit L1/L2), so the kernel runs several times above its
-// bound. It serves the slabs (K4, K4-XM) alone, whose halo exchange sits
-// between steps. Every mode on the whole grid (K1, K2, K3 and K5, single
-// and batched, in both rasterisations) fuses the four stages behind
-// shared-memory halos (`rk4_step_tiled`, below).
-//
 // K3, candidate-batched (`batch=K`, :121-127, :162-170, :403-406, :431,
 // :450-456), in both rasterisation modes: K independent states advance
 // through the same time step in one launch. blockIdx.z is the candidate;
-// it offsets the state, k1..k3, out, cylinder, owner and energy-partial
-// pointers, while the source shape and the PML profile are shared. A
-// launch with one candidate is K1 or K2, so each candidate's state is bit
-// for bit what K1 or K2 computes for it alone. K3, in both rasterisations,
-// runs on `rk4_step_tiled`, one launch a step. The TPU kernel's padded
-// layout and DMA semaphores have no counterpart here: a 350^2 grid is only
-// 11 x 44 = 484 blocks against 132 SMs, and 16 candidates make 7,744.
-// Its bound is K times a step's: at 350^2 and K = 16 the states in and out
-// are 16 x 2 x 5.88 MB = 188.2 MB, 56.2 us at 3.35 TB/s.
+// it offsets the state, out, cylinder, owner and energy-partial pointers,
+// while the source shape and the PML profile are shared. A launch with one
+// candidate is K1 or K2, so each candidate's state is bit for bit what K1
+// or K2 computes for it alone. The TPU kernel's padded layout and DMA
+// semaphores have no counterpart here: a 350^2 grid is only 15 x 22 = 330
+// blocks against 132 SMs, and 16 candidates make 5,280. Its bound is K
+// times a step's: at 350^2 and K = 16 the states in and out are
+// 16 x 2 x 5.88 MB = 188.2 MB, 56.2 us at 3.35 TB/s.
 //
 // K4, y-sharded (`ny_local`, `y_ghost`, :129-133, :152, :195-204, :351,
 // :391), driven by `waves_jl_tpu/parallel/fused_domain.py`: the same step
-// on one column slab (12, n, w) of the global n x n grid, w = ny_local +
-// 2 HALO, one `rk4_stage` launch a stage. Local column j is global column
-// jg = col0 + j: `Geometry` carries w and col0, and every flat index is
-// i * w + j. The one-sided y stencils, the Dirichlet mask, the y
-// coordinate and the PML profile are taken at jg, in the op order of the
-// whole grid's `rk4_step_tiled`, so an owned cell of a slab is bit for bit
-// the whole-grid kernel's. At a slab's local edge (j = 0 or w - 1, jg interior) the
-// stencil turns one-sided on local data: those are halo cells, stale after
-// the step and refreshed by the next exchange, and no thread reads outside
-// the slab. Columns outside the domain (jg < 0 or jg >= n) are written 0,
-// and the energy partials cover the owned columns, HALO <= j < w - HALO.
-// Its bound is the slabs' bytes: at 700^2 and 4 shards the states in and
-// out are 4 x 2 x 12 x 700 x 183 x 4 B = 49.2 MB, 14.7 us at 3.35 TB/s.
+// on column slabs (12, n, w) of the global n x n grid, w = ny + 2 HALO for
+// ny owned columns, all of a card's slabs in one launch. blockIdx.z is the
+// slab: slab z's local column j is global column col0 + z ny + j, and it
+// has its own state, source shape (n, w) and owner fields (5, n, w), where
+// the cylinders and the (n) profile are shared. It is the SLAB template
+// flag of `rk4_step_tiled`: the whole-grid instances keep the registers
+// and spills they had without it (the geometry as runtime values cost the
+// exact radii-only instance 4 more bytes of spill, 8 to 12, in ptxas), and
+// SLAB false folds the slab's arithmetic away. The tiles cover each
+// slab's owned columns, local [HALO, HALO + ny), ceil(ny / TY) tile
+// columns a slab, and a tile never crosses a slab's owned range. A tile's
+// region (the tile and HALO cells a side) lies inside its slab: its
+// columns are the tile's +-HALO, and the fifth column before a one-cell
+// tile on the domain's last column lies inside too, since that tile is
+// never a slab's first when ny >= 2 HALO. The one-sided y stencils, the
+// Dirichlet mask, the y coordinate, the PML profile, the stage regions'
+// shrinking and the general mode's cull are taken at global columns, as
+// on the whole grid, so an owned cell of a slab is bit for bit the whole
+// grid's. The kernel writes the slab's halo columns 0 (the blocks of the
+// first and last tile column): the exchange refreshes the interior halos
+// before the next step, and the halos outside the domain stay 0. The
+// energy partials cover the owned cells. Its bound is
+// the slabs' bytes: at 700^2 and 4 slabs the states in and out are
+// 4 x 2 x 12 x 700 x 183 x 4 B = 49.2 MB, 14.7 us at 3.35 TB/s.
 //
 // K5, `x_matmul` (:278-310), the JAX package's default on every fused path
 // but the sharded one (physics/fused.py:79, :154, :225): d/dx as the
 // banded (rows, rows) stencil matrix D times the tile on the MXU, in two
 // bf16 passes with float32 sums, (D bf16(v) + D bf16(v - bf16(v))) / (2 dx).
-// It is an XM template flag of `rk4_step_tiled` below, in both
-// rasterisations, single or batched, and of `rk4_stage` on a slab
-// (K4-XM). Each tap of Vx and of U + f is
-// formed in float32 as before and split into hi = bf16(v) and
-// lo = bf16(v - hi), both rounded to nearest even; the stencil of `d_edge`
-// runs on the hi values and on the lo values in the same tap order, and
-// the two sums are added and scaled. D's entries are small integers and
-// hi and lo are bf16, so every product of the TPU's dot is exact and adding
-// D's zeros is exact: a central row rounds once, as the tap difference
-// does. The one-sided rows 0 and n-1 sum three taps in d_edge's order,
-// which may differ from the dot's by an ulp, as on the MXU (:281-283).
-// d/dy stays exact, as in JAX (:325-329). What bounds it is what bounds
-// K1-K3, bytes: the split adds 4 conversions and a subtract a tap, about
-// 1e8 operations a step at 700^2, under 2 us at 67 TFLOP/s. The TPU put
-// the product on the MXU because its vector unit set the pace there; a row
-// of D has two nonzeros, so a tensor-core product would do 8x the
-// multiply-adds for no byte saved, and this form needs no shared-memory
-// reshuffle.
+// It is the XM template flag, in both rasterisations, on the whole grid,
+// batched or on slabs (K4-XM). Each tap of Vx and of U + f is formed in
+// float32 as before and split into hi = bf16(v) and lo = bf16(v - hi),
+// both rounded to nearest even; the stencil of `d_edge` runs on the hi
+// values and on the lo values in the same tap order, and the two sums are
+// added and scaled. D's entries are small integers and hi and lo are bf16,
+// so every product of the TPU's dot is exact and adding D's zeros is
+// exact: a central row rounds once, as the tap difference does. The
+// one-sided rows 0 and n-1 sum three taps in d_edge's order, which may
+// differ from the dot's by an ulp, as on the MXU (:281-283). d/dy stays
+// exact, as in JAX (:325-329). A slab cuts columns, not rows, so a slab
+// cell's x-taps are the whole-grid cell's, and an owned cell of K4-XM is
+// bit for bit K5's (waves_jl_tpu/parallel/fused_domain.py:37 with
+// `x_matmul=True`). What bounds it is what bounds K1-K4, bytes: the split
+// adds 4 conversions and a subtract a tap, about 1e8 operations a step at
+// 700^2, under 2 us at 67 TFLOP/s. The TPU put the product on the MXU
+// because its vector unit set the pace there; a row of D has two nonzeros,
+// so a tensor-core product would do 8x the multiply-adds for no byte
+// saved, and this form needs no shared-memory reshuffle.
 //
-// K4-XM, the y-sharded step with K5's split d/dx
-// (waves_jl_tpu/parallel/fused_domain.py:37 with `x_matmul=True`), is
-// `rk4_stage`'s XM flag. A slab cuts columns, not rows, so a slab
-// cell's x-taps are rows i - 1 and i + 1 (i + 2 or i - 2 at rows 0 and
-// n - 1) of its own local column, at stride w: the whole-grid cell's taps,
-// and an owned cell is bit for bit K5's. Its bound is K4's: the split
-// adds arithmetic, not bytes.
-//
-// Every mode on the whole grid, single and batched, one launch per RK4
-// step (`rk4_step_tiled<XM, GENERAL>`): the exact d/dx (XM false) or the
-// split one (XM true), the owner test (GENERAL false: K2, K3, K5, batched
-// K5) or the general rasterisation (GENERAL true: K1, K3 general, K5
-// general, batched K5 general). It replaces the Pallas kernel's modes on
-// one device (pallas_fd.py:88, the owner test `rasterize_fast` :271 or
-// `rasterize` :227, the candidate axis `batch=K`), with the exact d/dx
-// `_dx_edge_aware` (:59-73, taken at :312-313) or the split one
-// (:278-310), in the form the Pallas kernel has and the stage-a-launch
-// port did not: all four stages of a step on a tile held in fast memory
-// with HALO ghost cells (:343-377). K5 and batched K5 are the main paths'
-// modes: every env window, datagen episode and controller's window (K5 at
-// 700^2) and the hybrid's re-rank (batched K5 at 16 x 350^2). K2 and K3
-// are the accuracy mode, `x_matmul=False`: the exact simulator window and
-// the exact re-rank. The general instances serve every design space where
-// the owner test is not exact: moving cylinders, the free field, radii
-// whose circles overlap.
+// One launch per RK4 step (`rk4_step_tiled<XM, GENERAL, SLAB>`): the exact
+// d/dx (XM false) or the split one (XM true), the owner test (GENERAL
+// false: K2, K3, K5, batched K5, and the slabs' radii-only mode) or the
+// general rasterisation (GENERAL true: K1, K3 general, K5 general, batched
+// K5 general, and the slabs' general mode), on the whole grid (SLAB false)
+// or on slabs (SLAB true), in the form the Pallas kernel
+// has: all four stages of a step on a tile held in fast memory with HALO
+// ghost cells (:343-377). K5 and batched K5 are the main paths' modes:
+// every env window, datagen episode and controller's window (K5 at 700^2)
+// and the hybrid's re-rank (batched K5 at 16 x 350^2). K2 and K3 are the
+// accuracy mode, `x_matmul=False`: the exact simulator window and the
+// exact re-rank. The general instances serve every design space where the
+// owner test is not exact: moving cylinders, the free field, radii whose
+// circles overlap.
 //   What bounds it: bytes. A step must read the state (and the owner
 // fields) and write the state: at 700^2, 23.5 (+ 9.8) + 23.5 MB, 14 (17)
-// us at 3.35 TB/s; at 16 x 350^2, 94 + 39 + 94 MB, 68 us. `rk4_stage`
-// moves about 14 state-sized arrays a step (k1..k3 out and back, u + a k
-// formed at every tap from two loads): 10-12x its bound, and at
-// 16 x 350^2 the 94 MB states overflow the 50 MB L2, so that traffic goes
-// to HBM.
+// us at 3.35 TB/s; at 16 x 350^2, 94 + 39 + 94 MB, 68 us. A launch a stage
+// with k1..k3 kept in device memory moves about 14 state-sized arrays a
+// step, 10-12x the bound, and at 16 x 350^2 the 94 MB states overflow the
+// 50 MB L2, so that traffic goes to HBM.
 //   What the design does about it. Block (bx, by, z) owns a TX x TY =
-// 16 x 24 tile of candidate z and loads once, into shared memory, its
-// region: the tile with HALO = 4 cells on each side (24 x 32, one warp
+// 16 x 24 tile of candidate or slab z and loads once, into shared memory,
+// its region: the tile with HALO = 4 cells on each side (24 x 32, one warp
 // wide), 0 outside the domain. The four stages then run inside the block
 // on regions that shrink by one cell a side a stage (k1 on the tile + 3,
 // k2 + 2, k3 + 1, k4 on the tile), except on a side at the domain's edge,
@@ -138,8 +123,8 @@
 // U, Vx and Vy, the source shape and the wavespeed at the three stage
 // times, 19 x 768 floats = 58,368 bytes a block of 256 threads, above the
 // 48 KB a kernel gets unasked (`configure_tiled`, an attribute each
-// instance sets for itself, once a device). ptxas (-v, sm_90a), radii-only:
-// both instances at 80 registers, the cap for three blocks an SM
+// instance sets for itself, once a device). ptxas (-v, sm_90a), on the
+// whole grid, radii-only: both instances at 80 registers, the cap for three blocks an SM
 // (`TILED_MIN_BLOCKS`), the split one with 12 bytes spilled, the exact one
 // with 8 (it drops the split's conversions, not enough to fit unspilled);
 // the general ones at 80 with 12 bytes spilled each (the cylinder loop
@@ -152,10 +137,10 @@
 // the kernel is bound by the latency of its shared-memory reads and
 // barriers more than by bytes, so resident warps count most. HBM sees the
 // state and owner fields once (halo re-reads hit L2) and the state
-// written once; the stages redo 1.35x the tile's cells. Each cell runs
-// `rk4_stage`'s op order, so the state is bit for bit `rk4_stage`'s and
-// the plain version's; the energy partials, one row a block, are summed in
-// another order.
+// written once; the stages redo 1.35x the tile's cells. Each cell runs the
+// plain version's op order, so the state is bit for bit the plain
+// version's; the energy partials, one row a block, are summed in another
+// order.
 //   The general rasterisation (`rasterize`, :227) fills the wavespeed at
 // the three stage times before the stacks, where the radii-only one reads
 // the owner fields: each cylinder lerped to the time's weight, summed in
@@ -175,9 +160,9 @@
 // Cylinders: the general mode and the owner pass stream the (8, n_cyl)
 // table through shared memory in chunks of CYL_CHUNK, in order, so sums
 // and ties do not depend on the chunking and there is no cap on n_cyl
-// (the one-launch step stages each chunk in its stage-input buffer, free
-// until the first stage). Every thread of a block reaches each chunk's
-// barriers; threads outside the grid skip only the arithmetic.
+// (the step stages each chunk in its stage-input buffer, free until the
+// first stage). Every thread of a block reaches each chunk's barriers;
+// threads outside the grid skip only the arithmetic.
 //
 // Numerics: the library is compiled with -fmad=false, so every a*b+c
 // rounds twice, as in the plain PyTorch version and the JAX kernel. The op
@@ -207,27 +192,14 @@ constexpr int TILED_MIN_BLOCKS = 3;  // resident blocks an SM the registers must
 static_assert(SH == 3 * BY, "a thread works three region rows");
 static_assert(SW == BX, "a warp spans the region's columns");
 
+// The owner pass's grid: n rows of w local columns, local column j at
+// global column col0 + j, coordinates x_min + index * spacing.
 struct Geometry {
-  int n;     // rows, and columns of the whole domain
-  int w;     // local columns: n, or ny_local + 2 HALO for a slab
-  int col0;  // global column of local column 0
+  int n;
+  int w;
+  int col0;
   float spacing;
-  float inv2d;  // 1 / (2 spacing)
   float x_min;
-  float c0;
-  float freq;
-};
-
-// Value of the stage input u + a * kp at flat index q (MODE 0: u itself).
-template <int MODE>
-struct StageInput {
-  const float* __restrict__ u;
-  const float* __restrict__ kp;
-  float a;
-  __device__ __forceinline__ float operator()(int q) const {
-    if (MODE == 0) return __ldg(u + q);
-    return __ldg(u + q) + a * __ldg(kp + q);
-  }
 };
 
 // First derivative along an axis: one-sided forward where `first`, backward
@@ -309,166 +281,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// MODE 0: k1 = rhs(u).  MODE 1: out = rhs(u + a*kp).
-// MODE 2: k4 = rhs(u + a*kp) with kp = k3; out = u + sixth*(k1+2k2+2k3+k4),
-//         and partials[block] = [sum u_tot^2, sum u_inc^2, sum (u_tot-u_inc)^2]
-//         over the block's owned cells.
-// On a slab (K4): the whole grid, in every mode, is `rk4_step_tiled`.
-// Candidate blockIdx.z reads and writes its own (12, n, w) state slices,
-// (8, n_cyl) cylinders, (5, n, w) owner fields and partial rows; the
-// (n, w) source shape and the (n) profile are shared. XM takes d/dx in
-// K5's split form (K4-XM).
-template <int MODE, bool RADII, bool XM>
-__global__ void __launch_bounds__(BX * BY)
-rk4_stage(const float* __restrict__ u, const float* __restrict__ kp, float a,
-          const float* __restrict__ k1, const float* __restrict__ k2, float sixth,
-          float* __restrict__ out, float* __restrict__ partials,
-          const float* __restrict__ shape, const float* __restrict__ prof,
-          const float* __restrict__ cyl, int n_cyl, const float* __restrict__ owner,
-          Geometry g, float ts, float ti, float tf) {
-  __shared__ float s_cyl[8 * CYL_CHUNK];
-  __shared__ float red[BX * BY / 32];
-  const int n = g.n;
-  const int w = g.w;
-  const int nn = n * w;
-  const size_t cand = blockIdx.z;
-  const size_t so = cand * 12 * (size_t)nn;
-  u += so;
-  out += so;
-  if (MODE > 0) kp += so;
-  if (MODE == 2) {
-    k1 += so;
-    k2 += so;
-  }
-  if (RADII) {
-    owner += cand * 5 * (size_t)nn;
-  } else {
-    cyl += cand * 8 * (size_t)n_cyl;
-  }
-  const int j = blockIdx.x * BX + threadIdx.x;  // local column (y)
-  const int i = blockIdx.y * BY + threadIdx.y;  // row (x)
-  const int jg = g.col0 + j;  // global column
-  const bool inside = i < n && j < w;
-  const bool live = inside && jg >= 0 && jg < n;
-  const int p = i * w + j;
-
-  const float span = tf - ti;
-  const float denom = span > 0.0f ? span : 1.0f;
-  const float lw = (fminf(fmaxf(ts, ti), tf) - ti) / denom;  // lerp weight
-
-  float c = g.c0;
-  if (RADII) {
-    if (live) {
-      const float r = __ldg(owner + nn + p) + lw * __ldg(owner + 2 * nn + p);
-      const bool m = __ldg(owner + p) < r * r;
-      c = m ? __ldg(owner + 3 * nn + p) + lw * __ldg(owner + 4 * nn + p) : g.c0;
-    }
-  } else {
-    const float x = g.x_min + (float)i * g.spacing;
-    const float y = g.x_min + (float)jg * g.spacing;
-    float csum = 0.0f, covered = 0.0f;
-    for (int q0 = 0; q0 < n_cyl; q0 += CYL_CHUNK) {
-      const int cnt = min(CYL_CHUNK, n_cyl - q0);
-      load_cylinders(s_cyl, cyl, n_cyl, q0, cnt);
-      if (!live) continue;
-      for (int q = 0; q < cnt; ++q) {
-        const float* cq = s_cyl + q;  // rows [p1x, p1y, r1, c1, p2x, p2y, r2, c2]
-        const float px = cq[0] + lw * (cq[4 * CYL_CHUNK] - cq[0]);
-        const float py = cq[CYL_CHUNK] + lw * (cq[5 * CYL_CHUNK] - cq[CYL_CHUNK]);
-        const float rq = cq[2 * CYL_CHUNK] + lw * (cq[6 * CYL_CHUNK] - cq[2 * CYL_CHUNK]);
-        const float ccq = cq[3 * CYL_CHUNK] + lw * (cq[7 * CYL_CHUNK] - cq[3 * CYL_CHUNK]);
-        const float ddx = x - px;
-        const float ddy = y - py;
-        const float d2 = ddx * ddx + ddy * ddy;
-        if (d2 < rq * rq) {
-          csum = csum + ccq;
-          covered = covered + 1.0f;
-        }
-      }
-    }
-    if (covered != 0.0f) c = csum;
-  }
-
-  float e_tot = 0.0f, e_inc = 0.0f, e_sc = 0.0f;
-  if (inside && !live) {
-    // outside the domain: every stage output and the new state are 0
-#pragma unroll
-    for (int ch = 0; ch < 12; ++ch) out[ch * nn + p] = 0.0f;
-  } else if (live) {
-    const StageInput<MODE> v{u, kp, a};
-    const float sn = sinf(TWO_PI * ts * g.freq);
-    const float sx = __ldg(prof + i);
-    const float sy = __ldg(prof + jg);
-    const float bc = (i > 0 && i < n - 1 && jg > 0 && jg < n - 1) ? 1.0f : 0.0f;
-    const bool x_first = i == 0, x_last = i == n - 1;
-    const bool y_first = jg == 0 || j == 0;
-    const bool y_last = jg == n - 1 || j == w - 1;
-
-#pragma unroll
-    for (int stack = 0; stack < 2; ++stack) {
-      const int o = 6 * stack * nn;
-      const float b = stack == 0 ? c * c : g.c0 * g.c0;
-      auto uf = [&](int q) { return v(o + q) + __ldg(shape + q) * sn; };  // U + f
-      auto vx = [&](int q) { return v(o + nn + q); };
-      auto vy = [&](int q) { return v(o + 2 * nn + q); };
-      const float Vxx = XM ? d_split(vx, x_first, x_last, p, w, g.inv2d)
-                           : d_edge(vx, x_first, x_last, p, w, g.inv2d);
-      const float Vyy = d_edge(vy, y_first, y_last, p, 1, g.inv2d);
-      const float Ux = XM ? d_split(uf, x_first, x_last, p, w, g.inv2d)
-                          : d_edge(uf, x_first, x_last, p, w, g.inv2d);
-      const float Uy = d_edge(uf, y_first, y_last, p, 1, g.inv2d);
-      const float U = v(o + p);
-      const float Px = v(o + 3 * nn + p);
-      const float Py = v(o + 4 * nn + p);
-      const float Om = v(o + 5 * nn + p);
-      float k[6];
-      k[0] = bc * (b * (Vxx + Vyy) + Px + Py - (sx + sy) * U - Om);
-      k[1] = Ux - sx * vx(p);
-      k[2] = Uy - sy * vy(p);
-      k[3] = b * sx * Vyy;
-      k[4] = b * sy * Vxx;
-      k[5] = sx * sy * U;
-#pragma unroll
-      for (int ch = 0; ch < 6; ++ch) {
-        const int q = o + ch * nn + p;
-        if (MODE < 2) {
-          out[q] = k[ch];
-        } else {
-          const float un = __ldg(u + q) +
-                           sixth * (__ldg(k1 + q) + 2.0f * __ldg(k2 + q) + 2.0f * __ldg(kp + q) + k[ch]);
-          out[q] = un;
-          if (ch == 0) {
-            if (stack == 0) e_tot = un; else e_inc = un;
-          }
-        }
-      }
-    }
-    if (MODE == 2) {
-      if (j >= HALO && j < w - HALO) {  // owned columns
-        const float sc = e_tot - e_inc;
-        e_sc = sc * sc;
-        e_tot = e_tot * e_tot;
-        e_inc = e_inc * e_inc;
-      } else {
-        e_tot = e_inc = 0.0f;
-      }
-    }
-  }
-
-  if (MODE == 2) {
-    const float s_tot = block_sum(e_tot, red);
-    const float s_inc = block_sum(e_inc, red);
-    const float s_sc = block_sum(e_sc, red);
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-      const size_t blocks = (size_t)gridDim.x * gridDim.y;
-      float* dst = partials + 3 * (cand * blocks + blockIdx.y * gridDim.x + blockIdx.x);
-      dst[0] = s_tot;
-      dst[1] = s_inc;
-      dst[2] = s_sc;
-    }
-  }
-}
-
 // Owner fields of the radii-only mode, once per window: for each cell the
 // cylinder with the smallest gap d2 - rmax^2 (first in order on ties), as
 // owner[0..4] = [d2, r1, r2 - r1, c1, c2 - c1], from global coordinates.
@@ -521,7 +333,7 @@ select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// Every mode on the whole grid, one launch per RK4 step (`rk4_step_tiled`)
+// One launch per RK4 step (`rk4_step_tiled`)
 // ---------------------------------------------------------------------------
 
 // Rows or columns [lo, hi] of the whole grid.
@@ -540,6 +352,8 @@ __device__ __forceinline__ Span shrink(Span s, int n) {
 // The step's parameters that do not change within a window.
 struct StepParams {
   int n;
+  int w;     // a slab's local columns, ny + 2 HALO (SLAB only)
+  int col0;  // slab 0's global column of local column 0 (SLAB only)
   float inv2d;
   float c0;
   float freq;
@@ -547,8 +361,9 @@ struct StepParams {
   float full;   // dt
   float sixth;  // dt / 6
   float ti, tf;  // the design lerp's window
-  // the general mode's: the (batch, 8, n_cyl) lerp endpoints, and the
-  // coordinate x_min + i * spacing of row or column i
+  // the general mode's: the (8, n_cyl) lerp endpoints (one table a
+  // candidate, or one for all slabs), and the coordinate
+  // x_min + i * spacing of row or column i
   const float* cyl;
   int n_cyl;
   float x_min, spacing;
@@ -557,7 +372,7 @@ struct StepParams {
 // The right-hand side of one stack (6 channels) at region cell l, from the
 // stage input in shared memory, [U, Vx, Vy] in `nb` (read at the stencil's
 // neighbours) and [Psix, Psiy, Omega] in `pw` (read at l alone), each
-// channel SC floats on, in `rk4_stage`'s op order: `stack_rhs`
+// channel SC floats on, in the plain version's op order: `stack_rhs`
 // (pallas_fd.py:315) with K5's split d/dx if XM, else the exact one, and
 // the exact d/dy.
 template <bool XM>
@@ -589,8 +404,8 @@ __device__ __forceinline__ void stack_rhs_tiled(const float* nb, const float* pw
 
 // The general mode's wavespeed at the three stage times (lerp weights lw)
 // on this thread's region cells, rows r0 + rows[a] of column gj, into
-// s_c (c0 outside the loaded rows load_r and columns), in `rk4_stage`'s op
-// order (`rasterize`,
+// s_c (c0 outside the loaded rows load_r and columns), in the plain
+// version's op order (`rasterize`,
 // pallas_fd.py:227): each cylinder lerped to the weight, its speed summed
 // in order where d2 < r^2, c0 where no cylinder covers the cell. A chunk
 // of CYL_CHUNK cylinders is lerped once, one cylinder a thread, into s_cyl
@@ -676,18 +491,20 @@ __device__ __forceinline__ void fill_general(float* s_c, float* s_cyl, int* s_hi
   }
 }
 
-// One whole RK4 step for `gridDim.z` candidates (see the note at the
-// top): K5's split d/dx if XM, else the exact one; the general
-// rasterisation of the (8, n_cyl) cylinders `g.cyl` if GENERAL, else the
-// owner test on the (5, n, n) fields `owner`.
-// Block (bx, by, z) owns the TX x TY tile of candidate z from row by * TX
-// and column bx * TY. Its region, the tile with HALO cells on every side
-// (one more row or column above or left of a one-cell tile on the domain's
-// last row or column, whose one-sided stencil reaches five cells), lies in
-// shared memory as SH x SW cells from global (r0, c0g);
-// thread (tx, ty) works region column tx and rows HALO + ty, HALO + BY + ty
-// (the tile's rows, slots 0 and 1) and ty or 2 BY + ty (the halo rows,
-// slot 2). Dynamic shared memory, TILED_SMEM bytes:
+// One whole RK4 step for `gridDim.z` candidates on the whole grid, or
+// `gridDim.z` consecutive slabs if SLAB (see the note at the top): K5's split d/dx
+// if XM, else the exact one; the general rasterisation of the (8, n_cyl)
+// cylinders `g.cyl` if GENERAL, else the owner test on the (5, n, w)
+// fields `owner`.
+// Block (bx, by, z) owns the TX x TY tile of candidate or slab z from
+// global row by * TX and from global column bx * TY past z's first owned
+// column. Its region, the tile with HALO cells on every side (one more row
+// or column above or left of a one-cell tile on the domain's last row or
+// column, whose one-sided stencil reaches five cells), lies in shared
+// memory as SH x SW cells from global (r0, c0g); thread (tx, ty) works
+// region column tx and rows HALO + ty, HALO + BY + ty (the tile's rows,
+// slots 0 and 1) and ty or 2 BY + ty (the halo rows, slot 2). Dynamic
+// shared memory, TILED_SMEM bytes:
 //   s_u [6][SC]  the state of the stack in work, 0 outside the region
 //   s_v [6][SC]  the stage input u + a k of that stack
 //   s_w [3][SC]  the other buffer of the stage input's U, Vx and Vy
@@ -701,7 +518,7 @@ __device__ __forceinline__ void fill_general(float* s_c, float* s_cyl, int* s_hi
 // thread that writes them, stay in s_v. The two stacks (tot with c^2, inc
 // with c0^2) run one after the other through the same buffers; stack 0's
 // new U stays in registers for sc.
-template <bool XM, bool GENERAL>
+template <bool XM, bool GENERAL, bool SLAB>
 __global__ void __launch_bounds__(BX * BY, TILED_MIN_BLOCKS)
 rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
                float* __restrict__ partials, const float* __restrict__ shape,
@@ -714,22 +531,32 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
   float* s_f = s_w + 3 * SC;
   float* s_c = s_f + SC;
   const int n = g.n;
-  const int nn = n * n;
+  const int w = SLAB ? g.w : n;
+  const int nn = n * w;
+  const int ghost = SLAB ? HALO : 0;  // halo columns a side
+  const int ny = w - 2 * ghost;       // owned columns
+  // z: the candidate on the whole grid (its own cylinders, the source shape
+  // shared), or the slab (its own columns and source shape, the cylinders
+  // shared)
   const size_t cand = blockIdx.z;
+  const int col0 = SLAB ? g.col0 + (int)cand * ny : 0;  // global column of local column 0
   u += cand * 12 * (size_t)nn;
   out += cand * 12 * (size_t)nn;
+  if constexpr (SLAB) shape += cand * (size_t)nn;
   if constexpr (!GENERAL) owner += cand * 5 * (size_t)nn;
   const int tx = threadIdx.x, ty = threadIdx.y;
 
-  const int ti0 = blockIdx.y * TX, tj0 = blockIdx.x * TY;
+  const int own0 = col0 + ghost;  // global column of the first owned column
+  const int ti0 = blockIdx.y * TX, tj0 = own0 + blockIdx.x * TY;
   const Span tile_r{ti0, min(ti0 + TX, n) - 1};
-  const Span tile_c{tj0, min(tj0 + TY, n) - 1};
+  const Span tile_c{tj0, min(tj0 + TY, own0 + ny) - 1};
   const int r0 = ti0 - HALO - (ti0 == n - 1 ? 1 : 0);  // global row of region row 0
   const int c0g = tj0 - HALO - (tj0 == n - 1 ? 1 : 0);  // global column of region column 0
   const Span load_r{max(r0, 0), min(tile_r.hi + HALO, n - 1)};
   const Span load_c{max(c0g, 0), min(tile_c.hi + HALO, n - 1)};
   const int rows[3] = {HALO + ty, HALO + BY + ty, ty < HALO ? ty : 2 * BY + ty};
   const int gj = c0g + tx;
+  const int lj = gj - col0;  // local column
   const bool col_in = load_c.has(gj);
 
   // the stage times (`stage_times`), their lerp weights and source phases
@@ -752,7 +579,7 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
     const int gi = r0 + rows[a];
     const int l = rows[a] * SW + tx;
     const bool in = col_in && load_r.has(gi);
-    const int q = in ? gi * n + gj : 0;
+    const int q = in ? gi * w + lj : 0;
     sx[a] = __ldg(prof + min(max(gi, 0), n - 1));
     s_f[l] = in ? __ldg(shape + q) : 0.0f;
     if constexpr (!GENERAL) {
@@ -771,7 +598,8 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
   if constexpr (GENERAL) {
     // the cylinders' chunk in s_v, free until stack 0's first stage
     fill_general(s_c, s_v, reinterpret_cast<int*>(s_v + 12 * CYL_CHUNK),
-                 g.cyl + cand * 8 * (size_t)g.n_cyl, g, lw, r0, c0g, rows, col_in, load_r, gj);
+                 g.cyl + (SLAB ? 0 : cand * 8 * (size_t)g.n_cyl), g, lw, r0, c0g, rows, col_in,
+                 load_r, gj);
   }
 
   float u_tot[2] = {0.0f, 0.0f};  // stack 0's new U at the tile cells
@@ -784,7 +612,7 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
       const int gi = r0 + rows[a];
       const int l = rows[a] * SW + tx;
       const bool in = col_in && load_r.has(gi);
-      const float* src = u + (size_t)6 * stack * nn + (in ? gi * n + gj : 0);
+      const float* src = u + (size_t)6 * stack * nn + (in ? gi * w + lj : 0);
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) s_u[ch * SC + l] = in ? __ldg(src + ch * nn) : 0.0f;
     }
@@ -827,7 +655,7 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
           }
         } else if (a < 2) {
           // u + dt/6 (k1 + 2 k2 + 2 k3 + k4), left to right as the closed form
-          float* dst = out + (size_t)6 * stack * nn + gi * n + gj;
+          float* dst = out + (size_t)6 * stack * nn + gi * w + lj;
           float un = 0.0f;
 #pragma unroll
           for (int ch = 0; ch < 6; ++ch) {
@@ -849,6 +677,22 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
     }
   }
 
+  // a slab's halo columns are written 0: the left ones by the first tile
+  // column's blocks, the right ones by the last's
+  if constexpr (SLAB) {
+    if ((blockIdx.x == 0 && lj < HALO) ||
+        (blockIdx.x == gridDim.x - 1 && lj >= HALO + ny && lj < w)) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int gi = r0 + rows[a];
+        if (!tile_r.has(gi)) continue;
+        float* dst = out + gi * w + lj;
+#pragma unroll
+        for (int ch = 0; ch < 12; ++ch) dst[ch * nn] = 0.0f;
+      }
+    }
+  }
+
   // s_c is free: stack 1 does not read it
   const float s_tot = block_sum(e_tot, s_c);
   const float s_inc = block_sum(e_inc, s_c);
@@ -866,36 +710,37 @@ dim3 grid_for(int n, int w, int batch) {
   return dim3((w + BX - 1) / BX, (n + BY - 1) / BY, batch);
 }
 
-dim3 tiled_grid(int n, int batch) { return dim3((n + TY - 1) / TY, (n + TX - 1) / TX, batch); }
+// The step's grid for n rows and ny owned columns a candidate or slab.
+dim3 tiled_grid(int n, int ny, int batch) {
+  return dim3((ny + TY - 1) / TY, (n + TX - 1) / TX, batch);
+}
 
-// Lets `rk4_step_tiled<XM, GENERAL>` take TILED_SMEM bytes of dynamic
+// Lets `rk4_step_tiled<XM, GENERAL, SLAB>` take TILED_SMEM bytes of dynamic
 // shared memory, more than the 48 KB a kernel gets unasked, on the current
 // device, once a device. The attribute is an instance's own, and so is its
 // cache.
-template <bool XM, bool GENERAL>
+template <bool XM, bool GENERAL, bool SLAB>
 cudaError_t configure_tiled() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(rk4_step_tiled<XM, GENERAL>,
+  e = cudaFuncSetAttribute(rk4_step_tiled<XM, GENERAL, SLAB>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, TILED_SMEM);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
 }
 
-// The whole grid is w == n with col0 == 0. Any other (w, col0) is a slab
-// with HALO halo columns on each side whose owned columns lie in the
-// domain (a slab never has col0 == 0: col0 = start - HALO and the start is
-// 0 or at least 2 HALO). Returns false for anything else.
-bool make_geometry(int n, int w, int col0, float spacing, float inv2d, float x_min, float c0,
-                   float freq, Geometry* g) {
+// The whole grid is w == n with col0 == 0. Any other (w, col0) is the
+// first of `slabs` consecutive slabs with HALO halo columns on each side,
+// each of ny = w - 2 HALO >= 2 HALO owned columns, all in the domain (a
+// slab never has col0 == 0: col0 = start - HALO and the start is 0 or at
+// least 2 HALO). Returns false for anything else.
+bool valid_extent(int n, int w, int col0, int slabs) {
   if (n < 3) return false;
-  if (!(w == n && col0 == 0) && (w < 4 * HALO || col0 + HALO < 0 || col0 + w - HALO > n)) {
-    return false;
-  }
-  *g = Geometry{n, w, col0, spacing, inv2d, x_min, c0, freq};
-  return true;
+  if (w == n && col0 == 0) return true;
+  const long ny = w - 2 * HALO;
+  return ny >= 2 * HALO && col0 + HALO >= 0 && col0 + HALO + slabs * ny <= n;
 }
 
 }  // namespace
@@ -904,149 +749,119 @@ bool make_geometry(int n, int w, int col0, float spacing, float inv2d, float x_m
 // by the caller, so that a step marshals four pointers and a time. The
 // layout is that of `_TiledWindow` in ops/fused_rk4.py.
 struct TiledWindow {
-  const float* shape;  // (n, n), shared by the candidates
+  const float* shape;  // (n, n) shared by the candidates, or (batch, n, w) a slab each
   const float* prof;   // (n)
-  const float* owner;  // (batch, 5, n, n) of the radii-only mode; null: the general mode
-  const float* cyl;    // (batch, 8, n_cyl) of the general mode
+  const float* owner;  // (batch, 5, n, w) of the radii-only mode; null: the general mode
+  const float* cyl;    // (batch, 8, n_cyl) of the general mode, or (8, n_cyl) for all slabs
   void* stream;
-  int batch;
+  int batch;  // candidates on the whole grid, or slabs
   int n;
-  int xm;  // 1: K5's split d/dx; 0: the exact one (K1, K2, K3)
+  int w;     // n on the whole grid, or a slab's local columns
+  int col0;  // 0 on the whole grid, or the first slab's global column of local column 0
+  int xm;    // 1: K5's split d/dx; 0: the exact one (K1, K2, K3)
   int n_cyl;
   float inv2d, c0, freq, half, full, sixth, ti, tf, x_min, spacing;
 };
 
 namespace {
 
-template <bool XM, bool GENERAL>
+template <bool XM, bool GENERAL, bool SLAB>
 int step_occupancy() {
   int blocks = 0;
-  cudaError_t e = configure_tiled<XM, GENERAL>();
+  cudaError_t e = configure_tiled<XM, GENERAL, SLAB>();
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rk4_step_tiled<XM, GENERAL>,
-                                                      BX * BY, TILED_SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, rk4_step_tiled<XM, GENERAL, SLAB>, BX * BY, TILED_SMEM);
   }
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
-template <bool XM, bool GENERAL>
+template <bool XM, bool GENERAL, bool SLAB>
 int step_tiled(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
-  const cudaError_t e = configure_tiled<XM, GENERAL>();
+  const cudaError_t e = configure_tiled<XM, GENERAL, SLAB>();
   if (e != cudaSuccess) return (int)e;
-  const StepParams p{w->n,  w->inv2d, w->c0,  w->freq,  w->half,  w->full,
-                     w->sixth, w->ti, w->tf, w->cyl, w->n_cyl, w->x_min, w->spacing};
-  rk4_step_tiled<XM, GENERAL><<<tiled_grid(w->n, w->batch), dim3(BX, BY), TILED_SMEM,
-                                (cudaStream_t)w->stream>>>(u, out, partials, w->shape, w->prof,
-                                                           w->owner, p, t);
+  const StepParams p{w->n,   w->w,  w->col0, w->inv2d, w->c0,    w->freq,  w->half, w->full,
+                     w->sixth, w->ti, w->tf,  w->cyl,   w->n_cyl, w->x_min, w->spacing};
+  const int ny = SLAB ? w->w - 2 * HALO : w->n;
+  rk4_step_tiled<XM, GENERAL, SLAB><<<tiled_grid(w->n, ny, w->batch), dim3(BX, BY), TILED_SMEM,
+                                      (cudaStream_t)w->stream>>>(u, out, partials, w->shape,
+                                                                 w->prof, w->owner, p, t);
   return (int)cudaGetLastError();
+}
+
+template <bool SLAB>
+int step_instance(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
+  if (w->owner == nullptr) {
+    return w->xm ? step_tiled<true, true, SLAB>(w, u, out, partials, t)
+                 : step_tiled<false, true, SLAB>(w, u, out, partials, t);
+  }
+  return w->xm ? step_tiled<true, false, SLAB>(w, u, out, partials, t)
+               : step_tiled<false, false, SLAB>(w, u, out, partials, t);
+}
+
+template <bool SLAB>
+int occupancy_instance(int xm, int general) {
+  if (general) {
+    return xm ? step_occupancy<true, true, SLAB>() : step_occupancy<false, true, SLAB>();
+  }
+  return xm ? step_occupancy<true, false, SLAB>() : step_occupancy<false, false, SLAB>();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of energy-partial rows (blocks) a final stage writes for an n x w
-// grid or slab, per candidate.
-int fused_rk4_blocks(int n, int w) {
-  const dim3 gr = grid_for(n, w, 1);
+// Energy-partial rows (blocks) of one candidate's or slab's step on n rows
+// and ny owned columns (n x n on the whole grid).
+int fused_rk4_step_blocks(int n, int ny) {
+  const dim3 gr = tiled_grid(n, ny, 1);
   return (int)(gr.x * gr.y);
 }
 
-// One RK4 stage of K4 on a slab, (w, col0) not (n, 0), for `batch`
-// candidates. `mode` 0, 1 or 2 as for `rk4_stage`, `radii` selects the
-// owner test, `xm` the split d/dx of K5 (K4-XM). The whole grid is refused
-// in every mode and both d/dx forms: it is `fused_rk4_step_tiled`, one
-// launch a step. u, kp, k1, k2
-// and out are (batch, 12, n, w), cyl (batch, 8, n_cyl), owner
-// (batch, 5, n, w), partials (batch, fused_rk4_blocks(n, w), 3); shape
-// (n, w) and prof (n) are shared. Returns the cudaError_t of the launch.
-int fused_rk4_stage(int batch, int mode, int radii, int xm, const float* u, const float* kp,
-                    float a,
-                    const float* k1, const float* k2, float sixth, float* out, float* partials,
-                    const float* shape, const float* prof, const float* cyl, int n_cyl,
-                    const float* owner, int n, int w, int col0, float spacing, float inv2d,
-                    float x_min, float c0, float freq, float ts, float ti, float tf,
-                    void* stream) {
-  Geometry g;
-  if (!make_geometry(n, w, col0, spacing, inv2d, x_min, c0, freq, &g) || n_cyl < 0 ||
-      mode < 0 || mode > 2 || batch < 1 || batch > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 block(BX, BY);
-  const dim3 gr = grid_for(n, w, batch);
-  if (w == n && col0 == 0) {
-    return (int)cudaErrorInvalidValue;  // the whole grid: `fused_rk4_step_tiled`
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-#define WAVES_LAUNCH(M, R, X)                                                               \
-  rk4_stage<M, R, X><<<gr, block, 0, s>>>(u, kp, a, k1, k2, sixth, out, partials, shape, \
-                                          prof, cyl, n_cyl, owner, g, ts, ti, tf)
-#define WAVES_MODES(R, X)                   \
-  if (mode == 0) WAVES_LAUNCH(0, R, X);     \
-  else if (mode == 1) WAVES_LAUNCH(1, R, X); \
-  else WAVES_LAUNCH(2, R, X)
-  if (radii) {
-    if (xm) { WAVES_MODES(true, true); }
-    else { WAVES_MODES(true, false); }
-  } else {
-    if (xm) { WAVES_MODES(false, true); }
-    else { WAVES_MODES(false, false); }
-  }
-#undef WAVES_MODES
-#undef WAVES_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-// Energy-partial rows (blocks) of one candidate's tiled step on an n x n grid.
-int fused_rk4_step_blocks(int n) {
-  const dim3 gr = tiled_grid(n, 1);
-  return (int)(gr.x * gr.y);
-}
-
-// Dynamic shared memory of a block of the tiled step, in bytes.
+// Dynamic shared memory of a block of the step, in bytes.
 int fused_rk4_step_smem() { return TILED_SMEM; }
 
-// Blocks of the tiled step's instance (xm 1: split d/dx, 0: exact;
-// general 1: the general rasterisation, 0: the owner test) resident on one
-// SM of the current device, as the occupancy calculator gives it for the
-// instance's registers and shared memory; negative on an error.
-int fused_rk4_step_occupancy(int xm, int general) {
-  if (general) return xm ? step_occupancy<true, true>() : step_occupancy<false, true>();
-  return xm ? step_occupancy<true, false>() : step_occupancy<false, false>();
+// Blocks of the step's instance (xm 1: split d/dx, 0: exact; general 1:
+// the general rasterisation, 0: the owner test; slab 1: on slabs, 0: on
+// the whole grid) resident on one SM of the current device, as the
+// occupancy calculator gives it for the instance's registers and shared
+// memory; negative on an error.
+int fused_rk4_step_occupancy(int xm, int general, int slab) {
+  return slab ? occupancy_instance<true>(xm, general) : occupancy_instance<false>(xm, general);
 }
 
-// One whole RK4 step on the whole grid, in one launch, with the exact d/dx
-// for w->xm 0 (K1, K2, K3) or the split one for w->xm 1 (K5, batched K5);
+// One whole RK4 step in one launch, with the exact d/dx for w->xm 0 (K1,
+// K2, K3, K4) or the split one for w->xm 1 (K5, batched K5, K4-XM);
 // radii-only on w->owner's fields, or general on w->cyl's n_cyl cylinders
-// where w->owner is null (a null w->cyl only with no cylinder). u and out
-// (batch, 12, n, n), partials (batch, fused_rk4_step_blocks(n), 3), t the
-// step's start time. Returns the cudaError_t of the launch.
+// where w->owner is null (a null w->cyl only with no cylinder). On the
+// whole grid (w->w == n, w->col0 == 0) of w->batch candidates: u and out
+// (batch, 12, n, n), partials (batch, fused_rk4_step_blocks(n, n), 3). On
+// w->batch consecutive slabs of w->w local columns from w->col0: u and out
+// (batch, 12, n, w), their halo columns written 0, partials
+// (batch, fused_rk4_step_blocks(n, w - 8), 3). t is the step's start time.
+// Returns the cudaError_t of the launch.
 int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float* partials,
                          float t) {
-  if (w == nullptr || w->n < 3 || w->batch < 1 || w->batch > 65535 || w->xm < 0 || w->xm > 1 ||
-      w->n_cyl < 0 || (w->owner == nullptr && w->n_cyl > 0 && w->cyl == nullptr)) {
+  if (w == nullptr || w->batch < 1 || w->batch > 65535 ||
+      !valid_extent(w->n, w->w, w->col0, w->batch) || w->xm < 0 || w->xm > 1 || w->n_cyl < 0 ||
+      (w->owner == nullptr && w->n_cyl > 0 && w->cyl == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (w->owner == nullptr) {
-    return w->xm ? step_tiled<true, true>(w, u, out, partials, t)
-                 : step_tiled<false, true>(w, u, out, partials, t);
-  }
-  return w->xm ? step_tiled<true, false>(w, u, out, partials, t)
-               : step_tiled<false, false>(w, u, out, partials, t);
+  const bool whole = w->w == w->n && w->col0 == 0;
+  return whole ? step_instance<false>(w, u, out, partials, t)
+               : step_instance<true>(w, u, out, partials, t);
 }
 
 // Owner fields (batch, 5, n, w) of `batch` candidates' cylinders
-// (batch, 8, n_cyl); batch 1 for a single state, (w, col0) as for
-// `fused_rk4_stage`.
+// (batch, 8, n_cyl) on the whole grid (w == n, col0 == 0), or of one
+// slab's (batch 1) with local column j at global column col0 + j.
 int select_owner(int batch, const float* cyl, int n_cyl, float* owner, int n, int w, int col0,
                  float spacing, float x_min, void* stream) {
-  Geometry g;
-  if (!make_geometry(n, w, col0, spacing, 0.0f, x_min, 0.0f, 0.0f, &g) || n_cyl < 0 ||
-      batch < 1 || batch > 65535) {
+  if (!valid_extent(n, w, col0, 1) || n_cyl < 0 || batch < 1 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   select_owner_kernel<<<grid_for(n, w, batch), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      cyl, n_cyl, owner, g);
+      cyl, n_cyl, owner, Geometry{n, w, col0, spacing, x_min});
   return (int)cudaGetLastError();
 }
 

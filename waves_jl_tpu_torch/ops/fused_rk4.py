@@ -4,27 +4,25 @@ The CUDA kernel (`csrc/fused_rk4.cu`) takes the place of the Pallas kernel
 `make_fused_acoustic_step` of the JAX package (`waves_jl_tpu/ops/pallas_fd.py`):
 K1, the general rasterisation, K2, the radii-only owner rasterisation, K3,
 either of them for K candidate states in one launch (`batch=K`, the hybrid
-controller's re-rank), and K4, either of them on one column slab of a
-y-sharded grid (`slab=`, the domain-decomposed rollout of
-`parallel/fused_domain.py`). K5, `x_matmul=True`, takes d/dx as the JAX
-kernel's default mode does, a bf16 hi/lo split summed in float32
-(`ops/fd.py::dx_split_bf16`), in K1's, K2's or K3's launch, or on a slab
-(K4-XM); the JAX package's fused paths but the sharded one default to it.
-This module builds the kernel with plain `nvcc` into a shared library with
-a C interface at first use, binds it with `ctypes`, and keeps the plain
-PyTorch version of the same function beside it.
+controller's re-rank), and K4, either of them on column slabs of a
+y-sharded grid (`slab=`, or all of a card's slabs stacked in one launch,
+the domain-decomposed rollout of `parallel/fused_domain.py`). K5,
+`x_matmul=True`, takes d/dx as the JAX kernel's default mode does, a bf16
+hi/lo split summed in float32 (`ops/fd.py::dx_split_bf16`), in K1's, K2's
+or K3's launch, or on slabs (K4-XM); the JAX package's fused paths but the
+sharded one default to it. This module builds the kernel with plain `nvcc`
+into a shared library with a C interface at first use, binds it with
+`ctypes`, and keeps the plain PyTorch version of the same function beside
+it.
 
-Every mode on the whole grid, single or batched, in either d/dx form and
-either rasterisation (K1, K2, K3 and K5: radii-only is the default path
-of the env window, datagen, the controllers and the hybrid's re-rank,
-general that of moving cylinders and the free field), runs a whole RK4
+Every mode, in either d/dx form and either rasterisation, runs a whole RK4
 step in one launch (`rk4_step_tiled`: each block keeps its tile and a
 4-cell halo in shared memory through the four stages, and the general
-mode rasterises only the cylinders that reach its tile). The slabs (K4,
-K4-XM) run one launch per RK4 stage, `STAGES` a step. `fused_rk4_window`
-drives a window's steps as the env window and the re-rank do: it makes
-its two state buffers and its energy partials once a window and marshals
-the window's fixed inputs once.
+mode rasterises only the cylinders that reach its tile). `fused_rk4_window`
+drives a window's steps as the env window and the re-rank do, and
+`SlabWindow` a card's slabs through a sharded rollout: each makes its two
+state buffers and its energy partials once a window and marshals the
+window's fixed inputs once.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
@@ -39,8 +37,10 @@ multiplied by the cell area. The batched functions take the same tensors
 with a leading candidate axis K on the state, cylinders and owner fields;
 the source shape and the PML profile are shared. On a `Slab` the state,
 source shape and owner fields are (.., n, slab.w) column slabs of the
-global grid, the profile stays the global (n,) one, and the energies cover
-the slab's owned columns.
+global grid, the profile stays the global (n,) one, the energies cover
+the slab's owned columns, and the new state's halo columns are 0. Stacked
+slabs take a leading slab axis S on the state, source shape and owner
+fields, and share the cylinders and the profile.
 """
 from __future__ import annotations
 
@@ -69,9 +69,6 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",
 )
-# RK4 stages a step: the launches a step of the slabs (K4, K4-XM); every
-# mode on the whole grid takes one a step
-STAGES = 4
 HALO = 4  # halo cells one RK4 step consumes on each side (pallas_fd.py:31)
 TILE = (16, 24)  # rows and columns of a block's tile in `rk4_step_tiled` (TX, TY)
 
@@ -119,6 +116,11 @@ class Slab:
     w: int
     col0: int
 
+    @property
+    def ny(self) -> int:
+        """Owned columns."""
+        return self.w - 2 * HALO
+
     def columns(self, device) -> torch.Tensor:
         """(w,) global column index of each local column."""
         return torch.arange(self.col0, self.col0 + self.w, device=device)
@@ -151,7 +153,7 @@ def step_flops(n: int, n_cyl: int, radii_only: bool, w: int | None = None,
     raster = 5 if radii_only else 14 * n_cyl
     split = 2 * 2 * (14 - 3) if x_matmul else 0
     per_stage = 12 * 2 + 2 * (4 * 3 + 4 * 2 + 19) + split + raster
-    return n * (w or n) * (STAGES * per_stage + 12 * 6 + 6)
+    return n * (w or n) * (4 * per_stage + 12 * 6 + 6)
 
 
 # ---------------------------------------------------------------------------
@@ -247,8 +249,8 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
                              slab: Slab | None = None, x_matmul: bool = False):
     """Plain PyTorch version of `fused_rk4_step`: the same equations, op
     order, rasterisation, closed-form RK4 combine and energies, on the whole
-    grid or on a slab (columns outside the domain come out 0, energies
-    cover the owned columns); d/dx split in bf16 with `x_matmul`. Returns
+    grid or on a slab (its halo columns come out 0, energies cover the owned
+    columns); d/dx split in bf16 with `x_matmul`. Returns
     (u_next (12, n, w), energies (3,))."""
     n = cfg.n
     dev = u.device
@@ -287,7 +289,8 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
     k3 = rhs(u + half * k2, th)
     k4 = rhs(u + full * k3, t1)
     u = u + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-    u = torch.where(((cols >= 0) & (cols < n))[None, None, :], u, 0.0)
+    u[:, :, :halo] = 0.0
+    u[:, :, w - halo:] = 0.0
     own = u[:, :, halo:w - halo]
     sc = own[0] - own[6]
     return u, torch.stack([torch.sum(own[0] * own[0]), torch.sum(own[6] * own[6]),
@@ -311,12 +314,25 @@ def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg:
     return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
 
 
-def _tile_region(start: int, size: int, n: int) -> tuple[int, int, int]:
+def fused_rk4_step_slabs_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
+                                   slabs: list, x_matmul: bool = False):
+    """Plain PyTorch version of `fused_rk4_step_slabs`: the plain step of
+    each slab in turn. Returns (u_next (S, 12, n, w), energies (S, 3))."""
+    steps = [fused_rk4_step_reference(u[k], shape[k], prof, cyl,
+                                      None if owner is None else owner[k], t, ti, tf, cfg, s,
+                                      x_matmul)
+             for k, s in enumerate(slabs)]
+    return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
+
+
+def _tile_region(start: int, size: int, n: int, stop: int | None = None
+                 ) -> tuple[int, int, int]:
     """(tile's last index, region's first, region's last) along one axis for
-    the tile of `size` from `start`, as `rk4_step_tiled` takes them: HALO
+    the tile of `size` from `start`, cut at `stop` (the end of a slab's
+    owned columns; n by default), as `rk4_step_tiled` takes them: HALO
     cells a side, one more before a one-cell tile on the last index (its
     one-sided stencil reaches five cells inward), cut at the domain."""
-    end = min(start + size, n) - 1
+    end = min(start + size, n if stop is None else stop) - 1
     return end, max(start - HALO - (start == n - 1), 0), min(end + HALO, n - 1)
 
 
@@ -341,23 +357,28 @@ def cull_cylinders(cyl, w: float, xs, ys, spacing: float) -> torch.Tensor:
 
 def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepConfig,
                                    tile: tuple[int, int] = TILE, x_matmul: bool = True,
-                                   cyl=None):
+                                   cyl=None, slab: Slab | None = None):
     """The step computed tile by tile as the one-launch kernel
     `rk4_step_tiled` decomposes it, in plain PyTorch with the whole-grid
     plain version's own `_stack_rhs`, d/dx and rasterisation: split in bf16
     (K5) with `x_matmul`, else exact (K1, K2); radii-only on `owner`, or
     general on `cyl` where owner is None, each stage rasterising the region
     with the cylinders that `cull_cylinders` keeps for the tile's region at
-    the stage's weight. Each tile's region (the
-    tile and its halo, `_tile_region`) runs the four stages on regions that
-    shrink by one cell a side a stage (`_shrink`): the stencils run on the
-    stage input's whole region, and its cells on a side inside the domain,
-    one-sided there, are dropped. The tile keeps the closed-form combine; no
-    cell outside the domain is held or read. For the tests alone, which hold
-    it equal to `fused_rk4_step_reference(..., x_matmul=x_matmul)` without a
-    card. Returns (u_next (12, n, n), energies (3,))."""
+    the stage's weight; on the whole grid, or on a slab (K4) whose tiles
+    cover its owned columns alone. Each tile's region (the
+    tile and its halo, `_tile_region`, in global rows and columns) runs the
+    four stages on regions that shrink by one cell a side a stage
+    (`_shrink`): the stencils run on the stage input's whole region, and
+    its cells on a side inside the domain, one-sided there, are dropped.
+    The tile keeps the closed-form combine; no cell outside the domain is
+    held or read, and a slab's halo columns come out 0. For the tests
+    alone, which hold it equal to `fused_rk4_step_reference(...,
+    x_matmul=x_matmul)` without a card. Returns (u_next (12, n, w),
+    energies (3,))."""
     n = cfg.n
     dev = u.device
+    w, col0 = _extent(cfg, slab)
+    own0, own1 = (0, n) if slab is None else (col0 + HALO, col0 + HALO + slab.ny)
     dx = dx_split_bf16 if x_matmul else dx_edge_aware
     c0 = float(np.float32(cfg.c0))
     b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
@@ -367,8 +388,11 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
     idx = torch.arange(n, device=dev)
     interior = (idx > 0) & (idx < n - 1)
     coord = _coords(cfg, dev)[0]
-    out = torch.empty_like(u)
+    out = torch.zeros_like(u)
     parts = []
+
+    def local(cols: slice) -> slice:
+        return slice(cols.start - col0, cols.stop - col0)
 
     def rhs(v, ts, rows, cols, region):
         w = lerp_weight(ts, ti, tf)
@@ -377,11 +401,11 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
             keep = cull_cylinders(cyl, w, xs, ys, cfg.spacing)
             c = _rasterize(cyl[:, keep], coord[rows][:, None], coord[cols][None, :], w, c0)
         else:
-            own = owner[:, rows, cols]
+            own = owner[:, rows, local(cols)]
             r = own[1] + w * own[2]
             c = torch.where(own[0] < r * r, own[3] + w * own[4], torch.full_like(r, c0))
         sn = torch.sin(torch.tensor(two_pi_f * np.float32(ts) * np.float32(cfg.freq), device=dev))
-        f = shape[rows, cols] * sn
+        f = shape[rows, local(cols)] * sn
         sx, sy = prof[rows][:, None], prof[cols][None, :]
         bc = (interior[rows][:, None] & interior[cols][None, :]).to(torch.float32)
         lo, hi = -cols.start, n - 1 - cols.start  # local columns of the domain's edges
@@ -391,10 +415,11 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
 
     for i0 in range(0, n, tile[0]):
         i1, rlo, rhi = _tile_region(i0, tile[0], n)
-        for j0 in range(0, n, tile[1]):
-            j1, clo, chi = _tile_region(j0, tile[1], n)
+        for j0 in range(own0, own1, tile[1]):
+            j1, clo, chi = _tile_region(j0, tile[1], n, own1)
             region = span = (rlo, rhi, clo, chi)
-            v = u[:, rlo:rhi + 1, clo:chi + 1]  # the stage-1 input on the region
+            # the stage-1 input on the region
+            v = u[:, rlo:rhi + 1, clo - col0:chi + 1 - col0]
             ks = []
             for ts, a in ((t0, half), (th, half), (th, full), (t1, None)):
                 k = rhs(v, ts, slice(span[0], span[1] + 1), slice(span[2], span[3] + 1), region)
@@ -403,10 +428,11 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
                 span = new
                 ks.append(k[:, i0 - span[0]:i1 - span[0] + 1, j0 - span[2]:j1 - span[2] + 1])
                 if a is not None:
-                    v = u[:, span[0]:span[1] + 1, span[2]:span[3] + 1] + a * k
+                    v = u[:, span[0]:span[1] + 1, span[2] - col0:span[3] + 1 - col0] + a * k
             k1, k2, k3, k4 = ks
-            own = u[:, i0:i1 + 1, j0:j1 + 1] + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-            out[:, i0:i1 + 1, j0:j1 + 1] = own
+            tile_cols = slice(j0 - col0, j1 + 1 - col0)
+            own = u[:, i0:i1 + 1, tile_cols] + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+            out[:, i0:i1 + 1, tile_cols] = own
             sc = own[0] - own[6]
             parts.append(torch.stack([torch.sum(own[0] * own[0]), torch.sum(own[6] * own[6]),
                                       torch.sum(sc * sc)]))
@@ -452,16 +478,13 @@ class _Library:
     def __init__(self, path: Path):
         self.cdll = ctypes.CDLL(str(path))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # both take the candidate count first, 1 for a single state
-        self.stage = self._bind("fused_rk4_stage", [I, I, I, I, P, P, F, P, P, F, P, P, P, P, P,
-                                                    I, P, I, I, I, F, F, F, F, F, F, F, F, P])
+        # the candidate count first, 1 for a single state
         self.owner = self._bind("select_owner", [I, P, I, P, I, I, I, F, F, P])
-        self.blocks = self._bind("fused_rk4_blocks", [I, I])
         # the one-launch step: the window's struct, u, out, partials, t
         self.step_tiled = self._bind("fused_rk4_step_tiled", [P, P, P, P, F])
-        self.step_blocks = self._bind("fused_rk4_step_blocks", [I])
+        self.step_blocks = self._bind("fused_rk4_step_blocks", [I, I])
         self.step_smem = self._bind("fused_rk4_step_smem", [])
-        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [I, I])
+        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [I, I, I])
 
     def _bind(self, name: str, argtypes: list):
         fn = getattr(self.cdll, name)
@@ -481,21 +504,18 @@ def _lib() -> _Library:
     return _library
 
 
-def partial_rows(n: int, w: int | None = None) -> int:
-    """Rows of energy partials (one per thread block) a step writes on an
-    n x w grid (w = n unless given)."""
-    return _lib().blocks(n, w or n)
+def step_partial_rows(n: int, ny: int | None = None) -> int:
+    """Rows of energy partials (one per tile) a one-launch step writes on n
+    rows and ny owned columns (n unless given), per candidate or slab."""
+    return _lib().step_blocks(n, ny or n)
 
 
-def step_partial_rows(n: int) -> int:
-    """Rows of energy partials (one per tile) a one-launch step writes on an
-    n x n grid, per candidate."""
-    return _lib().step_blocks(n)
-
-
-# the one-launch step's instances, `rk4_step_tiled<XM, GENERAL>`, by name
-TILED_INSTANCES = {"split": (True, False), "exact": (False, False),
-                   "split_general": (True, True), "exact_general": (False, True)}
+# the one-launch step's instances, `rk4_step_tiled<XM, GENERAL, SLAB>`, by name
+TILED_INSTANCES = {"split": (True, False, False), "exact": (False, False, False),
+                   "split_general": (True, True, False), "exact_general": (False, True, False),
+                   "split_slab": (True, False, True), "exact_slab": (False, False, True),
+                   "split_general_slab": (True, True, True),
+                   "exact_general_slab": (False, True, True)}
 
 
 def tiled_kernel_report() -> dict:
@@ -503,12 +523,13 @@ def tiled_kernel_report() -> dict:
     ("smem_bytes"), and the resident blocks an SM of each of its instances
     on the current device (the CUDA occupancy calculator, from the
     instance's registers and shared memory), by the names of
-    `TILED_INSTANCES`: "split" (K5), "exact" (K2, K3), "split_general" (K5
-    general) and "exact_general" (K1, K3 general)."""
+    `TILED_INSTANCES`: on the whole grid "split" (K5), "exact" (K2, K3),
+    "split_general" (K5 general) and "exact_general" (K1, K3 general), and
+    the same four on slabs with "_slab" (K4-XM, K4)."""
     lib = _lib()
     return {"smem_bytes": lib.step_smem(),
-            **{name: lib.step_occupancy(int(xm), int(general))
-               for name, (xm, general) in TILED_INSTANCES.items()}}
+            **{name: lib.step_occupancy(int(xm), int(general), int(slab))
+               for name, (xm, general, slab) in TILED_INSTANCES.items()}}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -547,10 +568,10 @@ def _check_cyl(cyl: torch.Tensor, lead: tuple, device: torch.device) -> int:
     return n_cyl
 
 
-def _key(kernel: str, batch: int | None, slab: Slab | None, x_matmul: bool = False) -> str:
+def _key(kernel: str, batch: int | None, slab, x_matmul: bool = False) -> str:
     """Launch counter of `kernel` ("fused_rk4" or "select_owner") for a
-    single state, a candidate batch (K3) or a slab (K4), with the split
-    d/dx (K5) if `x_matmul`."""
+    single state, a candidate batch (K3) or slabs (K4, `slab` not None),
+    with the split d/dx (K5) if `x_matmul`."""
     if slab is not None:
         key = kernel + "_sharded"
     else:
@@ -601,43 +622,61 @@ class _TiledWindow(ctypes.Structure):
 
     _fields_ = [("shape", ctypes.c_void_p), ("prof", ctypes.c_void_p),
                 ("owner", ctypes.c_void_p), ("cyl", ctypes.c_void_p), ("stream", ctypes.c_void_p),
-                ("batch", ctypes.c_int), ("n", ctypes.c_int), ("xm", ctypes.c_int),
-                ("n_cyl", ctypes.c_int),
+                *((name, ctypes.c_int) for name in ("batch", "n", "w", "col0", "xm", "n_cyl")),
                 *((name, ctypes.c_float)
                   for name in ("inv2d", "c0", "freq", "half", "full", "sixth", "ti", "tf",
                                "x_min", "spacing"))]
 
 
+def _slab_extent(slabs: list) -> tuple[int, int]:
+    """(w, col0 of the first) of consecutive slabs of equal width; raises
+    on any others."""
+    first = slabs[0]
+    for k, s in enumerate(slabs):
+        if s.w != first.w or s.col0 != first.col0 + k * first.ny:
+            raise ValueError(f"slabs {slabs} are not consecutive slabs of one width")
+    return first.w, first.col0
+
+
 class _TiledStep:
-    """One launch a RK4 step on the whole grid, of one state (batch None:
-    K1, K2, or K5 with `x_matmul`) or of `batch` candidates (K3, or batched
-    K5), over one window: radii-only with `owner`, general on `cyl` where
-    owner is None. The inputs fixed for the window are checked and
-    marshalled once, and `launch` runs one RK4 step in one launch on the
-    current stream of `dev`, the state's device."""
+    """One launch a RK4 step, over one window: on the whole grid, of one
+    state (batch None: K1, K2, or K5 with `x_matmul`) or of `batch`
+    candidates (K3, or batched K5); or, with `slabs`, on those consecutive
+    slabs, stacked (S, .., n, w) (K4, K4-XM; batch None for one slab, else
+    S). Radii-only with `owner`, general on `cyl` where owner is None. The
+    inputs fixed for the window are checked and marshalled once, and
+    `launch` runs one RK4 step in one launch on the current stream of
+    `dev`, the state's device."""
 
     def __init__(self, shape, prof, owner, cyl, ti: float, tf: float, cfg: StepConfig,
-                 batch: int | None, dev: torch.device, x_matmul: bool):
+                 batch: int | None, dev: torch.device, x_matmul: bool, slabs: list | None = None):
         n = cfg.n
         lead = () if batch is None else (batch,)
-        _check("shape", shape, (n, n), dev)
+        if slabs is None:
+            self.w, col0, shape_lead, cyl_lead, ny = n, 0, (), lead, n
+        else:
+            if len(slabs) != (batch or 1):
+                raise ValueError(f"{len(slabs)} slabs for a batch of {batch or 1}")
+            self.w, col0 = _slab_extent(slabs)
+            shape_lead, cyl_lead, ny = lead, (), slabs[0].ny
+        _check("shape", shape, (*shape_lead, n, self.w), dev)
         _check("prof", prof, (n,), dev)
         if owner is None:
-            n_cyl, held = _check_cyl(cyl, lead, dev), cyl
+            n_cyl, held = _check_cyl(cyl, cyl_lead, dev), cyl
         else:
-            _check("owner", owner, (*lead, 5, n, n), dev)
+            _check("owner", owner, (*lead, 5, n, self.w), dev)
             n_cyl, held = 0, owner
         f = np.float32
         self.args = _TiledWindow(shape.data_ptr(), prof.data_ptr(), _ptr(owner), _ptr(cyl),
-                                 _stream(dev).value, batch or 1, n, int(x_matmul), n_cyl,
-                                 cfg.inv2d, cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt),
+                                 _stream(dev).value, batch or 1, n, self.w, col0, int(x_matmul),
+                                 n_cyl, cfg.inv2d, cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt),
                                  f(cfg.dt / 6.0), ti, tf, cfg.x_min, cfg.spacing)
         self.ref = ctypes.addressof(self.args)
         self.inputs = (shape, prof, held)  # alive while the struct points at them
         self.fn = _lib().step_tiled
-        self.key = (_key("fused_rk4", batch, None, x_matmul)
+        self.key = (_key("fused_rk4", batch, slabs, x_matmul)
                     + ("_general" if owner is None else "_radii_only"))
-        self.rows = step_partial_rows(n)
+        self.rows = step_partial_rows(n, ny)
 
     def launch(self, u_ptr: int, out_ptr: int, partials_ptr: int, t: float) -> None:
         _raise_on(self.fn(self.ref, u_ptr, out_ptr, partials_ptr, t), self.key)
@@ -645,71 +684,50 @@ class _TiledStep:
 
 
 def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: int | None,
-                 slab: Slab | None = None, x_matmul: bool = False):
-    """Check the inputs and launch one RK4 step: of one state (K1 or K2) for
-    batch None, else of `batch` candidates (K3); on a slab (K4) if given;
-    with the split d/dx (K5) if `x_matmul`. The whole grid takes one
-    launch, a slab one a stage. Returns (u_next, energy partials
-    (batch or 1, blocks, 3))."""
-    n, dev = cfg.n, u.device
-    w, col0 = _extent(cfg, slab)
-    lead = () if batch is None else (batch,)
-    _check("u", u, (*lead, 12, n, w), dev)
-    n_cyl = _check_cyl(cyl, lead, dev)
-    if slab is None:
-        step = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul)
-        out = torch.empty_like(u)
-        partials = torch.empty((batch or 1, step.rows, 3), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):  # the launch goes to the current device
-            step.launch(u.data_ptr(), out.data_ptr(), partials.data_ptr(), float(t))
-        return out, partials
-    _check("shape", shape, (n, w), dev)
-    _check("prof", prof, (n,), dev)
-    if owner is not None:
-        _check("owner", owner, (*lead, 5, n, w), dev)
-    radii = owner is not None
-    key = _key("fused_rk4", batch, slab, x_matmul) + ("_radii_only" if radii else "_general")
-    stage = _lib().stage
-    stream = _stream(dev)
-    partials = torch.empty((batch or 1, partial_rows(n, w), 3), dtype=torch.float32, device=dev)
-    f = np.float32
-    half, full, sixth = float(f(0.5 * cfg.dt)), float(f(cfg.dt)), float(f(cfg.dt / 6.0))
-    fixed = (_ptr(shape), _ptr(prof), _ptr(cyl), n_cyl, _ptr(owner), n, w, col0, cfg.spacing,
-             cfg.inv2d, cfg.x_min, cfg.c0, cfg.freq)
-    ks = [torch.empty_like(u) for _ in range(3)]
+                 slabs: list | None = None, x_matmul: bool = False):
+    """Check the inputs and launch one RK4 step in one launch: of one state
+    (K1 or K2) for batch None, else of `batch` candidates (K3); on
+    consecutive slabs (K4) if given; with the split d/dx (K5) if
+    `x_matmul`. Returns (u_next, energy partials (batch or 1, tiles, 3))."""
+    dev = u.device
+    step = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul, slabs)
+    _check("u", u, (*(() if batch is None else (batch,)), 12, cfg.n, step.w), dev)
     out = torch.empty_like(u)
-    t0, th, t1 = (float(x) for x in stage_times(t, cfg.dt))
-    launches = (
-        (0, None, 0.0, ks[0], None, t0),
-        (1, ks[0], half, ks[1], None, th),
-        (1, ks[1], half, ks[2], None, th),
-        (2, ks[2], full, out, partials, t1),
-    )
-    with torch.cuda.device(dev):  # the launches go to the current device
-        for mode, kp, a, dst, part, ts in launches:
-            code = stage(batch or 1, mode, int(radii), int(x_matmul), _ptr(u), _ptr(kp), a,
-                         _ptr(ks[0]), _ptr(ks[1]), sixth, _ptr(dst), _ptr(part), *fixed, ts, ti,
-                         tf, stream)
-            _raise_on(code, key)
-            launch_counts[key] += 1
+    partials = torch.empty((batch or 1, step.rows, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        step.launch(u.data_ptr(), out.data_ptr(), partials.data_ptr(), float(t))
     return out, partials
 
 
 def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
                    slab: Slab | None = None, x_matmul: bool = False):
     """Advance the state one RK4 step from time t, with the design lerped
-    over [ti, tf]. `owner` (from `select_owner`) selects the radii-only
-    kernel K2; None selects the general kernel K1. With a slab, u, shape
-    and owner are its (.., n, slab.w) columns and the step is K4's.
-    `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
-    K4-XM on a slab); the whole grid takes one launch a step, a slab one a
-    stage. Returns (u_next, energies (3,))."""
+    over [ti, tf], in one launch. `owner` (from `select_owner`) selects the
+    radii-only kernel K2; None selects the general kernel K1. With a slab,
+    u, shape and owner are its (.., n, slab.w) columns and the step is
+    K4's. `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
+    K4-XM on a slab). Returns (u_next, energies (3,))."""
     if not _on_card(u):
         return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
                                         x_matmul)
-    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None, slab,
-                                 x_matmul)
+    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None,
+                                 None if slab is None else [slab], x_matmul)
     return out, partials[0].sum(dim=0)
+
+
+def fused_rk4_step_slabs(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, slabs: list,
+                         x_matmul: bool = False):
+    """Advance S consecutive slabs of equal width, stacked (S, 12, n, w) on
+    one card, one RK4 step from time t in one launch (K4, or K4-XM with
+    `x_matmul`): shape (S, n, w), owner (S, 5, n, w) from `select_owner`
+    on each slab or None (the general mode), the cylinders (8, n_cyl) and
+    the profile shared. Returns (u_next (S, 12, n, w), energies (S, 3))."""
+    if not _on_card(u):
+        return fused_rk4_step_slabs_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slabs,
+                                              x_matmul)
+    out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, len(slabs), slabs,
+                                 x_matmul)
+    return out, partials.sum(dim=1)
 
 
 def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
@@ -773,3 +791,59 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
             u = dst
     energies = partials.sum(dim=2)
     return kept, energies if batch is not None else energies[:, 0]
+
+
+class SlabWindow:
+    """S consecutive slabs of equal width on one device, stacked
+    (S, 12, n, w), through a window of `steps` RK4 steps as a sharded
+    rollout drives them (K4, or K4-XM with `x_matmul`): shape (S, n, w),
+    owner (S, 5, n, w) or None, the cylinders (8, n_cyl) and the profile
+    shared, as `fused_rk4_step_slabs` takes them. `u` is the current
+    state, whose halo columns the caller refreshes before each `step(t)`;
+    the u given becomes the first of two state buffers and the other is
+    made once. `energies()` gives each slab's energies after each step
+    taken, (steps, S, 3). On the card a step is one launch into the other
+    buffer, the window's fixed inputs marshalled once, and the energy
+    partials (steps, S, tiles, 3) made once and reduced once, each slab's
+    in the same order whatever S; on the CPU each slab takes the plain
+    version in turn."""
+
+    def __init__(self, u, shape, prof, cyl, owner, ti: float, tf: float, cfg: StepConfig,
+                 slabs: list, steps: int, x_matmul: bool = False):
+        self.u, self.taken, self.steps = u, 0, steps
+        self._launcher = None
+        if not _on_card(u):
+            self._plain = lambda v, t: fused_rk4_step_slabs_reference(v, shape, prof, cyl, owner,
+                                                                      t, ti, tf, cfg, slabs,
+                                                                      x_matmul)
+            self._energies = [torch.empty((0, len(slabs), 3))]
+            return
+        self._launcher = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, len(slabs), u.device,
+                                    x_matmul, slabs)
+        _check("u", u, (len(slabs), 12, cfg.n, self._launcher.w), u.device)
+        self._other = torch.empty_like(u)
+        self._partials = torch.empty((steps, len(slabs), self._launcher.rows, 3),
+                                     dtype=torch.float32, device=u.device)
+        self._row_bytes = self._partials.stride(0) * self._partials.element_size()
+
+    def step(self, t: float) -> None:
+        """Advance every slab one RK4 step from time t."""
+        if self.taken == self.steps:
+            raise RuntimeError(f"the window has {self.steps} steps")
+        if self._launcher is None:
+            self.u, e = self._plain(self.u, t)
+            self._energies.append(e[None])
+        else:
+            with torch.cuda.device(self.u.device):  # the launch goes to the current device
+                self._launcher.launch(self.u.data_ptr(), self._other.data_ptr(),
+                                      self._partials.data_ptr() + self.taken * self._row_bytes,
+                                      float(t))
+            self.u, self._other = self._other, self.u
+        self.taken += 1
+
+    def energies(self) -> torch.Tensor:
+        """(steps taken, S, 3): each slab's energies after each step."""
+        if self._launcher is None:
+            return torch.cat(self._energies)
+        p = self._partials[:self.taken]
+        return torch.stack([p[:, k].contiguous().sum(dim=1) for k in range(p.shape[1])], dim=1)

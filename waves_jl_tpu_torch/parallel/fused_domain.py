@@ -5,18 +5,23 @@ column slab, with a halo-column exchange between steps (counterpart of
 Shard k owns global columns [k ny_local, (k+1) ny_local) and keeps them in a
 (12, n, ny_local + 2 HALO) slab with HALO halo columns on each side. Before
 every step each slab's halos take its neighbours' owned edge columns; the
-kernel applies one-sided stencils only at the true domain edges and zeroes
-the columns outside the domain, so an owned cell is bit for bit the
-whole-grid kernel's. One process drives every shard, in shard order.
-With `x_matmul=True` each slab steps through K4-XM, K5's split d/dx: the
-split acts along x, which is not sharded, so an owned cell is K5's.
+kernel applies one-sided stencils only at the true domain edges and writes
+the halo columns 0, so an owned cell is bit for bit the whole-grid
+kernel's. One process drives every shard. The shards are grouped by
+device and each device's slabs are stacked in one tensor (`SlabWindow`): a
+step is the halo exchange, two strided copies a device and a neighbour
+copy each way between devices, then one launch a card (on the CPU, each
+slab's plain step in turn), and the signal is read from the energy
+partials once, at the end. With `x_matmul=True` each slab steps through
+K4-XM, K5's split d/dx: the split acts along x, which is not sharded, so
+an owned cell is K5's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_rk4 import HALO, Slab, StepConfig, fused_rk4_step, select_owner
+from ..ops.fused_rk4 import HALO, Slab, SlabWindow, StepConfig, select_owner
 from .domain import sum_in_order
 from .mesh import Mesh
 
@@ -41,20 +46,45 @@ def cut_slabs(x: torch.Tensor, slabs: list, devices) -> list:
             for s, d in zip(slabs, devices)]
 
 
-def exchange_halos(us: list, ny_local: int) -> None:
-    """Refresh every slab's halo columns in place: the left halo takes the
-    left neighbour's last HALO owned columns, the right halo the right
-    neighbour's first HALO. The outer halos of the first and last slab stay
-    as they are (0). Reads only owned columns and writes only halos, so the
-    copies are independent of one another."""
-    for k in range(1, len(us)):
-        us[k][:, :, :HALO].copy_(us[k - 1][:, :, ny_local:ny_local + HALO])
-        us[k - 1][:, :, HALO + ny_local:].copy_(us[k][:, :, HALO:2 * HALO])
+def card_groups(devices) -> list:
+    """[(device, shard indices)]: the runs of consecutive shards on one
+    device, in shard order."""
+    groups = []
+    for k, d in enumerate(devices):
+        if groups and groups[-1][0] == d:
+            groups[-1][1].append(k)
+        else:
+            groups.append((d, [k]))
+    return groups
+
+
+def exchange_halos(groups: list, ny_local: int) -> None:
+    """Refresh every slab's halo columns in place. `groups` holds the slabs
+    in shard order, stacked (S, 12, n, ny_local + 2 HALO) in a tensor a
+    group: the left halo takes the left neighbour's last HALO owned
+    columns, the right halo the right neighbour's first HALO, by two
+    strided copies within a group and a copy each way between neighbouring
+    groups. The outer halos of the first and last slab stay as they are
+    (0). Reads only owned columns and writes only halos, so the copies are
+    independent of one another."""
+    ny, h = ny_local, HALO
+    for x in groups:
+        if x.shape[0] > 1:
+            x[1:, :, :, :h].copy_(x[:-1, :, :, ny:ny + h])
+            x[:-1, :, :, h + ny:].copy_(x[1:, :, :, h:2 * h])
+    for a, b in zip(groups, groups[1:]):
+        b[0, :, :, :h].copy_(a[-1, :, :, ny:ny + h])
+        a[-1, :, :, h + ny:].copy_(b[0, :, :, h:2 * h])
 
 
 def _energies(u: torch.Tensor) -> torch.Tensor:
     sc = u[0] - u[6]
     return torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
+
+
+def _check_cyl(cyl: torch.Tensor, n_cyl: int) -> None:
+    if tuple(cyl.shape) != (8, n_cyl):
+        raise ValueError(f"cyl has shape {tuple(cyl.shape)}, expected (8, {n_cyl})")
 
 
 def make_fused_sharded_rollout(mesh: Mesh, n: int, spacing: float, dt: float, c0: float,
@@ -74,26 +104,65 @@ def make_fused_sharded_rollout(mesh: Mesh, n: int, spacing: float, dt: float, c0
     cell area. `radii_only` selects the owner rasterisation (one owner pass
     per shard a rollout), valid where `physics.fused.radii_only_ok` holds.
     `x_matmul` takes d/dx in the bf16 split form (K4-XM); the default is
-    the exact stencil, as JAX's sharded rollout defaults to.
+    the exact stencil, as JAX's sharded rollout defaults to. Each card's
+    slabs step in one launch (`build_stacked_rollout`).
     """
     cfg = StepConfig(n=n, spacing=spacing, x_min=x_min, dt=dt, c0=c0, freq=freq)
-    return build_rollout(mesh, cfg, n_cyl, radii_only, fused_rk4_step, select_owner, x_matmul)
+    return build_stacked_rollout(mesh, cfg, n_cyl, radii_only, x_matmul)
+
+
+def build_stacked_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool,
+                          x_matmul: bool = False):
+    """The rollout of `make_fused_sharded_rollout` with each device's run of
+    consecutive shards (`card_groups`) stacked in one `SlabWindow`: per
+    step, the halo exchange and a step of each window (one launch a card),
+    and the signal summed once at the end, in shard order, then each
+    shard's in tile order."""
+    n = cfg.n
+    slabs = shard_slabs(n, mesh.size)
+    ny_local = n // mesh.size
+    groups = card_groups(mesh.devices)
+    dev0 = mesh.devices[0]
+    owned = slice(HALO, HALO + ny_local)
+
+    def rollout(u0, tspan, cyl, shape, prof):
+        _check_cyl(cyl, n_cyl)
+        ti, tf = float(tspan[0]), float(tspan[-1])
+        windows = []
+        for dev, shards in groups:
+            mine = [slabs[k] for k in shards]
+            c = cyl.to(dev).contiguous()
+            owner = torch.stack([select_owner(c, cfg, s) for s in mine]) if radii_only else None
+            windows.append(SlabWindow(torch.stack(cut_slabs(u0, mine, [dev] * len(mine))),
+                                      torch.stack(cut_slabs(shape, mine, [dev] * len(mine))),
+                                      prof.to(dev).contiguous(), c, owner, ti, tf, cfg, mine,
+                                      len(tspan) - 1, x_matmul))
+        e0 = sum_in_order([_energies(x[:, :, owned]) for w in windows for x in w.u], dev0)
+        for t in tspan[:-1]:
+            exchange_halos([w.u for w in windows], ny_local)
+            for w in windows:
+                w.step(float(t))
+        per_shard = torch.cat([w.energies().to(dev0) for w in windows], dim=1)
+        signal = sum_in_order(list(per_shard.unbind(1)), dev0)
+        u_final = torch.cat([x[:, :, owned].to(dev0) for w in windows for x in w.u], dim=-1)
+        return u_final, torch.cat([e0[None], signal])
+
+    return rollout
 
 
 def build_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool, step, owner,
                   x_matmul: bool = False):
-    """The rollout of `make_fused_sharded_rollout`, stepping each slab
-    through `step` with owner fields from `owner`: `fused_rk4_step` and
-    `select_owner` (K4, K4-XM with `x_matmul`), or their `*_reference`
-    plain versions."""
+    """The plain rollout that `make_fused_sharded_rollout`'s is held
+    against: each slab steps in turn through `step` with owner fields from
+    `owner`, `fused_rk4_step_reference` and `select_owner_reference`
+    (K4's plain version, K4-XM's with `x_matmul`)."""
     n = cfg.n
     slabs = shard_slabs(n, mesh.size)
     ny_local = n // mesh.size
     devs = mesh.devices
 
     def rollout(u0, tspan, cyl, shape, prof):
-        if tuple(cyl.shape) != (8, n_cyl):
-            raise ValueError(f"cyl has shape {tuple(cyl.shape)}, expected (8, {n_cyl})")
+        _check_cyl(cyl, n_cyl)
         shapes = cut_slabs(shape, slabs, devs)
         us = cut_slabs(u0, slabs, devs)  # the first exchange refreshes the halos
         profs = [prof.to(d).contiguous() for d in devs]
@@ -102,7 +171,7 @@ def build_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool, ste
         ti, tf = float(tspan[0]), float(tspan[-1])
         signal = [sum_in_order([_energies(u[:, :, HALO:HALO + ny_local]) for u in us], devs[0])]
         for t in tspan[:-1]:
-            exchange_halos(us, ny_local)
+            exchange_halos([u[None] for u in us], ny_local)
             stepped = [step(u, sh, pr, c, ow, float(t), ti, tf, cfg, s, x_matmul)
                        for u, sh, pr, c, ow, s in zip(us, shapes, profs, cyls, owners, slabs)]
             us = [u for u, _ in stepped]

@@ -14,15 +14,22 @@ paths' shapes, on the same seeded inputs in every checkout:
   batched K5 general with 4 candidates at 700^2 (the position-design
   re-rank window's size), each candidate's radii its own;
 * one step of the 4 slabs of a 700^2 grid (K4, K4-XM), radii-only and
-  general.
+  general: stacked in one launch (`fused_rk4_step_slabs`) where the
+  checkout has it, else slab by slab as its wrapper takes them;
+* the 4-shard radii-only sharded rollout at 700^2 on one card
+  (`make_fused_sharded_rollout`, exact and split d/dx), ms a step of a
+  100-step rollout.
+
+With --cards C it times the sharded rollouts alone, with C shards: on one
+card, and one shard a card on C cards.
 
 For each row it gives ms a step with CUDA events around calls as the host
 drives them ("ms"), the same calls queued behind a device sleep
-("device_ms"), both with `chip_smoke.py`'s timers, and for the whole
-grid ms a step of device work inside a 20-step window driven by
-`fused_rk4_window` ("window_device_ms"). It prints a line a row and,
-last, one JSON object with the card's name and power limit, and writes
-that object to FILE if given. Needs a CUDA card.
+("device_ms"; for a rollout, a 10-step one, its setup included), both
+with `chip_smoke.py`'s timers, and for the whole grid ms a step of device
+work inside a 20-step window driven by `fused_rk4_window`
+("window_device_ms"). It prints a line a row and, last, one JSON object with the card's name and
+power limit, and writes that object to FILE if given. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -41,6 +48,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=HERE, help="checkout whose waves_jl_tpu_torch to time")
     parser.add_argument("--out", help="also write the JSON object here")
+    parser.add_argument("--cards", type=int,
+                        help="time the sharded rollouts alone, this many shards on one card "
+                             "and one a card on this many cards")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -55,6 +65,7 @@ def main() -> int:
     sys.path.insert(0, root)
     from waves_jl_tpu_torch.designs import build_triple_ring_design_space
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.parallel import make_fused_sharded_rollout, make_mesh
     from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs, shard_slabs
     from waves_jl_tpu_torch.physics.fused import cyl_params
 
@@ -90,7 +101,7 @@ def main() -> int:
             rows[name]["window_device_ms"] = device_ms(window, 1) / len(times)
         print(name, json.dumps(rows[name]), flush=True)
 
-    for n, k_radii in ((N, None), (N_RERANK, K_RADII)):
+    for n, k_radii in () if args.cards else ((N, None), (N_RERANK, K_RADII)):
         cfg = config(n)
         lead = () if k_radii is None else (k_radii,)
         u = on_card(rng.standard_normal((*lead, 12, n, n)) * 1e-3)
@@ -112,7 +123,7 @@ def main() -> int:
 
     cfg = config(N)
     shape, prof = on_card(rng.random((N, N))), on_card(rng.random(N) * 100.0)
-    for k in (None, K_GENERAL):
+    for k in () if args.cards else (None, K_GENERAL):
         lead = () if k is None else (k,)
         u = on_card(rng.standard_normal((*lead, 12, N, N)) * 1e-3)
         cyl = on_card(moved) if k is None else candidates(moved, k)
@@ -127,13 +138,39 @@ def main() -> int:
     slabs = shard_slabs(N, SHARDS)
     u = on_card(rng.standard_normal((12, N, N)) * 1e-3)
     us, sh = cut_slabs(u, slabs, [dev] * SHARDS), cut_slabs(shape, slabs, [dev] * SHARDS)
-    for radii, cyl_np in ((True, ring), (False, moved)):
+    stacked = hasattr(fk, "fused_rk4_step_slabs")
+    for radii, cyl_np in () if args.cards else ((True, ring), (False, moved)):
         cyl = on_card(cyl_np)
         owners = ([fk.select_owner(cyl, cfg, s) for s in slabs] if radii else [None] * SHARDS)
         for xm in (False, True):
             name = ("K4-XM" if xm else "K4") + (" radii-only" if radii else " general")
-            row(name, lambda: [fk.fused_rk4_step(u_k, h, prof, cyl, o, T0, TI, TF, cfg, s, xm)
-                               for u_k, h, o, s in zip(us, sh, owners, slabs)])
+            if stacked:
+                us_s, sh_s = torch.stack(us), torch.stack(sh)
+                own_s = torch.stack(owners) if radii else None
+                row(name, lambda: fk.fused_rk4_step_slabs(us_s, sh_s, prof, cyl, own_s, T0, TI,
+                                                          TF, cfg, slabs, xm))
+            else:
+                row(name, lambda: [fk.fused_rk4_step(u_k, h, prof, cyl, o, T0, TI, TF, cfg, s, xm)
+                                   for u_k, h, o, s in zip(us, sh, owners, slabs)])
+
+    # the sharded rollout: 100 steps host-driven, 10 steps queued behind a
+    # device sleep, on one card and, if asked, one shard a card
+    tspan = np.float32(T0) + np.arange(101, dtype=np.float32) * np.float32(DT)
+    cyl = on_card(ring)
+    meshes = [make_mesh(devices=[dev] * (args.cards or SHARDS))]
+    if (args.cards or 1) > 1:
+        meshes.append(make_mesh(args.cards))
+    for mesh in meshes:
+        where = f", {mesh.size} cards" if len(set(mesh.devices)) > 1 else ""
+        for xm in (False, True):
+            roll = make_fused_sharded_rollout(mesh, N, cfg.spacing, DT, cfg.c0, cfg.freq,
+                                              cyl.shape[1], cfg.x_min, radii_only=True,
+                                              x_matmul=xm)
+            name = f"rollout {mesh.size} shards {'K4-XM' if xm else 'K4'} radii-only{where}"
+            rows[name] = {"ms": cuda_ms(lambda: roll(u, tspan, cyl, shape, prof), 3) / 100,
+                          "device_ms": device_ms(lambda: roll(u, tspan[:11], cyl, shape, prof),
+                                                 1) / 10}
+            print(name, json.dumps(rows[name]), flush=True)
 
     result = {"root": root, "card": smi, "rows": rows}
     print(json.dumps(result), flush=True)
