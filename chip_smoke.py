@@ -18,10 +18,12 @@ its elapsed seconds:
    bit for bit), and the candidate-batched kernels K3 and K5 (16
    candidates at 350^2, coarsened from the 700^2 state) against their
    plain versions (none differing for either in the radii-only mode) and
-   against K2 or K5 run on each candidate alone; the time of a step of
+   against K2 or K5 run on each candidate alone; the owner passes of the
+   radii-only mode (whole grid, and 16 candidates at 350^2) against their
+   plain versions, bit for bit on all five planes; the time of a step of
    K1, K2 and K5 in both modes, K3 and batched K5 radii-only as one call,
    as device work, and inside a 100-step window with the host's issue
-   time;
+   time, and of each owner pass as one call and as device work;
 4. main path: a warm 20-action x 100-step MPC control episode at 700^2
    (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
    surrogate with the tracked weights), the simulator's steps/s over 20
@@ -42,11 +44,13 @@ its elapsed seconds:
    exact-stencil re-rank (K3), and two exact-CEM rounds against one;
 6. sharded: from phase 3's state, cylinders and window times, the y-sharded
    rollout (`parallel/fused_domain.py`, 4 shards of 175 columns on one
-   card, all four slabs stacked and stepped by K4 in one launch a step)
-   against the slab-by-slab plain rollout in both modes; the fused sharded
-   rollout at 1, 2 and 4 shards against the K2 window bit for bit on the
-   state, the general one at 1, 2 and 4 shards against the K1 window, and
-   against the plain sharded rollout (`parallel/domain.py`); K1 and the
+   card, all four slabs stacked and stepped by K4 in one launch a step,
+   their owner fields from one owner pass) against the slab-by-slab plain
+   rollout in both modes, and that owner pass against its plain version,
+   bit for bit; the fused sharded rollout at 1, 2 and 4 shards against the
+   K2 window bit for bit on the state, the general one at 1, 2 and 4
+   shards against the K1 window, and against the plain sharded rollout
+   (`parallel/domain.py`); K1 and the
    owner pass with 80 cylinders against their plain versions; a
    free-field window through K1; the times of a sharded step, host-driven
    and as device work, against K2's, the host's issue time, and one step
@@ -79,8 +83,9 @@ every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
 (K1, K2, K3, K5, batched K5, radii-only and general) and on the slabs of
 one card (K4, K4-XM). The last lines are one JSON object describing every
 kernel (`ms` with CUDA events around calls as the host drives them; the
-rows of the step add `device_ms`, the same launches queued behind a
-device sleep, without the host's issue cost), then
+rows of the step and of the owner passes add `device_ms`, the same
+launches queued behind a device sleep, without the host's issue cost),
+then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
 """
@@ -198,6 +203,26 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def owner_ops(cyl, cfg, slab=None) -> int:
+    """Float32 operations the owner pass does on these cylinders (8, n_cyl):
+    9 for each cell and each cylinder whose box holds it (the box tests,
+    d2, the gap and its compare), counted from the boxes."""
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+
+    xs, ys = fk._coords(cfg, cyl.device, slab)
+    box = fk.owner_boxes(cyl, cfg.spacing)
+    rows = ((xs[:, None] >= box[0]) & (xs[:, None] <= box[1])).sum(dim=0)
+    cols = ((ys[:, None] >= box[2]) & (ys[:, None] <= box[3])).sum(dim=0)
+    return 9 * int((rows * cols).sum())
+
+
+def owner_sentinel_share(owner) -> float:
+    """The share of cells whose owner fields are the sentinel: no
+    cylinder's box holds them."""
+    d2 = owner[..., 0, :, :]
+    return float((d2 == 1e30).sum()) / d2.numel()
+
+
 def host_s(fn):
     """(seconds on the host clock, result) of fn(), synchronised at both ends."""
     import torch
@@ -289,10 +314,10 @@ def batched_kernels(env, state, dev):
     owner_p = fk.select_owner_batched_reference(cyl, cfg)
     torch.cuda.synchronize()
     owner_err = float(torch.max(torch.abs(owner_k - owner_p)))
-    owner_rel = rel_err(owner_k[:, 1:], owner_p[:, 1:])
-    log("kernels", f"select_owner_batched vs plain: max abs err {owner_err}, rel err of r1, dr, "
-                   f"c1, dc {owner_rel:.3e} (tol {REL_TOL:g})")
-    check(owner_rel <= REL_TOL, "select_owner_batched agrees with its plain version")
+    log("kernels", f"select_owner_batched vs plain: {differing_cells(owner_k, owner_p)} of the five "
+                   f"planes; {owner_sentinel_share(owner_k):.3f} of the cells hold the sentinel")
+    check(torch.equal(owner_k, owner_p),
+          "select_owner_batched equals its plain version bit for bit on all five planes")
 
     def window_run(step_fn, owner, cyl_, n_steps, u=u0):
         es = []
@@ -382,12 +407,14 @@ def batched_kernels(env, state, dev):
     seq_ms = cuda_ms(lambda: [fk.fused_rk4_step(u0[b], shape, prof, cyl[b], owner_k[b], t_arg, ti,
                                                 tf, cfg) for b in range(TOPK)], 20)
     own_ms = cuda_ms(lambda: fk.select_owner_batched(cyl, cfg), 50)
+    own_dev = device_ms(lambda: fk.select_owner_batched(cyl, cfg), 20)
     own_plain = cuda_ms(lambda: fk.select_owner_batched_reference(cyl, cfg), 3)
     log("kernels", f"ms per batched RK4 step of {TOPK} candidates at {SIZE_RERANK}^2: K3 radii-only "
                    f"{k3_ms:.4f} (plain {k3_plain:.4f}; device work {k3_dev:.4f}; inside a "
                    f"{STEPS}-step window {k3_win[0]:.4f} a step, device work {k3_win[1]:.4f}, the "
                    f"host issues a step in {k3_win[2]:.4f}); {TOPK} x K2 steps, the sequential route, "
-                   f"{seq_ms:.4f}; select_owner_batched {own_ms:.4f} (plain {own_plain:.4f}); "
+                   f"{seq_ms:.4f}; select_owner_batched {own_ms:.4f} (plain {own_plain:.4f}; device "
+                   f"work {own_dev:.4f}); "
                    f"batched K5 radii-only {k5b_ms:.4f} (plain {k5b_plain:.4f}; device work "
                    f"{k5b_dev:.4f}; inside a {STEPS}-step window {k5b_win[0]:.4f} a step, device "
                    f"work {k5b_win[1]:.4f}, the host issues a step in {k5b_win[2]:.4f})")
@@ -400,12 +427,13 @@ def batched_kernels(env, state, dev):
     k3_bound = bound(io_step + nbytes(part_t), TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True))
     k5b_bound = bound(io_step + nbytes(part_t),
                       TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True, x_matmul=True))
-    own_bound = bound(nbytes(cyl, owner_k), TOPK * SIZE_RERANK * SIZE_RERANK * n_cyl * 9)
+    own_bound = bound(nbytes(cyl, owner_k), sum(owner_ops(c, cfg) for c in cyl))
     log("kernels", f"K3 bound per batched step {k3_bound[0]:.5f} ms ({k3_bound[1]}; states alone "
                    f"{2 * nbytes(u0) / 1e6:.1f} MB, {2 * nbytes(u0) / HBM_BYTES_PER_S * 1e3:.5f} "
                    f"ms); select_owner_batched {own_bound[0]:.5f} ms ({own_bound[1]})")
     return env_lo, {"k3": (k3_abs, k3_ms, k3_plain, k3_bound), "k3_dev": k3_dev,
-                    "own": (owner_err, own_ms, own_plain, own_bound), "seq_ms": seq_ms,
+                    "own": (owner_err, own_ms, own_plain, own_bound), "own_dev": own_dev,
+                    "seq_ms": seq_ms,
                     "k5b": (k5b_abs, k5b_ms, k5b_plain, k5b_bound), "k5b_dev": k5b_dev}
 
 
@@ -628,8 +656,8 @@ def cylinder_grid(moving: bool):
 def stacked_slabs(u0, shape, cyl, cfg, slabs, dev):
     """Phase 6's inputs of one step of the slabs stacked on one card: the
     state and source shape (S, .., n, w) cut from the global ones, and the
-    owner fields of each slab from the kernel's pass and from its plain
-    version."""
+    owner fields of the slabs from the kernel's pass (one launch) and from
+    its plain version."""
     import torch
 
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
@@ -637,8 +665,7 @@ def stacked_slabs(u0, shape, cyl, cfg, slabs, dev):
 
     devs = [dev] * len(slabs)
     return (torch.stack(cut_slabs(u0, slabs, devs)), torch.stack(cut_slabs(shape, slabs, devs)),
-            torch.stack([fk.select_owner(cyl, cfg, s) for s in slabs]),
-            torch.stack([fk.select_owner_reference(cyl, cfg, s) for s in slabs]))
+            fk.select_owner_slabs(cyl, cfg, slabs), fk.select_owner_slabs_reference(cyl, cfg, slabs))
 
 
 def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
@@ -686,12 +713,17 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
                        f"{errs[radii]}, signal rel err {sig:.3e} (tol {REL_TOL:g})")
         check(errs[radii] == 0.0, "K4's owned state equals its plain version's")
         check(sig <= REL_TOL, "K4's signal agrees with its plain version's")
-    slab1 = shard_slabs(SIZE, shards)[1]
-    owner_k = fk.select_owner(cyl, cfg, slab1)
-    owner_p = fk.select_owner_reference(cyl, cfg, slab1)
+    slabs = shard_slabs(SIZE, shards)
+    before = fk.launch_counts["select_owner_sharded"]
+    owner_k = fk.select_owner_slabs(cyl, cfg, slabs)
+    launched = fk.launch_counts["select_owner_sharded"] - before
+    owner_p = fk.select_owner_slabs_reference(cyl, cfg, slabs)
+    torch.cuda.synchronize()
     own_err = float(torch.max(torch.abs(owner_k - owner_p)))
-    log("sharded", f"select_owner on shard 1's slab vs plain: max abs err {own_err}")
-    check(own_err == 0.0, "the sharded owner pass equals its plain version")
+    log("sharded", f"select_owner_slabs on the {shards} slabs ({launched} launch) vs plain: "
+                   f"{differing_cells(owner_k, owner_p)} of the five planes, halo columns included")
+    check(launched == 1 and torch.equal(owner_k, owner_p),
+          "the slabs' owner pass takes one launch and equals its plain version bit for bit")
 
     # the sharded rollout against the whole-grid kernel over the window (K2,
     # the exact d/dx that the sharded rollout takes)
@@ -717,9 +749,9 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         check(sig <= 1e-6, f"the {k}-shard signal agrees with K2's")
     log("sharded", f"launches of the {shards}-shard radii-only rollout: {counts}")
     check(counts["fused_rk4_sharded_radii_only"] == STEPS
-          and counts["select_owner_sharded"] == shards,
-          f"{STEPS} K4 radii-only launches (one a step for the {shards} slabs) and {shards} owner "
-          "passes")
+          and counts["select_owner_sharded"] == 1,
+          f"{STEPS} K4 radii-only launches (one a step for the {shards} slabs) and one owner "
+          "pass for the card's slabs")
     check(all(v == 0 for key, v in counts.items() if "sharded" not in key),
           "the sharded rollout launches no whole-grid kernel")
 
@@ -828,7 +860,6 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
 
     # K4 alone: one step of the 4 slabs stacked (one launch), no exchange,
     # each slab bit for bit its plain version's, halo columns included
-    slabs = shard_slabs(SIZE, shards)
     us, sh, owners_k, owners_p = stacked_slabs(u0, shape, cyl, cfg, slabs, dev)
     t0 = times[0]
     rows = {}
@@ -858,11 +889,10 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         flops = shards * fk.step_flops(SIZE, n_cyl, radii, ny)
         err = max(errs[radii], float(torch.max(torch.abs(got[0] - want[0]))))
         rows[name] = (err, ms, dev_only, plain_ms, bound(io, flops))
-    own_ms = cuda_ms(lambda: [fk.select_owner(cyl, cfg, s) for s in slabs], 50)
-    own_dev = device_ms(lambda: [fk.select_owner(cyl, cfg, s) for s in slabs], 20)
-    own_plain = cuda_ms(lambda: [fk.select_owner_reference(cyl, cfg, s) for s in slabs], 3)
-    own_bound = bound(shards * nbytes(cyl) + nbytes(owners_k),
-                      sum(SIZE * s.w for s in slabs) * n_cyl * 9)
+    own_ms = cuda_ms(lambda: fk.select_owner_slabs(cyl, cfg, slabs), 50)
+    own_dev = device_ms(lambda: fk.select_owner_slabs(cyl, cfg, slabs), 20)
+    own_plain = cuda_ms(lambda: fk.select_owner_slabs_reference(cyl, cfg, slabs), 3)
+    own_bound = bound(nbytes(cyl, owners_k), sum(owner_ops(cyl, cfg, s) for s in slabs))
     rows["owner"] = (own_err, own_ms, own_dev, own_plain, own_bound)
     states_mb = 2 * nbytes(us) / 1e6
     log("sharded", f"K4, one step of {shards} stacked slabs (one launch), ms as the host drives it "
@@ -870,9 +900,9 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
                    f"({rows['radii'][2]:.4f}; plain {rows['radii'][3]:.4f}), general "
                    f"{rows['general'][1]:.4f} ({rows['general'][2]:.4f}; plain "
                    f"{rows['general'][3]:.4f}); bound {rows['radii'][4][0]:.5f} ms "
-                   f"({rows['radii'][4][1]}; states alone {states_mb:.1f} MB); {shards} owner "
-                   f"passes {own_ms:.4f} ({own_dev:.4f}; plain {own_plain:.4f}), bound "
-                   f"{own_bound[0]:.5f} ms")
+                   f"({rows['radii'][4][1]}; states alone {states_mb:.1f} MB); the owner pass of the "
+                   f"{shards} slabs (one launch) {own_ms:.4f} ({own_dev:.4f}; plain "
+                   f"{own_plain:.4f}), bound {own_bound[0]:.5f} ms ({own_bound[1]})")
     return rows, {"radii": counts["fused_rk4_sharded_radii_only"],
                   "owner": counts["select_owner_sharded"],
                   "general": counts_g["fused_rk4_sharded_general"]}
@@ -946,7 +976,7 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
     log("sharded", f"launches of the {shards}-shard split radii-only rollout: {counts}")
     expect = dict.fromkeys(counts, 0)
     expect.update({"fused_rk4_sharded_xmatmul_radii_only": STEPS,  # one launch a step
-                   "select_owner_sharded": shards})
+                   "select_owner_sharded": 1})  # one for the card's slabs
     check(counts == expect, f"the split sharded rollout launches K4-XM alone: {counts} == {expect}")
 
     # the split general rollout's slabs against the whole-grid K5 general
@@ -1423,10 +1453,10 @@ def main() -> int:
     owner_p = fk.select_owner_reference(cyl, cfg)
     torch.cuda.synchronize()
     owner_err = float(torch.max(torch.abs(owner_k - owner_p)))
-    owner_rel = rel_err(owner_k[1:], owner_p[1:])  # d2 holds 1e30 far from every cylinder
-    log("kernels", f"select_owner vs plain: max abs err {owner_err}, rel err of r1, dr, c1, dc "
-                   f"{owner_rel:.3e} (tol {REL_TOL:g})")
-    check(owner_rel <= REL_TOL, "select_owner agrees with its plain version")
+    log("kernels", f"select_owner vs plain: {differing_cells(owner_k, owner_p)} of the five planes; "
+                   f"{owner_sentinel_share(owner_k):.3f} of the cells hold the sentinel")
+    check(torch.equal(owner_k, owner_p),
+          "select_owner equals its plain version bit for bit on all five planes")
 
     def window_run(step_fn, owner, cyl_, n_steps):
         u, es = u0, []
@@ -1509,6 +1539,7 @@ def main() -> int:
     k1_plain = cuda_ms(lambda: fk.fused_rk4_step_reference(u0, shape, prof, moved, None, t_arg, ti,
                                                            tf, cfg), 3)
     own_ms = cuda_ms(lambda: fk.select_owner(cyl, cfg), 50)
+    own_dev = device_ms(lambda: fk.select_owner(cyl, cfg), 20)
     own_plain = cuda_ms(lambda: fk.select_owner_reference(cyl, cfg), 5)
     k5_ms = cuda_ms(lambda: xm_step(u0, shape, prof, cyl, owner_k, t_arg, ti, tf, cfg), 50)
     k5_plain = cuda_ms(lambda: xm_plain(u0, shape, prof, cyl, owner_p, t_arg, ti, tf, cfg), 5)
@@ -1531,7 +1562,8 @@ def main() -> int:
                        f"host issues a step in {win[2]:.4f} ms")
     log("kernels", f"ms per RK4 step: K2 {k2_ms:.4f} (plain {k2_plain:.4f}; device work "
                    f"{k2_dev:.4f}), K1 {k1_ms:.4f} (plain {k1_plain:.4f}; device work "
-                   f"{k1_dev:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f}); "
+                   f"{k1_dev:.4f}); select_owner {own_ms:.4f} (plain {own_plain:.4f}; device work "
+                   f"{own_dev:.4f}); "
                    f"K5 radii-only {k5_ms:.4f} (plain {k5_plain:.4f}; device work {k5_dev:.4f}), "
                    f"K5 general {k5g_ms:.4f} (plain {k5g_plain:.4f}; device work {k5g_dev:.4f})")
 
@@ -1543,7 +1575,7 @@ def main() -> int:
     part_t = torch.empty((fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
     io_step = nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t)
     k1_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False))
-    own_bound = bound(nbytes(cyl, owner_k), SIZE * SIZE * n_cyl * 9)
+    own_bound = bound(nbytes(cyl, owner_k), owner_ops(cyl, cfg))
     k2_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True))
     k5_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
     k5g_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False, x_matmul=True))
@@ -1696,8 +1728,9 @@ def main() -> int:
          pos_counts[True]["fused_rk4_xmatmul_general"],
          (xm_abs[False], k5g_ms, k5g_plain, k5g_bound)),
     )
-    # the one-launch step's rows add `device_ms`, as K4's do
+    # the one-launch step's and the owner passes' rows add `device_ms`, as K4's do
     dev_rows = {"fused_rk4_radii_only": k2_dev, "fused_rk4_xmatmul_radii_only": k5_dev,
+                "select_owner": own_dev, "select_owner_batched": k3["own_dev"],
                 "fused_rk4_general": k1_dev, "fused_rk4_xmatmul_general": k5g_dev,
                 "fused_rk4_batched_radii_only": k3["k3_dev"],
                 "fused_rk4_batched_xmatmul_radii_only": k3["k5b_dev"],

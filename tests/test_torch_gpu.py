@@ -25,7 +25,13 @@ slab, halo columns (written 0) included, the slabs of a card stacked in
 one launch equal each slab stepped alone, each owned cell equals the
 whole-grid kernel's, and the sharded rollout takes one launch a card a
 step; the step refuses slabs that are not consecutive, too thin or outside
-the domain. The
+the domain. The radii-only owner pass equals its plain version bit for bit
+on all five planes in each form, one launch each: the whole grid and 16
+candidates at sizes up to 700^2, with 0, 1, 19 and 80 cylinders and a box
+that just reaches or just misses a tile's edge, and a card's 1, 2 or 4
+slabs in one launch; its fields leave the 700^2 window (K5 and K2), the
+16-candidate re-rank at 350^2 and the 1, 2 and 4-shard rollouts bit for
+bit what the fields over all cylinders give. The
 surrogate's gradient path (`shot_energy`, CEM's polish) on the card agrees
 with the CPU's at narrow width to 1e-4 relative.
 """
@@ -81,7 +87,7 @@ def test_kernel_matches_plain_version(card, radii_only, n):
     owner = None
     if radii_only:
         owner = fk.select_owner(cyl, cfg)
-        assert rel(owner[1:], fk.select_owner_reference(cyl, cfg)[1:]) <= TOL
+        assert torch.equal(owner, fk.select_owner_reference(cyl, cfg))
     before = dict(fk.launch_counts)
     got, want = (u, None), (u, None)
     for t0 in (2e-4, 2.1e-4):  # two chained steps
@@ -126,7 +132,7 @@ def test_batched_kernel_matches_plain_version_and_single_kernel(card, radii_only
     owner = None
     if radii_only:
         owner = fk.select_owner_batched(cyl, cfg)
-        assert rel(owner[:, 1:], fk.select_owner_batched_reference(cyl, cfg)[:, 1:]) <= TOL
+        assert torch.equal(owner, fk.select_owner_batched_reference(cyl, cfg))
     before = dict(fk.launch_counts)
     got, want = (u, None), (u, None)
     for t0 in (2e-4, 2.1e-4):  # two chained steps
@@ -301,8 +307,9 @@ def test_sharded_kernel_matches_plain_version_and_whole_grid(card, radii_only, x
     u_sh, sig = roll(u, tspan, cyl, shape, prof)
     torch.cuda.synchronize()
     assert fk.launch_counts[key] - before[key] == steps  # one launch a step for the card
+    # one owner pass for the card's slabs
     assert (fk.launch_counts["select_owner_sharded"] - before["select_owner_sharded"]
-            == (shards if radii_only else 0))
+            == (1 if radii_only else 0))
     want, es = u, []
     for t0 in tspan[:-1]:
         want, e = fk.fused_rk4_step(want, shape, prof, cyl, owner, float(t0), ti, tf, cfg,
@@ -741,3 +748,152 @@ def test_one_launch_step_runs_on_each_of_several_cards_across_cards(card, cards)
                 torch.cuda.synchronize(dev)
                 assert kept[0].device == dev and torch.equal(kept[0], want)
                 assert rel(energies, torch.stack(es)) <= 1e-6
+
+
+def _owner_inputs(case, n, k, device):
+    """(cfg, cyl) of the owner pass: the triple ring's 19 cylinders with
+    radii drawn in their boxes ("ring"), each of k candidates its own; the
+    80 of `chip_smoke.cylinder_grid` ("eighty", two chunks of the kernel's
+    table); none ("none"); or, on the grid of exact coordinates
+    -10 + 0.25 i, one cylinder of reach 0.75 whose box starts at the last
+    row and column of the first 16 x 64 tile ("edge") or just past them
+    ("miss")."""
+    from chip_smoke import cylinder_grid
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.physics.fused import cyl_params
+
+    cfg = fk.StepConfig(n=n, spacing=30.0 / (n - 1), x_min=-15.0, dt=1e-5, c0=1531.0,
+                        freq=1000.0)
+    rng = np.random.default_rng(n)
+    if case == "ring":
+        space = build_triple_ring_design_space(device="cpu")
+        cyl = cyl_params(space.low, space.high, "cpu").numpy()
+        lo, hi = cyl[2].copy(), cyl[6].copy()
+        cyl = np.repeat(cyl[None], k or 1, axis=0)
+        cyl[:, 2] = rng.uniform(lo, hi, (k or 1, lo.shape[0]))
+        cyl[:, 6] = rng.uniform(lo, hi, (k or 1, lo.shape[0]))
+        cyl = cyl if k else cyl[0]
+    elif case == "eighty":
+        cyl = cylinder_grid(False)
+    elif case == "none":
+        cyl = np.zeros((8, 0))
+    else:
+        cfg = dataclasses.replace(cfg, spacing=0.25, x_min=-10.0)
+        px = -10.0 + 15 * 0.25 + 0.75 + (0.0 if case == "edge" else 2.0 ** -8)
+        py = -10.0 + 63 * 0.25 + 0.75 + (0.0 if case == "edge" else 2.0 ** -8)
+        cyl = np.array([[px], [py], [0.5], [1032.0], [px], [py], [0.25], [1032.0]])
+    if k and case != "ring":
+        cyl = np.repeat(cyl[None], k, axis=0)
+        cyl[:, [2, 6]] *= rng.uniform(0.7, 1.0, (k, 1, cyl.shape[-1]))
+    return cfg, torch.from_numpy(np.ascontiguousarray(cyl, np.float32)).to(device)
+
+
+OWNER_CASES = [("ring", 33), ("ring", 45), ("ring", 350), ("ring", 700), ("eighty", 96),
+               ("none", 45), ("edge", 80), ("miss", 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [None, 16])
+@pytest.mark.parametrize("case,n", OWNER_CASES)
+def test_owner_pass_equals_plain_version_bit_for_bit(card, case, n, k):
+    # the whole grid, one design or 16 candidates: all five planes, the
+    # sentinel included, in one launch
+    cfg, cyl = _owner_inputs(case, n, k, card)
+    key = "select_owner" if k is None else "select_owner_batched"
+    before = fk.launch_counts[key]
+    if k is None:
+        got, want = fk.select_owner(cyl, cfg), fk.select_owner_reference(cyl, cfg)
+    else:
+        got, want = fk.select_owner_batched(cyl, cfg), fk.select_owner_batched_reference(cyl, cfg)
+    torch.cuda.synchronize()
+    assert fk.launch_counts[key] - before == 1
+    assert torch.equal(got, want)
+    assert bool((got[..., 0, :, :] == 1e30).any())  # cells that no box holds
+    if case in ("edge", "miss") and k is None:
+        assert bool(got[0, 15, 63] < 1e30) == (case == "edge")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2, 4])
+@pytest.mark.parametrize("case,n", [("ring", 48), ("ring", 700), ("eighty", 96), ("none", 48),
+                                    ("edge", 80)])
+def test_slab_owner_pass_takes_one_launch_for_all_slabs(card, case, n, shards):
+    from waves_jl_tpu_torch.parallel.fused_domain import shard_slabs
+
+    cfg, cyl = _owner_inputs(case, n, None, card)
+    slabs = shard_slabs(n, shards)
+    before = fk.launch_counts["select_owner_sharded"]
+    got = fk.select_owner_slabs(cyl, cfg, slabs)
+    torch.cuda.synchronize()
+    assert fk.launch_counts["select_owner_sharded"] - before == 1
+    assert torch.equal(got, fk.select_owner_slabs_reference(cyl, cfg, slabs))
+    for slab, one in zip(slabs, got):  # each slab as its own pass gives it
+        assert torch.equal(one, fk.select_owner(cyl, cfg, slab))
+
+
+def _all_cylinders_fields(cyl, cfg):
+    """The owner fields over all cylinders, as they were defined before the
+    per-tile cull: `select_owner_reference`'s arithmetic with boxes that
+    hold every cell."""
+    xs, ys = fk._coords(cfg, cyl.device)
+    box = torch.tensor([-np.inf, np.inf, -np.inf, np.inf], device=cyl.device)
+    return fk._owner_fields(cyl, box[:, None].expand(4, cyl.shape[-1]), xs[:, None],
+                            ys[None, :])
+
+
+def _full_size_window(card, k, x_matmul):
+    """((kept states, energies) of a 100-step window through
+    `fused_rk4_window` with the kernel's owner fields, and with the fields
+    over all cylinders), then the window's inputs and times: one design at
+    700^2 (k None) or k candidates at 350^2, the triple ring's radii drawn
+    in their boxes."""
+    n = 700 if k is None else 350
+    cfg, cyl = _owner_inputs("ring", n, k, card)
+    _, _, u, shape, prof = _inputs(n, False, card)
+    if k is not None:
+        u = torch.stack([u, u.flip(1), u.flip(2), u.flip(1, 2)] * (k // 4)).contiguous()
+    tspan = np.float32(2e-4) + np.arange(101, dtype=np.float32) * np.float32(cfg.dt)
+    times, ti, tf = [float(x) for x in tspan[:-1]], float(tspan[0]), float(tspan[-1])
+    if k is None:
+        owners = (fk.select_owner(cyl, cfg), _all_cylinders_fields(cyl, cfg))
+    else:
+        owners = (fk.select_owner_batched(cyl, cfg),
+                  torch.stack([_all_cylinders_fields(c, cfg) for c in cyl]))
+    assert not torch.equal(*owners)  # they differ away from the cylinders
+    runs = [fk.fused_rk4_window(u, shape, prof, cyl, own, times, ti, tf, cfg, [99], x_matmul)
+            for own in owners]
+    torch.cuda.synchronize()
+    return runs, cfg, cyl, u, shape, prof, tspan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_matmul", [True, False])
+def test_full_size_window_state_is_unchanged_by_the_owner_fields(card, x_matmul):
+    # K5 and K2 at 700^2: bit for bit on the state and the energies
+    (new, old), *_ = _full_size_window(card, None, x_matmul)
+    assert torch.equal(new[0][0], old[0][0]) and torch.equal(new[1], old[1])
+
+
+@pytest.mark.gpu
+def test_full_size_rerank_state_is_unchanged_by_the_owner_fields(card):
+    # batched K5, 16 candidates at 350^2, as the hybrid's re-rank
+    (new, old), *_ = _full_size_window(card, 16, True)
+    assert torch.equal(new[0][0], old[0][0]) and torch.equal(new[1], old[1])
+
+
+@pytest.mark.gpu
+def test_full_size_sharded_rollouts_equal_the_window_on_old_fields(card):
+    # the 1, 2 and 4-shard rollouts at 700^2 (exact d/dx, one owner pass for
+    # the card's slabs) against the K2 window on the fields over all cylinders
+    from waves_jl_tpu_torch.parallel import make_fused_sharded_rollout, make_mesh
+
+    (_, old), cfg, cyl, u, shape, prof, tspan = _full_size_window(card, None, False)
+    for shards in (1, 2, 4):
+        roll = make_fused_sharded_rollout(make_mesh(devices=[card] * shards), cfg.n, cfg.spacing,
+                                          cfg.dt, cfg.c0, cfg.freq, cyl.shape[1], cfg.x_min,
+                                          radii_only=True)
+        before = fk.launch_counts["select_owner_sharded"]
+        got, _ = roll(u, tspan, cyl, shape, prof)
+        torch.cuda.synchronize()
+        assert fk.launch_counts["select_owner_sharded"] - before == 1
+        assert torch.equal(got, old[0][0])

@@ -192,14 +192,30 @@ constexpr int TILED_MIN_BLOCKS = 3;  // resident blocks an SM the registers must
 static_assert(SH == 3 * BY, "a thread works three region rows");
 static_assert(SW == BX, "a warp spans the region's columns");
 
-// The owner pass's grid: n rows of w local columns, local column j at
-// global column col0 + j, coordinates x_min + index * spacing.
+// `select_owner_kernel`: a block of OWN_BX x OWN_BY threads owns a tile of
+// OWN_TR rows and OWN_TC columns, a thread OWN_CELLS columns of one row,
+// OWN_BX apart.
+constexpr int OWN_CELLS = 4;
+constexpr int OWN_BX = 16;    // threads along y, the contiguous axis
+constexpr int OWN_BY = 16;    // threads along x
+constexpr int OWN_TR = OWN_BY;              // tile rows, 16
+constexpr int OWN_TC = OWN_BX * OWN_CELLS;  // tile columns, 64
+static_assert(CYL_CHUNK == 64 && OWN_BX * OWN_BY >= CYL_CHUNK,
+              "two whole warps stage a chunk and ballot its cull bits");
+
+// The owner pass's grid: n rows of w local columns, coordinates
+// x_min + index * spacing at the global index. On the whole grid (slabs
+// false) blockIdx.z is the candidate, with its own (8, n_cyl) cylinders,
+// and local column j is global column col0 + j (col0 0); on slabs,
+// blockIdx.z is slab z, whose local column j is global column
+// col0 + z (w - 2 HALO) + j, and the cylinders are shared.
 struct Geometry {
   int n;
   int w;
   int col0;
   float spacing;
   float x_min;
+  bool slabs;
 };
 
 // First derivative along an axis: one-sided forward where `first`, backward
@@ -254,19 +270,6 @@ __device__ __forceinline__ float d_split(const G& g, bool first, bool last, int 
   return (d_hi + d_lo) * inv2d;
 }
 
-// Stage cylinders [q0, q0 + cnt) of the (8, n_cyl) table `cyl` into s_cyl,
-// laid out (8, CYL_CHUNK). Every thread of the block calls it.
-__device__ __forceinline__ void load_cylinders(float* s_cyl, const float* __restrict__ cyl,
-                                               int n_cyl, int q0, int cnt) {
-  __syncthreads();  // no thread still reads the previous chunk
-  for (int k = threadIdx.y * BX + threadIdx.x; k < 8 * cnt; k += BX * BY) {
-    const int r = k / cnt;
-    const int q = k - r * cnt;
-    s_cyl[r * CYL_CHUNK + q] = cyl[r * n_cyl + q0 + q];
-  }
-  __syncthreads();
-}
-
 __device__ __forceinline__ float block_sum(float v, float* red) {
   // fixed-order reduction: warp shuffle, then warp 0 sums the warp totals
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -281,55 +284,127 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
-// Owner fields of the radii-only mode, once per window: for each cell the
-// cylinder with the smallest gap d2 - rmax^2 (first in order on ties), as
-// owner[0..4] = [d2, r1, r2 - r1, c1, c2 - c1], from global coordinates.
-// Exact when the circles at their largest radii are disjoint and positions
-// and speeds are fixed. Candidate blockIdx.z has its own radii, so its own
-// rmax, gaps and owner.
-__global__ void __launch_bounds__(BX * BY)
+// Owner fields of the radii-only mode, once per window (`select_owner`,
+// pallas_fd.py:247): owner[0..4] = [d2, r1, r2 - r1, c1, c2 - c1] of each
+// cell's owner, from global coordinates. A cell's candidates are the
+// cylinders whose box [p - rmax, p + rmax], widened by one spacing on both
+// axes, holds it; its owner is the one with the smallest gap d2 - rmax^2
+// (first in order on ties), and a cell that no box holds gets the sentinel
+// [1e30, 0, 0, 0, 0], which no stage's test d2 < r^2 passes. Exact when
+// the circles at their largest radii are disjoint and positions and speeds
+// are fixed: a cylinder covers a cell at some weight only if its gap there
+// is negative, so inside its box, where it is the unique owner.
+//   What bounds it: bytes. It writes five float planes, 5 x 4 n w bytes a
+// candidate or slab (9.8 MB at 700^2, 2.9 us at 3.35 TB/s), and reads the
+// cylinder table alone.
+//   What the design does about it. Block (bx, by, z) owns the OWN_TR x
+// OWN_TC = 16 x 64 tile of candidate or slab z from row by OWN_TR and local
+// column bx OWN_TC; its thread (tx, ty) works row ty and columns tx,
+// tx + 16, tx + 32 and tx + 48 of the tile, so each store of a half-warp
+// writes 16 consecutive floats of a row, whatever the row's alignment. (A
+// float4 of four consecutive columns a thread measured 3-5% faster on an
+// H100 at 700^2, whose rows are 16-byte aligned, and 25-29% slower on the
+// 183-column slabs, where three rows in four are not.) Cull per tile, as
+// the Pallas kernel culls per row block (`intersects`, :217-225): the first
+// two warps read a chunk of CYL_CHUNK cylinders once, one cylinder a
+// thread, into shared memory, with its box, and ballot a bit for each
+// cylinder whose box meets the tile's; every thread then visits the set
+// bits in order and, for each, tests its row and columns against the box,
+// so a cell's candidates do not depend on how the grid is cut into tiles.
+// At 700^2, 405 of the 484 tiles meet no box of the triple ring's
+// cylinders at their largest radii and only store the sentinel. The chunks
+// stream in order, so ties and n_cyl > 64 behave as with one table; every
+// thread reaches each chunk's barriers.
+__global__ void __launch_bounds__(OWN_BX * OWN_BY)
 select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict__ owner,
                     Geometry g) {
-  __shared__ float s_cyl[8 * CYL_CHUNK];
+  // a chunk's cylinders: [px, py, rmax^2, x_lo, x_hi, y_lo, y_hi, r1, r2 - r1, c1, c2 - c1]
+  __shared__ float s_cyl[11][CYL_CHUNK];
+  __shared__ unsigned s_hit[CYL_CHUNK / 32];
   const int n = g.n;
   const int w = g.w;
-  cyl += (size_t)blockIdx.z * 8 * n_cyl;
-  owner += (size_t)blockIdx.z * 5 * n * w;
-  const int j = blockIdx.x * BX + threadIdx.x;
-  const int i = blockIdx.y * BY + threadIdx.y;
-  const bool inside = i < n && j < w;
-  const float x = g.x_min + (float)i * g.spacing;
-  const float y = g.x_min + (float)(g.col0 + j) * g.spacing;
-  float best = 1e30f, d2o = 1e30f, r1 = 0.0f, dr = 0.0f, c1 = 0.0f, dc = 0.0f;
+  const size_t z = blockIdx.z;
+  const int col0 = g.slabs ? g.col0 + (int)z * (w - 2 * HALO) : g.col0;
+  if (!g.slabs) cyl += z * 8 * (size_t)n_cyl;
+  owner += z * 5 * (size_t)n * w;
+  const float sp = g.spacing;
+  const int i0 = blockIdx.y * OWN_TR, j0 = blockIdx.x * OWN_TC;
+  // the tile's box: its first and last row's x, first and last column's y
+  const float tx0 = g.x_min + (float)i0 * sp;
+  const float tx1 = g.x_min + (float)(min(i0 + OWN_TR, n) - 1) * sp;
+  const float ty0 = g.x_min + (float)(col0 + j0) * sp;
+  const float ty1 = g.x_min + (float)(col0 + min(j0 + OWN_TC, w) - 1) * sp;
+  const int i = i0 + threadIdx.y;
+  const int j = j0 + threadIdx.x;
+  const float x = g.x_min + (float)i * sp;
+  float y[OWN_CELLS];
+#pragma unroll
+  for (int c = 0; c < OWN_CELLS; ++c) y[c] = g.x_min + (float)(col0 + j + OWN_BX * c) * sp;
+  float best[OWN_CELLS], f[5][OWN_CELLS];  // f: [d2, r1, dr, c1, dc] of the owner so far
+#pragma unroll
+  for (int c = 0; c < OWN_CELLS; ++c) {
+    best[c] = 1e30f;
+    f[0][c] = 1e30f;
+    f[1][c] = f[2][c] = f[3][c] = f[4][c] = 0.0f;
+  }
+  const int tid = threadIdx.y * OWN_BX + threadIdx.x;
   for (int q0 = 0; q0 < n_cyl; q0 += CYL_CHUNK) {
     const int cnt = min(CYL_CHUNK, n_cyl - q0);
-    load_cylinders(s_cyl, cyl, n_cyl, q0, cnt);
-    if (!inside) continue;
-    for (int q = 0; q < cnt; ++q) {
-      const float* cq = s_cyl + q;
-      const float ddx = x - cq[0];
-      const float ddy = y - cq[CYL_CHUNK];
-      const float d2 = ddx * ddx + ddy * ddy;
-      const float rmax = fmaxf(cq[2 * CYL_CHUNK], cq[6 * CYL_CHUNK]);
-      const float gap = d2 - rmax * rmax;
-      if (gap < best) {
-        best = gap;
-        d2o = d2;
-        r1 = cq[2 * CYL_CHUNK];
-        dr = cq[6 * CYL_CHUNK] - cq[2 * CYL_CHUNK];
-        c1 = cq[3 * CYL_CHUNK];
-        dc = cq[7 * CYL_CHUNK] - cq[3 * CYL_CHUNK];
+    __syncthreads();  // no thread still reads the previous chunk
+    if (tid < CYL_CHUNK) {
+      bool hit = false;
+      if (tid < cnt) {
+        const float* cq = cyl + q0 + tid;  // rows [p1x, p1y, r1, c1, p2x, p2y, r2, c2]
+        const float px = __ldg(cq), py = __ldg(cq + n_cyl), r1 = __ldg(cq + 2 * n_cyl),
+                    c1 = __ldg(cq + 3 * n_cyl), r2 = __ldg(cq + 6 * n_cyl),
+                    c2 = __ldg(cq + 7 * n_cyl);
+        const float rmax = fmaxf(r1, r2);
+        const float reach = rmax + sp;
+        const float box[4] = {px - reach, px + reach, py - reach, py + reach};
+        hit = box[0] <= tx1 && box[1] >= tx0 && box[2] <= ty1 && box[3] >= ty0;
+        const float v[11] = {px, py, rmax * rmax, box[0], box[1], box[2], box[3],
+                             r1, r2 - r1, c1, c2 - c1};
+#pragma unroll
+        for (int k = 0; k < 11; ++k) s_cyl[k][tid] = v[k];
+      }
+      const unsigned bits = __ballot_sync(0xffffffffu, hit);
+      if ((tid & 31) == 0) s_hit[tid >> 5] = bits;
+    }
+    __syncthreads();
+    unsigned long long hits = ((unsigned long long)s_hit[1] << 32) | s_hit[0];
+    while (hits != 0) {  // the same cylinders, in order, for the whole block
+      const int q = __ffsll((long long)hits) - 1;
+      hits &= hits - 1;
+      if (!(s_cyl[3][q] <= x && x <= s_cyl[4][q])) continue;  // the row is outside its box
+      const float ddx = x - s_cyl[0][q];
+      const float ddx2 = ddx * ddx;
+#pragma unroll
+      for (int c = 0; c < OWN_CELLS; ++c) {
+        if (!(s_cyl[5][q] <= y[c] && y[c] <= s_cyl[6][q])) continue;
+        const float ddy = y[c] - s_cyl[1][q];
+        const float d2 = ddx2 + ddy * ddy;
+        const float gap = d2 - s_cyl[2][q];
+        if (gap < best[c]) {
+          best[c] = gap;
+          f[0][c] = d2;
+          f[1][c] = s_cyl[7][q];
+          f[2][c] = s_cyl[8][q];
+          f[3][c] = s_cyl[9][q];
+          f[4][c] = s_cyl[10][q];
+        }
       }
     }
   }
-  if (!inside) return;
-  const int nn = n * w;
-  const int p = i * w + j;
-  owner[p] = d2o;
-  owner[nn + p] = r1;
-  owner[2 * nn + p] = dr;
-  owner[3 * nn + p] = c1;
-  owner[4 * nn + p] = dc;
+  if (i >= n) return;
+  const size_t nn = (size_t)n * w;
+  float* dst = owner + (size_t)i * w + j;
+#pragma unroll
+  for (int p = 0; p < 5; ++p) {
+#pragma unroll
+    for (int c = 0; c < OWN_CELLS; ++c) {
+      if (j + OWN_BX * c < w) dst[p * nn + OWN_BX * c] = f[p][c];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -706,8 +781,9 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
   }
 }
 
-dim3 grid_for(int n, int w, int batch) {
-  return dim3((w + BX - 1) / BX, (n + BY - 1) / BY, batch);
+// The owner pass's grid for n rows and w local columns a candidate or slab.
+dim3 owner_grid(int n, int w, int batch) {
+  return dim3((w + OWN_TC - 1) / OWN_TC, (n + OWN_TR - 1) / OWN_TR, batch);
 }
 
 // The step's grid for n rows and ny owned columns a candidate or slab.
@@ -852,16 +928,21 @@ int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float
                : step_instance<true>(w, u, out, partials, t);
 }
 
-// Owner fields (batch, 5, n, w) of `batch` candidates' cylinders
-// (batch, 8, n_cyl) on the whole grid (w == n, col0 == 0), or of one
-// slab's (batch 1) with local column j at global column col0 + j.
+// Owner fields (batch, 5, n, w) in one launch: on the whole grid (w == n,
+// col0 == 0) of `batch` candidates' cylinders (batch, 8, n_cyl); on any
+// other (w, col0), of the (8, n_cyl) cylinders on `batch` consecutive
+// slabs of w local columns from col0, as `fused_rk4_step_tiled` takes
+// them, slab z's local column j at global column col0 + z (w - 2 HALO) + j.
 int select_owner(int batch, const float* cyl, int n_cyl, float* owner, int n, int w, int col0,
                  float spacing, float x_min, void* stream) {
-  if (!valid_extent(n, w, col0, 1) || n_cyl < 0 || batch < 1 || batch > 65535) {
+  if (batch < 1 || batch > 65535 || !valid_extent(n, w, col0, batch) || n_cyl < 0 ||
+      (n_cyl > 0 && cyl == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  select_owner_kernel<<<grid_for(n, w, batch), dim3(BX, BY), 0, (cudaStream_t)stream>>>(
-      cyl, n_cyl, owner, Geometry{n, w, col0, spacing, x_min});
+  const bool whole = w == n && col0 == 0;
+  select_owner_kernel<<<owner_grid(n, w, batch), dim3(OWN_BX, OWN_BY), 0,
+                        (cudaStream_t)stream>>>(cyl, n_cyl, owner,
+                                                Geometry{n, w, col0, spacing, x_min, !whole});
   return (int)cudaGetLastError();
 }
 

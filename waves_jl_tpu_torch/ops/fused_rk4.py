@@ -22,7 +22,10 @@ mode rasterises only the cylinders that reach its tile). `fused_rk4_window`
 drives a window's steps as the env window and the re-rank do, and
 `SlabWindow` a card's slabs through a sharded rollout: each makes its two
 state buffers and its energy partials once a window and marshals the
-window's fixed inputs once.
+window's fixed inputs once. The radii-only mode's owner pass takes one
+launch a window in each form (`select_owner`, `select_owner_batched`,
+`select_owner_slabs`: `select_owner_kernel`, each block testing only the
+cylinders whose box reaches its tile).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises. `launch_counts` counts the
@@ -71,6 +74,7 @@ NVCC_FLAGS = (
 )
 HALO = 4  # halo cells one RK4 step consumes on each side (pallas_fd.py:31)
 TILE = (16, 24)  # rows and columns of a block's tile in `rk4_step_tiled` (TX, TY)
+OWNER_TILE = (16, 64)  # rows and columns of a block's tile in `select_owner_kernel`
 
 launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0,
                  "fused_rk4_batched_general": 0, "fused_rk4_batched_radii_only": 0,
@@ -171,24 +175,30 @@ def _coords(cfg: StepConfig, device, slab: Slab | None = None):
     return x, cfg.x_min + slab.columns(device).to(torch.float32) * cfg.spacing
 
 
-def select_owner_reference(cyl: torch.Tensor, cfg: StepConfig,
-                           slab: Slab | None = None) -> torch.Tensor:
-    """(5, n, w) owner fields [d2, r1, r2 - r1, c1, c2 - c1] of each cell's
-    nearest cylinder by gap d2 - rmax^2 (first in order on ties), over the
-    whole grid (w = n) or a slab."""
-    xs, ys = _coords(cfg, cyl.device, slab)
-    x, y = xs[:, None], ys[None, :]
-    shape = (xs.shape[0], ys.shape[0])
+def owner_boxes(cyl: torch.Tensor, spacing: float) -> torch.Tensor:
+    """(4, n_cyl) [x_lo, x_hi, y_lo, y_hi] of each cylinder's box
+    [p - rmax, p + rmax], rmax = max(r1, r2), widened by `spacing` on both
+    axes, in the float32 arithmetic of `select_owner_kernel`."""
+    reach = torch.maximum(cyl[2], cyl[6]) + spacing
+    return torch.stack([cyl[0] - reach, cyl[0] + reach, cyl[1] - reach, cyl[1] + reach])
+
+
+def _owner_fields(cyl, box, x, y) -> torch.Tensor:
+    """(5, rows, cols) owner fields at row coordinates x (rows, 1) and
+    column coordinates y (1, cols), over the cylinders `cyl` (8, m) with
+    their boxes `box` (4, m), in order."""
+    shape = (x.shape[0], y.shape[1])
     best = torch.full(shape, 1e30, dtype=torch.float32, device=cyl.device)
     d2o = best.clone()
     r1, dr, c1, dc = (torch.zeros(shape, dtype=torch.float32, device=cyl.device) for _ in range(4))
     for q in range(cyl.shape[1]):
+        inside = (box[0, q] <= x) & (x <= box[1, q]) & (box[2, q] <= y) & (y <= box[3, q])
         ddx = x - cyl[0, q]
         ddy = y - cyl[1, q]
         d2 = ddx * ddx + ddy * ddy
         rmax = torch.maximum(cyl[2, q], cyl[6, q])
         gap = d2 - rmax * rmax
-        upd = gap < best
+        upd = inside & (gap < best)
         best = torch.where(upd, gap, best)
         d2o = torch.where(upd, d2, d2o)
         r1 = torch.where(upd, cyl[2, q], r1)
@@ -196,6 +206,43 @@ def select_owner_reference(cyl: torch.Tensor, cfg: StepConfig,
         c1 = torch.where(upd, cyl[3, q], c1)
         dc = torch.where(upd, cyl[7, q] - cyl[3, q], dc)
     return torch.stack([d2o, r1, dr, c1, dc])
+
+
+def select_owner_reference(cyl: torch.Tensor, cfg: StepConfig,
+                           slab: Slab | None = None) -> torch.Tensor:
+    """(5, n, w) owner fields [d2, r1, r2 - r1, c1, c2 - c1] over the whole
+    grid (w = n) or a slab: each cell's owner is, of the cylinders whose
+    `owner_boxes` box holds the cell, the one with the smallest gap
+    d2 - rmax^2 (first in order on ties); a cell that no box holds gets
+    [1e30, 0, 0, 0, 0], which no stage's test d2 < r^2 passes. Where a
+    cylinder covers a cell at any lerp weight (gap < 0) it is the owner,
+    as it is over all cylinders; elsewhere a cylinder outside the box is
+    far enough that the stage test fails for it too, so the step's state
+    is that of the nearest-gap owner over all cylinders."""
+    xs, ys = _coords(cfg, cyl.device, slab)
+    return _owner_fields(cyl, owner_boxes(cyl, cfg.spacing), xs[:, None], ys[None, :])
+
+
+def select_owner_tiled_reference(cyl: torch.Tensor, cfg: StepConfig, slab: Slab | None = None,
+                                 tile: tuple[int, int] = OWNER_TILE) -> torch.Tensor:
+    """The owner fields computed tile by tile as `select_owner_kernel`
+    decomposes the pass: tiles of `tile` rows and local columns from the
+    grid's first, each over the cylinders whose box meets the tile's box
+    (its first and last row's x, first and last column's y) alone, in
+    order. For the tests alone, which hold it equal to
+    `select_owner_reference` without a card."""
+    xs, ys = _coords(cfg, cyl.device, slab)
+    box = owner_boxes(cyl, cfg.spacing)
+    out = torch.empty((5, xs.shape[0], ys.shape[0]), dtype=torch.float32, device=cyl.device)
+    for i0 in range(0, xs.shape[0], tile[0]):
+        tx = xs[i0:i0 + tile[0]]
+        for j0 in range(0, ys.shape[0], tile[1]):
+            ty = ys[j0:j0 + tile[1]]
+            keep = ((box[0] <= tx[-1]) & (box[1] >= tx[0]) & (box[2] <= ty[-1])
+                    & (box[3] >= ty[0]))
+            out[:, i0:i0 + tile[0], j0:j0 + tile[1]] = _owner_fields(
+                cyl[:, keep], box[:, keep], tx[:, None], ty[None, :])
+    return out
 
 
 def _rasterize(cyl, x, y, w: float, c0: float) -> torch.Tensor:
@@ -301,6 +348,12 @@ def select_owner_batched_reference(cyl: torch.Tensor, cfg: StepConfig) -> torch.
     """(K, 5, n, n) owner fields of K candidates' cylinders (K, 8, n_cyl),
     each as `select_owner_reference` gives them."""
     return torch.stack([select_owner_reference(c, cfg) for c in cyl])
+
+
+def select_owner_slabs_reference(cyl: torch.Tensor, cfg: StepConfig, slabs: list) -> torch.Tensor:
+    """(S, 5, n, w) owner fields of the cylinders (8, n_cyl) on each of S
+    slabs, as `select_owner_reference` gives them."""
+    return torch.stack([select_owner_reference(cyl, cfg, s) for s in slabs])
 
 
 def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
@@ -584,14 +637,20 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 
 
 def _launch_owner(cyl: torch.Tensor, cfg: StepConfig, batch: int | None,
-                  slab: Slab | None = None) -> torch.Tensor:
-    """Check the cylinders and launch the owner pass: of one design for
-    batch None, else of `batch` candidates' designs; on a slab if given."""
+                  slabs: list | None = None) -> torch.Tensor:
+    """Check the cylinders and launch the owner pass once: on the whole
+    grid, of one design for batch None, else of `batch` candidates'
+    designs; or of one design on consecutive `slabs`, stacked (batch
+    len(slabs), or None for one slab unstacked)."""
     lead = () if batch is None else (batch,)
-    n_cyl = _check_cyl(cyl, lead, cyl.device)
-    w, col0 = _extent(cfg, slab)
+    if slabs is None:
+        n_cyl = _check_cyl(cyl, lead, cyl.device)
+        w, col0 = cfg.n, 0
+    else:
+        n_cyl = _check_cyl(cyl, (), cyl.device)
+        w, col0 = _slab_extent(slabs)
     owner = torch.empty((*lead, 5, cfg.n, w), dtype=torch.float32, device=cyl.device)
-    key = _key("select_owner", batch, slab)
+    key = _key("select_owner", batch, slabs)
     with torch.cuda.device(cyl.device):  # the launch goes to the current device
         code = _lib().owner(batch or 1, _ptr(cyl), n_cyl, _ptr(owner), cfg.n, w, col0,
                             cfg.spacing, cfg.x_min, _stream(cyl.device))
@@ -605,7 +664,17 @@ def select_owner(cyl: torch.Tensor, cfg: StepConfig, slab: Slab | None = None) -
     (5, n, slab.w) on a slab (see `select_owner_reference`)."""
     if not _on_card(cyl):
         return select_owner_reference(cyl, cfg, slab)
-    return _launch_owner(cyl, cfg, None, slab)
+    return _launch_owner(cyl, cfg, None, None if slab is None else [slab])
+
+
+def select_owner_slabs(cyl: torch.Tensor, cfg: StepConfig, slabs: list) -> torch.Tensor:
+    """K4's owner fields (S, 5, n, w) of the cylinders (8, n_cyl) on S
+    consecutive slabs of equal width, stacked as `fused_rk4_step_slabs`
+    and `SlabWindow` take them, in one launch (see
+    `select_owner_slabs_reference`)."""
+    if not _on_card(cyl):
+        return select_owner_slabs_reference(cyl, cfg, slabs)
+    return _launch_owner(cyl, cfg, len(slabs), slabs)
 
 
 def select_owner_batched(cyl: torch.Tensor, cfg: StepConfig) -> torch.Tensor:

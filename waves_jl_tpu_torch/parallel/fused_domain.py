@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_rk4 import HALO, Slab, SlabWindow, StepConfig, select_owner
+from ..ops.fused_rk4 import HALO, Slab, SlabWindow, StepConfig, select_owner_slabs
 from .domain import sum_in_order
 from .mesh import Mesh
 
@@ -102,7 +102,8 @@ def make_fused_sharded_rollout(mesh: Mesh, n: int, spacing: float, dt: float, c0
     u_final is the global (12, n, n) state on the mesh's first device and
     signal the (steps+1, 3) [tot, inc, sc] energies, not multiplied by the
     cell area. `radii_only` selects the owner rasterisation (one owner pass
-    per shard a rollout), valid where `physics.fused.radii_only_ok` holds.
+    a card a rollout, for all of its slabs), valid where
+    `physics.fused.radii_only_ok` holds.
     `x_matmul` takes d/dx in the bf16 split form (K4-XM); the default is
     the exact stencil, as JAX's sharded rollout defaults to. Each card's
     slabs step in one launch (`build_stacked_rollout`).
@@ -114,10 +115,11 @@ def make_fused_sharded_rollout(mesh: Mesh, n: int, spacing: float, dt: float, c0
 def build_stacked_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: bool,
                           x_matmul: bool = False):
     """The rollout of `make_fused_sharded_rollout` with each device's run of
-    consecutive shards (`card_groups`) stacked in one `SlabWindow`: per
-    step, the halo exchange and a step of each window (one launch a card),
-    and the signal summed once at the end, in shard order, then each
-    shard's in tile order."""
+    consecutive shards (`card_groups`) stacked in one `SlabWindow`, with
+    the slabs' owner fields from one owner pass a card: per step, the halo
+    exchange and a step of each window (one launch a card), and the signal
+    summed once at the end, in shard order, then each shard's in tile
+    order."""
     n = cfg.n
     slabs = shard_slabs(n, mesh.size)
     ny_local = n // mesh.size
@@ -132,7 +134,7 @@ def build_stacked_rollout(mesh: Mesh, cfg: StepConfig, n_cyl: int, radii_only: b
         for dev, shards in groups:
             mine = [slabs[k] for k in shards]
             c = cyl.to(dev).contiguous()
-            owner = torch.stack([select_owner(c, cfg, s) for s in mine]) if radii_only else None
+            owner = select_owner_slabs(c, cfg, mine) if radii_only else None
             windows.append(SlabWindow(torch.stack(cut_slabs(u0, mine, [dev] * len(mine))),
                                       torch.stack(cut_slabs(shape, mine, [dev] * len(mine))),
                                       prof.to(dev).contiguous(), c, owner, ti, tf, cfg, mine,

@@ -18,7 +18,11 @@ paths' shapes, on the same seeded inputs in every checkout:
   checkout has it, else slab by slab as its wrapper takes them;
 * the 4-shard radii-only sharded rollout at 700^2 on one card
   (`make_fused_sharded_rollout`, exact and split d/dx), ms a step of a
-  100-step rollout.
+  100-step rollout;
+* the radii-only owner pass, ms a pass: on the whole grid at 700^2 on the
+  triple ring's cylinders, batched for 16 candidates at 350^2 with
+  radii of their own, and on the 4 slabs of a 700^2 grid: in one launch
+  (`select_owner_slabs`) where the checkout has it, else slab by slab.
 
 With --cards C it times the sharded rollouts alone, with C shards: on one
 card, and one shard a card on C cards.
@@ -111,11 +115,13 @@ def main() -> int:
             owner = fk.select_owner(cyl, cfg)
             step = fk.fused_rk4_step
             names = {False: "K2", True: "K5"}
+            row("owner whole grid", lambda: fk.select_owner(cyl, cfg))
         else:
             cyl = candidates(ring, k_radii)
             owner = fk.select_owner_batched(cyl, cfg)
             step = fk.fused_rk4_step_batched
             names = {False: "K3", True: "batched K5"}
+            row(f"owner batched {k_radii}", lambda: fk.select_owner_batched(cyl, cfg))
         for xm in (False, True):
             row(names[xm], lambda: step(u, shape, prof, cyl, owner, T0, TI, TF, cfg, x_matmul=xm),
                 lambda: fk.fused_rk4_window(u, shape, prof, cyl, owner, times, TI, TF, cfg,
@@ -139,6 +145,12 @@ def main() -> int:
     u = on_card(rng.standard_normal((12, N, N)) * 1e-3)
     us, sh = cut_slabs(u, slabs, [dev] * SHARDS), cut_slabs(shape, slabs, [dev] * SHARDS)
     stacked = hasattr(fk, "fused_rk4_step_slabs")
+    if not args.cards:
+        cyl = on_card(ring)
+        if hasattr(fk, "select_owner_slabs"):
+            row(f"owner {SHARDS} slabs", lambda: fk.select_owner_slabs(cyl, cfg, slabs))
+        else:
+            row(f"owner {SHARDS} slabs", lambda: [fk.select_owner(cyl, cfg, s) for s in slabs])
     for radii, cyl_np in () if args.cards else ((True, ring), (False, moved)):
         cyl = on_card(cyl_np)
         owners = ([fk.select_owner(cyl, cfg, s) for s in slabs] if radii else [None] * SHARDS)
