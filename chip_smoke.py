@@ -76,7 +76,22 @@ its elapsed seconds:
    CEM episode whose round-0 candidate 0 is the shifted previous plan; a
    20-action episode of the behaviour-cloned one-shot policy; one hybrid
    selection with a CEM searcher, its batched re-rank against the
-   sequential one; the MPC evaluation CLI once, in a subprocess.
+   sequential one; the MPC evaluation CLI once, in a subprocess;
+9. train: the flagship at the tracked record's width (`ref500_h8s4`,
+   latent stride 4) from its weights, on phase 7's 20 episodes (18 train,
+   2 validation) by the mixed-horizon recipe cut to horizons 1/4/8 (batch
+   4, accumulate 8, lr 1e-4, sc_weight 4, checkpoint "sqrt"): a micro-step's
+   time, host issue time and memory in each checkpoint mode; one cycle of
+   `train_windowed` (3 updates, 24 micro-steps), every loss finite and no
+   kernel launched; the card's gradient against the CPU's on one window
+   (1e-4 a leaf); 10 updates at lr 1e-5 on a fixed batch lower its loss
+   (`--save-train-batch NPZ` writes that batch and the loss trajectories
+   at lr 1e-5 and 1e-4 to NPZ); the checkpoint's
+   parameter names and shapes are the tracked checkpoint's, it reloads bit
+   for bit and resumes to the uninterrupted run's next update (cuDNN
+   deterministic); the train CLI once, in a subprocess, on phase 7's CLI
+   dataset. Training launches none of the kernels, so it adds no row to
+   the kernels' JSON line.
 
 The launch counts of each kernel are read from the main-path runs alone:
 every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
@@ -1060,11 +1075,12 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
                   "general": counts_g["fused_rk4_sharded_xmatmul_general"]}
 
 
-def datagen_phase(dev, k5_dev_ms: float):
+def datagen_phase(dev, k5_dev_ms: float, cli_out: str):
     """Phase 7: datagen at bench.py's operating point through the datagen
     CLI's env and `generate_episodes_chunked`, its checks, the storage
-    round trips and one run of the CLI. Returns the launch counts of the
-    two timed chunks."""
+    round trips and one run of the CLI, which writes its dataset to
+    `cli_out`. Returns the launch counts of the two timed chunks and their
+    20 episodes (on the host)."""
     import tempfile
 
     import torch
@@ -1142,7 +1158,7 @@ def datagen_phase(dev, k5_dev_ms: float):
         log("datagen", f"shard of 2 episodes read back bit for bit {same}")
         check(same, "episodes round-trip through a shard")
 
-        out = os.path.join(tmp, "cli")
+        out = cli_out
         t = time.time()
         proc = subprocess.run([sys.executable, "-m", "waves_jl_tpu_torch.scripts.datagen",
                                "--episodes", "2", "--format", "shard", "--out", out],
@@ -1156,7 +1172,7 @@ def datagen_phase(dev, k5_dev_ms: float):
         check(len(cli_eps) == 2 and os.path.exists(os.path.join(out, "env.json"))
               and all(bool(torch.isfinite(x).all()) for e in cli_eps for x in tree_leaves(e)),
               "the CLI wrote 2 finite episodes and env.json")
-    return counts
+    return counts, eps
 
 
 def record_controllers_phase(env, env_lo, space, dev):
@@ -1373,8 +1389,245 @@ def record_controllers_phase(env, env_lo, space, dev):
               "the CLI's decrease is finite")
 
 
-def main() -> int:
+def train_phase(dev, episodes, cli_data: str, smi: str, save_batch: str | None = None):
+    """Phase 9: training the flagship at the tracked record's width
+    (`ref500_h8s4`: 1,024 elements, h_size 256, nfreq 500, latent stride 4)
+    from its weights on phase 7's 20 episodes (18 train, 2 validation), by
+    the mixed-horizon recipe cut to horizons (1, 4, 8): batch 4, accumulate
+    8, lr 1e-4, sc_weight 4, checkpoint "sqrt", one cycle (3 updates). A
+    micro-step's time, host issue time and memory in each checkpoint mode,
+    then the seven checks. Training launches none of the CUDA kernels."""
+    import tempfile
+
+    import numpy as np
     import torch
+
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel, energy_loss
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.train import (TrainConfig, gather_window_batch, load_checkpoint,
+                                          make_optimizer, make_train_step, save_checkpoint,
+                                          stack_episodes, train_windowed)
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint, load_params
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    def flagship(device=dev, checkpoint="sqrt"):
+        model = AcousticEnergyModel(build_triple_ring_design_space(device=device), 1000.0,
+                                    elements=1024, h_size=256, nfreq=500,
+                                    integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE,
+                                    checkpoint=checkpoint, device=device)
+        load_model_checkpoint(model, os.path.join(ROOT, CHECKPOINT))
+        return model
+
+    def sc4(m):
+        return lambda b: energy_loss(m, b, sc_weight=4.0)
+
+    def params_of(m):
+        return {k: v.detach().clone() for k, v in m.named_parameters()}
+
+    horizons, B, acc = (1, 4, 8), 4, 8
+    store = stack_episodes(episodes[:18], dev)
+    rng = np.random.default_rng(9)
+    idx8 = torch.as_tensor(np.stack([rng.integers(0, 18, B), rng.integers(0, WINDOWS - 7, B)], -1),
+                           device=dev)
+    batch8 = gather_window_batch(store, idx8, 8, STRIDE)
+    batch1 = [gather_window_batch(store, torch.as_tensor(np.stack(
+        [rng.integers(0, 18, B), rng.integers(0, WINDOWS, B)], -1), device=dev), 1, STRIDE)
+        for _ in range(2 * acc)]
+    log("train", f"flagship from {CHECKPOINT}; 18 + 2 episodes on the card; a batch of "
+                 f"{B} horizon-8 windows has {batch8['t'].shape[1]} latent times")
+
+    # forward and backward of 4 horizon-8 windows in each checkpoint mode: the
+    # time, the host's issue time, the activations the forward keeps for the
+    # backward, and the peak above the memory held before
+    probe = {}
+    for mode in ("none", "step", "sqrt"):
+        m = flagship(checkpoint=mode)
+        ps = list(m.parameters())
+        for rep in range(2):  # the first warms the allocator, cuDNN and checkpoint's imports
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with full_float32():
+                loss = sc4(m)(batch8)
+                fwd_issue = time.perf_counter() - t
+                torch.cuda.synchronize()
+                fwd = time.perf_counter() - t
+                kept = torch.cuda.memory_allocated() - base
+                torch.autograd.grad(loss, ps)
+            issue = time.perf_counter() - t
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        probe[mode] = dict(wall=wall, issue=issue, fwd=fwd, fwd_issue=fwd_issue,
+                           kept=kept / 2**20, peak=peak / 2**20)
+        log("train", f"checkpoint={mode!r}: forward and backward of {B} horizon-8 windows "
+                     f"{wall * 1e3:.1f} ms (forward {fwd * 1e3:.1f}); the host issues them in "
+                     f"{issue * 1e3:.1f} ms ({issue / wall:.3f} of the time); the forward keeps "
+                     f"{kept / 2**20:.1f} MiB for the backward; peak {peak / 2**20:.1f} MiB "
+                     f"above the {base / 2**20:.1f} MiB held before")
+        del m, ps, loss
+    check(probe["none"]["kept"] > probe["sqrt"]["kept"] > 0
+          and probe["none"]["kept"] > probe["step"]["kept"] > 0,
+          "checkpointing keeps less for the backward than 'none'")
+
+    # 1. train_windowed, one cycle (the recipe's smallest: a chunk of 8
+    # micro-steps a horizon): 3 updates, 24 micro-steps
+    model = flagship()
+    fk.reset_launch_counts()
+    cfg = TrainConfig(lr=1e-4, batch_size=B, accumulate=acc, epochs=1, val_every=1,
+                      val_batches=2, seed=0)
+    t = time.time()
+    model, opt_state, logger = train_windowed(sc4(model), model, episodes[:18], episodes[18:],
+                                              cfg, horizons=horizons, stride=STRIDE,
+                                              windows_per_horizon=32)
+    train_s = time.time() - t
+    hist = logger.history
+    for rec in hist:
+        log("train", "update {step}: train {train_loss:.6g} (h1 {train_loss_h1:.4g}, h4 "
+                     "{train_loss_h4:.4g}, h8 {train_loss_h8:.4g}), val {val_loss:.6g} "
+                     "(h1 {val_loss_h1:.4g}, h4 {val_loss_h4:.4g}, h8 {val_loss_h8:.4g})"
+                     .format(**rec))
+    launched = {k: v for k, v in fk.launch_counts.items() if v}
+    log("train", f"train_windowed: {hist[-1]['step']} updates ({hist[-1]['step'] * acc} "
+                 f"micro-steps of {B} windows, horizons 1/4/8 in turn) in {train_s:.2f} s with "
+                 f"validation; {hist[-1]['step_time']:.4f} s an optimizer update; kernel "
+                 f"launches {launched}")
+    updates = hist[-1]["step"]
+    check(updates == 3 and len(hist) == 1, "one cycle, 3 updates")
+    check(all(math.isfinite(v) for r in hist for k, v in r.items() if "loss" in k),
+          "every logged loss is finite")
+    check(not launched, "training launches none of the CUDA kernels")
+
+    # 2. the card's gradient against the CPU's on one window (batch 1, horizon 1)
+    one = tree_map(lambda x: x[:1], batch1[0])
+    cpu_model = flagship(torch.device("cpu"))
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    grads = []
+    for m, b in ((model, one), (cpu_model, tree_map(lambda x: x.cpu(), one))):
+        ps = dict(m.named_parameters())
+        with full_float32():
+            grads.append(dict(zip(ps, torch.autograd.grad(sc4(m)(b), list(ps.values())))))
+    worst = max((rel_err(grads[0][k].cpu(), grads[1][k]), k) for k in grads[1])
+    log("train", f"gradient on the card against the CPU's, one horizon-1 window: worst leaf "
+                 f"{worst[0]:.3e} of its largest magnitude ({worst[1]})")
+    check(worst[0] <= 1e-4, "the card's gradient matches the CPU's to 1e-4 per leaf")
+    del cpu_model, grads
+
+    # 3. learning: 10 updates (accumulate 1) on one fixed batch of 4 horizon-8
+    # windows; 'none' keeps every activation, which this check can afford.
+    # From these converged weights Adam's first updates move every parameter
+    # by about lr whatever its gradient: at the recipe's 1e-4 that raises the
+    # batch's loss in the JAX package too (tests/test_torch_train_learning.py
+    # holds both packages on this batch, saved by --save-train-batch), so the check runs at the 1e-5 of
+    # a low-lr fine-tune from a converged step. With `save_batch`, the batch
+    # and both trajectories, 1e-4's too, go to that file.
+    def learn(lr):
+        learner = flagship(checkpoint="none")
+        opt1 = make_optimizer(TrainConfig(lr=lr, accumulate=1))
+        step1 = make_train_step(sc4(learner), opt1)
+        state1 = opt1.init(dict(learner.named_parameters()))
+        losses = []
+        for _ in range(10):
+            _, state1, loss = step1(learner, state1, batch8)
+            losses.append(loss.detach())
+        with torch.no_grad(), full_float32():
+            losses.append(sc4(learner)(batch8))
+        traj = [float(v) for v in torch.stack(losses).cpu()]
+        log("train", f"10 updates at lr {lr:g} on one batch of 4 horizon-8 windows: loss "
+                     + " ".join(f"{v:.6g}" for v in traj))
+        return traj
+
+    traj = {1e-5: learn(1e-5)}
+    check(traj[1e-5][-1] < traj[1e-5][0], "10 updates on a fixed batch lower its loss")
+    if save_batch:
+        from waves_jl_tpu_torch.utils.trees import encode_structure, tree_named_leaves
+
+        traj[1e-4] = learn(1e-4)
+        named = {k: v.detach().cpu().numpy() for k, v in tree_named_leaves(batch8).items()}
+        os.makedirs(os.path.dirname(os.path.abspath(save_batch)), exist_ok=True)
+        np.savez_compressed(save_batch, **named,
+                            structure=np.array(json.dumps(encode_structure(batch8))),
+                            traj_lr1e_5=np.array(traj[1e-5]), traj_lr1e_4=np.array(traj[1e-4]))
+        log("train", f"the batch and its trajectories written to {save_batch}")
+
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        # 4. the checkpoint's parameter names and shapes are JAX's
+        path = os.path.join(tmp, f"checkpoint_step={updates}")
+        save_checkpoint(path, model, opt_state, updates)
+        ours = load_params(path)
+        tracked = load_params(os.path.join(ROOT, CHECKPOINT))
+        same = ({k: v.shape for k, v in ours.items()} == {k: v.shape for k, v in tracked.items()})
+        log("train", f"params.npz: {len(ours)} leaves, key set and shapes those of the tracked "
+                     f"checkpoint {same}; opt_state.npz with "
+                     f"{len(np.load(os.path.join(path, 'opt_state.npz')).files)} leaves")
+        check(same, "the checkpoint has exactly the tracked params.npz's keys and shapes")
+
+        # 5. reload: a fresh model predicts bit for bit what the trained one does
+        fresh = flagship()
+        opt = make_optimizer(cfg)
+        fresh, fresh_state, step_no = load_checkpoint(
+            path, fresh, opt_state_like=opt.init(dict(fresh.named_parameters())))
+        with torch.no_grad():
+            same = torch.equal(fresh(batch8), model(batch8))
+        log("train", f"reloaded at step {step_no}: predictions bit for bit {same}")
+        check(same and step_no == updates,
+              "the reloaded model predicts bit for bit as the trained one")
+
+        # 6. resume: one more update (8 micro-steps) from the checkpoint equals the
+        # uninterrupted run's, cuDNN deterministic
+        for m, s in ((model, opt_state), (fresh, fresh_state)):
+            step = make_train_step(sc4(m), opt)
+            for b in batch1[:acc]:
+                _, s, _ = step(m, s, b)
+            check(s.gradient_step == updates + 1 and s.mini_step == 0, "the next update applied")
+        same = all(torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters()))
+        log("train", f"one more update resumed from the checkpoint against the uninterrupted "
+                     f"run: parameters bit for bit {same}")
+        check(same, "resuming gives the uninterrupted run's next update")
+    torch.backends.cudnn.deterministic = False
+    del fresh, model, store
+
+    # 7. the train CLI on the dataset phase 7's datagen CLI wrote
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "run")
+        t = time.time()
+        proc = subprocess.run([sys.executable, "-m", "waves_jl_tpu_torch.scripts.train",
+                               "--data", cli_data, "--out", out, "--horizons", "1", "2",
+                               "--latent-stride", str(STRIDE), "--epochs", "1", "--batch", "16",
+                               "--accumulate", "2", "--val-every", "2", "--val-batches", "1",
+                               "--sc-weight", "4", "--init-from", os.path.join(ROOT, CHECKPOINT)],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600, check=False)
+        cli_s = time.time() - t
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-1:] or [""]
+        log("train", f"train CLI --horizons 1 2 --latent-stride 4 --epochs 1 --batch 16 "
+                     f"--accumulate 2: exit {proc.returncode} in {cli_s:.2f} s: {tail[0]}")
+        check(proc.returncode == 0, f"the train CLI exits 0:\n{proc.stdout}\n{proc.stderr}")
+        dirs = sorted(d for d in os.listdir(out) if d.startswith("checkpoint_step="))
+        check(bool(dirs) and os.path.exists(os.path.join(out, "metrics.jsonl"))
+              and os.path.exists(os.path.join(out, dirs[-1], "params.npz")),
+              "the CLI wrote a checkpoint_step=N dir and metrics.jsonl")
+    sq = probe["sqrt"]
+    log("train", f"{smi}: {hist[-1]['step_time']:.4f} s an optimizer update; forward and "
+                 f"backward of 4 horizon-8 windows {sq['wall'] * 1e3:.1f} ms ('sqrt'), the "
+                 f"host's issue {sq['issue'] / sq['wall']:.3f} of it; kept for the backward, "
+                 f"MiB none/step/sqrt " + "/".join(f"{probe[k]['kept']:.1f}" for k in probe)
+        + "; peak " + "/".join(f"{probe[k]['peak']:.1f}" for k in probe))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    p = argparse.ArgumentParser(description="smoke run of the port on one NVIDIA card")
+    p.add_argument("--save-train-batch", default=None, metavar="NPZ",
+                   help="write phase 9's fixed learning batch and its loss trajectories at "
+                        "lr 1e-5 and 1e-4 (tests/test_torch_train_learning.py reads them)")
+    args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1704,11 +1957,18 @@ def main() -> int:
     k4xm, k4xm_counts = sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev)
 
     # 7. datagen at bench.py's operating point, through K5
-    dg_counts = datagen_phase(dev, k5_dev)
+    import tempfile
+
+    data_tmp = tempfile.TemporaryDirectory()
+    dg_counts, dg_eps = datagen_phase(dev, k5_dev, os.path.join(data_tmp.name, "cli"))
 
     # 8. the record controllers: CEM + polish, the one-shot policy, the
     # hybrid with a CEM searcher, the MPC CLI
     record_controllers_phase(env, env_lo, space, dev)
+
+    # 9. training the flagship at full width on phase 7's episodes
+    train_phase(dev, dg_eps, os.path.join(data_tmp.name, "cli"), smi, args.save_train_batch)
+    data_tmp.cleanup()
 
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
     # launches from the main-path runs: K2 from the exact simulator run,

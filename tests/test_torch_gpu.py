@@ -33,7 +33,10 @@ slabs in one launch; its fields leave the 700^2 window (K5 and K2), the
 16-candidate re-rank at 350^2 and the 1, 2 and 4-shard rollouts bit for
 bit what the fields over all cylinders give. The
 surrogate's gradient path (`shot_energy`, CEM's polish) on the card agrees
-with the CPU's at narrow width to 1e-4 relative.
+with the CPU's at narrow width to 1e-4 relative, and so does a training
+step's gradient (each leaf) with the update within 2 lr; a checkpoint
+taken mid-accumulation reloads on the card bit for bit and resumes to the
+uninterrupted run's next update (cuDNN deterministic).
 """
 import dataclasses
 
@@ -897,3 +900,91 @@ def test_full_size_sharded_rollouts_equal_the_window_on_old_fields(card):
         torch.cuda.synchronize()
         assert fk.launch_counts["select_owner_sharded"] - before == 1
         assert torch.equal(got, old[0][0])
+
+
+def _train_setup(dev, seed=0):
+    """A narrow flagship (its flax-like init from `seed`) and a batch of 3
+    horizon-2 windows made with numpy, on `dev`."""
+    from waves_jl_tpu_torch.designs import build_action_space, build_triple_ring_design_space
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    rng = np.random.default_rng(21)
+    B, H, steps = 3, 2, 4
+    space = build_triple_ring_design_space(device=dev)
+    model = AcousticEnergyModel(space, 1000.0, elements=32, h_size=16, nfreq=12,
+                                integration_steps=steps, dt=4e-5, seed=seed, device=dev)
+    zero = build_action_space(space.low, 0.25).low
+    acts = tree_map(lambda v: torch.zeros((B, H, *v.shape), device=dev), zero)
+    r = torch.from_numpy(rng.uniform(-0.2, 0.2, (B, H, 18)).astype(np.float32)).to(dev)
+    acts = dataclasses.replace(acts, config=dataclasses.replace(
+        acts.config, cylinders=dataclasses.replace(acts.config.cylinders, r=r)))
+    t = np.float32(1e-3) + np.float32(4e-5) * np.arange(H * steps + 1, dtype=np.float32)
+    batch = {"s_wave": torch.from_numpy(rng.random((B, 16, 16, 4)).astype(np.float32)).to(dev),
+             "s_design": tree_map(lambda v: v[None].expand(B, *v.shape).contiguous(), space.low),
+             "a": acts, "t": torch.from_numpy(np.broadcast_to(t, (B, t.size)).copy()).to(dev),
+             "y": torch.from_numpy(rng.uniform(0, 0.1, (B, t.size, 3)).astype(np.float32)).to(dev)}
+    return model, batch
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """The gradient of the sc-weighted loss and one Adam update: the card's
+    against the CPU's, 1e-4 of each leaf's largest magnitude; the updated
+    parameters within 2 lr (Adam's first step is about lr whatever the
+    gradient's size)."""
+    from waves_jl_tpu_torch.models.acoustic_energy_model import energy_loss
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.train import TrainConfig, make_optimizer, make_train_step
+
+    out = {}
+    for dev in ("cpu", card):
+        model, batch = _train_setup(dev)
+        ps = dict(model.named_parameters())
+        with full_float32():
+            loss = energy_loss(model, batch, sc_weight=4.0)
+            grads = torch.autograd.grad(loss, list(ps.values()))
+        opt = make_optimizer(TrainConfig(lr=1e-3, accumulate=1))
+        step = make_train_step(lambda b, m=model: energy_loss(m, b, sc_weight=4.0), opt)
+        step(model, opt.init(ps), batch)
+        out[str(dev)] = (float(loss.detach()), [g.cpu() for g in grads],
+                         [p.detach().cpu() for p in model.parameters()])
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = out["cpu"], out[str(card)]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for a, b in zip(g_card, g_cpu):
+        assert rel(a, b) <= 1e-4
+    for a, b in zip(p_card, p_cpu):
+        assert float((a - b).abs().max()) <= 2e-3
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_and_resume_on_the_card(card, tmp_path):
+    """3 micro-steps (accumulate 2), a checkpoint, a fresh model loaded from
+    it predicting bit for bit, and one more micro-step from both equal bit
+    for bit (cuDNN deterministic)."""
+    from waves_jl_tpu_torch.models.acoustic_energy_model import energy_loss
+    from waves_jl_tpu_torch.train import (TrainConfig, load_checkpoint, make_optimizer,
+                                          make_train_step, save_checkpoint)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, batch = _train_setup(card)
+        opt = make_optimizer(TrainConfig(lr=1e-3, accumulate=2))
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(lambda b: energy_loss(model, b, sc_weight=4.0), opt)
+        for _ in range(3):
+            _, state, _ = step(model, state, batch)
+        save_checkpoint(str(tmp_path), model, state, 1)
+        fresh, _ = _train_setup(card, seed=1)
+        _, fresh_state, step_no = load_checkpoint(
+            str(tmp_path), fresh, opt_state_like=opt.init(dict(fresh.named_parameters())))
+        assert step_no == 1 and fresh_state.mini_step == 1
+        with torch.no_grad():
+            assert torch.equal(fresh(batch), model(batch))
+        step(model, state, batch)
+        make_train_step(lambda b: energy_loss(fresh, b, sc_weight=4.0), opt)(fresh, fresh_state,
+                                                                              batch)
+        for a, b in zip(model.parameters(), fresh.parameters()):
+            assert torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = False

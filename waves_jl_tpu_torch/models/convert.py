@@ -8,7 +8,9 @@ the one-shot policy's ("['params']['MLP_0']['Dense_0']['kernel']") onto
 Dense kernels (in, out) -> (out, in). The CNN ends in a global max pool, so
 no flatten order needs permuting; images go channels-last -> NCHW at the
 model's input. Any leaf it cannot map, and any parameter left without a
-leaf, is an error.
+leaf, is an error. `to_jax_params` and `policy_to_jax_params` are the
+inverses: a `state_dict` to keystr-named leaves under the flax paths, the
+transposes undone, so the JAX package loads what the port saves.
 """
 from __future__ import annotations
 
@@ -89,6 +91,90 @@ def _policy_target(path: tuple) -> str:
     raise KeyError(path)
 
 
+def _keystr(path: tuple) -> str:
+    return "".join(f"['{p}']" for p in path)
+
+
+def _flax_leaf(leaf: str) -> str:
+    return {"weight": "kernel", "bias": "bias"}[leaf]
+
+
+def _source(name: str) -> tuple:
+    """The flax leaf path of one parameter of `AcousticEnergyModel`."""
+    parts = name.split(".")
+    leaf = _flax_leaf(parts[-1])
+    m = re.fullmatch(r"wave_encoder\.cnn\.blocks\.(\d+)\.conv(\d+)\.\w+", name)
+    if m:
+        return ("wave_encoder", "params", "CNNBase_0", f"ResidualBlock_{m[1]}", f"Conv_{m[2]}",
+                leaf)
+    m = re.fullmatch(r"wave_encoder\.heads\.(\d+)\.layers\.(\d+)\.\w+", name)
+    if m:
+        return ("wave_encoder", "params", f"MLP_{m[1]}", f"Dense_{m[2]}", leaf)
+    m = re.fullmatch(r"design_mlp\.mlp\.layers\.(\d+)\.\w+", name)
+    if m:
+        return ("design_encoder", "params", "MLP_0", f"Dense_{m[1]}", leaf)
+    raise KeyError(name)
+
+
+def _policy_source(name: str) -> tuple:
+    """The flax leaf path of one parameter of `PolicyNet`."""
+    leaf = _flax_leaf(name.split(".")[-1])
+    m = re.fullmatch(r"cnn\.blocks\.(\d+)\.conv(\d+)\.\w+", name)
+    if m:
+        return ("params", "CNNBase_0", f"ResidualBlock_{m[1]}", f"Conv_{m[2]}", leaf)
+    m = re.fullmatch(r"mlp\.layers\.(\d+)\.\w+", name)
+    if m:
+        return ("params", "MLP_0", f"Dense_{m[1]}", leaf)
+    raise KeyError(name)
+
+
+def to_flax_layout(arr: np.ndarray) -> np.ndarray:
+    """A port parameter's array in flax's layout: conv OIHW -> HWIO, dense
+    (out, in) -> (in, out)."""
+    if arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 2:
+        return arr.T
+    return arr
+
+
+def from_flax_layout(arr: np.ndarray) -> np.ndarray:
+    """A flax leaf's array in the port's layout: conv HWIO -> OIHW, dense
+    (in, out) -> (out, in)."""
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    if arr.ndim == 2:
+        return arr.T
+    return arr
+
+
+def jax_names(named: dict, policy: bool = False) -> dict:
+    """{port parameter name: flax keystr} for the names of a `state_dict`
+    (or of `named_parameters`), of the flagship or, with `policy`, of
+    `PolicyNet`."""
+    source = _policy_source if policy else _source
+    out = {}
+    for name in named:
+        try:
+            out[name] = _keystr(source(name))
+        except KeyError as e:
+            raise KeyError(f"no flax leaf for port parameter {name}") from e
+    return out
+
+
+def to_jax_params(state: dict, policy: bool = False) -> dict:
+    """{flax keystr: float32 array} of a port `state_dict` of
+    `AcousticEnergyModel` (or, with `policy`, of `PolicyNet`): the leaves
+    the JAX package's `params.npz` holds, in its layouts."""
+    names = jax_names(state, policy)
+    return {names[k]: np.ascontiguousarray(to_flax_layout(v.detach().cpu().numpy()))
+            for k, v in state.items()}
+
+
+def policy_to_jax_params(state: dict) -> dict:
+    return to_jax_params(state, policy=True)
+
+
 def from_jax_params(tree_or_npz, expected: dict | None = None) -> dict:
     """Port `state_dict` of `AcousticEnergyModel` from flax parameters.
     `expected` (a module's `state_dict()`) makes a leaf left over on either
@@ -110,11 +196,7 @@ def _convert(tree_or_npz, target, expected: dict | None) -> dict:
             name = target(path)
         except (KeyError, ValueError, IndexError) as e:
             raise KeyError(f"no port parameter for flax leaf {path}") from e
-        if arr.ndim == 4:  # conv HWIO -> OIHW
-            arr = arr.transpose(3, 2, 0, 1)
-        elif arr.ndim == 2:  # Dense (in, out) -> (out, in)
-            arr = arr.T
-        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))  # a writable copy
+        out[name] = torch.from_numpy(np.array(from_flax_layout(arr), dtype=np.float32))
     if expected is not None:
         missing = sorted(set(expected) - set(out))
         extra = sorted(set(out) - set(expected))

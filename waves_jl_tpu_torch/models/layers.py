@@ -28,6 +28,33 @@ def full_float32():
         torch.backends.cudnn.allow_tf32 = conv
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Fill `weight` as flax's default kernel initialiser (`lecun_normal`)
+    draws: a normal truncated at +-2 sigma, sigma corrected for the
+    truncation so that the variance is 1 / fan_in. Drawn on the CPU from
+    `generator` by the inverse CDF, as `jax.random.truncated_normal` draws."""
+    lo, hi = torch.erf(torch.tensor(-2.0 / np.sqrt(2.0))), torch.erf(torch.tensor(2.0 / np.sqrt(2.0)))
+    u = torch.rand(weight.shape, generator=generator, dtype=torch.float64)
+    z = np.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u)
+    std = np.sqrt(1.0 / fan_in) / 0.87962566103423978  # the std of a unit normal cut at +-2
+    with torch.no_grad():
+        weight.copy_((z * std).to(weight.dtype))
+
+
+def init_flax_like_(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-initialise every `nn.Conv2d` and `nn.Linear` of `module` as
+    flax's `nn.Conv` and `nn.Dense` start: `lecun_normal` kernels (fan_in =
+    in_ch kh kw for a conv, in_features for a dense layer) and zero biases,
+    drawn in module order from `generator`. The values differ from JAX's,
+    the distribution does not."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.01)
 

@@ -5,8 +5,8 @@ action, so a decision is one forward pass and no candidate rollout.
 
 The net emits a tanh-bounded vector in [-1, 1]^D, mapped affinely onto the
 action box and rebuilt into an action tree with `designs.design_with_vec`,
-so the box clamp is built into the output. The behaviour-cloning loss
-belongs to training, which the port does not have yet.
+so the box clamp is built into the output. `bc_loss` is the
+behaviour-cloning loss.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from torch import nn
 from ..designs import DesignSpace, design_with_vec, normalize_design
 from ..device import resolve_device
 from ..utils.trees import tree_zeros_like
-from .layers import MLP, CNNBase, full_float32
+from .layers import MLP, CNNBase, full_float32, init_flax_like_
 
 
 class PolicyNet(nn.Module):
@@ -49,13 +49,16 @@ class AmortizedPolicy:
 
     @classmethod
     def create(cls, design_space: DesignSpace, action_space: DesignSpace, h_size: int = 256,
-               in_channels: int = 4, device="cuda") -> "AmortizedPolicy":
+               in_channels: int = 4, seed: int = 0, device="cuda") -> "AmortizedPolicy":
         """`in_channels` counts the observation's channels (3 frames and
-        the source shape)."""
+        the source shape); the weights start as flax's initialisers draw
+        them, from `seed`."""
         dev = resolve_device(device)
         act_dim = int(action_space.low.to_vec().shape[0])
         design_dim = int(design_space.low.to_vec().shape[-1])
-        net = PolicyNet(in_channels, design_dim, h_size, act_dim).to(dev)
+        net = PolicyNet(in_channels, design_dim, h_size, act_dim)
+        init_flax_like_(net, torch.Generator().manual_seed(seed))
+        net = net.to(dev)
         return cls(net=net, design_space=design_space, action_space=action_space)
 
     def normalize_action(self, action) -> torch.Tensor:
@@ -81,3 +84,11 @@ class AmortizedPolicy:
         """One observation (res, res, C) and its design -> one action."""
         vec = normalize_design(design, self.design_space)[None]
         return self.action_from_unit(self.net(obs[None], vec)[0])
+
+
+def bc_loss(policy: AmortizedPolicy, batch: dict) -> torch.Tensor:
+    """Behaviour-cloning MSE in normalised action units. batch: {"s_wave":
+    (B, res, res, C), "s_design": designs with leading (B,), "a": actions
+    with leading (B,)}, the episode's fields."""
+    pred = policy.unit_batch(batch["s_wave"], batch["s_design"])
+    return torch.mean((pred - policy.normalize_action(batch["a"])) ** 2)

@@ -2,7 +2,8 @@
 `waves_jl_tpu/physics/dynamics.py`).
 
 * `runge_kutta`: classic RK4 increment with the JAX package's op order.
-* `Integrator`: steps a dynamics `rhs(u, t, theta) -> du` over a time grid.
+* `Integrator`: steps a dynamics `rhs(u, t, theta) -> du` over a time grid,
+  shared or per sample, with the JAX package's three checkpoint modes.
 * `AcousticDynamics2D`: split-field PML acoustic system over 12 channels,
   the total field (design speed) and the incident field (ambient c0). This
   is the plain reference of the fused RK4 kernel's equations.
@@ -16,6 +17,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..dims import OneDim, TwoDim, build_dirichlet, get_dx, get_dy
 from ..ops.fd import fd_dx, fd_dy, gradient_matrix
@@ -36,30 +38,79 @@ def build_tspan(ti: float, dt: float, steps: int) -> np.ndarray:
 
 
 def runge_kutta(f, u, t, theta, dt):
-    """One RK4 increment (times dt)."""
-    k1 = f(u, t, theta)
-    k2 = f(u + 0.5 * dt * k1, t + 0.5 * dt, theta)
-    k3 = f(u + 0.5 * dt * k2, t + 0.5 * dt, theta)
-    k4 = f(u + dt * k3, t + dt, theta)
+    """One RK4 increment (times dt). A dynamics with `at(t, theta) -> rhs(u)`
+    has its time-dependent terms evaluated once for both midpoint stages."""
+    at = getattr(f, "at", None) or (lambda s, th: lambda v: f(v, s, th))
+    f0, fh, f1 = at(t, theta), at(t + 0.5 * dt, theta), at(t + dt, theta)
+    k1 = f0(u)
+    k2 = fh(u + 0.5 * dt * k1)
+    k3 = fh(u + 0.5 * dt * k2)
+    k4 = f1(u + dt * k3)
     du = (1.0 / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return du * dt
 
 
 @dataclass(frozen=True)
 class Integrator:
+    """Steps `dynamics` over a time grid.
+
+    checkpoint: "none" | "step" | "sqrt", what autograd keeps for the
+    backward pass (`torch.utils.checkpoint`, non-reentrant); the values are
+    the same in every mode, only memory and time differ:
+      - "none": every step's activations;
+      - "step": each step's input state, the step recomputed on backward;
+      - "sqrt": chunks of int(sqrt(T)) steps, each recomputed on backward
+        from its first state; the remainder runs unchunked.
+    """
+
     dynamics: Any
     integration_function: Callable = runge_kutta
     dt: float = 1e-5
+    checkpoint: str = "none"
 
     def step(self, u, t, theta):
         return u + self.integration_function(self.dynamics, u, t, theta, self.dt)
 
+    def _steps(self, u, ts, theta) -> list:
+        out = []
+        for t in ts:
+            u = self.step(u, t, theta)
+            out.append(u)
+        return out
+
     def __call__(self, u0, tspan, theta) -> torch.Tensor:
-        """Trajectory (T+1, ...) with u0 first; tspan (T+1,) host times."""
-        traj = [u0]
-        for t in tspan[:-1]:
-            traj.append(self.step(traj[-1], t, theta))
-        return torch.stack(traj, dim=0)
+        """Trajectory (T+1, ...) with u0 first. tspan (T+1,) shared times
+        (host or tensor) or (B, T+1) per-sample times, stepped with each
+        sample's own (B,) time."""
+        ts = list(tspan[:-1] if tspan.ndim == 1 else tspan.T[:-1])
+        mode = self.checkpoint if torch.is_grad_enabled() else "none"
+        if mode == "none":
+            traj = self._steps(u0, ts, theta)
+        elif mode == "step":
+            traj = [u0]
+            for t in ts:
+                traj.append(checkpoint(self.step, traj[-1], t, theta, use_reentrant=False))
+            traj = traj[1:]
+        elif mode == "sqrt":
+            chunk = max(1, int(len(ts) ** 0.5))
+            n_main = len(ts) // chunk * chunk
+            traj, u = [], u0
+            for i in range(0, n_main, chunk):
+                part = checkpoint(lambda v, tc: torch.stack(self._steps(v, tc, theta)), u,
+                                  ts[i:i + chunk], use_reentrant=False)
+                traj.extend(part.unbind(0))
+                u = traj[-1]
+            traj.extend(self._steps(u, ts[n_main:], theta))
+        else:
+            raise ValueError(f"checkpoint must be 'none', 'step' or 'sqrt', not {self.checkpoint!r}")
+        return torch.stack([u0, *traj], dim=0)
+
+    def rollout_final(self, u0, tspan, theta) -> torch.Tensor:
+        """The final state alone, no trajectory kept."""
+        u = u0
+        for t in (tspan[:-1] if tspan.ndim == 1 else tspan.T[:-1]):
+            u = self.step(u, t, theta)
+        return u
 
 
 def acoustic_rhs_2d(x, c, f, pml, bc, dx, dy):
@@ -137,17 +188,25 @@ class AcousticDynamics1D:
             self.bc[None, None, :] - 1.0) + 1.0
         object.__setattr__(self, "_bc_mask", bc_mask)
 
-    def __call__(self, x, t, theta):
+    def at(self, t, theta):
+        """The right-hand side at time t, x -> du, with C(t) and F(t)
+        evaluated once."""
         C, F, PML = theta
         sigma = self.pml[0] * PML
         c = C(t)
         f = F(t)
-        # y = x[:, perm] + f * e_uf; d = y @ grad^T; du = coef * d - sigma * x
-        y = x[:, self._perm] + f[:, None] * self._e_uf
-        d = torch.matmul(y, self.grad.T)
+        fe = f[:, None] * self._e_uf
         coef = self.c0 * torch.where(self._tot, c[:, None], torch.ones_like(c[:, None]))
-        du = coef * d - sigma[:, None] * x
-        return du * self._bc_mask
+
+        def rhs(x):
+            # y = x[:, perm] + f * e_uf; d = y @ grad^T; du = coef * d - sigma * x
+            d = torch.matmul(x[:, self._perm] + fe, self.grad.T)
+            return (coef * d - sigma[:, None] * x) * self._bc_mask
+
+        return rhs
+
+    def __call__(self, x, t, theta):
+        return self.at(t, theta)(x)
 
 
 def make_acoustic_dynamics_1d(dim: OneDim, c0: float, pml_width: float,

@@ -1,0 +1,168 @@
+"""Train the flagship surrogate on the card (the port of
+`scripts_tpu/train.py`).
+
+Loads episodes (a dataset dir with `data.wshard` or `episodes/episode*.npz`
+/ `.wbin`, or a `.wshard` file; several dirs are concatenated, each split
+90/10 into training and validation), then trains `AcousticEnergyModel`
+with Adam and gradient accumulation, validating and writing a
+`checkpoint_step=N` directory (the JAX package's format) and
+`metrics.jsonl` under `--out`:
+
+    python -m waves_jl_tpu_torch.scripts.train --data data/run1 --out models/run1 \\
+        --horizons 1 4 8 --latent-stride 4 --sc-weight 4 --init-from <checkpoint>
+
+`--horizons` trains every listed window length from one windowed store on
+the card, `--horizon` one length over prepared windows, `--stream` one
+length from host-resident episodes. `--device cpu` trains on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
+
+if __package__ in (None, ""):  # run as a file
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+
+from waves_jl_tpu_torch.data import load_episode, load_episodes_shard, prepare_dataset
+from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+from waves_jl_tpu_torch.device import resolve_device
+from waves_jl_tpu_torch.models.acoustic_energy_model import (AcousticEnergyModel, energy_loss,
+                                                             energy_loss_ranking)
+from waves_jl_tpu_torch.train import TrainConfig, train, train_streaming, train_windowed
+from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+
+# options of the JAX CLI that the port does not run yet (ROADMAP Queue 1)
+NOT_PORTED = {"node": "the NODE baseline (--model node), item 4",
+              "pinn": "the PINN baseline (--model pinn), item 4",
+              "dp": "data-parallel training (--dp), item 5"}
+
+
+def _load_episodes_dir(data_dir: str, episodes: int) -> list:
+    shard = data_dir if data_dir.endswith(".wshard") else os.path.join(data_dir, "data.wshard")
+    if os.path.exists(shard):
+        return load_episodes_shard(shard, limit=episodes)
+    paths = sorted(
+        glob.glob(os.path.join(data_dir, "episodes", "episode*.npz"))
+        + glob.glob(os.path.join(data_dir, "episodes", "episode*.wbin")),
+        key=lambda p: int("".join(c for c in os.path.basename(p) if c.isdigit())),
+    )[:episodes]
+    if not paths:
+        raise SystemExit(f"no episodes under {data_dir}")
+    return [load_episode(p, device=None) for p in paths]
+
+
+def load_episodes_split(data_dirs, episodes: int, train_val_split: float = 0.9):
+    """Episodes of each dir (at most `episodes` a dir) split 90/10 per dir,
+    so validation covers every source; on the CPU."""
+    train_eps, val_eps = [], []
+    for d in [data_dirs] if isinstance(data_dirs, str) else data_dirs:
+        eps = _load_episodes_dir(d, episodes)
+        idx = int(round(len(eps) * train_val_split))
+        train_eps.extend(eps[:idx])
+        val_eps.extend(eps[idx:] or eps[-1:])
+    return train_eps, val_eps
+
+
+def build_model(args, in_channels: int, device):
+    """The flagship at the flags' widths with its loss: (model, loss_fn)."""
+    if args.steps % args.latent_stride:
+        raise SystemExit(f"latent stride {args.latent_stride} must divide {args.steps}")
+    model = AcousticEnergyModel(
+        build_triple_ring_design_space(device=device), 1000.0, elements=args.elements,
+        latent_grid_size=args.latent_gs, h_size=args.h_size, nfreq=args.nfreq,
+        pml_width=args.pml_width, pml_scale=args.pml_scale, dt=1e-5 * args.latent_stride,
+        integration_steps=args.steps // args.latent_stride, in_channels=in_channels,
+        seed=args.seed, device=device)
+    if args.loss == "ranking":
+        return model, lambda b: energy_loss_ranking(model, b, beta=args.ranking_beta)
+    return model, lambda b: energy_loss(model, b, sc_weight=args.sc_weight)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--data", required=True, nargs="+",
+                   help="dataset dir(s) or .wshard file(s); several are concatenated")
+    p.add_argument("--out", required=True)
+    p.add_argument("--model", choices=["acoustic", "node", "pinn"], default="acoustic")
+    p.add_argument("--episodes", type=int, default=500)
+    p.add_argument("--horizon", type=int, default=1)
+    p.add_argument("--horizons", type=int, nargs="+", default=None,
+                   help="mixed-horizon training over the windowed store (overrides --horizon)")
+    p.add_argument("--latent-stride", type=int, default=1,
+                   help="latent-dt coarsening: stride-times fewer latent steps a window, "
+                        "targets subsampled to match")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--accumulate", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--val-every", type=int, default=20)
+    p.add_argument("--val-batches", type=int, default=None,
+                   help="validation minibatches per pass (default: val-every)")
+    p.add_argument("--h-size", type=int, default=256)
+    p.add_argument("--nfreq", type=int, default=500)
+    p.add_argument("--elements", type=int, default=1024)
+    p.add_argument("--latent-gs", type=float, default=100.0)
+    p.add_argument("--pml-width", type=float, default=10.0)
+    p.add_argument("--pml-scale", type=float, default=10000.0)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--loss", choices=["mse", "ranking"], default="mse",
+                   help="'ranking' adds the cumulative scattered-energy term")
+    p.add_argument("--ranking-beta", type=float, default=1.0)
+    p.add_argument("--sc-weight", type=float, default=1.0,
+                   help="scattered-channel weight of the mse loss (mean-normalised)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dp", action="store_true", help="not yet ported")
+    p.add_argument("--stream", action="store_true",
+                   help="host-resident episode store, one upload a chunk; fixed --horizon")
+    p.add_argument("--init-from", type=str, default=None,
+                   help="checkpoint dir to initialise the parameters from")
+    p.add_argument("--device", type=str, default="cuda")
+    return p.parse_args(argv)
+
+
+def check_ported(args) -> None:
+    """Exit with a clear message for an option the port does not run yet."""
+    for key in (args.model, "dp" if args.dp else None):
+        if key in NOT_PORTED:
+            sys.exit(f"{NOT_PORTED[key]} is not yet ported to waves_jl_tpu_torch "
+                     "(ROADMAP Queue 1)")
+    if args.stream and args.horizons:
+        sys.exit("--stream trains one fixed --horizon")
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    check_ported(args)
+    print("the per-checkpoint plots (viz/, ROADMAP Queue 1 item 6) are not yet ported: "
+          "checkpoints are written without them", flush=True)
+    dev = resolve_device(args.device)
+    train_eps, val_eps = load_episodes_split(args.data, args.episodes)
+    print(f"{len(train_eps)} training and {len(val_eps)} validation episodes", flush=True)
+    model, loss_fn = build_model(args, int(train_eps[0].s_wave.shape[-1]), dev)
+    if args.init_from:
+        step0 = load_model_checkpoint(model, args.init_from)
+        print(f"initialized params from {args.init_from} (step {step0})", flush=True)
+
+    os.makedirs(args.out, exist_ok=True)
+    config = TrainConfig(lr=args.lr, batch_size=args.batch, accumulate=args.accumulate,
+                         epochs=args.epochs, val_every=args.val_every,
+                         val_batches=args.val_batches or args.val_every,
+                         checkpoint_dir=args.out,
+                         metrics_path=os.path.join(args.out, "metrics.jsonl"), seed=args.seed)
+    stride = args.latent_stride
+    if args.stream:
+        print(f"streaming over {len(train_eps)} host-resident episodes", flush=True)
+        train_streaming(loss_fn, model, train_eps, prepare_dataset(val_eps, args.horizon, stride),
+                        config, horizon=args.horizon, stride=stride)
+    elif args.horizons:
+        train_windowed(loss_fn, model, train_eps, val_eps, config,
+                       horizons=tuple(args.horizons), stride=stride)
+    else:
+        train(loss_fn, model, prepare_dataset(train_eps, args.horizon, stride),
+              prepare_dataset(val_eps, args.horizon, stride), config)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,28 @@
+"""Training of the surrogate on the card (counterpart of
+`waves_jl_tpu/train`): the dense, windowed and streaming trainers, Adam with
+accumulation as optax computes it, and checkpoints in the JAX package's
+npz format. The data-parallel trainers wait for their port."""
+from .checkpoint import load_checkpoint, save_checkpoint
+from .loop import (
+    TrainConfig,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+    train,
+    train_windowed,
+    validate,
+)
+from .stream import (
+    gather_window_batch_host,
+    make_scan_train_steps_batched,
+    train_streaming,
+)
+from .windows import (
+    episode_axes,
+    gather_window,
+    gather_window_batch,
+    make_scan_eval_windowed,
+    make_scan_train_steps_windowed,
+    sample_window_indices,
+    stack_episodes,
+)

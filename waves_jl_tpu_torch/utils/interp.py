@@ -23,22 +23,35 @@ def flatten_repeated_last_dim(x: torch.Tensor) -> torch.Tensor:
 
 
 def linear_interp(X: torch.Tensor, Y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    tb = torch.minimum(torch.maximum(t[:, None], X[:, :1]), X[:, -1:])
-    l, r = X[:, :-1], X[:, 1:]
-    final = (r == r[:, -1:]) & (r[:, -1:] == tb)
-    m = (((l <= tb) & (tb < r)) | final).to(Y.dtype)
-    x0 = torch.sum(l * m, dim=1)
-    y0 = torch.einsum("bk,bke->be", m, Y[:, :-1, :])
-    dX = r - l
-    slope = (Y[:, 1:, :] - Y[:, :-1, :]) / torch.where(dX == 0, torch.ones_like(dX), dX)[..., None]
-    dydx = torch.einsum("bk,bke->be", m, slope)
-    return y0 + (tb[:, 0] - x0)[:, None] * dydx
+    return LinearInterpolation(X, Y)(t)
 
 
 @dataclass(frozen=True)
 class LinearInterpolation:
+    """C(t) over knots X (B, K) with values Y (B, K, E). The segments'
+    bounds and slopes are derived once, when the interpolant is built, so a
+    rollout that calls it at every stage records only the per-call
+    operations."""
+
     X: torch.Tensor  # (B, K)
     Y: torch.Tensor  # (B, K, E)
 
+    def __post_init__(self):
+        X, Y = self.X, self.Y
+        l, r = X[:, :-1], X[:, 1:]
+        dX = r - l
+        slope = (Y[:, 1:, :] - Y[:, :-1, :]) / torch.where(dX == 0, torch.ones_like(dX), dX)[..., None]
+        object.__setattr__(self, "_l", l)
+        object.__setattr__(self, "_r", r)
+        object.__setattr__(self, "_at_end", r == r[:, -1:])
+        object.__setattr__(self, "_slope", slope)
+
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
-        return linear_interp(self.X, self.Y, t)
+        X, l, r = self.X, self._l, self._r
+        tb = torch.minimum(torch.maximum(t[:, None], X[:, :1]), X[:, -1:])
+        final = self._at_end & (r[:, -1:] == tb)
+        m = (((l <= tb) & (tb < r)) | final).to(self.Y.dtype)
+        x0 = torch.sum(l * m, dim=1)
+        y0 = torch.einsum("bk,bke->be", m, self.Y[:, :-1, :])
+        dydx = torch.einsum("bk,bke->be", m, self._slope)
+        return y0 + (tb[:, 0] - x0)[:, None] * dydx
