@@ -91,7 +91,25 @@ its elapsed seconds:
    for bit and resumes to the uninterrupted run's next update (cuDNN
    deterministic); the train CLI once, in a subprocess, on phase 7's CLI
    dataset. Training launches none of the kernels, so it adds no row to
-   the kernels' JSON line.
+   the kernels' JSON line;
+10. exact search and distillation at 700^2: the 256-shot oracle selection
+   (horizon 5, alpha 1) in 4 chunks of 64 candidates through batched K5
+   and its owner pass, timed on the host, on the card and as the host's
+   issue time, its launches counted (they join the batched rows of the
+   JSON line), the chosen cost the least, three shots replayed through the
+   sequential `OracleShooting` (1e-6); one 64-candidate step and its owner
+   pass held against their plain versions (the owner fields and the state
+   bit for bit) and the step against K5 on four candidates alone (bit for
+   bit), each timed with its plain version and bound; a 64-shot oracle episode cut to 3 actions; a
+   pool harvest episode (16 candidates scored at 350^2, 20 states, epsilon
+   0.2) whose pools round-trip through their npz; one DAgger probe under
+   the pools3 CEM + polish searcher; a recorded random-shooting episode
+   (epsilon 0.25) cut to 5 actions, through `.wbin` and back; pool-ranking
+   updates from `ref500_h8s4` with the pool metrics before and after and
+   the card's gradient against the CPU's (1e-4 a leaf); behaviour-cloning
+   updates whose checkpoint has `bc_pools3`'s names and shapes; one
+   gradient and one ensemble selection; the five new CLIs and the MPC
+   CLI's three new controllers once each, in subprocesses.
 
 The launch counts of each kernel are read from the main-path runs alone:
 every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
@@ -99,8 +117,10 @@ every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
 one card (K4, K4-XM). The last lines are one JSON object describing every
 kernel (`ms` with CUDA events around calls as the host drives them; the
 rows of the step and of the owner passes add `device_ms`, the same
-launches queued behind a device sleep, without the host's issue cost),
-then
+launches queued behind a device sleep, without the host's issue cost;
+the rows of batched K5 and its owner pass, which run 16 candidates at
+350^2 and 64 at 700^2, give phase 3's 16 x 350^2 numbers and, under
+`shapes`, each shape's launches, errors, times and bound), then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
 """
@@ -133,6 +153,9 @@ STRIDE = 4
 TOPK = 16  # candidates the hybrid re-ranks exactly
 HORIZON = 5
 CHUNK = 10  # datagen episodes a chunk, as bench.py times them
+ORACLE_SHOTS = 256  # the oracle record's shots (mpc_results_oracle256.json)
+ORACLE_EPISODE_SHOTS = 64  # the oracle episode's (mpc_results_oracle64.json)
+POOL_UPDATES = 2  # pool-ranking updates phase 10 takes
 # Kernel against plain version, relative to the largest magnitude: both run
 # the same float32 operations in the same order (FMA contraction is off in
 # the kernel), so they differ only where sinf and torch.sin round apart and
@@ -624,7 +647,7 @@ def hybrid_episode(env, env_lo, space, dev):
     # x_matmul=False: its launches, time and costs against batched K5's
     best = tree_map(lambda v: v[pruned[2]], pruned[0])
     st_lo, t0 = coarsen_env_state(env_lo, final), env_time(env, final)
-    exact = make_rerank_rollout(env_lo, TOPK, HORIZON, x_matmul=False)
+    exact = make_rerank_rollout(env_lo, HORIZON, x_matmul=False)
     exact(st_lo, best, t0)  # warm
     fk.reset_launch_counts()
     exact_s, exact_cost = host_s(lambda: exact(st_lo, best, t0))
@@ -1618,6 +1641,417 @@ def train_phase(dev, episodes, cli_data: str, smi: str, save_batch: str | None =
         + "; peak " + "/".join(f"{probe[k]['peak']:.1f}" for k in probe))
 
 
+def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: str):
+    """Phase 10: exact search and the distillation pipeline at 700^2. The
+    256-shot oracle selection (horizon 5, alpha 1: mpc_results_oracle256.json),
+    its chunks of 64 candidates through batched K5 at 700^2, timed on the
+    host, on the card and as the host's issue time, its launches counted,
+    three of its shots replayed through the sequential `OracleShooting` and
+    one 64-candidate step held against K5 on four candidates alone; a
+    64-shot oracle episode cut to 3 actions; a pool harvest episode at
+    `datagen_pools.py`'s defaults and one DAgger probe under the pools3 CEM
+    + polish searcher; a recorded 256-shot random-shooting episode (epsilon
+    0.25) cut to 5 actions; pool-ranking updates from `ref500_h8s4` on the
+    harvest and phase 7's episodes, with the card's gradient against the
+    CPU's; behaviour-cloning updates on the recorded episode; one gradient
+    and one ensemble selection; and each new CLI once, in subprocesses.
+    Returns the oracle selection's launch counts, and the errors, times
+    and bounds of that shape's step and owner pass."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from waves_jl_tpu_torch.control.mpc import (EXACT_CHUNK, CEMShooting, EnsembleShooting,
+                                                GradientShooting, OracleShooting, RandomShooting,
+                                                compute_action_cost, make_mpc_episode_recorded,
+                                                make_oracle_action_fused,
+                                                make_oracle_episode_fused, make_pool_probe_fused)
+    from waves_jl_tpu_torch.data import load_episode, prepare_dataset, save_episode
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.env import env_reset, env_terminated
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.models.policy import AmortizedPolicy, bc_loss
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.fused import cyl_params, step_config
+    from waves_jl_tpu_torch.scripts.datagen_pools import load_pools, save_pools
+    from waves_jl_tpu_torch.scripts.train_bc import episodes_to_bc_dataset
+    from waves_jl_tpu_torch.scripts.train_pools import (make_pool_update, pool_metrics,
+                                                        pool_objective)
+    from waves_jl_tpu_torch.train import TrainConfig, train
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint, load_params
+    from waves_jl_tpu_torch.utils.trees import tree_leaves, tree_map, tree_named_leaves
+
+    def surrogate(path, device=dev):
+        model = AcousticEnergyModel(build_triple_ring_design_space(device=device), 1000.0,
+                                    elements=1024, h_size=256, nfreq=500,
+                                    integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE,
+                                    device=device)
+        load_model_checkpoint(model, os.path.join(ROOT, path))
+        return model
+
+    def timed(fn):
+        """(host s, card s between events around the call, host issue s,
+        result) of fn(), synchronised at both ends."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        out = fn()
+        issue = time.perf_counter() - t
+        end.record()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, start.elapsed_time(end) / 1e3, issue, out
+
+    def only(counts, expect, what):
+        full = dict.fromkeys(counts, 0)
+        full.update(expect)
+        check(counts == full, f"{what}: launches {counts} == {full}")
+
+    gen = torch.Generator(device=dev).manual_seed(100)
+    step = make_oracle_action_fused(env, horizon=HORIZON, shots=ORACLE_SHOTS)[1]
+    start = env_reset(env, gen)
+    for _ in range(WINDOWS // 2):  # 10 ms: the wavefront has reached the cloak
+        start, _ = step(start, env.action_space.sample(gen))
+    torch.cuda.synchronize()
+
+    # 1. the 256-shot oracle selection through batched K5 at 700^2, chunks of 64
+    act, _ = make_oracle_action_fused(env, horizon=HORIZON, shots=ORACLE_SHOTS, alpha=1.0)
+    chunks = -(-ORACLE_SHOTS // EXACT_CHUNK)
+    fk.reset_launch_counts()
+    wall, card, issue, (actions, cost) = timed(lambda: act.select(start, gen))
+    oracle_counts = dict(fk.launch_counts)
+    a, chosen = act.choose(actions, cost)
+    log("distill", f"oracle selection ({ORACLE_SHOTS} shots x {HORIZON} windows at {SIZE}^2, "
+                   f"{chunks} chunks of {EXACT_CHUNK} through batched K5) {wall:.4f} s; the card "
+                   f"{card:.4f} s between events; the host issues it in {issue:.4f} s; launches "
+                   f"{oracle_counts}")
+    only(oracle_counts, {"fused_rk4_batched_xmatmul_radii_only": HORIZON * STEPS * chunks,
+                         "select_owner_batched": HORIZON * chunks}, "the oracle selection")
+    energy = cost - compute_action_cost(actions)
+    check(tuple(cost.shape) == (ORACLE_SHOTS,) and bool(torch.isfinite(cost).all())
+          and float(energy.min()) > 0.0,
+          "the oracle's costs are finite, their scattered energy positive")
+    check(float(chosen) == float(cost.min()), "the chosen cost is the least of the costs")
+    log("distill", f"oracle costs {float(cost.min()):.6e} to {float(cost.max()):.6e}, chosen "
+                   f"{float(chosen):.6e}")
+
+    sampled = [0, EXACT_CHUNK, ORACLE_SHOTS - 1]  # either side of a chunk boundary, the last
+    seq = OracleShooting(step_fn=step, horizon=HORIZON, shots=len(sampled))
+    picked = tree_map(lambda v: v[sampled], actions)
+    object.__setattr__(seq, "candidates", lambda env_, generator: picked)
+    seq_s, (_, info) = host_s(lambda: seq(env, start, gen))
+    seq_err = rel_err(cost[sampled], info["cost"])
+    log("distill", f"shots {sampled} replayed through the sequential OracleShooting "
+                   f"({len(sampled)} x {HORIZON} K5 windows, {seq_s:.4f} s): costs rel err "
+                   f"{seq_err:.3e} (tol 1e-06)")
+    check(seq_err <= 1e-6, "the batched oracle's costs are the sequential route's")
+
+    # one batched K5 step of 64 candidates at 700^2 and its owner pass
+    # against their plain versions, and the step against K5 on four of the
+    # candidates alone
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    k, shape = EXACT_CHUNK, start.source.shape
+    designs = tree_map(lambda x: x.expand(k, *x.shape), start.design)
+    nxt = env.design_space(designs, tree_map(lambda v: v[:k, 0], actions))
+    cyl = cyl_params(designs, nxt, dev).contiguous()
+    u = start.wave[-1].expand(k, *start.wave.shape[1:]).contiguous()
+    owner = fk.select_owner_batched(cyl, cfg)
+    owner_p = fk.select_owner_batched_reference(cyl, cfg)
+    own_abs = float(torch.max(torch.abs(owner - owner_p)))
+    own_same = torch.equal(owner, owner_p)
+    log("distill", f"the owner pass of {k} candidates at {SIZE}^2 vs plain: identical "
+                   f"{own_same}, max abs diff {own_abs:.3e}")
+    check(own_same, "the owner pass of 64 candidates at 700^2 equals its plain version bit for "
+                    "bit")
+    ti = float(start.time_step * 1e-5)
+    times = (ti, ti, ti + 1e-3, cfg)
+    ub, eb = fk.fused_rk4_step_batched(u, shape, prof, cyl, owner, *times, x_matmul=True)
+    up, ep = fk.fused_rk4_step_batched_reference(u, shape, prof, cyl, owner_p, *times,
+                                                 x_matmul=True)
+    torch.cuda.synchronize()
+    big_state, big_sig = rel_err(ub, up), rel_err(eb, ep)
+    big_abs = float(torch.max(torch.abs(ub - up)))
+    log("distill", f"one batched K5 step of {k} candidates at {SIZE}^2 vs plain on the plain "
+                   f"owner fields: rel err state {big_state:.3e}, signal {big_sig:.3e} (tol "
+                   f"{REL_TOL:g}); {differing_cells(ub, up)}")
+    check(big_state <= REL_TOL and big_sig <= REL_TOL,
+          "batched K5 of 64 candidates at 700^2 agrees with its plain version")
+    check(torch.equal(ub, up) and big_sig <= 1e-6,
+          "batched K5 of 64 candidates at 700^2 equals its plain version bit for bit, its "
+          "signal within 1e-6")
+    del up
+    same = []
+    picks = (0, k // 3, 2 * k // 3, k - 1)
+    for b in picks:
+        u1, e1 = fk.fused_rk4_step(u[b], shape, prof, cyl[b], owner[b], *times, x_matmul=True)
+        same.append(torch.equal(ub[b], u1) and rel_err(eb[b], e1) <= 1e-6)
+    log("distill", f"one batched K5 step of {k} candidates at {SIZE}^2 vs K5 on candidates "
+                   f"{picks} alone: identical {same}")
+    check(all(same), "each of the 64 candidates is K5's state bit for bit")
+    del ub, u1
+
+    # that shape's step and owner pass timed alone, their plain versions
+    # and their bounds, as phase 3 times 16 candidates at 350^2
+    def big_step(route=fk.fused_rk4_step_batched, own=owner):
+        return route(u, shape, prof, cyl, own, *times, x_matmul=True)
+
+    big_ms, big_dev = cuda_ms(big_step, 10), device_ms(big_step, 10)
+    big_plain = cuda_ms(lambda: big_step(fk.fused_rk4_step_batched_reference, owner_p), 1)
+    own_ms = cuda_ms(lambda: fk.select_owner_batched(cyl, cfg), 10)
+    own_dev = device_ms(lambda: fk.select_owner_batched(cyl, cfg), 10)
+    own_plain = cuda_ms(lambda: fk.select_owner_batched_reference(cyl, cfg), 1)
+    part_t = torch.empty((k, fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
+    step_bound = bound(2 * nbytes(u) + nbytes(shape, prof, cyl, part_t),
+                       k * fk.step_flops(SIZE, cyl.shape[-1], True, x_matmul=True))
+    own_bound = bound(nbytes(cyl, owner), sum(owner_ops(c, cfg) for c in cyl))
+    per_step = card / (HORIZON * STEPS * chunks) * 1e3  # the launches checked above
+    log("distill", f"batched K5 step of {k} candidates at {SIZE}^2: {big_ms:.4f} ms (device "
+                   f"work {big_dev:.4f}; plain {big_plain:.4f}), {big_dev / k:.5f} ms a "
+                   f"candidate; bound {step_bound[0]:.5f} ms ({step_bound[1]}), "
+                   f"{big_dev / step_bound[0]:.2f}x; in the selection {per_step:.4f} ms a step, "
+                   f"owner passes included; select_owner_batched {own_ms:.4f} ms (device work "
+                   f"{own_dev:.4f}; plain {own_plain:.4f}), bound {own_bound[0]:.5f} ms "
+                   f"({own_bound[1]})")
+    oracle_shape = {"shape": f"{k}x{SIZE}^2",
+                    "k5b": (big_abs, big_ms, big_plain, step_bound, big_dev),
+                    "own": (own_abs, own_ms, own_plain, own_bound, own_dev)}
+    del u, owner, owner_p
+
+    # 2. a 64-shot oracle episode, cut to 3 actions
+    env3 = dataclasses.replace(env, actions=3)
+    run = make_oracle_episode_fused(env3, horizon=HORIZON, shots=ORACLE_EPISODE_SHOTS)
+    fk.reset_launch_counts()
+    ep_s, (final, signals, chosen3) = host_s(lambda: run(start, gen))
+    only(dict(fk.launch_counts), {"fused_rk4_batched_xmatmul_radii_only": 3 * HORIZON * STEPS,
+                                  "select_owner_batched": 3 * HORIZON,
+                                  "fused_rk4_xmatmul_radii_only": 3 * STEPS,
+                                  "select_owner": 3}, "the oracle episode")
+    check(tuple(signals.shape) == (3, STEPS + 1, 3) and bool(torch.isfinite(signals).all())
+          and bool(torch.isfinite(chosen3).all()), "the oracle episode's signals and costs")
+    log("distill", f"{ORACLE_EPISODE_SHOTS}-shot oracle episode, 3 actions: {ep_s:.4f} s, {ep_s / 3:.4f} s an "
+                   f"action; chosen costs {[round(float(c), 4) for c in chosen3]}")
+
+    # 3. one pool harvest episode at datagen_pools.py's defaults
+    probe, pstep = make_pool_probe_fused(env, K=16, horizon=HORIZON, alpha=1.0, rerank_env=env_lo)
+    rng = np.random.default_rng(101)
+    st, pools = env_reset(env, gen), []
+    fk.reset_launch_counts()
+
+    def harvest():
+        nonlocal st
+        while not env_terminated(env, st):
+            pool, a_best = probe(st, gen)
+            pools.append(tree_map(lambda v: v.cpu(), pool))
+            st, _ = pstep(st, env.action_space.sample(gen) if rng.random() < 0.2 else a_best)
+
+    harvest_s, _ = host_s(harvest)
+    only(dict(fk.launch_counts),
+         {"fused_rk4_batched_xmatmul_radii_only": WINDOWS * HORIZON * STEPS,
+          "select_owner_batched": WINDOWS * HORIZON,
+          "fused_rk4_xmatmul_radii_only": WINDOWS * STEPS, "select_owner": WINDOWS},
+         "the harvest episode")
+    y = torch.stack([p["y_true"] for p in pools])
+    t0 = torch.stack([p["t0"] for p in pools])
+    reached = t0 >= 0.01  # 10 ms: the wavefront has reached the cloak
+    check(len(pools) == WINDOWS and tuple(y.shape) == (WINDOWS, 16)
+          and bool(torch.isfinite(y).all()) and bool((y >= 0).all())
+          and bool((y[reached] > 0).all()) and bool(reached.any()),
+          "20 pools of 16, y_true finite, positive once the wavefront has reached the cloak")
+    log("distill", f"pool harvest episode (16 candidates x {HORIZON} windows at "
+                   f"{SIZE_RERANK}^2 a state, {WINDOWS} states, epsilon 0.2): {harvest_s:.4f} s, "
+                   f"{harvest_s / WINDOWS:.4f} s a state; y_true up to {float(y.max()):.4e}")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "pools.npz")
+    save_pools(path, pools)
+    back = load_pools(path, env)
+    harvested = tree_map(lambda *xs: torch.stack(xs), *pools)
+    back = tree_named_leaves(back)
+    same = all(torch.equal(v, back[k_]) for k_, v in tree_named_leaves(harvested).items())
+    log("distill", f"the harvest's pools read back bit for bit {same}")
+    check(same, "pools round-trip through save_pools/load_pools")
+
+    # 4. one DAgger probe under the pools3 CEM + polish searcher
+    pools3 = surrogate(CHECKPOINT_POOLS3)
+    dagger, _ = make_pool_probe_fused(env, K=16, horizon=HORIZON, alpha=1.0, rerank_env=env_lo,
+                                      searcher=CEMShooting(model=pools3, **CEM_RECORD),
+                                      searcher_samples=8)
+    fk.reset_launch_counts()
+    dagger_s, (dpool, _) = host_s(lambda: dagger(start, gen))
+    only(dict(fk.launch_counts), {"fused_rk4_batched_xmatmul_radii_only": HORIZON * STEPS,
+                                  "select_owner_batched": HORIZON}, "the DAgger probe")
+    check(tuple(dpool["y_true"].shape) == (16,) and float(dpool["y_true"].min()) > 0.0,
+          "the DAgger pool's 16 exact costs are positive")
+    log("distill", f"DAgger probe (CEM + polish of pools3: 256 shots, 3 x 32 elites, polish 10 "
+                   f"on the top 16; 8 of its proposals and 8 uniform scored at "
+                   f"{SIZE_RERANK}^2) {dagger_s:.4f} s")
+    del pools3, dagger
+
+    # 5. a recorded episode of 256-shot random shooting on ref500_h8s4, cut to 5 actions
+    flagship = surrogate(CHECKPOINT)
+    env5 = dataclasses.replace(env, actions=5)
+    rec = make_mpc_episode_recorded(env5, RandomShooting(model=flagship, horizon=HORIZON,
+                                                         shots=SHOTS), epsilon=0.25)
+    rec_s, (_, ep) = host_s(lambda: rec(start, gen))
+    shapes = (tuple(ep.s_wave.shape), tuple(ep.s_tspan.shape), tuple(ep.y.shape),
+              tuple(ep.a.config.cylinders.r.shape), tuple(ep.s_design.config.cylinders.r.shape))
+    check(shapes == ((5, 128, 128, 4), (5, STEPS + 1), (5, STEPS + 1, 3), (5, 18), (5, 18)),
+          f"the recorded episode's fields {shapes}")
+    os.makedirs(os.path.join(tmp.name, "recorded", "episodes"))
+    path = os.path.join(tmp.name, "recorded", "episodes", "episode1.wbin")
+    save_episode(ep, path)
+    back = load_episode(path, device=None)
+    same = all(torch.equal(a_.cpu(), b_) for a_, b_ in zip(tree_leaves(ep), tree_leaves(back)))
+    log("distill", f"recorded episode (256-shot random shooting on {CHECKPOINT}, epsilon 0.25, "
+                   f"5 actions) {rec_s:.4f} s; fields {shapes}; .wbin read back bit for bit {same}")
+    check(same, "the recorded episode round-trips through .wbin")
+
+    # 6. pool-ranking updates from ref500_h8s4 on the harvest and phase 7's episodes
+    wdata = tree_map(lambda v: v.to(dev), prepare_dataset(phase7_eps[:18], 8, STRIDE))
+    pdata = tree_map(lambda v: v.to(dev), harvested)
+    before = pool_metrics(flagship, harvested)
+    opt, update = make_pool_update(flagship, 3e-5)
+    state = opt.init(dict(flagship.named_parameters()))
+    wrng = np.random.default_rng(102)
+    upd_s = []
+    for _ in range(POOL_UPDATES):
+        widx = torch.as_tensor(wrng.choice(wdata["s_wave"].shape[0], 8, replace=False),
+                               device=dev)
+        pidx = torch.as_tensor(wrng.choice(WINDOWS, 4, replace=False), device=dev)
+        s_, (state, anchor, rank) = host_s(lambda: update(
+            state, tree_map(lambda v: v[widx], wdata), tree_map(lambda v: v[pidx], pdata)))
+        upd_s.append(s_)
+        check(math.isfinite(float(anchor)) and math.isfinite(float(rank)),
+              "the pool update's losses are finite")
+    after = pool_metrics(flagship, harvested)
+    log("distill", f"pool-ranking updates (8 horizon-8 windows and 4 pools of 16 each, lr "
+                   f"3e-5): " + ", ".join(f"{s_:.4f} s" for s_ in upd_s)
+        + f"; last anchor {float(anchor):.5g}, rank {float(rank):.5g}; pool metrics before "
+          f"{before}, after {after}")
+    check(before["live_pools"] > 0 and all(math.isfinite(after[k]) for k in
+                                           ("pool_zmse", "spearman", "top1", "regret")),
+          "pool metrics over live pools, finite after the updates")
+
+    # the card's gradient on one update against the CPU's, from ref500_h8s4
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        model = surrogate(CHECKPOINT, device)
+        to = lambda v: v.to(device)  # noqa: E731
+        wb = tree_map(lambda v: to(v[:1]), wdata)
+        pb = tree_map(lambda v: to(v[:1]), pdata)
+        params = dict(model.named_parameters())
+        with full_float32():
+            total, _, _ = pool_objective(model, wb, pb)
+            g = torch.autograd.grad(total, list(params.values()))
+        grads.append({k_: v.detach().cpu() for k_, v in zip(params, g)})
+        del model
+    worst = max((rel_err(grads[0][k_], grads[1][k_]), k_) for k_ in grads[1])
+    log("distill", f"pool update's gradient on the card against the CPU's (a horizon-8 window, "
+                   f"a pool of 16): worst leaf {worst[0]:.3e} of its largest magnitude "
+                   f"({worst[1]})")
+    check(worst[0] <= 1e-4, "the card's pool gradient agrees with the CPU's within 1e-4 a leaf")
+
+    # 7. behaviour cloning on the recorded episode
+    policy = AmortizedPolicy.create(space, env.action_space, h_size=256, seed=0, device=dev)
+    bc = episodes_to_bc_dataset([ep])
+    bc_dir = os.path.join(tmp.name, "bc")
+    bc_s, (_, _, bc_log) = host_s(lambda: train(
+        lambda b: bc_loss(policy, b), policy.net, bc, bc,
+        TrainConfig(lr=3e-4, batch_size=2, accumulate=1, epochs=2, val_every=2, val_batches=1,
+                    checkpoint_dir=bc_dir, seed=0)))
+    ck = sorted(d for d in os.listdir(bc_dir) if d.startswith("checkpoint_step="))
+    mine = load_params(os.path.join(bc_dir, ck[-1]))
+    record = load_params(os.path.join(ROOT, CHECKPOINT_POLICY))
+    same = {k_: v.shape for k_, v in mine.items()} == {k_: v.shape for k_, v in record.items()}
+    losses = [h["train_loss"] for h in bc_log.history]
+    log("distill", f"behaviour cloning, 4 updates on the recorded episode's 5 windows: "
+                   f"{bc_s:.4f} s, train losses {[round(x, 5) for x in losses]}; {ck[-1]} has "
+                   f"{CHECKPOINT_POLICY}'s names and shapes: {same}")
+    check(all(math.isfinite(x) for x in losses) and same,
+          "BC losses finite, its checkpoint shaped as the tracked policy's")
+
+    # 8. one gradient and one ensemble selection
+    gs = GradientShooting(model=flagship, horizon=HORIZON, shots=32, steps=10)
+    grad_s, (_, ginfo) = host_s(lambda: gs(env, start, gen))
+    hist = ginfo["cost_history"]
+    check(tuple(hist.shape) == (10, 32) and bool(torch.isfinite(hist).all())
+          and bool(torch.isfinite(ginfo["cost"]).all()),
+          "the gradient selection's cost history and costs are finite")
+    log("distill", f"gradient selection (32 shots, 10 projected steps through the batch forward) "
+                   f"{grad_s:.4f} s; best cost {float(hist[0].min()):.6e} -> "
+                   f"{float(ginfo['cost'].min()):.6e}")
+    ens = EnsembleShooting(models=(flagship, surrogate(CHECKPOINT_HYBRID)), horizon=HORIZON,
+                           shots=SHOTS, beta=1.0)
+    ens_s, (_, einfo) = host_s(lambda: ens(env, start, gen))
+    check(bool(torch.isfinite(einfo["cost"]).all())
+          and int(einfo["idx"]) == int(torch.argmin(einfo["cost"])),
+          "the ensemble selection's costs are finite, its choice their argmin")
+    log("distill", f"ensemble selection ({CHECKPOINT} and {CHECKPOINT_HYBRID}, 256 shots, beta "
+                   f"1) {ens_s:.4f} s")
+    del flagship, ens, gs
+
+    # 9. each new CLI once, in subprocesses at their smallest settings, all
+    # at once: the trainers on two files of two harvested pools and on the
+    # recorded episode
+    out = tmp.name
+    pool_dir = os.path.join(out, "cli_pools_in")
+    os.makedirs(pool_dir)
+    for i in (1, 2):
+        save_pools(os.path.join(pool_dir, f"pools{i}.npz"), pools[2 * i - 2:2 * i])
+    ck4 = os.path.join(ROOT, CHECKPOINT)
+    small = ["--actions", "2", "--locations", "1", "--episodes", "1", "--horizon", "2",
+             "--force"]
+    clis = {
+        "datagen_pools": ["--episodes", "2", "--actions", "2", "--pool", "4", "--horizon", "2",
+                          "--out", os.path.join(out, "cli_pools")],
+        "datagen_onpolicy": ["--episodes", "2", "--actions", "2", "--shots", "16", "--horizon",
+                             "2", "--checkpoint", ck4, "--latent-stride", str(STRIDE),
+                             "--out", os.path.join(out, "cli_onpol")],
+        "train_pools": ["--data", cli_data, "--pools", pool_dir, "--init-from", ck4,
+                        "--horizon", "2", "--epochs", "1", "--batch", "2", "--batch-pools", "1",
+                        "--val-every", "1", "--out", os.path.join(out, "cli_tp")],
+        "train_bc": ["--data", os.path.join(out, "recorded"), "--epochs", "1", "--batch", "2",
+                     "--val-every", "1", "--out", os.path.join(out, "cli_bc")],
+        "mpc oracle": ["--controller", "oracle", "--shots", "16", *small,
+                       "--out", os.path.join(out, "oracle.json")],
+        "mpc gradient": ["--controller", "gradient", "--shots", "64", "--checkpoint", ck4,
+                         "--latent-stride", str(STRIDE), *small,
+                         "--out", os.path.join(out, "gradient.json")],
+        "mpc ensemble": ["--controller", "ensemble", "--shots", "16", "--checkpoint", ck4,
+                         os.path.join(ROOT, CHECKPOINT_HYBRID), "--latent-stride", str(STRIDE),
+                         *small, "--out", os.path.join(out, "ensemble.json")],
+    }
+    procs, t = {}, time.time()
+    for name, args in clis.items():
+        module = "waves_jl_tpu_torch.scripts." + name.split()[0]
+        procs[name] = subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    for name, proc in procs.items():
+        text, _ = proc.communicate(timeout=600)
+        tail = text.strip().splitlines()[-1:] or [""]
+        log("distill", f"CLI {name}: exit {proc.returncode} ({time.time() - t:.2f} s since "
+                       f"the CLIs started): {tail[0][:200]}")
+        check(proc.returncode == 0, f"the {name} CLI exits 0:\n{text}")
+    for name in ("oracle", "gradient", "ensemble"):
+        with open(os.path.join(out, f"{name}.json")) as f:
+            result = json.load(f)
+        check(math.isfinite(result["mean_decrease"]) and result["controller"] == name,
+              f"the MPC CLI's {name} result")
+    check(all(os.path.exists(os.path.join(out, d, "metrics.jsonl")) for d in ("cli_tp", "cli_bc"))
+          and os.path.exists(os.path.join(out, "cli_pools", "pools2.npz"))
+          and os.path.exists(os.path.join(out, "cli_onpol", "episodes", "episode2.wbin")),
+          "the distillation CLIs wrote their pools, episodes, metrics and checkpoints")
+    tmp.cleanup()
+    log("distill", f"{smi}: oracle selection {wall:.4f} s ({card:.4f} s on the card), harvest "
+                   f"episode {harvest_s:.4f} s, DAgger probe {dagger_s:.4f} s, recorded episode "
+                   f"{rec_s:.4f} s, pool update {upd_s[-1]:.4f} s")
+    return oracle_counts, oracle_shape
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1933,7 +2367,7 @@ def main(argv=None) -> int:
         log("main path", f"position-design episode, {pos_windows} windows, x_matmul={xm}: "
                          f"launches {pos_counts[xm]}")
 
-        roll = make_rerank_rollout(pos_env, rerank_k, 1, x_matmul=xm)
+        roll = make_rerank_rollout(pos_env, 1, x_matmul=xm)
         elite = pos_env.action_space.sample(pgen, batch=(rerank_k, 1))
         t_pos = env_time(pos_env, pst)
         fk.reset_launch_counts()
@@ -1968,6 +2402,10 @@ def main(argv=None) -> int:
 
     # 9. training the flagship at full width on phase 7's episodes
     train_phase(dev, dg_eps, os.path.join(data_tmp.name, "cli"), smi, args.save_train_batch)
+
+    # 10. exact search and the distillation pipeline
+    oracle_counts, oracle_shape = distillation_phase(env, env_lo, space, dev, dg_eps,
+                                       os.path.join(data_tmp.name, "cli"), smi)
     data_tmp.cleanup()
 
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
@@ -2001,15 +2439,18 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
+    # batched K5 and its owner pass: the hybrid episode's launches and the
+    # 256-shot oracle selection's
     batched_rows = (
         ("fused_rk4_batched_radii_only", "waves_jl_tpu/ops/pallas_fd.py:162", "k3",
          exact_rerank_counts["fused_rk4_batched_radii_only"]),
         ("select_owner_batched", "waves_jl_tpu/ops/pallas_fd.py:247", "own",
-         hyb_counts["select_owner_batched"]),
+         hyb_counts["select_owner_batched"] + oracle_counts["select_owner_batched"]),
         ("fused_rk4_batched_general", "waves_jl_tpu/ops/pallas_fd.py:162", "k3g",
          roll_counts[False]["fused_rk4_batched_general"]),
         ("fused_rk4_batched_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278", "k5b",
-         hyb_counts["fused_rk4_batched_xmatmul_radii_only"]),
+         hyb_counts["fused_rk4_batched_xmatmul_radii_only"]
+         + oracle_counts["fused_rk4_batched_xmatmul_radii_only"]),
         ("fused_rk4_batched_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278", "k5bg",
          roll_counts[True]["fused_rk4_batched_xmatmul_general"]),
     )
@@ -2021,6 +2462,23 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in dev_rows:
             k["device_ms"] = dev_rows[k["name"]]
+    # batched K5 and its owner pass run two shapes on the main path: the
+    # row's own numbers are phase 3's 16 x 350^2 (the hybrid's), and
+    # `shapes` splits its launches and gives each shape its numbers
+    for k in kernels:
+        key = {"fused_rk4_batched_xmatmul_radii_only": "k5b",
+               "select_owner_batched": "own"}.get(k["name"])
+        if key is None:
+            continue
+        err, ms, plain, bnd, dev_only = oracle_shape[key]
+        k["shape"] = f"{TOPK}x{SIZE_RERANK}^2"
+        k["shapes"] = [
+            {"shape": k["shape"], "launches": hyb_counts[k["name"]],
+             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+             "bound_by": k["bound_by"], "device_ms": k["device_ms"]},
+            {"shape": oracle_shape["shape"], "launches": oracle_counts[k["name"]],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+             "bound_by": bnd[1], "device_ms": dev_only}]
     sharded_rows = (
         ("fused_rk4_sharded_radii_only", "waves_jl_tpu/ops/pallas_fd.py:195", "radii"),
         ("select_owner_sharded", "waves_jl_tpu/ops/pallas_fd.py:247", "owner"),
@@ -2041,10 +2499,11 @@ def main(argv=None) -> int:
                         "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
                         "library_ms": None, "device_ms": dev_only})
     for k in kernels:
-        check(all(isinstance(v, (int, float)) and math.isfinite(v)
-                  for key, v in k.items()
-                  if key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "device_ms")),
-              f"{k['name']} has finite numbers")
+        for entry in (k, *k.get("shapes", ())):
+            check(all(isinstance(v, (int, float)) and math.isfinite(v)
+                      for key, v in entry.items()
+                      if key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "device_ms")),
+                  f"{k['name']} {entry.get('shape', '')} has finite numbers")
     log("done", f"whole run {time.time() - T0:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,7 +36,12 @@ surrogate's gradient path (`shot_energy`, CEM's polish) on the card agrees
 with the CPU's at narrow width to 1e-4 relative, and so does a training
 step's gradient (each leaf) with the update within 2 lr; a checkpoint
 taken mid-accumulation reloads on the card bit for bit and resumes to the
-uninterrupted run's next update (cuDNN deterministic).
+uninterrupted run's next update (cuDNN deterministic). Exact search: a
+batched K5 step of 64 candidates at 700^2, the oracle's shape, and its
+owner pass agree with their plain versions, and the step equals K5 on
+each of four of them alone bit for bit; the oracle's chunked route
+gives the sequential route's costs within 1e-6; the pool probe on the card
+matches its CPU run.
 """
 import dataclasses
 
@@ -669,7 +674,7 @@ def _check_windows(card, x_matmul):
     elite = env.action_space.sample(gen, batch=(k, horizon))
     t_start = env_time(env, state)
     before = dict(fk.launch_counts)
-    cost = make_rerank_rollout(env, k, horizon, x_matmul)(state, elite, t_start)
+    cost = make_rerank_rollout(env, horizon, x_matmul)(state, elite, t_start)
     torch.cuda.synchronize()
     key = fk._key("fused_rk4", k, None, x_matmul) + "_radii_only"
     assert fk.launch_counts[key] - before[key] == horizon * steps
@@ -988,3 +993,121 @@ def test_checkpoint_round_trip_and_resume_on_the_card(card, tmp_path):
             assert torch.equal(a, b)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.gpu
+def test_batched_xmatmul_step_of_64_candidates_at_700_equals_each_alone(card):
+    """The oracle's shape: one batched K5 step of 64 candidates at 700^2
+    (64 x 12 x 700^2 float32, 1.5 GB a state) in one launch. The owner
+    pass of the 64 equals its plain version bit for bit; four of the
+    candidates, first, last and two between, are held against the plain
+    step on the plain owner fields within TOL, and each equals K5 run on it
+    alone, bit for bit on the state."""
+    n, k = 700, 64
+    cfg = fk.StepConfig(n=n, spacing=2.0 * 15.0 / (n - 1), x_min=-15.0, dt=1e-5, c0=1531.0,
+                        freq=1000.0)
+    _, cyl1, u1, shape, prof = _inputs(n, False, card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    scale = torch.rand((k, 1, cyl1.shape[1]), generator=gen, device=card) * 0.4 + 0.6
+    cyl = cyl1[None].repeat(k, 1, 1)
+    cyl[:, [2, 6], :-1] *= scale[:, :, :-1]  # each candidate's ring radii, the core kept
+    u = u1[None] * (1.0 + 0.01 * torch.arange(k, device=card, dtype=torch.float32))[:, None,
+                                                                                     None, None]
+    owner = fk.select_owner_batched(cyl, cfg)
+    owner_p = fk.select_owner_batched_reference(cyl, cfg)
+    assert torch.equal(owner, owner_p)
+    before = dict(fk.launch_counts)
+    got, e = fk.fused_rk4_step_batched(u, shape, prof, cyl, owner, 2e-4, 0.0, 1e-3, cfg,
+                                       x_matmul=True)
+    torch.cuda.synchronize()
+    key = "fused_rk4_batched_xmatmul_radii_only"
+    assert fk.launch_counts[key] - before[key] == 1
+    assert got.shape == (k, 12, n, n) and e.shape == (k, 3)
+    for b in (0, 21, 42, k - 1):
+        want, ew = fk.fused_rk4_step_reference(u[b], shape, prof, cyl[b], owner_p[b], 2e-4, 0.0,
+                                               1e-3, cfg, x_matmul=True)
+        assert rel(got[b], want) <= TOL and rel(e[b], ew) <= TOL, b
+        one, e1 = fk.fused_rk4_step(u[b], shape, prof, cyl[b], owner[b], 2e-4, 0.0, 1e-3, cfg,
+                                    x_matmul=True)
+        assert torch.equal(got[b], one), b
+        assert rel(e[b], e1) <= 1e-6
+
+
+def _oracle_env(card):
+    """A 160^2 env on the card, and a state 10 windows (10 ms) in: the
+    wavefront has reached the cloak."""
+    from waves_jl_tpu_torch.env import env_reset
+    from waves_jl_tpu_torch.physics.fused import make_env_step_fused
+    from waves_jl_tpu_torch.scripts.datagen import build_env
+
+    env = build_env(160, 100, 2, card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    state = env_reset(env, gen)
+    step = make_env_step_fused(env)
+    for _ in range(10):
+        state, _ = step(state, env.action_space.sample(gen))
+    return env, state, gen
+
+
+@pytest.mark.gpu
+def test_oracle_chunked_route_equals_sequential_route(card, monkeypatch):
+    """`BatchedOracle` (5 shots in chunks of 3, `EXACT_CHUNK` set to 3,
+    batched K5) against `OracleShooting` (each shot's windows in turn, K5)
+    on the same candidates at 160^2: costs within 1e-6 relative (the window times are
+    the re-rank's, within an ulp of the env step's), the same choice."""
+    from waves_jl_tpu_torch.control import mpc
+    from waves_jl_tpu_torch.control.mpc import (OracleShooting, compute_action_cost,
+                                                make_oracle_action_fused)
+
+    env, state, gen = _oracle_env(card)
+    monkeypatch.setattr(mpc, "EXACT_CHUNK", 3)
+    act, step = make_oracle_action_fused(env, horizon=2, shots=5)
+    cands = act.candidates(gen)
+    act.candidates = lambda generator: cands
+    before = dict(fk.launch_counts)
+    actions, cost = act.select(state, gen)
+    torch.cuda.synchronize()
+    key = "fused_rk4_batched_xmatmul_radii_only"
+    assert fk.launch_counts[key] - before[key] == 2 * 2 * 100  # 2 chunks x 2 windows x 100 steps
+    seq = OracleShooting(step_fn=step, horizon=2, shots=5)
+    object.__setattr__(seq, "candidates", lambda env, generator: cands)
+    _, info = seq(env, state, gen)
+    assert float((cost - compute_action_cost(actions)).min()) > 0.0  # scattered energy
+    assert rel(cost, info["cost"]) <= 1e-6
+    assert int(torch.argmin(cost)) == int(info["idx"])
+
+
+@pytest.mark.gpu
+def test_pool_probe_on_the_card_matches_its_cpu_run(card):
+    """One refined pool probe at 160^2 scored on a 130^2 grid, K = 4 and 2
+    refined, on the card (batched K5) and on the CPU (its plain version)
+    from the same state and draws: `y_true` within 1e-5 relative, the
+    observation within 1e-5 absolute, the same advance action."""
+    import dataclasses
+
+    from waves_jl_tpu_torch.control.mpc import make_pool_probe_fused
+    from waves_jl_tpu_torch.scripts.datagen import build_env
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    env, state, gen = _oracle_env(card)
+    cands = env.action_space.sample(gen, batch=(4, 2))
+    noise = tree_map(lambda v: torch.randn((2, 2, *v.shape), generator=gen, device=card),
+                     env.action_space.low)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        e = build_env(160, 100, 2, dev)
+        lo = build_env(130, 100, 2, dev)
+        probe, _ = make_pool_probe_fused(e, K=4, horizon=2, rerank_env=lo, refine_samples=2,
+                                         refine_elites=2)
+        probe.candidates = lambda generator, n: tree_map(lambda v: v.to(dev), cands)
+        probe.noise = lambda generator, like: tree_map(lambda v: v.to(dev), noise)
+        to = lambda v: v.to(dev)  # noqa: E731
+        st = dataclasses.replace(state, wave=to(state.wave), design=tree_map(to, state.design),
+                                 source=tree_map(to, state.source), signal=to(state.signal))
+        pool, a = probe(st, torch.Generator(device=dev))
+        out[dev.type] = (tree_map(lambda v: v.cpu(), pool), a.config.cylinders.r.cpu())
+    (pg, ag), (pc, ac) = out["cuda"], out["cpu"]
+    assert pg["y_true"].shape == (6,) and float(pc["y_true"].min()) > 0.0
+    assert rel(pg["y_true"], pc["y_true"]) <= 1e-5
+    assert float((pg["s_wave"] - pc["s_wave"]).abs().max()) <= 1e-5
+    assert torch.equal(ag, ac)

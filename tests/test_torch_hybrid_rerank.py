@@ -33,12 +33,12 @@ def test_rerank_rollout_matches_jax_and_the_sequential_rerank():
     jroll = jax_make_rerank_rollout(je, K, horizon, interpret=True, x_matmul=False)
     want = np.asarray(jroll(js, radii_actions(a, True), jnp.float32(t0)))
     fk.reset_launch_counts()
-    got = make_rerank_rollout(pe, K, horizon, x_matmul=False)(ps, radii_actions(a, False), t0)
+    got = make_rerank_rollout(pe, horizon, x_matmul=False)(ps, radii_actions(a, False), t0)
     assert all(v == 0 for v in fk.launch_counts.values())
     assert got.shape == (K,) and float(got.min()) > 0.0
     assert rel(got.numpy(), want) <= 1e-5
 
-    got = make_rerank_rollout(pe, K, horizon)(ps, radii_actions(a, False), t0)
+    got = make_rerank_rollout(pe, horizon)(ps, radii_actions(a, False), t0)
 
     class Sequential(HybridShooting):
         def __init__(self):

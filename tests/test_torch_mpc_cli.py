@@ -3,8 +3,9 @@ CPU at a small grid (130^2, 2 actions, 1 location, 1 episode): the one-shot
 policy with the tracked `models/bc_pools3` weights, and CEM + polish with
 the tracked pools3 surrogate at full width and a small population. Each
 writes a result JSON with the keys of the JAX CLI's
-(`mpc_results_bc_policy.json`) and finite decreases. The controllers and
-options that are not ported yet exit with a message saying so.
+(`mpc_results_bc_policy.json`) and finite decreases. The options that are
+not ported yet exit with a message saying so; the gradient, ensemble and
+oracle controllers run in tests/test_torch_control_cli.py.
 """
 import json
 import math
@@ -53,9 +54,7 @@ def test_cem_polish_controller(tmp_path):
     assert result["cem_warm"] is False and result["latent_stride"] == 4
 
 
-@pytest.mark.parametrize("args", [["--controller", "gradient"], ["--controller", "ensemble"],
-                                  ["--controller", "oracle"], ["--fast"],
-                                  ["--render", "out.mp4"],
+@pytest.mark.parametrize("args", [["--fast"], ["--render", "out.mp4"],
                                   ["--controller", "hybrid", "--fused-episode"]])
 def test_unported_options_exit_with_a_message(tmp_path, args):
     with pytest.raises(SystemExit, match="not yet ported"):

@@ -28,8 +28,8 @@ def test_default_rerank_rollout_matches_jax_default():
     t0 = np.float32(40) * np.float32(1e-5)
     want = np.asarray(jax_make_rerank_rollout(je, K, horizon, interpret=True)(
         js, radii_actions(a, True), jnp.float32(t0)))
-    got = make_rerank_rollout(pe, K, horizon)(ps, radii_actions(a, False), t0)
+    got = make_rerank_rollout(pe, horizon)(ps, radii_actions(a, False), t0)
     assert got.shape == (K,) and float(got.min()) > 0.0
     assert rel(got.numpy(), want) <= 1e-5
-    exact = make_rerank_rollout(pe, K, horizon, x_matmul=False)(ps, radii_actions(a, False), t0)
+    exact = make_rerank_rollout(pe, horizon, x_matmul=False)(ps, radii_actions(a, False), t0)
     assert not torch.equal(exact, got)  # the default is the split form

@@ -15,6 +15,16 @@ the search.
 `HybridShooting` (from `make_hybrid_action_fused`) prunes the shots with the
 surrogate and re-ranks the best `topk` exactly in the simulator, optionally
 on a coarser grid, through the candidate-batched kernel K3 by default.
+
+Exact search and distillation: `OracleShooting` scores every shot in the
+simulator, one window at a time (the reference route); `BatchedOracle`
+(from `make_oracle_action_fused`, `make_oracle_episode_fused`) scores them
+together through the batched kernel. `PoolProbe` (from
+`make_pool_probe_fused`) records exactly scored candidate pools for the
+ranking fine-tune, and `make_mpc_episode_recorded` records a controller's
+episodes for behaviour cloning. `GradientShooting` descends the
+surrogate's gradient on the actions; `EnsembleShooting` ranks by several
+surrogates' mean and spread.
 """
 from __future__ import annotations
 
@@ -25,9 +35,11 @@ from typing import Any
 import torch
 
 from ..designs import DesignSpace
-from ..env import EnvState, WaveEnv, env_observe, env_time, resize_weights
+from ..env import (EnvState, RandomDesignPolicy, WaveEnv, env_observe, env_time,
+                   resize_weights)
+from ..models.layers import full_float32
 from ..physics.dynamics import build_tspan
-from ..utils.trees import tree_clamp, tree_leaves, tree_map, tree_normal
+from ..utils.trees import tree_clamp, tree_leaves, tree_map, tree_normal, tree_stack
 
 
 def build_action_sequence(action_space: DesignSpace, generator: torch.Generator,
@@ -49,12 +61,26 @@ def compute_action_cost(actions) -> torch.Tensor:
 
 def selection_tspan(model, env: WaveEnv, state: EnvState, horizon: int,
                     shots: int) -> torch.Tensor:
-    """(shots, L) time grid of one selection on the model's latent steps;
-    the horizon spans horizon x env.integration_steps x env.dt either way."""
-    dt, steps = model.integrator.dt, model.integration_steps
+    """(shots, L) time grid of one selection on the model's latent steps,
+    or the env's for a model without them; the horizon spans horizon x
+    env.integration_steps x env.dt either way."""
+    if hasattr(model, "integrator") and hasattr(model, "integration_steps"):
+        dt, steps = model.integrator.dt, model.integration_steps
+    else:
+        dt, steps = env.dt, env.integration_steps
     t = env_time(env, state) + build_tspan(0.0, dt, steps * horizon)
     t = torch.from_numpy(t).to(env.device)
     return t[None].expand(shots, t.shape[0])
+
+
+def _mpc_batch(env: WaveEnv, state: EnvState, actions, horizon: int, shots: int,
+               model=None) -> dict:
+    """The current observation broadcast into an S-shot batch for
+    `model.forward`: {"s_wave", "s_design", "a", "t"}."""
+    obs = env_observe(env, state)
+    return {"s_wave": obs.wave[None].expand(shots, *obs.wave.shape),
+            "s_design": tree_map(lambda x: x[None].expand(shots, *x.shape), state.design),
+            "a": actions, "t": selection_tspan(model, env, state, horizon, shots)}
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -83,6 +109,95 @@ class RandomShooting:
         idx = torch.argmin(cost)
         first = tree_map(lambda x: _take(x, idx)[0], actions)
         return first, {"cost": cost, "idx": idx}
+
+
+@dataclass(frozen=True)
+class EnsembleShooting:
+    """Random shooting ranked by an ensemble of surrogates (the JAX
+    package's `EnsembleShooting`): a candidate's cost is the members' mean
+    predicted scattered energy plus `beta` times their spread (standard
+    deviation, correction 0) plus alpha times the action penalty. `models`
+    holds each member with its weights."""
+
+    models: tuple
+    horizon: int = 5
+    shots: int = 256
+    alpha: float = 1.0
+    beta: float = 1.0
+
+    def candidates(self, env: WaveEnv, generator: torch.Generator):
+        """This selection's (shots, horizon) candidate sequences."""
+        return build_action_sequence(env.action_space, generator, self.horizon, self.shots)
+
+    def __call__(self, env: WaveEnv, state: EnvState, generator: torch.Generator):
+        actions = self.candidates(env, generator)
+        obs = env_observe(env, state)
+        e = torch.stack([
+            m.predict_shot_energy(obs.wave, state.design, actions,
+                                  selection_tspan(m, env, state, self.horizon, self.shots))
+            for m in self.models])  # (members, shots)
+        cost = (e.mean(dim=0) + self.beta * e.std(dim=0, correction=0)
+                + self.alpha * compute_action_cost(actions))
+        idx = torch.argmin(cost)
+        return tree_map(lambda x: _take(x, idx)[0], actions), {"cost": cost, "idx": idx}
+
+
+@dataclass(frozen=True)
+class GradientShooting:
+    """Gradient MPC (the JAX package's `GradientShooting`): `shots` uniform
+    sequences descend the surrogate's cost, the batch forward's cumulative
+    scattered energy plus alpha times the action penalty, by `steps`
+    projected gradient steps of `lr` (autograd through `model.forward`, in
+    IEEE float32), and the cheapest after the last step gives the action.
+    Draws go through `candidates`."""
+
+    model: Any  # surrogate whose forward(batch) gives (B, L, 3) energies
+    horizon: int = 5
+    shots: int = 32
+    alpha: float = 1.0
+    lr: float = 0.05
+    steps: int = 10
+
+    def candidates(self, env: WaveEnv, generator: torch.Generator):
+        """The (shots, horizon) starting sequences."""
+        return build_action_sequence(env.action_space, generator, self.horizon, self.shots)
+
+    def __call__(self, env: WaveEnv, state: EnvState, generator: torch.Generator):
+        """One selection: (first action of the cheapest sequence, {"cost":
+        the final costs, "idx", "cost_history": (steps, shots) the costs
+        before each step})."""
+        actions = self.candidates(env, generator)
+        low, high = _box(env.action_space, (self.shots, self.horizon))
+
+        def cost_fn(acts):
+            batch = _mpc_batch(env, state, acts, self.horizon, self.shots, model=self.model)
+            energy = torch.sum(self.model(batch)[:, :, 2], dim=1)
+            return energy + self.alpha * compute_action_cost(acts)
+
+        history = []
+        for _ in range(self.steps):
+            actions = tree_map(lambda v: v.detach().requires_grad_(True), actions)
+            with torch.enable_grad(), full_float32():
+                cost = cost_fn(actions)
+                history.append(cost.detach())
+                actions = _projected_step(actions, torch.sum(cost), self.lr, low, high)
+        with torch.no_grad():
+            cost = cost_fn(actions)
+        idx = torch.argmin(cost)
+        return (tree_map(lambda x: _take(x, idx)[0], actions),
+                {"cost": cost, "idx": idx, "cost_history": torch.stack(history)})
+
+
+def _projected_step(acts, total: torch.Tensor, lr: float, low, high):
+    """acts - lr d(total)/d(acts), clamped to [low, high] and detached; a
+    leaf the total does not read stays where it is."""
+    grads = iter(torch.autograd.grad(total, tree_leaves(acts), allow_unused=True))
+
+    def descend(v):
+        g = next(grads)  # None for a leaf the total does not read
+        return v.detach() if g is None else v.detach() - lr * g
+
+    return tree_clamp(tree_map(descend, acts), low, high)
 
 
 def _box(space: DesignSpace, lead: tuple):
@@ -192,13 +307,7 @@ class CEMShooting:
             acts = tree_map(lambda v: v.detach().requires_grad_(True), acts)
             with torch.enable_grad():
                 total = torch.sum(cost_fn(acts))
-            grads = iter(torch.autograd.grad(total, tree_leaves(acts), allow_unused=True))
-
-            def descend(v):
-                g = next(grads)  # None for a leaf the cost does not read
-                return v.detach() if g is None else v.detach() - self.polish_lr * g
-
-            acts = tree_clamp(tree_map(descend, acts), low, high)
+            acts = _projected_step(acts, total, self.polish_lr, low, high)
         with torch.no_grad():
             cost_p = cost_fn(acts)
         return (tree_map(lambda a, p: torch.cat([a, p]), actions, acts),
@@ -285,6 +394,47 @@ def coarsen_env_state(env_lo: WaveEnv, state: EnvState) -> EnvState:
 
 NOISE_FLOOR = 0.05  # least standard deviation of an exact-CEM refit
 
+# Candidates the oracle and the pool probe advance together through the
+# batched kernel. At 700^2 a state buffer of 64 candidates holds 64 x 12 x
+# 700^2 float32, 1.5 GB, and a window keeps four (its input, two step
+# buffers and the kept state): about 6 GB of the card's 80. JAX scans the
+# shots one at a time to keep one grid state.
+EXACT_CHUNK = 64
+
+
+def sequential_energy(step, state: EnvState, acts, horizon: int) -> torch.Tensor:
+    """(S,) cumulative scattered energy of S sequences (S, horizon) from
+    `state`, one shot and one window at a time through `step` (an env
+    window such as `make_env_step_fused`'s): sum_h sum(signal_h[1:, 2])."""
+    costs = []
+    for s in range(tree_leaves(acts)[0].shape[0]):
+        st, sc = state, []
+        for h in range(horizon):
+            st, _ = step(st, tree_map(lambda v: v[s, h], acts))
+            # signal[0] repeats the previous window's last row: count each step once
+            sc.append(torch.sum(st.signal[1:, 2]))
+        costs.append(torch.sum(torch.stack(sc)))
+    return torch.stack(costs)
+
+
+def make_exact_scorer(env: WaveEnv, horizon: int):
+    """score(state, actions, t0) -> (S,) the cumulative scattered energy of
+    S sequences (leading (S, horizon)) from `state` in `env`'s simulator,
+    `sequential_energy`'s quantity, the candidates advanced together in
+    chunks of at most EXACT_CHUNK through `make_rerank_rollout` (batched K5,
+    one batched owner pass a window). Each batched candidate is the single
+    kernel's state bit for bit; the window times are the re-rank's."""
+    from ..physics.fused import make_rerank_rollout
+
+    rollout = make_rerank_rollout(env, horizon)
+
+    def score(state: EnvState, actions, t0) -> torch.Tensor:
+        n = tree_leaves(actions)[0].shape[0]
+        return torch.cat([rollout(state, tree_map(lambda v: v[s:s + EXACT_CHUNK], actions), t0)
+                          for s in range(0, n, EXACT_CHUNK)])
+
+    return score
+
 
 class HybridShooting:
     """Surrogate-pruned exact MPC (the JAX package's `_hybrid_act`): the
@@ -297,7 +447,8 @@ class HybridShooting:
     for the re-rank; the state is projected onto it (`coarsen_env_state`)
     while the chosen action is applied at full resolution. `batched` (the
     default): the re-rank runs the K candidates together through the batched
-    kernel K3 (`make_rerank_rollout`); False runs K rollouts in turn through
+    kernel K3 (`make_exact_scorer`, at most EXACT_CHUNK at a time); False
+    runs K rollouts in turn through
     K2/K1, the same costs (each K3 candidate is K2's state bit for bit) more
     slowly on the card, kept as the reference route. The JAX package
     defaults to the sequential route for a loss of the TPU's DMA pipelining
@@ -318,7 +469,7 @@ class HybridShooting:
     def __init__(self, env: WaveEnv, model, horizon: int = 5, shots: int = 256, topk: int = 8,
                  alpha: float = 1.0, rerank_env: WaveEnv | None = None, batched: bool = True,
                  exact_rounds: int = 1, exact_elites: int = 8, searcher=None):
-        from ..physics.fused import make_env_step_fused, make_rerank_rollout
+        from ..physics.fused import make_env_step_fused
 
         if searcher is not None and (searcher.horizon != horizon or searcher.alpha != alpha):
             raise ValueError("searcher must share the hybrid's horizon and alpha")
@@ -330,7 +481,7 @@ class HybridShooting:
         self.exact_rounds, self.exact_elites = exact_rounds, exact_elites
         self.searcher = searcher
         sim_env = rerank_env if rerank_env is not None else env
-        self.rollout = make_rerank_rollout(sim_env, topk, horizon) if batched else None
+        self.rollout = make_exact_scorer(sim_env, horizon) if batched else None
         self.sim_step = None if batched else make_env_step_fused(sim_env)
 
     def candidates(self, generator: torch.Generator):
@@ -364,14 +515,7 @@ class HybridShooting:
         `state` in the re-rank simulator."""
         if self.rollout is not None:
             return self.rollout(state, acts, t0)
-        costs = []
-        for s in range(tree_leaves(acts)[0].shape[0]):
-            st, sc = state, []
-            for h in range(self.horizon):
-                st, _ = self.sim_step(st, tree_map(lambda v: v[s, h], acts))
-                sc.append(torch.sum(st.signal[1:, 2]))
-            costs.append(torch.sum(torch.stack(sc)))
-        return torch.stack(costs)
+        return sequential_energy(self.sim_step, state, acts, self.horizon)
 
     def rerank(self, state: EnvState, actions, penalty, best, generator: torch.Generator):
         """Exact re-rank of the pruned candidates `best` and the exact-CEM
@@ -422,3 +566,236 @@ def make_hybrid_action_fused(env: WaveEnv, model, horizon: int = 5, shots: int =
                          rerank_env=rerank_env, batched=batched, exact_rounds=exact_rounds,
                          exact_elites=exact_elites, searcher=searcher)
     return act, make_env_step_fused(env)
+
+
+@dataclass(frozen=True)
+class OracleShooting:
+    """Random shooting against the simulator itself (the JAX package's
+    `OracleShooting`): the upper bound of shooting MPC. Each of `shots`
+    uniform sequences rolls `horizon` windows through `step_fn` (state,
+    action) -> (state', info), one shot and one window at a time, and costs
+    its cumulative scattered energy plus alpha times the action penalty.
+    The reference route of `BatchedOracle`, as `HybridShooting(batched=
+    False)` is of the batched re-rank. Draws go through `candidates`."""
+
+    step_fn: Any
+    horizon: int = 5
+    shots: int = 16
+    alpha: float = 1.0
+
+    def candidates(self, env: WaveEnv, generator: torch.Generator):
+        """This selection's (shots, horizon) candidate sequences."""
+        return build_action_sequence(env.action_space, generator, self.horizon, self.shots)
+
+    def __call__(self, env: WaveEnv, state: EnvState, generator: torch.Generator):
+        actions = self.candidates(env, generator)
+        cost = (sequential_energy(self.step_fn, state, actions, self.horizon)
+                + self.alpha * compute_action_cost(actions))
+        idx = torch.argmin(cost)
+        return tree_map(lambda x: _take(x, idx)[0], actions), {"cost": cost, "idx": idx}
+
+
+class BatchedOracle:
+    """The oracle's selection (the JAX package's `_oracle_act`) with the
+    shots scored together: `shots` uniform sequences roll `horizon` windows
+    through `env`'s simulator in chunks of at most EXACT_CHUNK
+    (`make_exact_scorer`), each costs its cumulative scattered energy plus
+    alpha times the action penalty, and the argmin stays on the device.
+    JAX scans the shots one at a time to hold one grid state; the costs are
+    `OracleShooting`'s. Draws go through `candidates`."""
+
+    def __init__(self, env: WaveEnv, horizon: int = 5, shots: int = 16, alpha: float = 1.0):
+        self.env, self.horizon, self.shots, self.alpha = env, horizon, shots, alpha
+        self.score = make_exact_scorer(env, horizon)
+
+    def candidates(self, generator: torch.Generator):
+        """This selection's (shots, horizon) candidate sequences."""
+        return build_action_sequence(self.env.action_space, generator, self.horizon, self.shots)
+
+    def costs(self, state: EnvState, actions) -> torch.Tensor:
+        """(S,) exact costs of S sequences (S, horizon) from `state`."""
+        return (self.score(state, actions, env_time(self.env, state))
+                + self.alpha * compute_action_cost(actions))
+
+    def select(self, state: EnvState, generator: torch.Generator):
+        """Every candidate (shots, horizon) and its exact cost (shots,)."""
+        actions = self.candidates(generator)
+        return actions, self.costs(state, actions)
+
+    @staticmethod
+    def choose(actions, cost):
+        """(first action of the cheapest sequence, its cost), on the device."""
+        idx = torch.argmin(cost)
+        return tree_map(lambda v: _take(v, idx)[0], actions), _take(cost, idx)
+
+    def __call__(self, state: EnvState, generator: torch.Generator):
+        """One selection: (first action of the cheapest sequence, its cost)."""
+        return self.choose(*self.select(state, generator))
+
+
+def make_oracle_action_fused(env: WaveEnv, horizon: int = 5, shots: int = 16, alpha: float = 1.0):
+    """The oracle per action, as the JAX package's `make_oracle_action_fused`
+    gives it: (act, step) with act(state, generator) -> (action, chosen
+    cost) a `BatchedOracle` and step(state, action) -> (state', info) the
+    fused env window that applies it."""
+    from ..physics.fused import make_env_step_fused
+
+    return BatchedOracle(env, horizon, shots, alpha), make_env_step_fused(env)
+
+
+def make_action_episode(env: WaveEnv, act, step):
+    """A whole episode of a controller that selects and applies one action
+    at a time (the oracle, the hybrid): for each of env.actions windows,
+    act(state, generator) -> (action, chosen cost) and step(state, action)
+    -> (state', info). Returns run(state, generator) -> (final_state,
+    signals (A, T+1, 3), chosen costs (A,))."""
+    def run(state: EnvState, generator: torch.Generator):
+        signals, chosen = [], []
+        for _ in range(env.actions):
+            a, c = act(state, generator)
+            state, _ = step(state, a)
+            signals.append(state.signal)
+            chosen.append(c)
+        return state, torch.stack(signals), torch.stack(chosen)
+
+    return run
+
+
+def make_oracle_episode_fused(env: WaveEnv, horizon: int = 5, shots: int = 16,
+                              alpha: float = 1.0):
+    """A whole oracle episode (the JAX package's `make_oracle_episode_fused`):
+    for each of env.actions windows, a `BatchedOracle` selection and the
+    fused env window, as `make_action_episode` runs them."""
+    return make_action_episode(env, *make_oracle_action_fused(env, horizon, shots, alpha))
+
+
+class PoolProbe:
+    """Exactly scored candidate pools for the ranking fine-tune (the JAX
+    package's `make_pool_probe_fused`): at one state, `K` candidate
+    sequences are scored in the simulator (on `rerank_env`'s coarser grid
+    if given, the state projected by `coarsen_env_state`), through the
+    batched kernel in chunks of at most EXACT_CHUNK.
+
+    `refine_samples > 0` adds that many candidates near the optimum: a
+    diagonal Gaussian (standard deviation with correction 0, no floor) fit
+    to the `refine_elites` exactly cheapest, drawn and clamped to the box,
+    and scored by a second rollout. With `searcher` (a `CEMShooting` on the
+    distilled surrogate) the probe is a DAgger step: `searcher_samples` of
+    the K candidates are the cheapest of its population (polished where it
+    polishes), uniform draws make up the rest, and the advance action is
+    the searcher's choice; without, it is the exact argmin.
+
+    probe(state, generator) -> (pool, action), pool = {"s_wave": the
+    observation, "s_design": the design, "t0": the time (0-d), "a": the
+    candidates (K', horizon), "y_true": (K',) their cumulative scattered
+    energy, "penalty": (K',) their action penalty}. Draws go through
+    `candidates` and `noise` (the searcher's through its own)."""
+
+    def __init__(self, env: WaveEnv, K: int = 16, horizon: int = 5, alpha: float = 1.0,
+                 rerank_env: WaveEnv | None = None, refine_samples: int = 0,
+                 refine_elites: int = 4, searcher=None, searcher_samples: int = 0):
+        if rerank_env is not None and (rerank_env.dt != env.dt or
+                                       rerank_env.integration_steps != env.integration_steps):
+            raise ValueError("rerank_env must share the env's dt and steps per action window")
+        if searcher is not None:
+            if not 0 < searcher_samples <= K:
+                raise ValueError(f"searcher_samples {searcher_samples} must be in (0, {K}]")
+            if searcher.horizon != horizon:
+                raise ValueError("searcher must share the probe's horizon")
+        self.env, self.K, self.horizon, self.alpha = env, K, horizon, alpha
+        self.rerank_env = rerank_env
+        self.refine_samples, self.refine_elites = refine_samples, refine_elites
+        self.searcher, self.searcher_samples = searcher, searcher_samples
+        self.score = make_exact_scorer(rerank_env if rerank_env is not None else env, horizon)
+
+    def candidates(self, generator: torch.Generator, n: int):
+        """n uniform (n, horizon) candidate sequences."""
+        return build_action_sequence(self.env.action_space, generator, self.horizon, n)
+
+    def noise(self, generator: torch.Generator, like):
+        """The refinement's standard-normal draw shaped like `like`."""
+        return tree_normal(generator, like)
+
+    def __call__(self, state: EnvState, generator: torch.Generator):
+        a_ctrl = None
+        if self.searcher is None:
+            actions = self.candidates(generator, self.K)
+        else:
+            pop, cost_s = self.searcher.population(self.env, state, generator)
+            if self.searcher.polish_steps > 0:
+                pop, cost_s = self.searcher.polish(self.env, state, pop, cost_s)
+            idx_s = torch.argmin(cost_s)
+            a_ctrl = tree_map(lambda v: _take(v, idx_s)[0], pop)
+            top = torch.argsort(cost_s, stable=True)[:self.searcher_samples]
+            actions = tree_map(lambda v: v[top], pop)
+            if self.searcher_samples < self.K:
+                unif = self.candidates(generator, self.K - self.searcher_samples)
+                actions = tree_map(lambda c, u: torch.cat([c, u]), actions, unif)
+        st = coarsen_env_state(self.rerank_env, state) if self.rerank_env is not None else state
+        t0 = env_time(self.env, state)
+        y_true = self.score(st, actions, t0)
+        if self.refine_samples > 0:
+            cost0 = y_true + self.alpha * compute_action_cost(actions)
+            elite = tree_map(lambda v: v[torch.argsort(cost0, stable=True)[:self.refine_elites]],
+                             actions)
+            mu = tree_map(lambda v: v.mean(dim=0, keepdim=True), elite)
+            sd = tree_map(lambda v: v.std(dim=0, correction=0, keepdim=True), elite)
+            low, high = _box(self.env.action_space, (self.refine_samples, self.horizon))
+            noise = self.noise(generator, low)
+            fresh = tree_clamp(tree_map(lambda m, s, z: m + s * z, mu, sd, noise), low, high)
+            actions = tree_map(lambda u, f: torch.cat([u, f]), actions, fresh)
+            y_true = torch.cat([y_true, self.score(st, fresh, t0)])
+        penalty = compute_action_cost(actions)
+        pool = {"s_wave": env_observe(self.env, state).wave, "s_design": state.design,
+                "t0": torch.tensor(t0, device=self.env.device), "a": actions,
+                "y_true": y_true, "penalty": penalty}
+        if a_ctrl is not None:
+            return pool, a_ctrl  # advance under the deployed controller
+        idx = torch.argmin(y_true + self.alpha * penalty)
+        return pool, tree_map(lambda v: _take(v, idx)[0], actions)
+
+
+def make_pool_probe_fused(env: WaveEnv, K: int = 16, horizon: int = 5, alpha: float = 1.0,
+                          rerank_env: WaveEnv | None = None, refine_samples: int = 0,
+                          refine_elites: int = 4, searcher=None, searcher_samples: int = 0):
+    """(probe, step): a `PoolProbe` and the fused env window at full
+    resolution that advances the episode."""
+    from ..physics.fused import make_env_step_fused
+
+    probe = PoolProbe(env, K, horizon, alpha, rerank_env, refine_samples, refine_elites,
+                      searcher, searcher_samples)
+    return probe, make_env_step_fused(env)
+
+
+def make_mpc_episode_recorded(env: WaveEnv, mpc, epsilon: float = 0.0, random_policy=None):
+    """A whole MPC episode recorded as an `Episode` (the JAX package's
+    `make_mpc_episode_recorded`), for on-policy datasets and behaviour
+    cloning: each window observes, selects with `mpc` (no warm carry),
+    draws a uniform action from `random_policy` (by default
+    `RandomDesignPolicy`) and a Bernoulli(epsilon) that picks it in place of
+    the controller's, on the device, and advances the fused env window.
+
+    Returns run(state, generator) -> (final_state, Episode(s_wave,
+    s_design, s_tspan, a, y))."""
+    from ..data import Episode
+    from ..physics.fused import make_env_step_fused
+
+    step = make_env_step_fused(env)
+    random_policy = random_policy or RandomDesignPolicy(env.action_space)
+
+    def run(state: EnvState, generator: torch.Generator):
+        rec = []
+        for _ in range(env.actions):
+            obs = env_observe(env, state)
+            a_mpc, _ = mpc(env, state, generator)
+            a_rnd = random_policy(generator)
+            use_rnd = torch.rand((), generator=generator, device=generator.device) < epsilon
+            a = tree_map(lambda m, r: torch.where(use_rnd.to(m.device), r, m), a_mpc, a_rnd)
+            nxt, info = step(state, a)
+            rec.append((obs.wave, state.design, torch.from_numpy(info["tspan"]).to(env.device),
+                        a, nxt.signal))
+            state = nxt
+        s_wave, s_design, s_tspan, a, y = (tree_stack(list(x)) for x in zip(*rec))
+        return state, Episode(s_wave=s_wave, s_design=s_design, s_tspan=s_tspan, a=a, y=y)
+
+    return run

@@ -185,6 +185,16 @@ def env_observe(env: WaveEnv, state: EnvState) -> WaveEnvState:
                         design=state.design)
 
 
+def env_reward(state: EnvState) -> torch.Tensor:
+    """Sum of the last window's signal (the reference `src/env.jl:147-149`)."""
+    return torch.sum(state.signal)
+
+
+def env_terminated(env: WaveEnv, state: EnvState) -> bool:
+    """True once the episode has run its env.actions windows."""
+    return state.time_step >= env.actions * env.integration_steps
+
+
 @dataclass(frozen=True)
 class RandomDesignPolicy:
     """Uniform random actions."""

@@ -23,7 +23,7 @@ import torch
 from ..designs import design_cylinders
 from ..env import EnvState, WaveEnv, env_tspan, frame_segments
 from ..ops.fused_rk4 import StepConfig, fused_rk4_window, select_owner, select_owner_batched
-from ..utils.trees import tree_map
+from ..utils.trees import tree_leaves, tree_map
 
 
 def cyl_params(d1, d2, device) -> torch.Tensor:
@@ -137,7 +137,7 @@ def rerank_step_times(t_i: np.float32, steps: int, dt: float) -> list[np.float32
             for m in range(0, steps, spc) for s in range(spc)]
 
 
-def make_rerank_rollout(env: WaveEnv, k: int, horizon: int, x_matmul: bool = True):
+def make_rerank_rollout(env: WaveEnv, horizon: int, x_matmul: bool = True):
     """K-candidate exact re-rank rollout for the hybrid controller: all K
     action sequences advance through the simulator together, one
     candidate-batched kernel launch a step (K3, or batched K5), instead of
@@ -160,6 +160,7 @@ def make_rerank_rollout(env: WaveEnv, k: int, horizon: int, x_matmul: bool = Tru
 
     def rollout(state: EnvState, elite, t0):
         shape = state.source.shape
+        k = tree_leaves(elite)[0].shape[0]
         u = state.wave[-1].expand(k, *state.wave.shape[1:]).contiguous()
         designs = tree_map(lambda x: x.expand(k, *x.shape), state.design)
         t_i = f(t0)

@@ -10,9 +10,12 @@ second half of an episode (the reference `scripts/test.jl:36-41`).
         --checkpoint models/ref500_h8s4_pools3/checkpoint_step=1450 \\
         --latent-stride 4 --cem-polish 10 --cem-polish-topk 16
 
-Controllers: `random_shooting`, `cem` (`--cem-*`), `hybrid` (`--topk`,
-`--hybrid-cem`, `--rerank-n`, `--exact-rounds`) and `policy` (a one-shot
-policy checkpoint). The result JSON has the keys of the JAX CLI's. Draws
+Controllers: `random_shooting`, `cem` (`--cem-*`), `gradient` (projected
+gradient descent on `max(8, shots // 8)` sequences), `ensemble` (several
+`--checkpoint`s, `--beta`), `hybrid` (`--topk`, `--hybrid-cem`,
+`--rerank-n`, `--exact-rounds`), `oracle` (shooting in the simulator
+itself, no checkpoint) and `policy` (a one-shot policy checkpoint). The
+result JSON has the keys of the JAX CLI's. Draws
 come from torch generators seeded from `--seed`, the location and the
 episode, so the decreases are the port's own. `--device cpu` runs the
 plain path on the CPU.
@@ -32,9 +35,10 @@ if __package__ in (None, ""):  # run as a file
 import numpy as np
 import torch
 
-from waves_jl_tpu_torch.control.mpc import (CEMShooting, RandomShooting,
+from waves_jl_tpu_torch.control.mpc import (CEMShooting, EnsembleShooting, GradientShooting,
+                                            RandomShooting, make_action_episode,
                                             make_hybrid_action_fused, make_mpc_episode_fused,
-                                            make_policy_episode_fused)
+                                            make_oracle_episode_fused, make_policy_episode_fused)
 from waves_jl_tpu_torch.data import make_episode_fused
 from waves_jl_tpu_torch.designs import build_triple_ring_design_space
 from waves_jl_tpu_torch.device import resolve_device
@@ -47,8 +51,8 @@ from waves_jl_tpu_torch.utils.gaussians import build_normal
 from waves_jl_tpu_torch.utils.trees import tree_stack
 
 # options of the JAX CLI that the port does not run yet (ROADMAP Queue 1)
-NOT_PORTED = {"gradient": "GradientShooting", "ensemble": "EnsembleShooting",
-              "oracle": "the oracle controllers"}
+NOT_PORTED = {"fast": "--fast (the bf16 ranking mode)", "render": "--render",
+              "fused_episode": "--fused-episode (the one-program hybrid episode)"}
 
 
 def scattered_tail_mean(signals: np.ndarray) -> float:
@@ -83,7 +87,9 @@ def parse_args(argv=None):
                    help="unused; kept for the JAX CLI's launchers (the protocol builds its "
                         "own env and resets)")
     p.add_argument("--checkpoint", default=None, nargs="+",
-                   help="surrogate checkpoint, or a one-shot policy's for --controller policy")
+                   help="surrogate checkpoint(s): several for --controller ensemble, a "
+                        "one-shot policy's for --controller policy, none for --controller "
+                        "oracle")
     p.add_argument("--episodes", type=int, default=4)
     p.add_argument("--locations", type=int, default=5,
                    help="fixed source y-locations (reference scripts/test.jl)")
@@ -99,7 +105,7 @@ def parse_args(argv=None):
     p.add_argument("--policy-h-size", type=int, default=256,
                    help="policy net width (--controller policy)")
     p.add_argument("--beta", type=float, default=1.0,
-                   help="ensemble disagreement weight (ensemble is not yet ported)")
+                   help="ensemble disagreement weight")
     p.add_argument("--topk", type=int, default=8,
                    help="hybrid: candidates the simulator re-ranks")
     p.add_argument("--hybrid-cem", action="store_true",
@@ -139,11 +145,7 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Exit with a clear message for an option the port does not run yet."""
-    if args.controller in NOT_PORTED:
-        sys.exit(f"--controller {args.controller}: {NOT_PORTED[args.controller]} is not yet "
-                 "ported to waves_jl_tpu_torch (ROADMAP Queue 1)")
-    for flag, what in (("fast", "--fast (the bf16 ranking mode)"), ("render", "--render"),
-                       ("fused_episode", "--fused-episode (the one-program hybrid episode)")):
+    for flag, what in NOT_PORTED.items():
         if getattr(args, flag):
             sys.exit(f"{what} is not yet ported to waves_jl_tpu_torch (ROADMAP Queue 1)")
 
@@ -160,13 +162,27 @@ def build_controller(args, env, dev):
         step_no = load_policy_checkpoint(policy.net, args.checkpoint[0])
         print(f"loaded policy checkpoint step {step_no} ({args.checkpoint[0]})", flush=True)
         return make_policy_episode_fused(env, policy)
-    if len(args.checkpoint) != 1:
-        sys.exit("multiple checkpoints require --controller ensemble, which is not yet ported")
-    model = AcousticEnergyModel(space, 1000.0, elements=args.elements, h_size=args.h_size,
-                                nfreq=args.nfreq, integration_steps=100 // args.latent_stride,
-                                dt=1e-5 * args.latent_stride, device=dev)
-    step_no = load_model_checkpoint(model, args.checkpoint[0])
-    print(f"loaded checkpoint step {step_no} ({args.checkpoint[0]})", flush=True)
+    if args.controller == "oracle":  # shooting in the simulator needs no surrogate
+        return make_oracle_episode_fused(env, horizon=args.horizon, shots=args.shots,
+                                         alpha=args.alpha)
+    if args.controller != "ensemble" and len(args.checkpoint) != 1:
+        sys.exit("multiple checkpoints require --controller ensemble")
+    models = []
+    for ck in args.checkpoint:
+        models.append(AcousticEnergyModel(space, 1000.0, elements=args.elements,
+                                          h_size=args.h_size, nfreq=args.nfreq,
+                                          integration_steps=100 // args.latent_stride,
+                                          dt=1e-5 * args.latent_stride, device=dev))
+        step_no = load_model_checkpoint(models[-1], ck)
+        print(f"loaded checkpoint step {step_no} ({ck})", flush=True)
+    model = models[0]
+    if args.controller == "ensemble":
+        return make_mpc_episode_fused(env, EnsembleShooting(
+            models=tuple(models), horizon=args.horizon, shots=args.shots, alpha=args.alpha,
+            beta=args.beta))
+    if args.controller == "gradient":
+        return make_mpc_episode_fused(env, GradientShooting(
+            model=model, horizon=args.horizon, shots=max(8, args.shots // 8), alpha=args.alpha))
     if args.controller == "random_shooting":
         return make_mpc_episode_fused(env, RandomShooting(model=model, horizon=args.horizon,
                                                           shots=args.shots, alpha=args.alpha))
@@ -180,20 +196,10 @@ def build_controller(args, env, dev):
                             alpha=args.alpha, iters=args.cem_iters, elites=args.cem_elites)
                 if args.hybrid_cem else None)
     rerank_env = build_env(args.rerank_n, 100, args.actions, dev) if args.rerank_n else None
-    act, step = make_hybrid_action_fused(
+    return make_action_episode(env, *make_hybrid_action_fused(
         env, model, horizon=args.horizon, shots=args.shots, topk=args.topk, alpha=args.alpha,
-        rerank_env=rerank_env, exact_rounds=args.exact_rounds, exact_elites=args.exact_elites, searcher=searcher)
-
-    def run(state, generator):
-        signals, costs = [], []
-        for _ in range(env.actions):
-            a, c = act(state, generator)
-            state, _ = step(state, a)
-            signals.append(state.signal)
-            costs.append(c)
-        return state, torch.stack(signals), torch.stack(costs)
-
-    return run
+        rerank_env=rerank_env, exact_rounds=args.exact_rounds, exact_elites=args.exact_elites,
+        searcher=searcher))
 
 
 def main(argv=None) -> dict:
@@ -201,8 +207,8 @@ def main(argv=None) -> dict:
     check_ported(args)
     if os.path.exists(args.out) and not args.force:
         sys.exit(f"refusing to overwrite {args.out} (pass --force or --out)")
-    if not args.checkpoint:
-        sys.exit("--checkpoint is required")
+    if args.controller != "oracle" and not args.checkpoint:
+        sys.exit("--checkpoint is required for surrogate controllers")
     dev = resolve_device(args.device)
     env = build_env(args.n, 100, args.actions, dev)
     run_mpc = build_controller(args, env, dev)
@@ -246,8 +252,9 @@ def main(argv=None) -> dict:
         "percentage_decrease": per_location,
         "mean_decrease": float(np.mean(per_location)),
         "controller": c,
-        "checkpoint": args.checkpoint[0] if len(args.checkpoint) == 1 else args.checkpoint,
-        "beta": None,  # ensemble only, not yet ported
+        "checkpoint": (args.checkpoint[0] if args.checkpoint and len(args.checkpoint) == 1
+                       else args.checkpoint),
+        "beta": args.beta if c == "ensemble" else None,
         "topk": args.topk if c == "hybrid" else None,
         "rerank_n": args.rerank_n if c == "hybrid" else None,
         "hybrid_cem": args.hybrid_cem if c == "hybrid" else None,

@@ -65,6 +65,14 @@ def load_episodes_split(data_dirs, episodes: int, train_val_split: float = 0.9):
     return train_eps, val_eps
 
 
+def load_dataset(data_dirs, episodes: int, horizon: int, train_val_split: float = 0.9,
+                 stride: int = 1):
+    """(train, validation) windowed datasets of the dirs' episodes, split
+    per dir as `load_episodes_split` splits them; on the CPU."""
+    train_eps, val_eps = load_episodes_split(data_dirs, episodes, train_val_split)
+    return prepare_dataset(train_eps, horizon, stride), prepare_dataset(val_eps, horizon, stride)
+
+
 def build_model(args, in_channels: int, device):
     """The flagship at the flags' widths with its loss: (model, loss_fn)."""
     if args.steps % args.latent_stride:
