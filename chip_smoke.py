@@ -109,7 +109,20 @@ its elapsed seconds:
    the card's gradient against the CPU's (1e-4 a leaf); behaviour-cloning
    updates whose checkpoint has `bc_pools3`'s names and shapes; one
    gradient and one ensemble selection; the five new CLIs and the MPC
-   CLI's three new controllers once each, in subprocesses.
+   CLI's three new controllers once each, in subprocesses;
+11. baselines at full width from the tracked `ref500_node_r4b` and
+   `ref500_pinn_r4` weights, on phase 7's episodes: the NODE's forward at
+   horizons 1 and 8, its loss's float32 gradient held leaf by leaf to the
+   CPU's and to float64 (`grad_precision.LEAF_LIMITS`), one forward and
+   backward in "sqrt" timed; the PINN's chunked
+   `predict_energy` against its forward, the forward against the CPU's,
+   the loss's float32 gradient held leaf by leaf the same way,
+   horizon 8 on the card, one loss forward and backward at batch 4 timed
+   with its peak memory; one random-shooting
+   selection through the PINN's forward (the controllers' fallback for a
+   model without `predict_shot_energy`); the train CLI's `--model node`
+   and `--model pinn`, the prediction CLI and the PINN acceptance run once
+   each, in subprocesses. None of the CUDA kernels launches.
 
 The launch counts of each kernel are read from the main-path runs alone:
 every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
@@ -156,6 +169,10 @@ CHUNK = 10  # datagen episodes a chunk, as bench.py times them
 ORACLE_SHOTS = 256  # the oracle record's shots (mpc_results_oracle256.json)
 ORACLE_EPISODE_SHOTS = 64  # the oracle episode's (mpc_results_oracle64.json)
 POOL_UPDATES = 2  # pool-ranking updates phase 10 takes
+# the baselines of phase 11: tracked weights at the reference widths
+BASELINE_CHECKPOINTS = {"node": "models/ref500_node_r4b/checkpoint_step=2040",
+                        "pinn": "models/ref500_pinn_r4/checkpoint_step=2000"}
+BASELINE_WIDTH = dict(elements=1024, h_size=256, nfreq=500)
 # Kernel against plain version, relative to the largest magnitude: both run
 # the same float32 operations in the same order (FMA contraction is off in
 # the kernel), so they differ only where sinf and torch.sin round apart and
@@ -2052,6 +2069,247 @@ def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: 
     return oracle_counts, oracle_shape
 
 
+def baselines_phase(env, dev, episodes, cli_data: str, smi: str):
+    """Phase 11: the NODE and PINN baselines at full width (1,024 elements,
+    h_size 256, nfreq 500, l_size 64, 100 steps a window) from the tracked
+    checkpoints, on windows of phase 7's episodes: every leaf loaded; the
+    NODE's forward at horizons 1 and 8 (batch 4) on the card against the
+    CPU, one `node_loss` forward and backward in "sqrt" timed, and its
+    gradient on one window held leaf by leaf to the CPU's and to float64;
+    the PINN's `predict_energy(time_chunk=16)` against its forward at
+    horizon 1, the forward against the CPU's at batch 1, horizon 8 on the
+    card alone, one `WaveControlPINNLoss` forward and backward at batch 4
+    timed with its peak memory, and its gradient at batch 1 held leaf by
+    leaf to the CPU's and to float64; one random-shooting selection through
+    the PINN's fallback (16 shots, horizon 2) from a 700^2 state; the train
+    CLI for each baseline, the prediction CLI and the PINN acceptance run
+    once, in subprocesses. The phase launches none of the CUDA kernels."""
+    import copy
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from waves_jl_tpu_torch.constants import WATER
+    from waves_jl_tpu_torch.control.mpc import RandomShooting
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.env import env_reset
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.models.node import NODEEnergyModel, node_loss
+    from waves_jl_tpu_torch.models.pinn import WaveControlPINN, WaveControlPINNLoss
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.fused import make_env_step_fused
+    from waves_jl_tpu_torch.scripts.grad_precision import leaf_limit, leaves_beyond
+    from waves_jl_tpu_torch.train import gather_window_batch, stack_episodes
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint, load_params
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    def baseline(which, device=dev):
+        space = build_triple_ring_design_space(device=device)
+        model = (NODEEnergyModel(space, device=device, **BASELINE_WIDTH) if which == "node"
+                 else WaveControlPINN(space, 1000.0, device=device, **BASELINE_WIDTH))
+        load_model_checkpoint(model, os.path.join(ROOT, BASELINE_CHECKPOINTS[which]))
+        return model
+
+    def measure(fn):
+        """(wall s, host issue s, peak MiB above the memory held before,
+        result) of fn(), synchronised at both ends."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        issue = time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return wall, issue, (torch.cuda.max_memory_allocated() - base) / 2**20, out
+
+    def grads_of(model, loss_fn, batch):
+        ps = dict(model.named_parameters())
+        with full_float32():
+            return dict(zip(ps, torch.autograd.grad(loss_fn(batch), list(ps.values()))))
+
+    def to_cpu(batch):
+        return tree_map(lambda v: v.cpu(), batch)
+
+    def held_leaf_by_leaf(kind, name, model, cpu_model, loss_of):
+        """The loss's float32 gradient on one horizon-1 window on the card,
+        held leaf by leaf against the CPU's float32 gradient and, as a
+        second witness, against float64 on the card, each leaf within its
+        limit (`grad_precision.LEAF_LIMITS`: the NODE's 5e-4, the PINN's
+        field net 2e-2 and its other leaves 1e-3 of the leaf's largest
+        magnitude, set from readings with TF32 off and on)."""
+        model64 = copy.deepcopy(model).double()
+        g64 = grads_of(model64, loss_of(model64),
+                       tree_map(lambda v: v.double() if v.is_floating_point() else v, one))
+        g_card = grads_of(model, loss_of(model), one)
+        g_cpu = grads_of(cpu_model, loss_of(cpu_model), to_cpu(one))
+        cpu64, _ = leaves_beyond(kind, g_cpu, g64)
+        worst = max(cpu64, key=cpu64.get)
+        log("baselines", f"{name} gradient, one horizon-1 window: the CPU's float32 against "
+                         f"float64 on the card, worst leaf {cpu64[worst]:.3e} ({worst})")
+        for what, want in (("the CPU's float32", g_cpu), ("float64 on the card", g64)):
+            dist, beyond = leaves_beyond(kind, g_card, want)
+            worst = max(dist, key=lambda k: dist[k] / leaf_limit(kind, k))
+            log("baselines", f"{name} gradient on the card against {what}, leaf by leaf: worst "
+                             f"leaf {dist[worst]:.3e} of its {leaf_limit(kind, worst):.0e} "
+                             f"({worst}); largest {max(dist.values()):.3e}")
+            check(not beyond, f"every leaf of the {name} gradient on the card is within its "
+                              f"limit of {what}: {beyond}")
+
+    # a state 10 windows in, for the selection, before the counts are reset
+    gen = torch.Generator(device=dev).manual_seed(110)
+    step = make_env_step_fused(env)
+    state = env_reset(env, gen)
+    for _ in range(WINDOWS // 2):
+        state, _ = step(state, env.action_space.sample(gen))
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+
+    store = stack_episodes(episodes[:4], dev)
+    actions = store.s_wave.shape[1]
+    rng = np.random.default_rng(11)
+
+    def windows(B, horizon):
+        idx = np.stack([rng.integers(0, 4, B), rng.integers(0, actions - horizon + 1, B)], -1)
+        return gather_window_batch(store, torch.as_tensor(idx, device=dev), horizon)
+
+    b1, b8 = windows(4, 1), windows(4, 8)
+    one = tree_map(lambda v: v[:1], b1)
+    for which, n in (("node", 38), ("pinn", 118)):
+        named = load_params(os.path.join(ROOT, BASELINE_CHECKPOINTS[which]))
+        check(len(named) == n, f"the tracked {which} checkpoint has {n} leaves")
+
+    # the NODE
+    node, node_cpu = baseline("node"), baseline("node", torch.device("cpu"))
+    check(len(node.state_dict()) == 38, "every NODE parameter has its leaf")
+    with torch.no_grad():
+        for horizon, b in ((1, b1), (8, b8)):
+            wall, issue, peak, pred = measure(lambda b=b: node(b))
+            want = node_cpu(to_cpu(b))
+            err = rel_err(pred.cpu(), want)
+            log("baselines", f"NODE forward, batch 4, horizon {horizon} ({b['t'].shape[1]} "
+                             f"times): {wall:.4f} s, host issue {issue / wall:.3f} of it, peak "
+                             f"{peak:.1f} MiB; against the CPU {err:.3e}")
+            check(tuple(pred.shape) == (4, b["t"].shape[1]) and err <= 1e-4,
+                  f"the NODE's (B, L) forward at horizon {horizon} matches the CPU's to 1e-4")
+    node_s = measure(lambda: grads_of(node, lambda b: node_loss(node, b), b8))
+    log("baselines", f"node_loss forward and backward, batch 4, horizon 8, 'sqrt': "
+                     f"{node_s[0]:.4f} s, host issue {node_s[1] / node_s[0]:.3f} of it, peak "
+                     f"{node_s[2]:.1f} MiB")
+    held_leaf_by_leaf("node", "node_loss", node, node_cpu, lambda m: (lambda b: node_loss(m, b)))
+    del node, node_cpu
+
+    # the PINN
+    pinn, pinn_cpu = baseline("pinn"), baseline("pinn", torch.device("cpu"))
+    check(len(pinn.state_dict()) == 118, "every PINN parameter has its leaf")
+    with torch.no_grad():
+        pinn.predict_energy(b1, time_chunk=16)  # warms cuBLAS and cuDNN
+        fwd = measure(lambda: pinn(b1))
+        chunked = measure(lambda: pinn.predict_energy(b1, time_chunk=16))
+        err_chunk = float((chunked[3] - fwd[3]).abs().max())
+        ok_chunk = bool(torch.allclose(chunked[3], fwd[3], rtol=2e-5, atol=2e-6))
+        log("baselines", f"PINN, batch 4, horizon 1: forward {fwd[0]:.4f} s (host issue "
+                         f"{fwd[1] / fwd[0]:.3f}, peak {fwd[2]:.1f} MiB), predict_energy(time_"
+                         f"chunk=16) {chunked[0]:.4f} s (peak {chunked[2]:.1f} MiB), apart by "
+                         f"{err_chunk:.3e}")
+        check(ok_chunk, "predict_energy(time_chunk=16) matches the forward to 2e-5 / 2e-6")
+        err = rel_err(pinn(one).cpu(), pinn_cpu(to_cpu(one)))
+        log("baselines", f"PINN forward at batch 1, horizon 1, on the card against the CPU: "
+                         f"{err:.3e}")
+        check(err <= 1e-4, "the PINN's forward matches the CPU's to 1e-4")
+        h8 = measure(lambda: pinn.predict_energy(b8, time_chunk=16))
+        log("baselines", f"PINN predict_energy(time_chunk=16), batch 4, horizon 8: {h8[0]:.4f} "
+                         f"s, host issue {h8[1] / h8[0]:.3f}, peak {h8[2]:.1f} MiB")
+        check(tuple(h8[3].shape) == (4, b8["t"].shape[1], 3)
+              and bool(torch.isfinite(h8[3]).all()), "the horizon-8 energies are finite")
+    loss_fn = WaveControlPINNLoss(model=pinn, c0=WATER)
+    pinn_s = measure(lambda: grads_of(pinn, loss_fn, b1))
+    log("baselines", f"WaveControlPINNLoss forward and backward, batch 4, horizon 1: "
+                     f"{pinn_s[0]:.4f} s, host issue {pinn_s[1] / pinn_s[0]:.3f} of it, peak "
+                     f"{pinn_s[2]:.1f} MiB")
+    held_leaf_by_leaf("pinn", "WaveControlPINNLoss", pinn, pinn_cpu,
+                      lambda m: WaveControlPINNLoss(model=m, c0=WATER))
+    del pinn_cpu
+
+    # random shooting through the fallback: the PINN has no predict_shot_energy
+    rs = RandomShooting(model=pinn, horizon=2, shots=16, alpha=1.0)
+    check(not hasattr(pinn, "predict_shot_energy"), "the PINN takes the forward fallback")
+    sel_s, sel_issue, sel_peak, (_, info) = measure(lambda: rs(env, state, gen))
+    log("baselines", f"random shooting through the PINN's forward, 16 shots, horizon 2: "
+                     f"{sel_s:.4f} s, host issue {sel_issue / sel_s:.3f}, peak {sel_peak:.1f} MiB")
+    check(bool(torch.isfinite(info["cost"]).all()) and info["cost"].shape == (16,)
+          and int(info["idx"]) == int(torch.argmin(info["cost"])),
+          "the selection's 16 costs are finite, its choice their argmin")
+    launched = {k: v for k, v in fk.launch_counts.items() if v}
+    log("baselines", f"kernel launches in the phase: {launched}")
+    check(not launched, "the baselines launch none of the CUDA kernels")
+    del pinn, rs, store, b1, b8, one, info
+    torch.cuda.empty_cache()
+
+    # the CLIs once each, at their smallest, at once
+    with tempfile.TemporaryDirectory() as out:
+        ck = {k: os.path.join(ROOT, v) for k, v in BASELINE_CHECKPOINTS.items()}
+        width = [f for k, v in BASELINE_WIDTH.items()
+                 for f in (f"--{k.replace('_', '-')}", str(v))]
+        small = ["--episodes", "1", "--horizon", "1", "--epochs", "1", "--batch", "4",
+                 "--accumulate", "5", "--val-every", "1", "--val-batches", "1"]
+        pred_json = os.path.join(out, "prediction.json")
+        clis = {
+            "train --model node": ("train", ["--data", cli_data, "--out", os.path.join(out, "node"),
+                                             "--model", "node", "--init-from", ck["node"],
+                                             *small, *width]),
+            "train --model pinn": ("train", ["--data", cli_data, "--out", os.path.join(out, "pinn"),
+                                             "--model", "pinn", "--init-from", ck["pinn"],
+                                             *small, *width]),
+            "prediction": ("prediction", [
+                "--data", cli_data, "--acoustic", os.path.join(ROOT, CHECKPOINT),
+                "--latent-stride", str(STRIDE), "--node", ck["node"], "--pinn", ck["pinn"],
+                "--episodes", "1", "--horizons", "1", "2", "--batch", "2", "--batches", "1",
+                "--json-out", pred_json, *width]),
+            "pinn_acceptance": ("pinn_acceptance", ["--iters", "100", "--chunk", "50"]),
+        }
+        procs, t = {}, time.time()
+        for name, (module, args) in clis.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"waves_jl_tpu_torch.scripts.{module}", *args], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        texts = {}
+        try:
+            for name, proc in procs.items():
+                texts[name], _ = proc.communicate(timeout=600)
+                tail = texts[name].strip().splitlines()[-1:] or [""]
+                log("baselines", f"CLI {name}: exit {proc.returncode} ({time.time() - t:.2f} s "
+                                 f"since the CLIs started): {tail[0][:200]}")
+                check(proc.returncode == 0, f"the {name} CLI exits 0:\n{texts[name]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for which in ("node", "pinn"):
+            check(os.path.exists(os.path.join(out, which, "checkpoint_step=1", "params.npz")),
+                  f"train --model {which} took one update and wrote its checkpoint")
+        with open(pred_json) as f:
+            errors = json.load(f)
+        check(sorted(errors) == ["acoustic", "node", "pinn"]
+              and all(sorted(r) == ["1", "2"] and all(math.isfinite(v) for e in r.values()
+                                                      for v in e) for r in errors.values()),
+              "the prediction CLI's MSEs for the three surrogates at horizons 1 and 2")
+        found = [float(v) for v in re.findall(r"mean relative energy error: (\S+)",
+                                              texts["pinn_acceptance"])]
+        check(len(found) == 1 and math.isfinite(found[0]),
+              "the PINN acceptance run reports a finite energy error")
+        log("baselines", "prediction MSEs " + ", ".join(
+            f"{k} h{h} {np.mean(v):.4g}" for k, r in errors.items() for h, v in r.items())
+            + f"; acceptance energy error {found[0]:.4g} after 100 iterations")
+    log("baselines", f"{smi}: NODE fwd+bwd (batch 4, horizon 8) {node_s[0]:.4f} s, host issue "
+                     f"{node_s[1] / node_s[0]:.3f}; PINN loss fwd+bwd (batch 4) {pinn_s[0]:.4f} "
+                     f"s, host issue {pinn_s[1] / pinn_s[0]:.3f}, peak {pinn_s[2]:.1f} MiB; "
+                     f"PINN forward (batch 4) {fwd[0]:.4f} s; selection {sel_s:.4f} s")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2406,6 +2664,9 @@ def main(argv=None) -> int:
     # 10. exact search and the distillation pipeline
     oracle_counts, oracle_shape = distillation_phase(env, env_lo, space, dev, dg_eps,
                                        os.path.join(data_tmp.name, "cli"), smi)
+
+    # 11. the NODE and PINN baselines
+    baselines_phase(env, dev, dg_eps, os.path.join(data_tmp.name, "cli"), smi)
     data_tmp.cleanup()
 
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"

@@ -41,7 +41,11 @@ batched K5 step of 64 candidates at 700^2, the oracle's shape, and its
 owner pass agree with their plain versions, and the step equals K5 on
 each of four of them alone bit for bit; the oracle's chunked route
 gives the sequential route's costs within 1e-6; the pool probe on the card
-matches its CPU run.
+matches its CPU run. The NODE and PINN baselines from their tracked
+weights at full width: the forward on the card against the CPU's, the
+PINN's chunked `predict_energy` against its forward, and each loss's
+float32 gradient held leaf by leaf to the CPU's and to float64 on the card
+(`grad_precision.LEAF_LIMITS`).
 """
 import dataclasses
 
@@ -1111,3 +1115,103 @@ def test_pool_probe_on_the_card_matches_its_cpu_run(card):
     assert rel(pg["y_true"], pc["y_true"]) <= 1e-5
     assert float((pg["s_wave"] - pc["s_wave"]).abs().max()) <= 1e-5
     assert torch.equal(ag, ac)
+
+
+def _baseline_batch(dev, B: int, horizon: int, seed: int = 31):
+    """B windows of `horizon` actions at the reference widths, made with
+    numpy: 128^2 observations, designs and radius actions inside their
+    boxes, 100 steps a window from t = 10 ms."""
+    from waves_jl_tpu_torch.designs import build_action_space, build_triple_ring_design_space
+    from waves_jl_tpu_torch.physics.dynamics import build_tspan
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    rng = np.random.default_rng(seed)
+    space = build_triple_ring_design_space(device=dev)
+    zero = build_action_space(space.low, 0.25).low
+    acts = tree_map(lambda v: torch.zeros((B, horizon, *v.shape), device=dev), zero)
+    r = torch.from_numpy(rng.uniform(-0.2, 0.2, (B, horizon, 18)).astype(np.float32)).to(dev)
+    acts = dataclasses.replace(acts, config=dataclasses.replace(
+        acts.config, cylinders=dataclasses.replace(acts.config.cylinders, r=r)))
+    t = build_tspan(1e-2, 1e-5, 100 * horizon)
+    L = t.size
+    return space, {
+        "s_wave": torch.from_numpy((rng.standard_normal((B, 128, 128, 4)) * 0.05)
+                                   .astype(np.float32)).to(dev),
+        "s_design": tree_map(lambda v: v[None].expand(B, *v.shape).contiguous(), space.low),
+        "a": acts, "t": torch.from_numpy(np.broadcast_to(t, (B, L)).copy()).to(dev),
+        "y": torch.from_numpy(rng.uniform(0, 0.1, (B, L, 3)).astype(np.float32)).to(dev)}
+
+
+def _tracked_baseline(which: str, dev):
+    import os
+
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.models.node import NODEEnergyModel
+    from waves_jl_tpu_torch.models.pinn import WaveControlPINN
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    space = build_triple_ring_design_space(device=dev)
+    if which == "node":
+        model = NODEEnergyModel(space, device=dev)
+        path = "models/ref500_node_r4b/checkpoint_step=2040"
+    else:
+        model = WaveControlPINN(space, 1000.0, device=dev)
+        path = "models/ref500_pinn_r4/checkpoint_step=2000"
+    load_model_checkpoint(model, os.path.join(root, path))
+    return model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["node", "pinn"])
+def test_tracked_baseline_on_the_card_matches_the_cpu(card, which):
+    """The tracked NODE and PINN checkpoints at full width: the forward at
+    horizon 1 (batch 2) on the card against the CPU's, 1e-4 of the largest
+    magnitude; the loss's float32 gradient at batch 1 (`node_loss` in
+    "sqrt", `WaveControlPINNLoss`) on the card against the CPU's float32
+    gradient and, as a second witness, against float64 on the card, each
+    leaf within its limit of its largest magnitude
+    (`grad_precision.LEAF_LIMITS`: the NODE's 5e-4, the PINN's field net
+    2e-2 and its other leaves 1e-3, set from readings on the card with TF32
+    off and on); the PINN's `predict_energy` with time_chunk 16 against its
+    forward on the card (2e-5 relative, 2e-6 absolute)."""
+    from waves_jl_tpu_torch.constants import WATER
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.models.node import node_loss
+    from waves_jl_tpu_torch.models.pinn import WaveControlPINNLoss
+    from waves_jl_tpu_torch.scripts.grad_precision import leaves_beyond
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    def loss_of(model):
+        return ((lambda b: node_loss(model, b)) if which == "node"
+                else WaveControlPINNLoss(model=model, c0=WATER))
+
+    def grads(model, batch):
+        ps = dict(model.named_parameters())
+        with full_float32():
+            g = torch.autograd.grad(loss_of(model)(batch), list(ps.values()))
+        return {k: v.cpu().double() for k, v in zip(ps, g)}
+
+    out = {}
+    for dev in ("cpu", card):
+        model = _tracked_baseline(which, dev)
+        _, batch = _baseline_batch(dev, 2, 1)
+        one = tree_map(lambda v: v[:1], batch)
+        with torch.no_grad():
+            pred = model(batch)
+        out[str(dev)] = (pred.cpu(), grads(model, one))
+        if dev == card:
+            if which == "pinn":
+                with torch.no_grad():
+                    chunked = model.predict_energy(batch, time_chunk=16)
+                torch.testing.assert_close(chunked, pred, rtol=2e-5, atol=2e-6)
+            g64 = grads(model.double(), tree_map(
+                lambda v: v.double() if v.is_floating_point() else v, one))
+        del model
+    (p_cpu, g_cpu), (p_card, g_card) = out["cpu"], out[str(card)]
+    assert torch.isfinite(p_card).all()
+    assert rel(p_card, p_cpu) <= 1e-4
+    assert set(g_card) == set(g_cpu) == set(g64)
+    for want in (g_cpu, g64):
+        _, beyond = leaves_beyond(which, g_card, want)
+        assert not beyond, beyond

@@ -6,7 +6,9 @@ JAX package's `load_checkpoint` (parameters and the accumulating
 optimizer's state) and predicts what the port's model predicts from it
 (1e-5 relative); `scripts/avg_checkpoints.py` averages the run's two
 checkpoints as `scripts_tpu/avg_checkpoints.py` does, bit for bit; the
-options that wait for their port exit non-zero with a message."""
+options that wait for their port (the train CLI's `--dp`, the plots of
+`scripts/prediction.py` and `scripts/pinn_acceptance.py`) exit non-zero
+with a message."""
 import importlib.util
 import json
 import os
@@ -100,8 +102,12 @@ def test_avg_checkpoints_matches_jax_script(trained, tmp_path):
             == json.loads((tmp_path / "jax" / "meta.json").read_text()))
 
 
-@pytest.mark.parametrize("flag", [["--model", "node"], ["--model", "pinn"], ["--dp"]])
-def test_options_that_wait_exit_with_a_message(flag, tmp_path):
-    proc = run("waves_jl_tpu_torch.scripts.train", "--data", str(tmp_path), "--out",
-               str(tmp_path / "o"), "--device", "cpu", *flag)
+@pytest.mark.parametrize("script,args", [
+    ("train", ["--data", "{tmp}", "--out", "{tmp}/o", "--dp"]),
+    ("prediction", ["--data", "{tmp}", "--out", "{tmp}/plot.png"]),
+    ("pinn_acceptance", ["--out", "{tmp}/figures"]),
+])
+def test_options_that_wait_exit_with_a_message(script, args, tmp_path):
+    proc = run(f"waves_jl_tpu_torch.scripts.{script}", "--device", "cpu",
+               *[a.format(tmp=tmp_path) for a in args])
     assert proc.returncode != 0 and "not yet ported" in proc.stderr

@@ -83,6 +83,29 @@ def _mpc_batch(env: WaveEnv, state: EnvState, actions, horizon: int, shots: int,
             "a": actions, "t": selection_tspan(model, env, state, horizon, shots)}
 
 
+def surrogate_energy(model, obs, design, actions, t: torch.Tensor, x=None,
+                     grad: bool = False) -> torch.Tensor:
+    """(S,) cumulative scattered energy of S candidate sequences from one
+    observation `obs` and its design, over the time grid t (S, L), by the
+    first route the model has, in the JAX controllers' order:
+    `predict_shot_energy` (`shot_energy` where `grad`, x a precomputed
+    `encode_wave`), then `predict_shots`, then `forward` on the
+    observation broadcast into an S-shot batch, its scattered channel
+    summed over the grid. Autograd runs through it only where `grad`."""
+    if hasattr(model, "predict_shot_energy"):
+        energy = model.shot_energy if grad else model.predict_shot_energy
+        return energy(obs.wave, design, actions, t, x=x)
+    with torch.set_grad_enabled(grad and torch.is_grad_enabled()):
+        if hasattr(model, "predict_shots"):
+            y_hat = model.predict_shots(obs.wave, design, actions, t)
+        else:
+            S = t.shape[0]
+            y_hat = model({"s_wave": obs.wave[None].expand(S, *obs.wave.shape),
+                           "s_design": tree_map(lambda v: v[None].expand(S, *v.shape), design),
+                           "a": actions, "t": t})
+        return torch.sum(y_hat[:, :, 2], dim=1)
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[idx] for a 0-d index tensor on the device, without reading it on
     the host."""
@@ -91,7 +114,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class RandomShooting:
-    model: Any  # surrogate with predict_shot_energy
+    model: Any  # surrogate, scored through `surrogate_energy`
     horizon: int = 5
     shots: int = 256
     alpha: float = 1.0
@@ -102,9 +125,8 @@ class RandomShooting:
 
     def __call__(self, env: WaveEnv, state: EnvState, generator: torch.Generator):
         actions = self.candidates(env, generator)
-        obs = env_observe(env, state)
         t = selection_tspan(self.model, env, state, self.horizon, self.shots)
-        energy = self.model.predict_shot_energy(obs.wave, state.design, actions, t)
+        energy = surrogate_energy(self.model, env_observe(env, state), state.design, actions, t)
         cost = energy + self.alpha * compute_action_cost(actions)
         idx = torch.argmin(cost)
         first = tree_map(lambda x: _take(x, idx)[0], actions)
@@ -222,7 +244,7 @@ class CEMShooting:
     override to supply its own.
     """
 
-    model: Any  # surrogate with encode_wave, predict_shot_energy and shot_energy
+    model: Any  # surrogate, scored through `surrogate_energy`
     horizon: int = 5
     shots: int = 256
     alpha: float = 1.0
@@ -256,16 +278,17 @@ class CEMShooting:
 
     def _cost(self, env: WaveEnv, state: EnvState, shots: int, grad: bool = False):
         """cost(actions) -> (shots,) surrogate cost of `shots` sequences from
-        `state`, the wave encoded once; through the gradient path if
-        `grad`."""
+        `state` (`surrogate_energy`), the wave encoded once where the model
+        has `encode_wave`; through the gradient path if `grad`."""
         obs = env_observe(env, state)
         t = selection_tspan(self.model, env, state, self.horizon, shots)
-        with torch.no_grad():
-            x = self.model.encode_wave(obs.wave)
-        energy = self.model.shot_energy if grad else self.model.predict_shot_energy
+        x = None
+        if hasattr(self.model, "encode_wave"):
+            with torch.no_grad():
+                x = self.model.encode_wave(obs.wave)
 
         def cost(actions):
-            return (energy(obs.wave, state.design, actions, t, x=x)
+            return (surrogate_energy(self.model, obs, state.design, actions, t, x=x, grad=grad)
                     + self.alpha * compute_action_cost(actions))
 
         return cost

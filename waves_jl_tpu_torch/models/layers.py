@@ -42,13 +42,13 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
 
 
 def init_flax_like_(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-initialise every `nn.Conv2d` and `nn.Linear` of `module` as
-    flax's `nn.Conv` and `nn.Dense` start: `lecun_normal` kernels (fan_in =
-    in_ch kh kw for a conv, in_features for a dense layer) and zero biases,
-    drawn in module order from `generator`. The values differ from JAX's,
-    the distribution does not."""
+    """Re-initialise every `nn.Conv1d`, `nn.Conv2d` and `nn.Linear` of
+    `module` as flax's `nn.Conv` and `nn.Dense` start: `lecun_normal`
+    kernels (fan_in = in_ch times the kernel's size for a conv, in_features
+    for a dense layer) and zero biases, drawn in module order from
+    `generator`. The values differ from JAX's, the distribution does not."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 with torch.no_grad():

@@ -1,7 +1,8 @@
-"""Wave encoder: observation images -> 6 latent 1D fields (counterpart of
-`waves_jl_tpu/models/wave_encoder.py`). A CNN base, then 6 three-layer MLP
-heads whose nfreq coefficients go through a fixed sine basis; field 6 (the
-PML) is squared."""
+"""Wave encoders (counterpart of `waves_jl_tpu/models/wave_encoder.py`).
+`WaveEncoder`: observation images -> 6 latent 1D fields, a CNN base, then 6
+three-layer MLP heads whose nfreq coefficients go through a fixed sine
+basis; field 6 (the PML) is squared. `WaveEncoderScalarHead`: the CNN base
+and one dense layer, the NODE baseline's encoder."""
 from __future__ import annotations
 
 import torch
@@ -29,3 +30,17 @@ class WaveEncoder(nn.Module):
         coefs = torch.stack([head(h) for head in self.heads], dim=1)
         fields = embed_sin(self.basis, coefs)
         return torch.cat([fields[:, :5], fields[:, 5:] ** 2], dim=1)
+
+
+class WaveEncoderScalarHead(nn.Module):
+    """CNN base, then one dense layer to `out` features."""
+
+    def __init__(self, in_ch: int, h_size: int, out: int):
+        super().__init__()
+        self.cnn = CNNBase(in_ch, h_size)
+        self.head = nn.Linear(h_size, out)
+
+    @full_float32()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, res, res, C) channels last -> (B, out)."""
+        return self.head(self.cnn(x.permute(0, 3, 1, 2)))

@@ -24,17 +24,24 @@ from ..ops.fd import fd_dx, fd_dy, gradient_matrix
 from ..ops.pml import build_pml
 
 
-def build_tspan(ti: float, dt: float, steps: int) -> np.ndarray:
-    """(steps+1,) float32 time points from ti to tf = ti + steps dt,
-    computed on the host as XLA compiles `jnp.linspace(ti, tf)`: its
-    ti (1 - k/steps) + tf (k/steps) with the division turned into a product
-    with c = 1/steps and tf (k c) into k (tf c), then tf itself."""
+def xla_linspace(lo: float, hi: float, n: int) -> np.ndarray:
+    """(n,) float32 points from lo to hi, computed on the host as XLA
+    compiles `jnp.linspace(lo, hi, n)`: its lo (1 - k/(n-1)) + hi (k/(n-1))
+    with the division turned into a product with c = 1/(n-1) and hi (k c)
+    into k (hi c), then hi itself. Where XLA's vector code contracts a
+    point's sum into an FMA, that point rounds one ulp apart."""
     f = np.float32
-    lo, hi = f(ti), f(ti + steps * dt)
-    k = np.arange(steps, dtype=f)
-    c = f(1.0) / f(steps)
+    lo, hi = f(lo), f(hi)
+    k = np.arange(n - 1, dtype=f)
+    c = f(1.0) / f(n - 1)
     out = lo * (f(1.0) - k * c) + k * (hi * c)
     return np.concatenate([out, np.array([hi], f)])
+
+
+def build_tspan(ti: float, dt: float, steps: int) -> np.ndarray:
+    """(steps+1,) float32 time points from ti to tf = ti + steps dt, as
+    `jnp.linspace(ti, tf, steps + 1)` gives them (`xla_linspace`)."""
+    return xla_linspace(ti, ti + steps * dt, steps + 1)
 
 
 def runge_kutta(f, u, t, theta, dt):

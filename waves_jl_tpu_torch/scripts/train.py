@@ -1,15 +1,22 @@
-"""Train the flagship surrogate on the card (the port of
-`scripts_tpu/train.py`).
+"""Train a surrogate on the card (the port of `scripts_tpu/train.py`).
 
 Loads episodes (a dataset dir with `data.wshard` or `episodes/episode*.npz`
 / `.wbin`, or a `.wshard` file; several dirs are concatenated, each split
-90/10 into training and validation), then trains `AcousticEnergyModel`
-with Adam and gradient accumulation, validating and writing a
-`checkpoint_step=N` directory (the JAX package's format) and
-`metrics.jsonl` under `--out`:
+90/10 into training and validation), then trains the flagship
+`AcousticEnergyModel` (`--model acoustic`), the neural-ODE baseline
+(`--model node`, `node_loss`) or the PINN baseline (`--model pinn`,
+`WaveControlPINNLoss`, horizon-1 windows only) with Adam and gradient
+accumulation, validating and writing a `checkpoint_step=N` directory (the
+JAX package's format) and `metrics.jsonl` under `--out`:
 
     python -m waves_jl_tpu_torch.scripts.train --data data/run1 --out models/run1 \\
         --horizons 1 4 8 --latent-stride 4 --sc-weight 4 --init-from <checkpoint>
+    python -m waves_jl_tpu_torch.scripts.train --data data/run1 --out models/pinn \\
+        --model pinn --horizon 1
+
+`--latent-stride`, `--loss ranking` and `--sc-weight` are the flagship's
+options, as in the JAX CLI (a stride above 1 exits for a baseline; the
+loss options do not apply to it).
 
 `--horizons` trains every listed window length from one windowed store on
 the card, `--horizon` one length over prepared windows, `--stream` one
@@ -25,18 +32,21 @@ import sys
 if __package__ in (None, ""):  # run as a file
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
+from waves_jl_tpu_torch.constants import WATER
 from waves_jl_tpu_torch.data import load_episode, load_episodes_shard, prepare_dataset
 from waves_jl_tpu_torch.designs import build_triple_ring_design_space
 from waves_jl_tpu_torch.device import resolve_device
 from waves_jl_tpu_torch.models.acoustic_energy_model import (AcousticEnergyModel, energy_loss,
                                                              energy_loss_ranking)
+from waves_jl_tpu_torch.models.node import NODEEnergyModel, node_loss
+from waves_jl_tpu_torch.models.pinn import WaveControlPINN, WaveControlPINNLoss
 from waves_jl_tpu_torch.train import TrainConfig, train, train_streaming, train_windowed
 from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
 
-# options of the JAX CLI that the port does not run yet (ROADMAP Queue 1)
-NOT_PORTED = {"node": "the NODE baseline (--model node), item 4",
-              "pinn": "the PINN baseline (--model pinn), item 4",
-              "dp": "data-parallel training (--dp), item 5"}
+# options of the JAX CLI that the port does not run yet, by their ROADMAP
+# Queue 1 item
+NOT_PORTED = {"dp": "data-parallel training (--dp, ROADMAP Queue 1: \"Data parallelism "
+                    "and the multi-process rollout\")"}
 
 
 def _load_episodes_dir(data_dir: str, episodes: int) -> list:
@@ -74,15 +84,24 @@ def load_dataset(data_dirs, episodes: int, horizon: int, train_val_split: float 
 
 
 def build_model(args, in_channels: int, device):
-    """The flagship at the flags' widths with its loss: (model, loss_fn)."""
+    """The model the flags name, at their widths, with its loss: (model,
+    loss_fn)."""
     if args.steps % args.latent_stride:
         raise SystemExit(f"latent stride {args.latent_stride} must divide {args.steps}")
-    model = AcousticEnergyModel(
-        build_triple_ring_design_space(device=device), 1000.0, elements=args.elements,
-        latent_grid_size=args.latent_gs, h_size=args.h_size, nfreq=args.nfreq,
-        pml_width=args.pml_width, pml_scale=args.pml_scale, dt=1e-5 * args.latent_stride,
-        integration_steps=args.steps // args.latent_stride, in_channels=in_channels,
-        seed=args.seed, device=device)
+    if args.latent_stride > 1 and args.model != "acoustic":
+        raise SystemExit("--latent-stride is acoustic-only")
+    space = build_triple_ring_design_space(device=device)
+    kw = dict(elements=args.elements, latent_grid_size=args.latent_gs, h_size=args.h_size,
+              nfreq=args.nfreq, integration_steps=args.steps // args.latent_stride,
+              in_channels=in_channels, seed=args.seed, device=device)
+    if args.model == "node":
+        model = NODEEnergyModel(space, **kw)
+        return model, lambda b: node_loss(model, b)
+    if args.model == "pinn":
+        model = WaveControlPINN(space, 1000.0, **kw)
+        return model, WaveControlPINNLoss(model=model, c0=WATER)
+    model = AcousticEnergyModel(space, 1000.0, pml_width=args.pml_width,
+                                pml_scale=args.pml_scale, dt=1e-5 * args.latent_stride, **kw)
     if args.loss == "ranking":
         return model, lambda b: energy_loss_ranking(model, b, beta=args.ranking_beta)
     return model, lambda b: energy_loss(model, b, sc_weight=args.sc_weight)
@@ -132,10 +151,8 @@ def parse_args(argv=None):
 
 def check_ported(args) -> None:
     """Exit with a clear message for an option the port does not run yet."""
-    for key in (args.model, "dp" if args.dp else None):
-        if key in NOT_PORTED:
-            sys.exit(f"{NOT_PORTED[key]} is not yet ported to waves_jl_tpu_torch "
-                     "(ROADMAP Queue 1)")
+    if args.dp:
+        sys.exit(f"{NOT_PORTED['dp']} is not yet ported to waves_jl_tpu_torch")
     if args.stream and args.horizons:
         sys.exit("--stream trains one fixed --horizon")
 
@@ -143,8 +160,8 @@ def check_ported(args) -> None:
 def main(argv=None) -> None:
     args = parse_args(argv)
     check_ported(args)
-    print("the per-checkpoint plots (viz/, ROADMAP Queue 1 item 6) are not yet ported: "
-          "checkpoints are written without them", flush=True)
+    print("the per-checkpoint plots (viz/, ROADMAP Queue 1: \"Long tail\") are not yet "
+          "ported: checkpoints are written without them", flush=True)
     dev = resolve_device(args.device)
     train_eps, val_eps = load_episodes_split(args.data, args.episodes)
     print(f"{len(train_eps)} training and {len(val_eps)} validation episodes", flush=True)

@@ -13,8 +13,10 @@ other's. A checkpoint directory holds
                  without, "[0].count", "[0].mu<param>", "[0].nu<param>";
   meta.json      the training step, and any extra keys.
 
-`load_model_checkpoint` and `load_policy_checkpoint` fill a model from the
-parameters alone. The JAX package's orbax variants are JAX-only.
+`load_model_checkpoint` fills a model from the parameters alone: the
+flagship, the one-shot `PolicyNet` or a baseline, each by its class's leaf
+map (`models.convert.LEAF_MAPS`). The JAX package's orbax variants are
+JAX-only.
 """
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ import os
 import numpy as np
 import torch
 
-from ..models.convert import (from_flax_layout, from_jax_params, jax_names,
-                              policy_from_jax_params, to_flax_layout, to_jax_params)
+from ..models.convert import (from_flax_layout, from_jax_params, jax_names, model_kind,
+                              to_flax_layout, to_jax_params)
 from .optim import AdamState, MultiStepsState
 
 
@@ -40,26 +42,18 @@ def load_step(path: str) -> int:
         return int(json.load(f)["step"])
 
 
-def _is_policy(model: torch.nn.Module) -> bool:
-    from ..models.policy import PolicyNet
-
-    return isinstance(model, PolicyNet)
-
-
 def load_model_checkpoint(model: torch.nn.Module, path: str) -> int:
-    """Load a flagship checkpoint into `model`, every leaf mapped and every
-    parameter filled; returns the training step."""
-    state = from_jax_params(load_params(path), expected=model.state_dict())
+    """Load a checkpoint into `model` (any class with a leaf map), every
+    leaf mapped and every parameter filled; returns the training step."""
+    state = from_jax_params(load_params(path), expected=model.state_dict(),
+                            kind=model_kind(model))
     model.load_state_dict(state, strict=True)
     return load_step(path)
 
 
 def load_policy_checkpoint(net: torch.nn.Module, path: str) -> int:
-    """Load a one-shot policy checkpoint into `net` (a `PolicyNet`), every
-    leaf mapped and every parameter filled; returns the training step."""
-    state = policy_from_jax_params(load_params(path), expected=net.state_dict())
-    net.load_state_dict(state, strict=True)
-    return load_step(path)
+    """`load_model_checkpoint` for a one-shot policy's `PolicyNet`."""
+    return load_model_checkpoint(net, path)
 
 
 def _opt_leaves(state, names: dict) -> dict:
@@ -104,15 +98,15 @@ def _opt_restore(npz, like, names: dict):
 
 def save_checkpoint(path: str, model: torch.nn.Module, opt_state=None, step: int = 0,
                     extra: dict | None = None) -> None:
-    """Write `model`'s parameters (the flagship or a `PolicyNet`), the
-    optimizer state if given, and meta.json under `path`."""
+    """Write `model`'s parameters (any class with a leaf map), the optimizer
+    state if given, and meta.json under `path`."""
     os.makedirs(path, exist_ok=True)
     state = model.state_dict()
-    policy = _is_policy(model)
-    np.savez(os.path.join(path, "params.npz"), **to_jax_params(state, policy))
+    kind = model_kind(model)
+    np.savez(os.path.join(path, "params.npz"), **to_jax_params(state, kind))
     if opt_state is not None:
         np.savez(os.path.join(path, "opt_state.npz"),
-                 **_opt_leaves(opt_state, jax_names(state, policy)))
+                 **_opt_leaves(opt_state, jax_names(state, kind)))
     meta = {"step": int(step)}
     if extra:
         meta.update(extra)
@@ -124,14 +118,11 @@ def load_checkpoint(path: str, model: torch.nn.Module, opt_state_like=None):
     """Fill `model` from the checkpoint at `path` and read the optimizer
     state shaped as `opt_state_like` (from `opt.init`), where given and
     saved. Returns (model, opt_state | None, step)."""
-    if _is_policy(model):
-        load_policy_checkpoint(model, path)
-    else:
-        load_model_checkpoint(model, path)
+    load_model_checkpoint(model, path)
     opt_state = None
     opt_path = os.path.join(path, "opt_state.npz")
     if opt_state_like is not None and os.path.exists(opt_path):
         with np.load(opt_path) as z:
             opt_state = _opt_restore(z, opt_state_like,
-                                     jax_names(model.state_dict(), _is_policy(model)))
+                                     jax_names(model.state_dict(), model_kind(model)))
     return model, opt_state, load_step(path)

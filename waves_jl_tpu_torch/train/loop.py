@@ -27,7 +27,7 @@ from .checkpoint import save_checkpoint
 from .optim import Adam, MultiSteps, apply_updates
 
 DP_WAITS = ("data-parallel training (mesh=) is not yet ported to waves_jl_tpu_torch "
-            "(ROADMAP Queue 1 item 5)")
+            "(ROADMAP Queue 1: \"Data parallelism and the multi-process rollout\")")
 
 
 @dataclass

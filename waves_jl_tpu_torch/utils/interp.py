@@ -1,5 +1,6 @@
-"""Interpolation utilities (counterpart of `flatten_repeated_last_dim` and
-`LinearInterpolation` in `waves_jl_tpu/utils/interp.py`).
+"""Interpolation utilities (counterpart of `flatten_repeated_last_dim`,
+`LinearInterpolation` and `evaluate_over_time` in
+`waves_jl_tpu/utils/interp.py`).
 
 Linear interpolation: X (B, K) increasing knots; Y (B, K, E); t (B,) ->
 (B, E). t is clamped into [X[:, 0], X[:, -1]], as in the JAX package.
@@ -55,3 +56,9 @@ class LinearInterpolation:
         y0 = torch.einsum("bk,bke->be", m, self.Y[:, :-1, :])
         dydx = torch.einsum("bk,bke->be", m, self._slope)
         return y0 + (tb[:, 0] - x0)[:, None] * dydx
+
+
+def evaluate_over_time(f, t: torch.Tensor) -> torch.Tensor:
+    """A batched time-callable f, (B,) -> (B, E), over a (B, T) time grid:
+    (B, T, E), one call a column."""
+    return torch.stack([f(t[:, i]) for i in range(t.shape[1])], dim=1)
