@@ -122,7 +122,22 @@ its elapsed seconds:
    selection through the PINN's forward (the controllers' fallback for a
    model without `predict_shot_energy`); the train CLI's `--model node`
    and `--model pinn`, the prediction CLI and the PINN acceptance run once
-   each, in subprocesses. None of the CUDA kernels launches.
+   each, in subprocesses. None of the CUDA kernels launches;
+12. data parallelism and the bf16 options at the flagship's tracked width,
+   on phase 7's episodes: `make_dp_scan_train_steps_windowed` (horizon 8,
+   global batch 4, 2 micro-steps) on a mesh of every card, and on two
+   shards of the card where there is one, and `train(mesh=)` for one
+   chunk of one update, each against the single-device trainer on the
+   same windows (losses 1e-4, each update's averaged gradient 1e-4 of a
+   leaf, after each update the leaves rtol 5e-3 / atol 2e-5 but where a
+   gradient is within NEAR_ZERO of its leaf's largest, replicas bit for
+   bit), with
+   a micro-step's seconds and host share on each side, and no kernel
+   launched; one 256-shot selection through `fast_ranking()` against
+   float32 (costs 5e-2, the bf16 choice among float32's best 5%); the
+   bf16-conv encoder against float32 (rtol 0.1 / atol 0.05), its forward
+   and backward timed; `train --dp` and `mpc --fast` once each, in
+   subprocesses.
 
 The launch counts of each kernel are read from the main-path runs alone:
 every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
@@ -173,6 +188,12 @@ POOL_UPDATES = 2  # pool-ranking updates phase 10 takes
 BASELINE_CHECKPOINTS = {"node": "models/ref500_node_r4b/checkpoint_step=2040",
                         "pinn": "models/ref500_pinn_r4/checkpoint_step=2000"}
 BASELINE_WIDTH = dict(elements=1024, h_size=256, nfreq=500)
+# Phase 12's data-parallel sums and the single device's differ in order, so
+# a gradient near zero may take either sign, and Adam's step then differs
+# by about 2 lr: parameters whose gradient is within this share of its
+# leaf's largest magnitude are held to that, the rest to JAX's bounds. On
+# the H100 the signs differed only at 3.6e-7 of a leaf's largest and below.
+NEAR_ZERO = 1e-6
 # Kernel against plain version, relative to the largest magnitude: both run
 # the same float32 operations in the same order (FMA contraction is off in
 # the kernel), so they differ only where sinf and torch.sin round apart and
@@ -2310,6 +2331,348 @@ def baselines_phase(env, dev, episodes, cli_data: str, smi: str):
                      f"PINN forward (batch 4) {fwd[0]:.4f} s; selection {sel_s:.4f} s")
 
 
+def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
+    """Phase 12: data-parallel training and the bf16 options at the tracked
+    full width (`ref500_h8s4`: 1,024 elements, h_size 256, nfreq 500, latent
+    stride 4) on phase 7's episodes. Data parallelism on a mesh of every
+    card, and where the machine has one card also on two shards of it:
+    `make_dp_scan_train_steps_windowed` (horizon 8, global batch 4, K = 2
+    micro-steps, accumulate 1) against the single-device trainer on the
+    same global windows, and `train(mesh=)` for one chunk of one update
+    against the single-device scan on JAX's schedule's rows: the losses
+    within 1e-4 relative, after each update the leaves as `held_leaves`
+    holds them (tests/test_windows_and_cem.py's rtol 5e-3 / atol 2e-5), the
+    replicas bit for bit equal, a micro-step's seconds and host share on
+    each side; training
+    launches none of the CUDA kernels. Then the bf16 options: one 256-shot
+    random-shooting selection through the float32 model and through
+    `fast_ranking()` from one state and generator state (costs within 5e-2
+    relative, tests/test_models.py's bound; the bf16 choice among the
+    float32 model's best 5%), and `conv_dtype=torch.bfloat16` against
+    float32 on phase 7's observations, `encode_wave` and the encoder's
+    forward and backward at batch 4 (rtol 0.1 / atol 0.05). Last, `train
+    --dp` (one update) and `mpc --fast` (two actions), in subprocesses at
+    once."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from waves_jl_tpu_torch.control.mpc import RandomShooting
+    from waves_jl_tpu_torch.data import prepare_dataset
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.env import env_reset
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel, energy_loss
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.parallel import Replicas, make_mesh
+    from waves_jl_tpu_torch.physics.fused import make_env_step_fused
+    from waves_jl_tpu_torch.train import (TrainConfig, load_checkpoint, make_optimizer,
+                                          stack_episodes, train)
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+    from waves_jl_tpu_torch.train.loop import make_scan_train_steps
+    from waves_jl_tpu_torch.train.optim import B1
+    from waves_jl_tpu_torch.train.windows import (make_dp_scan_train_steps_windowed,
+                                                  make_scan_train_steps_windowed,
+                                                  sample_window_indices_dp)
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    def flagship(device=dev, conv_dtype=None, tracked=True):
+        model = AcousticEnergyModel(build_triple_ring_design_space(device=device), 1000.0,
+                                    elements=1024, h_size=256, nfreq=500,
+                                    integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE,
+                                    device=device, conv_dtype=conv_dtype)
+        if tracked:
+            load_model_checkpoint(model, os.path.join(ROOT, CHECKPOINT))
+        return model
+
+    def sc4(m):
+        return lambda b: energy_loss(m, b, sc_weight=4.0)
+
+    def replicate_into(built):
+        def replicate(device):  # its weights come from the caller's model
+            m = flagship(device, tracked=False)
+            built.append(m)
+            return m, sc4(m)
+
+        return replicate
+
+    def timed(fn):
+        """(wall s, host issue s, result) of fn(), synchronised at both ends."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        issue = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, issue, out
+
+    def params_of(m):
+        return {k: v.detach().clone() for k, v in m.named_parameters()}
+
+    def update_grads(states):
+        """Each update's averaged gradient, a dict of leaves an update, from
+        Adam's first moments after each: g_u = (mu_u - b1 mu_{u-1}) / (1 - b1)."""
+        out, prev = [], None
+        for st in states:
+            out.append({k: (m if prev is None else m - B1 * prev[k]) / (1 - B1)
+                        for k, m in st.mu.items()})
+            prev = st.mu
+        return out
+
+    def held_leaves(name, params, params1, states, states1):
+        """After update u = len(states): each update's averaged gradient
+        within 1e-4 of each leaf's largest magnitude of the single device's
+        (phase 9's gradient bound), and every parameter within rtol 5e-3 /
+        atol 2e-5 of the single device's (tests/test_windows_and_cem.py's
+        bounds) but where the single device's gradient of some update, or
+        Adam's first moment after the last, is within NEAR_ZERO of the
+        leaf's largest magnitude: the two sums may give such a value either
+        sign, and Adam steps a parameter by about lr whatever its gradient's
+        size, so those are held within 2 lr an update."""
+        u = len(states)
+        g, g1 = update_grads(states), update_grads(states1)
+        beyond, unexplained, gap, reach = 0, 0, 0.0, 0.0
+        with torch.no_grad():
+            grad_err = max(rel_err(g[i][k], g1[i][k]) for i in range(u) for k in g1[i])
+            for k, b in params1.items():
+                diff = (params[k] - b).abs()
+                out = diff > 2e-5 + 5e-3 * b.abs()
+                if not out.any():
+                    continue
+                # each parameter's smallest share of its leaf's largest magnitude
+                share = torch.stack([x.abs() / x.abs().max().clamp_min(1e-30) for x in
+                                     [g1[i][k] for i in range(u)] + [states1[-1].mu[k]]]).amin(0)
+                beyond += int(out.sum())
+                unexplained += int((out & (share > NEAR_ZERO)).sum())
+                gap = max(gap, float(diff[out].max()))
+                reach = max(reach, float(share[out].max()))
+        log("dp", f"{name}, after update {u}: averaged gradients {grad_err:.3e} of a leaf from the "
+                  f"single device's; {beyond} of {sum(v.numel() for v in params1.values())} "
+                  f"parameters beyond rtol 5e-3 / atol 2e-5, their gradients within {reach:.3e} of "
+                  f"their leaf's largest magnitude ({unexplained} beyond {NEAR_ZERO:g}), apart "
+                  f"by at most {gap:.3e} (lr {opt_lr:g})")
+        check(grad_err <= 1e-4, f"{name}: the averaged gradients match the single device's to "
+                                "1e-4 of each leaf")
+        check(unexplained == 0, f"{name}: after update {u} every parameter is within rtol 5e-3 / "
+                                f"atol 2e-5 of the single device's but where its gradient is "
+                                f"within {NEAR_ZERO:g} of its leaf's largest magnitude")
+        check(gap <= 2 * opt_lr * u, f"{name}: those within Adam's 2 lr an update")
+
+    def held_last(name, losses, losses1, model, built):
+        """After the last update: the losses within 1e-4 relative of the
+        single device's, the replicas bit for bit equal."""
+        lrel = float(((losses - losses1).abs() / losses1.abs()).max())
+        with torch.no_grad():
+            same = all(torch.equal(a.to(dev), b) for m in built
+                       for a, b in zip(m.parameters(), model.parameters()))
+        log("dp", f"{name}: losses {[round(float(v), 6) for v in losses]} against "
+                  f"{[round(float(v), 6) for v in losses1]}, largest relative difference "
+                  f"{lrel:.3e}; {len(built)} built replicas bit for bit equal {same}")
+        check(lrel <= 1e-4, f"{name}: the losses match the single device's to 1e-4")
+        check(same, f"{name}: the replicas are equal bit for bit")
+
+    opt_lr = 1e-4
+    opt = make_optimizer(TrainConfig(lr=opt_lr, accumulate=1))
+    meshes = [make_mesh()]
+    if torch.cuda.device_count() == 1:
+        meshes.append(make_mesh(devices=["cuda:0", "cuda:0"]))
+    eps = episodes[:16]  # divides over 1, 2, 4 and 8 shards
+    E, H, B, K = len(eps), 8, 4, 2
+    store = stack_episodes(eps, dev)
+    fk.reset_launch_counts()
+    # cuDNN's backward sums in a run-dependent order, and Adam's first
+    # updates carry a gradient's sign whatever its size (about lr each): the
+    # comparisons run deterministic, as phase 9's resume does
+    torch.backends.cudnn.deterministic = True
+    # one draw of global windows serves every mesh: drawn for the most
+    # shards, block d of a mesh of n shards holds only its own episodes
+    n_max = max(m.size for m in meshes)
+    glob = sample_window_indices_dp(np.random.default_rng(12), E, WINDOWS, H, K, n_max, B)
+    for d in range(n_max):  # shard d of n_max holds episodes [d E / n_max, (d + 1) E / n_max)
+        glob[:, d * (B // n_max):(d + 1) * (B // n_max), 0] += d * (E // n_max)
+
+    # the K micro-steps one call each: the first warms cuDNN and the
+    # allocator at its shape, the last is timed
+    single = flagship()
+    run1 = make_scan_train_steps_windowed(sc4(single), opt, H, STRIDE)
+    state1, losses1, after1 = opt.init(dict(single.named_parameters())), [], []
+    for i in range(K):
+        wall1, issue1, (_, state1, loss) = timed(lambda: run1(
+            single, state1, store, torch.as_tensor(glob[i:i + 1], device=dev)))
+        losses1.append(loss)
+        after1.append((params_of(single), state1))
+    log("dp", f"the single device: {wall1:.4f} s a micro-step of {B} horizon-8 windows (the "
+              f"second), host issue {issue1 / wall1:.3f} of it")
+    times = {}
+    for mesh in meshes:
+        n = mesh.size
+        cards = len(set(mesh.devices))
+        where = f"{n} shard{'s' if n > 1 else ''} on " + (
+            f"{cards} cards" if cards > 1 else str(mesh.devices[0]))
+        local = glob.copy()
+        for d in range(n):  # shard d's local episode indices
+            local[:, d * (B // n):(d + 1) * (B // n), 0] -= d * (E // n)
+        model, built = flagship(), []
+        replicas = Replicas(model, sc4(model), mesh, replicate_into(built))
+        stores = stack_episodes(eps, mesh=mesh)
+        run = make_dp_scan_train_steps_windowed(opt, H, STRIDE)
+        states, losses, shard0 = replicas.init(opt), [], []
+        for i in range(K):
+            wall, issue, (_, states, loss) = timed(lambda: run(
+                replicas, states, stores, torch.as_tensor(local[i:i + 1])))
+            losses.append(loss)
+            shard0.append(states[0])
+            held_leaves(f"windowed, {where}", params_of(model), after1[i][0], shard0,
+                        [st for _, st in after1[:i + 1]])
+        times[where] = (wall, issue / wall, wall1, issue1 / wall1)
+        log("dp", f"make_dp_scan_train_steps_windowed, {where}: {wall:.4f} s a micro-step of "
+                  f"{B} horizon-8 windows (the second), host issue {issue / wall:.3f} of it; the "
+                  f"single device {wall1:.4f} s")
+        held_last(f"windowed, {where}", torch.cat(losses), torch.cat(losses1), model, built)
+        del model, replicas, built, stores
+    del single, after1
+
+    # train(mesh=) for one chunk of one update: 4 horizon-1 windows, batch 4
+    mesh = meshes[-1]
+    n = mesh.size
+    data = tree_map(lambda x: x[:4], prepare_dataset(eps[:1], 1, STRIDE))
+    val = tree_map(lambda x: x[8:12], prepare_dataset(eps[:1], 1, STRIDE))
+    cfg = TrainConfig(lr=opt_lr, batch_size=B, accumulate=1, epochs=1, val_every=1,
+                      val_batches=1, seed=3)
+    model, built = flagship(), []
+    t = time.time()
+    _, state, logger = train(sc4(model), model, data, val, cfg, mesh=mesh,
+                             replicate=replicate_into(built))
+    dense_s = time.time() - t
+    rng, n_loc = np.random.default_rng(cfg.seed), 4 // n
+    rows = np.concatenate([rng.permutation(n_loc)[:B // n].reshape(1, B // n)
+                           + d * n_loc for d in range(n)], axis=1)  # JAX's rows, global
+    single = flagship()
+    _, state1, losses1 = make_scan_train_steps(sc4(single), opt)(
+        single, opt.init(dict(single.named_parameters())), tree_map(lambda x: x.to(dev), data),
+        torch.as_tensor(rows, device=dev))
+    rec = logger.history
+    check(len(rec) == 1 and rec[0]["step"] == 1 and state.count == 1,
+          "train(mesh=): one chunk of one update")
+    log("dp", f"train(mesh=), {n} shards: one chunk of one update with validation in "
+              f"{dense_s:.2f} s, val loss {rec[0]['val_loss']:.6g}")
+    held_leaves(f"train(mesh=), {n} shards", params_of(model), params_of(single), [state],
+                [state1])
+    held_last(f"train(mesh=), {n} shards", torch.tensor([rec[0]["train_loss"]]),
+              losses1.cpu(), model, built)
+    torch.backends.cudnn.deterministic = False
+    launched = {k: v for k, v in fk.launch_counts.items() if v}
+    log("dp", f"kernel launches in data-parallel training: {launched}")
+    check(not launched, "data-parallel training launches none of the CUDA kernels")
+    del model, single, built, store
+
+    # fast_ranking: one 256-shot selection each way from one state and draws
+    gen = torch.Generator(device=dev).manual_seed(120)
+    step = make_env_step_fused(env)
+    state = env_reset(env, gen)
+    for _ in range(WINDOWS // 2):
+        state, _ = step(state, env.action_space.sample(gen))
+    f32 = flagship()
+    fast = f32.fast_ranking()
+    draws = gen.get_state()
+    sel = {}
+    for name, m in (("float32", f32), ("bf16", fast), ("float32", f32), ("bf16", fast)):
+        gen.set_state(draws)  # the first of each warms cuBLAS
+        rs = RandomShooting(model=m, horizon=HORIZON, shots=SHOTS, alpha=1.0)
+        sel[name] = timed(lambda: rs(env, state, gen))
+    c32, cbf = sel["float32"][2][1]["cost"], sel["bf16"][2][1]["cost"]
+    choice = int(sel["bf16"][2][1]["idx"])
+    rank = int((c32 < c32[choice]).sum())
+    worst = float(((cbf - c32).abs() / c32.abs()).max())
+    log("bf16", f"{SHOTS}-shot selection, horizon {HORIZON}: float32 {sel['float32'][0]:.4f} s "
+                f"(host issue {sel['float32'][1] / sel['float32'][0]:.3f}), fast_ranking "
+                f"{sel['bf16'][0]:.4f} s (host issue {sel['bf16'][1] / sel['bf16'][0]:.3f}); "
+                f"costs apart by at most {worst:.3e} relative; the bf16 choice (shot {choice}) "
+                f"ranks {rank} of {SHOTS} by the float32 costs (float32's choice shot "
+                f"{int(sel['float32'][2][1]['idx'])})")
+    check(bool(torch.allclose(cbf, c32, rtol=5e-2, atol=1e-4)),
+          "the bf16 costs are within 5e-2 relative of the float32 costs")
+    check(rank < 0.05 * SHOTS, "the bf16 choice is among the float32 model's best 5%")
+
+    # conv_dtype=torch.bfloat16 against float32 on phase 7's observations
+    bf = flagship(conv_dtype=torch.bfloat16)
+    obs = episodes[0].s_wave[:4].to(dev)
+    with torch.no_grad():
+        enc = [torch.stack([m.encode_wave(o) for o in obs]) for m in (f32, bf)]
+    enc_err = float((enc[1] - enc[0]).abs().max())
+    check(enc[1].dtype == torch.float32 and bool(torch.allclose(enc[1], enc[0], rtol=0.1,
+                                                                 atol=0.05)),
+          "the bf16-conv encode_wave matches float32 within rtol 0.1 / atol 0.05")
+    enc_s = {}
+    for name, m in (("float32", f32), ("bf16", bf), ("float32", f32), ("bf16", bf)):
+        ps = list(m.wave_encoder.parameters())
+
+        def fwd_bwd(m=m, ps=ps):
+            with full_float32():
+                return torch.autograd.grad(m.wave_encoder(obs).square().mean(), ps)
+
+        enc_s[name] = timed(fwd_bwd)  # the first of each warms cuDNN
+    g32, gbf = enc_s["float32"][2], enc_s["bf16"][2]
+    check(all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in gbf),
+          "the bf16-conv encoder's gradient is float32 and finite")
+    log("bf16", f"conv_dtype=bfloat16: encode_wave of 4 observations {enc_err:.3e} from "
+                f"float32 at most; encoder forward and backward at batch 4: float32 "
+                f"{enc_s['float32'][0] * 1e3:.2f} ms, bf16 {enc_s['bf16'][0] * 1e3:.2f} ms; "
+                f"gradient of the first conv {rel_err(gbf[0], g32[0]):.3e} from float32's")
+    del f32, fast, bf, g32, gbf, enc
+    torch.cuda.empty_cache()
+
+    # the CLIs once each, at their smallest, at once
+    with tempfile.TemporaryDirectory() as out:
+        ck = os.path.join(ROOT, CHECKPOINT)
+        clis = {
+            "train --dp": ("train", ["--data", cli_data, "--out", os.path.join(out, "dp"), "--dp",
+                                     "--episodes", "1", "--horizon", "1", "--batch", "16",
+                                     "--accumulate", "1", "--val-every", "1", "--val-batches",
+                                     "1", "--epochs", "1", "--latent-stride", str(STRIDE),
+                                     "--sc-weight", "4", "--init-from", ck]),
+            "mpc --fast": ("mpc", ["--controller", "random_shooting", "--checkpoint", ck,
+                                   "--latent-stride", str(STRIDE), "--actions", "2",
+                                   "--locations", "1", "--episodes", "1", "--fast", "--out",
+                                   os.path.join(out, "fast.json")]),
+        }
+        procs, texts, t = {}, {}, time.time()
+        for name, (module, args) in clis.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"waves_jl_tpu_torch.scripts.{module}", *args], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            for name, proc in procs.items():
+                texts[name], _ = proc.communicate(timeout=600)
+                tail = texts[name].strip().splitlines()[-1:] or [""]
+                log("dp", f"CLI {name}: exit {proc.returncode} ({time.time() - t:.2f} s since the "
+                          f"CLIs started): {tail[0][:200]}")
+                check(proc.returncode == 0, f"the {name} CLI exits 0:\n{texts[name]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        check(f"data-parallel over {torch.cuda.device_count()} devices" in texts["train --dp"],
+              "train --dp trains over every card")
+        path = os.path.join(out, "dp", "checkpoint_step=1")
+        fresh = flagship(tracked=False)
+        _, _, step_no = load_checkpoint(path, fresh, opt_state_like=opt.init(
+            dict(fresh.named_parameters())))
+        check(step_no == 1, "train --dp took one update and load_checkpoint reads its checkpoint")
+        with open(os.path.join(out, "fast.json")) as f:
+            result = json.load(f)
+        check("fast-ranking mode: bf16 latent matmul" in texts["mpc --fast"]
+              and math.isfinite(result["mean_decrease"]),
+              "mpc --fast ranks in bf16 and reports a finite decrease")
+    log("dp", f"{smi}: " + "; ".join(
+        f"{where}: {dp_s:.4f} s a micro-step (host {dp_h:.3f}) against {one_s:.4f} s (host "
+        f"{one_h:.3f}) on one device" for where, (dp_s, dp_h, one_s, one_h) in times.items())
+        + f"; selection float32 {sel['float32'][0]:.4f} s, bf16 {sel['bf16'][0]:.4f} s; encoder "
+          f"fwd+bwd float32 {enc_s['float32'][0] * 1e3:.2f} ms, bf16 {enc_s['bf16'][0] * 1e3:.2f} "
+          "ms")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2667,6 +3030,9 @@ def main(argv=None) -> int:
 
     # 11. the NODE and PINN baselines
     baselines_phase(env, dev, dg_eps, os.path.join(data_tmp.name, "cli"), smi)
+
+    # 12. data-parallel training and the bf16 options
+    dp_bf16_phase(env, dev, dg_eps, os.path.join(data_tmp.name, "cli"), smi)
     data_tmp.cleanup()
 
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"

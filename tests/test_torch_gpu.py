@@ -45,7 +45,12 @@ matches its CPU run. The NODE and PINN baselines from their tracked
 weights at full width: the forward on the card against the CPU's, the
 PINN's chunked `predict_energy` against its forward, and each loss's
 float32 gradient held leaf by leaf to the CPU's and to float64 on the card
-(`grad_precision.LEAF_LIMITS`).
+(`grad_precision.LEAF_LIMITS`). Data-parallel training (`parallel.dp`) on
+two shards of one card, and across two or four cards, against one card:
+two updates' losses within 1e-4 and leaves within rtol 5e-3 / atol 2e-5,
+the replicas bit for bit equal; `fast_ranking()` on the card against the
+float32 model and against the CPU (costs within 5e-2, the same choice),
+and the bf16-conv model against float32 (rtol 0.1 / atol 0.05).
 """
 import dataclasses
 
@@ -1215,3 +1220,85 @@ def test_tracked_baseline_on_the_card_matches_the_cpu(card, which):
     for want in (g_cpu, g64):
         _, beyond = leaves_beyond(which, g_card, want)
         assert not beyond, beyond
+
+
+def _dp_matches_one_device(devices):
+    """Two micro-steps of `make_dp_train_step` over a mesh of `devices`
+    against `make_train_step` on the first device, on 4 windows: the losses
+    within 1e-4 relative and every leaf within rtol 5e-3 / atol 2e-5 (the
+    bounds tests/test_windows_and_cem.py holds JAX's data-parallel trainer
+    to), the replicas equal bit for bit."""
+    from waves_jl_tpu_torch.models.acoustic_energy_model import energy_loss
+    from waves_jl_tpu_torch.parallel import Replicas, make_dp_train_step, make_mesh, shard_batch
+    from waves_jl_tpu_torch.train.loop import make_train_step
+    from waves_jl_tpu_torch.train.optim import Adam
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    built = []
+
+    def replicate(dev):
+        m, _ = _train_setup(dev, seed=1)
+        built.append(m)
+        return m, lambda b: energy_loss(m, b)
+
+    single, batch = _train_setup(devices[0])
+    batch = tree_map(lambda v: torch.cat([v, v[:1]]), batch)  # 4 windows
+    model, _ = _train_setup(devices[0])
+    mesh = make_mesh(devices=devices)
+    replicas = Replicas(model, lambda b: energy_loss(model, b), mesh, replicate)
+    step1 = make_train_step(lambda b: energy_loss(single, b), Adam(1e-3))
+    step = make_dp_train_step(Adam(1e-3))
+    state1, states = Adam(1e-3).init(dict(single.named_parameters())), replicas.init(Adam(1e-3))
+    blocks = shard_batch(batch, mesh)
+    for _ in range(2):
+        _, state1, loss1 = step1(single, state1, batch)
+        _, states, loss = step(replicas, states, blocks)
+        assert loss.device == mesh.devices[0]
+        assert abs(float(loss) - float(loss1)) <= 1e-4 * abs(float(loss1))
+    for a, b in zip(model.parameters(), single.parameters()):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=2e-5)
+    assert len(built) == mesh.size - 1
+    for m in built:
+        assert all(torch.equal(a.cpu(), b.cpu())
+                   for a, b in zip(m.parameters(), model.parameters()))
+
+
+@pytest.mark.gpu
+def test_data_parallel_two_shards_on_one_card_match_one_device(card):
+    _dp_matches_one_device(["cuda:0", "cuda:0"])
+
+
+@pytest.mark.gpu
+def test_data_parallel_across_cards_matches_one_card(card, cards):
+    _dp_matches_one_device([f"cuda:{k}" for k in range(cards)])
+
+
+@pytest.mark.gpu
+def test_fast_ranking_and_bf16_convs_on_the_card(card):
+    """`fast_ranking()` on the card: the windows' cumulative scattered
+    energies within rtol 5e-2 / atol 1e-4 of the float32 model's and of the
+    fast model's on the CPU, the same argmin; `conv_dtype=torch.bfloat16`
+    within rtol 0.1 / atol 0.05 of float32; the caller's cuBLAS flags
+    restored."""
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+
+    model, batch = _train_setup(card)
+    cpu_model, cpu_batch = _train_setup("cpu")
+    flags = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    with torch.no_grad():
+        cost32 = model(batch)[:, :, 2].sum(dim=1)
+        cost = model.fast_ranking()(batch)[:, :, 2].sum(dim=1)
+        cost_cpu = cpu_model.fast_ranking()(cpu_batch)[:, :, 2].sum(dim=1)
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == flags
+    for other in (cost32.cpu(), cost_cpu):
+        torch.testing.assert_close(cost.cpu(), other, rtol=5e-2, atol=1e-4)
+        assert int(torch.argmin(cost)) == int(torch.argmin(other))
+    bf = AcousticEnergyModel(build_triple_ring_design_space(device=card), 1000.0, elements=32,
+                             h_size=16, nfreq=12, integration_steps=4, dt=4e-5, device=card,
+                             conv_dtype=torch.bfloat16)
+    bf.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, want = bf(batch), model(batch)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0.1, atol=0.05)

@@ -3,9 +3,11 @@ CPU at a small grid (130^2, 2 actions, 1 location, 1 episode): the one-shot
 policy with the tracked `models/bc_pools3` weights, and CEM + polish with
 the tracked pools3 surrogate at full width and a small population. Each
 writes a result JSON with the keys of the JAX CLI's
-(`mpc_results_bc_policy.json`) and finite decreases. The options that are
-not ported yet exit with a message saying so; the gradient, ensemble and
-oracle controllers run in tests/test_torch_control_cli.py.
+(`mpc_results_bc_policy.json`) and finite decreases. `--fast` (the bf16
+ranking) runs CEM and random shooting and prints its mode line. The
+options that are not ported yet exit with a message saying so; the
+gradient, ensemble and oracle controllers run in
+tests/test_torch_control_cli.py.
 """
 import json
 import math
@@ -54,8 +56,19 @@ def test_cem_polish_controller(tmp_path):
     assert result["cem_warm"] is False and result["latent_stride"] == 4
 
 
-@pytest.mark.parametrize("args", [["--fast"], ["--render", "out.mp4"],
-                                  ["--controller", "hybrid", "--fused-episode"]])
+@pytest.mark.parametrize("controller", ["cem", "random_shooting"])
+def test_fast_ranking_controllers(tmp_path, capsys, controller):
+    result = run(tmp_path, "--controller", controller, "--fast", "--checkpoint", SURROGATE,
+                 "--latent-stride", "4", "--horizon", "1", "--shots", "4", "--cem-elites", "2",
+                 "--cem-iters", "1")
+    assert result["controller"] == controller
+    assert "fast-ranking mode: bf16 latent matmul" in capsys.readouterr().out.splitlines()
+
+
+# --fast is ported: beside --render (args2) the refusal is --render's
+@pytest.mark.parametrize("args", [["--render", "out.mp4"],
+                                  ["--controller", "hybrid", "--fused-episode"],
+                                  ["--fast", "--render", "out.mp4"]])
 def test_unported_options_exit_with_a_message(tmp_path, args):
     with pytest.raises(SystemExit, match="not yet ported"):
         main([*args, "--checkpoint", "x", "--out", str(tmp_path / "r.json")])

@@ -6,9 +6,9 @@ JAX package's `load_checkpoint` (parameters and the accumulating
 optimizer's state) and predicts what the port's model predicts from it
 (1e-5 relative); `scripts/avg_checkpoints.py` averages the run's two
 checkpoints as `scripts_tpu/avg_checkpoints.py` does, bit for bit; the
-options that wait for their port (the train CLI's `--dp`, the plots of
-`scripts/prediction.py` and `scripts/pinn_acceptance.py`) exit non-zero
-with a message."""
+options that wait for their port (the train CLI's `--dp` on the CPU, the
+plots of `scripts/prediction.py` and `scripts/pinn_acceptance.py`) exit
+non-zero with a message, and so does `--dp` with `--stream`."""
 import importlib.util
 import json
 import os
@@ -111,3 +111,12 @@ def test_options_that_wait_exit_with_a_message(script, args, tmp_path):
     proc = run(f"waves_jl_tpu_torch.scripts.{script}", "--device", "cpu",
                *[a.format(tmp=tmp_path) for a in args])
     assert proc.returncode != 0 and "not yet ported" in proc.stderr
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--dp", "--stream"], "--dp with --stream: the streaming trainer is single-device"),
+], ids=["stream"])
+def test_dp_combinations_exit_with_their_message(args, message, tmp_path):
+    proc = run("waves_jl_tpu_torch.scripts.train", "--data", str(tmp_path), "--out",
+               str(tmp_path / "o"), *args)
+    assert proc.returncode != 0 and message in proc.stderr

@@ -11,6 +11,8 @@ none. The training losses (`energy_loss`, `energy_loss_ranking`,
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,11 +63,13 @@ class AcousticEnergyModel(nn.Module):
                  latent_grid_size: float = 100.0, h_size: int = 256, nfreq: int = 500,
                  pml_width: float = 10.0, pml_scale: float = 10000.0, c0: float = 1531.0,
                  dt: float = 1e-5, integration_steps: int = 100, in_channels: int = 4,
-                 checkpoint: str = "sqrt", seed: int = 0, device="cuda"):
+                 checkpoint: str = "sqrt", seed: int = 0, device="cuda", conv_dtype=None):
         """Reference hyperparameters; `in_channels` counts the observation's
         channels (3 frames and the source shape). `checkpoint` is the latent
         rollout's mode under autograd (`physics.dynamics.Integrator`); the
-        weights start as flax's initialisers draw them, from `seed`."""
+        weights start as flax's initialisers draw them, from `seed`.
+        `conv_dtype=torch.bfloat16` runs the wave encoder's convolutions in
+        bf16, the parameters staying float32: an opt-in speed mode."""
         super().__init__()
         dev = resolve_device(device)
         self.design_space = design_space
@@ -78,7 +82,8 @@ class AcousticEnergyModel(nn.Module):
         self.source_freq = float(source_freq)
         self.integration_steps = int(integration_steps)
         n_design = design_space.low.to_vec().shape[-1]
-        self.wave_encoder = WaveEncoder(in_channels, h_size, nfreq, elements, latent_grid_size, dev)
+        self.wave_encoder = WaveEncoder(in_channels, h_size, nfreq, elements, latent_grid_size, dev,
+                                        conv_dtype)
         self.design_mlp = DesignMLP(n_design, h_size, nfreq, elements, latent_grid_size, dev)
         init_flax_like_(self, torch.Generator().manual_seed(seed))
         self.to(dev)
@@ -86,6 +91,17 @@ class AcousticEnergyModel(nn.Module):
     @property
     def dx(self) -> float:
         return 2.0 * self.latent_grid_size / (self.n_elements - 1)
+
+    def fast_ranking(self) -> "AcousticEnergyModel":
+        """The model for MPC action ranking in bf16: the latent state and
+        its derivative contraction in bf16 (`state_dtype="bfloat16"`), the
+        rollout at checkpoint "none". It shares this model's parameters
+        and modules: no second copy, and a change to either is seen by
+        both."""
+        fast = copy.copy(self)
+        dyn = dataclasses.replace(self.integrator.dynamics, state_dtype="bfloat16")
+        fast.integrator = dataclasses.replace(self.integrator, dynamics=dyn, checkpoint="none")
+        return fast
 
     def _source_freq(self, like: torch.Tensor) -> torch.Tensor:
         return torch.tensor(self.source_freq, dtype=torch.float32, device=like.device)

@@ -16,16 +16,23 @@ from torch import nn
 @contextlib.contextmanager
 def full_float32():
     """Run the enclosed matmuls and cuDNN convolutions in IEEE float32, not
-    TF32 (which cuDNN allows by default): the precision the models are held
-    to against the JAX package. Usable as a decorator; restores the flags."""
-    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    TF32 (which cuDNN allows by default), and bf16 matmuls with float32
+    accumulation to the end, not cuBLAS's reduced-precision reduction
+    (JAX's `preferred_element_type=float32`): the precision the models are
+    held to against the JAX package. Usable as a decorator; restores the
+    flags."""
+    cuda_mm = torch.backends.cuda.matmul
+    mm, conv = cuda_mm.allow_tf32, torch.backends.cudnn.allow_tf32
+    bf16 = cuda_mm.allow_bf16_reduced_precision_reduction
+    cuda_mm.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cuda_mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
+        cuda_mm.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = conv
+        cuda_mm.allow_bf16_reduced_precision_reduction = bf16
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -84,17 +91,26 @@ def localization_coords(h: int, w: int, device) -> torch.Tensor:
 
 
 class ResidualBlock(nn.Module):
-    """conv3x3 - act - conv3x3, plus a 1x1 skip, act, 2x2 max pool."""
+    """conv3x3 - act - conv3x3, plus a 1x1 skip, act, 2x2 max pool.
+    `dtype=torch.bfloat16` runs the block in bf16 on bf16 casts of the
+    weights, which stay float32 (flax's `nn.Conv(dtype=)`)."""
 
-    def __init__(self, in_ch: int, features: int):
+    def __init__(self, in_ch: int, features: int, dtype=None):
         super().__init__()
         self.conv0 = nn.Conv2d(in_ch, features, 3, padding=1)
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(in_ch, features, 1)
+        self.dtype = dtype
+
+    def _conv(self, conv: nn.Conv2d, x):
+        if self.dtype is None:
+            return conv(x)
+        return F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                        padding=conv.padding)
 
     def forward(self, x):
-        main = self.conv1(leaky_relu(self.conv0(x)))
-        return F.max_pool2d(leaky_relu(main + self.conv2(x)), 2)
+        main = self._conv(self.conv1, leaky_relu(self._conv(self.conv0, x)))
+        return F.max_pool2d(leaky_relu(main + self._conv(self.conv2, x)), 2)
 
 
 class MLP(nn.Module):
@@ -112,18 +128,22 @@ class MLP(nn.Module):
 
 
 class CNNBase(nn.Module):
-    """x + 1e-5, coordinate channels, three residual blocks, global max pool."""
+    """x + 1e-5, coordinate channels, three residual blocks, global max pool.
+    `dtype=torch.bfloat16` runs the blocks in bf16 (parameters float32,
+    the pooled output cast back to the input's type)."""
 
-    def __init__(self, in_ch: int, h_size: int):
+    def __init__(self, in_ch: int, h_size: int, dtype=None):
         super().__init__()
-        self.blocks = nn.ModuleList([
-            ResidualBlock(in_ch + 2, 32), ResidualBlock(32, 64), ResidualBlock(64, h_size)])
+        self.blocks = nn.ModuleList([ResidualBlock(in_ch + 2, 32, dtype),
+                                     ResidualBlock(32, 64, dtype),
+                                     ResidualBlock(64, h_size, dtype)])
 
     def forward(self, x):
         """x (B, C, H, W) -> (B, h_size)."""
         b, _, h, w = x.shape
         coords = localization_coords(h, w, x.device)[None].expand(b, 2, h, w)
         x = torch.cat([x + 1e-5, coords], dim=1)
+        dtype = x.dtype
         for block in self.blocks:
             x = block(x)
-        return torch.amax(x, dim=(2, 3))
+        return torch.amax(x, dim=(2, 3)).to(dtype)

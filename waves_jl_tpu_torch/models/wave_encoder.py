@@ -15,9 +15,11 @@ N_LATENT_FIELDS = 6  # u_tot, v_tot, u_inc, v_inc, f, pml
 
 class WaveEncoder(nn.Module):
     def __init__(self, in_ch: int, h_size: int, nfreq: int, elements: int,
-                 latent_grid_size: float, device=None):
+                 latent_grid_size: float, device=None, conv_dtype=None):
+        """`conv_dtype=torch.bfloat16` runs the CNN base's convolutions in
+        bf16 (`CNNBase(dtype=)`); the heads stay float32."""
         super().__init__()
-        self.cnn = CNNBase(in_ch, h_size)
+        self.cnn = CNNBase(in_ch, h_size, conv_dtype)
         self.heads = nn.ModuleList(MLP(h_size, [h_size, h_size, nfreq])
                                    for _ in range(N_LATENT_FIELDS))
         self.register_buffer("basis", sin_basis(elements, latent_grid_size, nfreq, device),

@@ -1,18 +1,21 @@
-"""Device meshes for the domain-decomposed simulator (counterpart of
-`waves_jl_tpu/parallel/mesh.py`).
+"""Device meshes for the domain-decomposed simulator and data-parallel
+training (counterpart of `waves_jl_tpu/parallel/mesh.py`).
 
 JAX's `shard_map` runs one program over a mesh from a single controller.
 The port's counterpart is one process that drives a list of devices: a
 `Mesh` names them, one per shard, in shard order. Several shards share a
 card only when the caller names it several times (`devices=["cuda:0"] * 4`),
 the counterpart of JAX's virtual CPU mesh in the tests; nothing repeats a
-device quietly.
+device quietly. Where JAX places an array by a sharding (`batch_sharded`),
+the port places a tree: one tree a shard, shard k's on the mesh's device k.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from ..utils.trees import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -49,3 +52,14 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
             f"asked for {n} CUDA devices, {count} available; name devices= to put "
             "several shards on one device or to run on the CPU")
     return Mesh(tuple(torch.device("cuda", k) for k in range(n)))
+
+
+def batch_sharded(tree, mesh: Mesh) -> list:
+    """The tree's leading axis cut into `mesh.size` equal contiguous
+    blocks, block k on the mesh's device k."""
+    n = tree_leaves(tree)[0].shape[0]
+    if n % mesh.size:
+        raise ValueError(f"a leading axis of {n} does not divide over {mesh.size} shards")
+    b = n // mesh.size
+    return [tree_map(lambda x, k=k, d=d: x[k * b:(k + 1) * b].to(d), tree)
+            for k, d in enumerate(mesh.devices)]

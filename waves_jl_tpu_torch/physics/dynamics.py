@@ -177,37 +177,52 @@ def make_acoustic_dynamics_2d(dim: TwoDim, c0: float, pml_width: float,
 class AcousticDynamics1D:
     """Batched latent system. x: (B, 4, E) fields U_tot, V_tot, U_inc, V_inc;
     theta = (C, F, PML): C(t) -> (B, E) latent speed, F(t) -> (B, E) latent
-    source, PML (B, E) learned profile scaled by pml[0]."""
+    source, PML (B, E) learned profile scaled by pml[0].
+
+    `state_dtype="bfloat16"` runs the whole stage in bf16: sigma, C(t),
+    F(t), the state and the masks, the contraction accumulated in float32
+    and rounded to bf16 once (cuBLAS's reduced-precision bf16 reduction is
+    off in the models' calls, `full_float32`). Energies drift about 1e-2
+    relative in bf16 state: MPC ranking only (`fast_ranking`). Default
+    float32."""
 
     c0: float
     grad: torch.Tensor  # (E, E)
     pml: torch.Tensor  # (E,); only pml[0] (the boundary value) is used
     bc: torch.Tensor  # (E,)
+    state_dtype: str = "float32"
 
     def __post_init__(self):
         dev = self.grad.device
-        # constant masks of the field-broadcast form, built once
+        dt = torch.bfloat16 if self.state_dtype == "bfloat16" else torch.float32
+        # constant masks of the field-broadcast form, built once, in the state's type
+        object.__setattr__(self, "_dtype", dt)
+        object.__setattr__(self, "_c0", torch.tensor(self.c0, dtype=dt, device=dev))
         object.__setattr__(self, "_perm", torch.tensor([1, 0, 3, 2], device=dev))
-        object.__setattr__(self, "_e_uf", torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)[None, :, None])
+        object.__setattr__(self, "_e_uf",
+                           torch.tensor([0.0, 1.0, 0.0, 1.0], dtype=dt, device=dev)[None, :, None])
         tot = torch.tensor([True, True, False, False], device=dev)[None, :, None]
         object.__setattr__(self, "_tot", tot)
         bc_mask = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)[None, :, None] * (
             self.bc[None, None, :] - 1.0) + 1.0
-        object.__setattr__(self, "_bc_mask", bc_mask)
+        object.__setattr__(self, "_bc_mask", bc_mask.to(dt))
+        object.__setattr__(self, "_grad", self.grad.to(dt))
 
     def at(self, t, theta):
         """The right-hand side at time t, x -> du, with C(t) and F(t)
         evaluated once."""
         C, F, PML = theta
-        sigma = self.pml[0] * PML
-        c = C(t)
-        f = F(t)
+        dt = self._dtype
+        sigma = (self.pml[0] * PML).to(dt)
+        c = C(t).to(dt)
+        f = F(t).to(dt)
         fe = f[:, None] * self._e_uf
-        coef = self.c0 * torch.where(self._tot, c[:, None], torch.ones_like(c[:, None]))
+        coef = self._c0 * torch.where(self._tot, c[:, None], torch.ones_like(c[:, None]))
 
         def rhs(x):
             # y = x[:, perm] + f * e_uf; d = y @ grad^T; du = coef * d - sigma * x
-            d = torch.matmul(x[:, self._perm] + fe, self.grad.T)
+            x = x.to(dt)
+            d = torch.matmul(x[:, self._perm] + fe, self._grad.T)
             return (coef * d - sigma[:, None] * x) * self._bc_mask
 
         return rhs

@@ -14,8 +14,10 @@ Controllers: `random_shooting`, `cem` (`--cem-*`), `gradient` (projected
 gradient descent on `max(8, shots // 8)` sequences), `ensemble` (several
 `--checkpoint`s, `--beta`), `hybrid` (`--topk`, `--hybrid-cem`,
 `--rerank-n`, `--exact-rounds`), `oracle` (shooting in the simulator
-itself, no checkpoint) and `policy` (a one-shot policy checkpoint). The
-result JSON has the keys of the JAX CLI's. Draws
+itself, no checkpoint) and `policy` (a one-shot policy checkpoint).
+`--fast` ranks with each surrogate's bf16 form (`fast_ranking`: the latent
+state and its derivative contraction in bf16). The result JSON has the
+keys of the JAX CLI's. Draws
 come from torch generators seeded from `--seed`, the location and the
 episode, so the decreases are the port's own. `--device cpu` runs the
 plain path on the CPU.
@@ -51,7 +53,7 @@ from waves_jl_tpu_torch.utils.gaussians import build_normal
 from waves_jl_tpu_torch.utils.trees import tree_stack
 
 # options of the JAX CLI that the port does not run yet (ROADMAP Queue 1)
-NOT_PORTED = {"fast": "--fast (the bf16 ranking mode)", "render": "--render",
+NOT_PORTED = {"render": "--render",
               "fused_episode": "--fused-episode (the one-program hybrid episode)"}
 
 
@@ -93,7 +95,8 @@ def parse_args(argv=None):
     p.add_argument("--episodes", type=int, default=4)
     p.add_argument("--locations", type=int, default=5,
                    help="fixed source y-locations (reference scripts/test.jl)")
-    p.add_argument("--fast", action="store_true", help="not yet ported (bf16 ranking)")
+    p.add_argument("--fast", action="store_true",
+                   help="bf16 latent ranking (the surrogates' fast_ranking)")
     p.add_argument("--horizon", type=int, default=5)
     p.add_argument("--shots", type=int, default=256)
     p.add_argument("--alpha", type=float, default=1.0)
@@ -175,6 +178,8 @@ def build_controller(args, env, dev):
                                           dt=1e-5 * args.latent_stride, device=dev))
         step_no = load_model_checkpoint(models[-1], ck)
         print(f"loaded checkpoint step {step_no} ({ck})", flush=True)
+    if args.fast:
+        models = [m.fast_ranking() for m in models]
     model = models[0]
     if args.controller == "ensemble":
         return make_mpc_episode_fused(env, EnsembleShooting(
@@ -210,6 +215,8 @@ def main(argv=None) -> dict:
     if args.controller != "oracle" and not args.checkpoint:
         sys.exit("--checkpoint is required for surrogate controllers")
     dev = resolve_device(args.device)
+    if args.fast:
+        print("fast-ranking mode: bf16 latent matmul", flush=True)
     env = build_env(args.n, 100, args.actions, dev)
     run_mpc = build_controller(args, env, dev)
     run_rnd = make_episode_fused(env)

@@ -21,6 +21,9 @@ loss options do not apply to it).
 `--horizons` trains every listed window length from one windowed store on
 the card, `--horizon` one length over prepared windows, `--stream` one
 length from host-resident episodes. `--device cpu` trains on the CPU.
+`--dp` trains data-parallel over every card of the machine (one replica of
+the model a card, the gradients averaged each micro-step); the streaming
+trainer is single-device, and the CLI's mesh is made of cards.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import argparse
 import glob
 import os
 import sys
+
+import torch
 
 if __package__ in (None, ""):  # run as a file
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
@@ -40,13 +45,9 @@ from waves_jl_tpu_torch.models.acoustic_energy_model import (AcousticEnergyModel
                                                              energy_loss_ranking)
 from waves_jl_tpu_torch.models.node import NODEEnergyModel, node_loss
 from waves_jl_tpu_torch.models.pinn import WaveControlPINN, WaveControlPINNLoss
+from waves_jl_tpu_torch.parallel.mesh import make_mesh
 from waves_jl_tpu_torch.train import TrainConfig, train, train_streaming, train_windowed
 from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
-
-# options of the JAX CLI that the port does not run yet, by their ROADMAP
-# Queue 1 item
-NOT_PORTED = {"dp": "data-parallel training (--dp, ROADMAP Queue 1: \"Data parallelism "
-                    "and the multi-process rollout\")"}
 
 
 def _load_episodes_dir(data_dir: str, episodes: int) -> list:
@@ -140,7 +141,8 @@ def parse_args(argv=None):
     p.add_argument("--sc-weight", type=float, default=1.0,
                    help="scattered-channel weight of the mse loss (mean-normalised)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--dp", action="store_true", help="not yet ported")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over every card (one replica of the model a card)")
     p.add_argument("--stream", action="store_true",
                    help="host-resident episode store, one upload a chunk; fixed --horizon")
     p.add_argument("--init-from", type=str, default=None,
@@ -150,11 +152,15 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Exit with a clear message for an option the port does not run yet."""
-    if args.dp:
-        sys.exit(f"{NOT_PORTED['dp']} is not yet ported to waves_jl_tpu_torch")
+    """Exit with a clear message for a combination the port does not run."""
     if args.stream and args.horizons:
         sys.exit("--stream trains one fixed --horizon")
+    if args.dp and args.stream:
+        sys.exit("--dp with --stream: the streaming trainer is single-device")
+    if args.dp and torch.device(args.device).type != "cuda":
+        sys.exit(f"--dp --device {args.device} is not yet ported: the CLI's data-parallel mesh is "
+                 "made of the machine's cards (make_mesh()); a CPU mesh is the library's, "
+                 "make_mesh(devices=['cpu'] * n)")
 
 
 def main(argv=None) -> None:
@@ -165,7 +171,8 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     train_eps, val_eps = load_episodes_split(args.data, args.episodes)
     print(f"{len(train_eps)} training and {len(val_eps)} validation episodes", flush=True)
-    model, loss_fn = build_model(args, int(train_eps[0].s_wave.shape[-1]), dev)
+    in_ch = int(train_eps[0].s_wave.shape[-1])
+    model, loss_fn = build_model(args, in_ch, dev)
     if args.init_from:
         step0 = load_model_checkpoint(model, args.init_from)
         print(f"initialized params from {args.init_from} (step {step0})", flush=True)
@@ -177,16 +184,23 @@ def main(argv=None) -> None:
                          checkpoint_dir=args.out,
                          metrics_path=os.path.join(args.out, "metrics.jsonl"), seed=args.seed)
     stride = args.latent_stride
+    mesh, replicate = None, None
+    if args.dp:
+        mesh = make_mesh()
+        replicate = lambda device: build_model(args, in_ch, device)  # noqa: E731
+        print(f"data-parallel over {mesh.size} devices", flush=True)
     if args.stream:
         print(f"streaming over {len(train_eps)} host-resident episodes", flush=True)
         train_streaming(loss_fn, model, train_eps, prepare_dataset(val_eps, args.horizon, stride),
                         config, horizon=args.horizon, stride=stride)
     elif args.horizons:
         train_windowed(loss_fn, model, train_eps, val_eps, config,
-                       horizons=tuple(args.horizons), stride=stride)
+                       horizons=tuple(args.horizons), stride=stride, mesh=mesh,
+                       replicate=replicate)
     else:
         train(loss_fn, model, prepare_dataset(train_eps, args.horizon, stride),
-              prepare_dataset(val_eps, args.horizon, stride), config)
+              prepare_dataset(val_eps, args.horizon, stride), config, mesh=mesh,
+              replicate=replicate)
 
 
 if __name__ == "__main__":

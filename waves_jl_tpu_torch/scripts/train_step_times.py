@@ -13,7 +13,12 @@ same seeded inputs in every checkout:
   latent times, 200 steps), `energy_loss` with sc_weight 4, in each
   checkpoint mode ("none", "step", "sqrt");
 * an MPC selection's surrogate pass: `predict_shot_energy` of 256 shots of
-  5 actions (125 latent steps) from one observation.
+  5 actions (125 latent steps) from one observation;
+* with `--cards N`, a whole training micro-step in "sqrt" (forward,
+  backward and the Adam update) on one card, and data-parallel
+  (`parallel.dp.make_dp_train_step`, the same 4 windows cut over the
+  shards) on N shards of one card and, where the machine has N cards, on
+  N cards, the shards issued in turn from one thread.
 
 For each row: the median wall seconds of `--reps` calls after one warm
 call, with the card synchronised around each, and the host's issue time
@@ -40,6 +45,8 @@ def main() -> int:
     parser.add_argument("--root", default=HERE, help="checkout whose waves_jl_tpu_torch to time")
     parser.add_argument("--out", help="also write the JSON object here")
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--cards", type=int, default=0,
+                        help="also time a data-parallel micro-step on this many shards")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -101,6 +108,8 @@ def main() -> int:
         rows[f"micro-step {mode}"] = timed(micro_step)
     rows["shots 256 x 5 actions"] = timed(
         lambda: model.predict_shot_energy(batch["s_wave"][0], space.sample(gen), shot_a, shot_t))
+    if args.cards:
+        rows.update(dp_rows(args.cards, model, batch, timed))
     for name, row in rows.items():
         print(f"{name}: {row['s']:.4f} s (host issue {row['issue_s']:.4f} s)", flush=True)
     result = {"root": root, "card": smi, "rows": rows}
@@ -110,6 +119,55 @@ def main() -> int:
             json.dump(result, f)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def dp_rows(n: int, model, batch, timed) -> dict:
+    """A training micro-step ("sqrt", Adam at lr 1e-4) of `batch` on the
+    model's card, and data-parallel on n shards of that card and on n
+    cards where the machine has them, each side on its own replicas of
+    `model`'s weights."""
+    import torch
+
+    from waves_jl_tpu_torch.designs import build_triple_ring_design_space
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel, energy_loss
+    from waves_jl_tpu_torch.parallel import Replicas, make_dp_train_step, make_mesh, shard_batch
+    from waves_jl_tpu_torch.train.loop import make_train_step
+    from waves_jl_tpu_torch.train.optim import Adam
+
+    def replicate(device):
+        m = AcousticEnergyModel(build_triple_ring_design_space(device=device), 1000.0,
+                                elements=1024, h_size=256, nfreq=500,
+                                integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE,
+                                device=device)
+        return m, lambda b: energy_loss(m, b, sc_weight=4.0)
+
+    opt = Adam(1e-4)
+    first, _ = replicate(next(model.parameters()).device)
+    first.load_state_dict(model.state_dict())
+    step1 = make_train_step(lambda b: energy_loss(first, b, sc_weight=4.0), opt)
+    state1 = [opt.init(dict(first.named_parameters()))]
+
+    def one():
+        _, state1[0], _ = step1(first, state1[0], batch)
+
+    rows = {"train step sqrt, 1 card": timed(one)}
+    dev = str(next(model.parameters()).device)
+    meshes = {f"dp train step sqrt, {n} shards on one card": make_mesh(devices=[dev] * n)}
+    if n > 1 and torch.cuda.device_count() >= n:
+        meshes[f"dp train step sqrt, {n} cards"] = make_mesh(n)
+    for name, mesh in meshes.items():
+        lead, loss0 = replicate(mesh.devices[0])
+        lead.load_state_dict(model.state_dict())
+        replicas = Replicas(lead, loss0, mesh, replicate)
+        states = [replicas.init(opt)]
+        step = make_dp_train_step(opt)
+        blocks = shard_batch(batch, mesh)
+
+        def dp_step(replicas=replicas, step=step, blocks=blocks, states=states):
+            _, states[0], _ = step(replicas, states[0], blocks)
+
+        rows[name] = timed(dp_step)
+    return rows
 
 
 if __name__ == "__main__":

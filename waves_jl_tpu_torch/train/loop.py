@@ -9,7 +9,9 @@ its `Integrator.checkpoint` mode says) and steps the optimizer of
 its compiled scan: the data stays on the card, a chunk's minibatch indices
 go up in one copy and are gathered there, the losses stay tensors, and one
 host copy of a chunk's losses is the only wait on the card per chunk.
-Data parallelism (`mesh=`) waits for its port.
+With `mesh=` (and `replicate=`, which builds a shard's model and loss on
+its device) `train` and `train_windowed` run the JAX package's
+data-parallel schedule over replicas of the model (`parallel.dp`).
 """
 from __future__ import annotations
 
@@ -25,10 +27,6 @@ from ..utils.logging import MetricsLogger, Timer
 from ..utils.trees import tree_map
 from .checkpoint import save_checkpoint
 from .optim import Adam, MultiSteps, apply_updates
-
-DP_WAITS = ("data-parallel training (mesh=) is not yet ported to waves_jl_tpu_torch "
-            "(ROADMAP Queue 1: \"Data parallelism and the multi-process rollout\")")
-
 
 @dataclass
 class TrainConfig:
@@ -127,6 +125,20 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def _replicas(model, loss_fn, mesh, replicate, batch_size: int):
+    """The model's replicas over `mesh` for the data-parallel trainers,
+    after their checks."""
+    from ..parallel.dp import Replicas
+
+    if replicate is None:
+        raise ValueError("mesh= needs replicate=, a callable device -> (model, loss_fn) that "
+                         "builds a shard's model and its loss on that device")
+    if batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} must divide over the mesh's {mesh.size} "
+                         "shards")
+    return Replicas(model, loss_fn, mesh, replicate)
+
+
 def _save(config, timer, model, opt_state, updates_done, on_checkpoint):
     if config.checkpoint_dir:
         path = f"{config.checkpoint_dir}/checkpoint_step={updates_done}"
@@ -139,7 +151,7 @@ def _save(config, timer, model, opt_state, updates_done, on_checkpoint):
 def train_windowed(loss_fn: Callable, model, train_eps, val_eps, config: TrainConfig,
                    horizons: tuple = (8,), stride: int = 1, mesh=None,
                    logger: MetricsLogger | None = None, on_checkpoint: Callable | None = None,
-                   windows_per_horizon: int | None = None):
+                   windows_per_horizon: int | None = None, replicate: Callable | None = None):
     """Mixed-horizon training over the windowed episode store: each cycle
     runs a chunk of micro-steps per horizon in turn, so one checkpoint
     learns every window length, then validates every horizon and saves.
@@ -147,25 +159,43 @@ def train_windowed(loss_fn: Callable, model, train_eps, val_eps, config: TrainCo
     to the model's device. `windows_per_horizon` sets the windows each
     horizon contributes per epoch (default: the mean distinct-window count
     over the horizons). The same schedule and numpy draws as the JAX
-    package's from `config.seed`. Returns (model, opt_state, logger)."""
-    from .windows import (episode_axes, make_scan_eval_windowed,
-                          make_scan_train_steps_windowed, sample_window_indices, stack_episodes)
+    package's from `config.seed`.
 
-    if mesh is not None:
-        raise NotImplementedError(DP_WAITS)
-    dev = _device(model)
+    With `mesh`, data-parallel: the training store is cut over the mesh on
+    its episode axis, each chunk's windows are drawn by
+    `sample_window_indices_dp` and every micro-step averages the shards'
+    gradients (`make_dp_scan_train_steps_windowed`); `replicate(device) ->
+    (model, loss_fn)` builds the other shards' models, which take `model`'s
+    weights; validation and checkpoints are shard 0's, and `model` holds
+    the trained weights after each chunk. Returns (model, opt_state,
+    logger)."""
+    from ..parallel.mesh import batch_sharded
+    from .windows import (episode_axes, make_dp_scan_train_steps_windowed,
+                          make_scan_eval_windowed, make_scan_train_steps_windowed,
+                          sample_window_indices, sample_window_indices_dp, stack_episodes)
+
     logger = logger or MetricsLogger(config.metrics_path)
     timer = Timer()
     opt = make_optimizer(config)
-    opt_state = opt.init(dict(model.named_parameters()))
-    store_t = stack_episodes(train_eps, dev) if isinstance(train_eps, list) else train_eps
-    store_v = stack_episodes(val_eps, dev) if isinstance(val_eps, list) else val_eps
-    E, A = episode_axes(store_t)
-    Ev, _ = episode_axes(store_v)
     B = config.batch_size
     horizons = tuple(horizons)
-    runs = {h: make_scan_train_steps_windowed(loss_fn, opt, h, stride) for h in horizons}
-    evals = {h: make_scan_eval_windowed(loss_fn, h, stride) for h in horizons}
+    if mesh is None:
+        dev, learner, loss0 = _device(model), model, loss_fn
+        opt_state = opt.init(dict(model.named_parameters()))
+        store_t = stack_episodes(train_eps, dev) if isinstance(train_eps, list) else train_eps
+        E, A = episode_axes(store_t)
+        runs = {h: make_scan_train_steps_windowed(loss_fn, opt, h, stride) for h in horizons}
+    else:
+        replicas = _replicas(model, loss_fn, mesh, replicate, B)
+        dev, learner, loss0 = mesh.devices[0], replicas, replicas.loss_fns[0]
+        opt_state = replicas.init(opt)
+        store = stack_episodes(train_eps, None) if isinstance(train_eps, list) else train_eps
+        E, A = episode_axes(store)
+        store_t = batch_sharded(store, mesh)  # the episodes must divide over the mesh
+        runs = {h: make_dp_scan_train_steps_windowed(opt, h, stride) for h in horizons}
+    store_v = stack_episodes(val_eps, dev) if isinstance(val_eps, list) else val_eps
+    Ev, _ = episode_axes(store_v)
+    evals = {h: make_scan_eval_windowed(loss0, h, stride) for h in horizons}
 
     counts = {h: E * (A - h + 1) for h in horizons}
     wph = windows_per_horizon or int(np.mean(list(counts.values())))
@@ -181,10 +211,13 @@ def train_windowed(loss_fn: Callable, model, train_eps, val_eps, config: TrainCo
     for cycle in range(cycles):
         train_losses = {}
         for h in horizons:
-            idxs = sample_window_indices(rng, E, A, h, per_h * B).reshape(per_h, B, 2)
-            idxs = torch.as_tensor(idxs, device=dev)
+            if mesh is None:
+                idxs = torch.as_tensor(sample_window_indices(rng, E, A, h, per_h * B)
+                                       .reshape(per_h, B, 2), device=dev)
+            else:  # each shard's block goes to its device
+                idxs = torch.as_tensor(sample_window_indices_dp(rng, E, A, h, per_h, mesh.size, B))
             with timer("train_chunk"):
-                model, opt_state, losses = runs[h](model, opt_state, store_t, idxs)
+                learner, opt_state, losses = runs[h](learner, opt_state, store_t, idxs)
                 train_losses[h] = float(losses.mean())
             micro += per_h
 
@@ -195,6 +228,8 @@ def train_windowed(loss_fn: Callable, model, train_eps, val_eps, config: TrainCo
                                    .reshape(nvb, B, 2), device=dev)
             with timer("validate"):
                 val_losses[h] = float(evals[h](model, store_v, vidx))
+        if mesh is not None:
+            replicas.store(model)
 
         updates_done = micro // config.accumulate
         rec = {"step": updates_done, "epoch": cycle * config.epochs // max(1, cycles),
@@ -206,8 +241,9 @@ def train_windowed(loss_fn: Callable, model, train_eps, val_eps, config: TrainCo
         logger.log(**rec)
         print(f"Step: {updates_done}, Train: {rec['train_loss']:.6g}, Val: "
               + " ".join(f"h{h}={v:.4g}" for h, v in val_losses.items()), flush=True)
-        _save(config, timer, model, opt_state, updates_done, on_checkpoint)
-    return model, opt_state, logger
+        state0 = opt_state if mesh is None else opt_state[0]
+        _save(config, timer, model, state0, updates_done, on_checkpoint)
+    return model, opt_state if mesh is None else opt_state[0], logger
 
 
 def _log_chunk(logger, timer, config, micro_step, epoch, train_loss, val_loss):
@@ -221,14 +257,25 @@ def _log_chunk(logger, timer, config, micro_step, epoch, train_loss, val_loss):
 
 
 def train(loss_fn: Callable, model, train_data: dict, val_data: dict, config: TrainConfig,
-          logger: MetricsLogger | None = None, on_checkpoint: Callable | None = None, mesh=None):
+          logger: MetricsLogger | None = None, on_checkpoint: Callable | None = None, mesh=None,
+          replicate: Callable | None = None):
     """Training over a prepared dataset on the model's device: epochs of
     shuffled minibatches consumed in chunks of K = val_every x accumulate
     micro-steps, a validation and a checkpoint after each chunk. The same
-    numpy draws as the JAX package's from `config.seed`. Returns (model,
-    opt_state, logger)."""
+    numpy draws as the JAX package's from `config.seed`.
+
+    With `mesh`, data-parallel, on the JAX package's schedule: the samples
+    are cut over the mesh (the ragged rest dropped), each epoch draws one
+    permutation a shard and lays the shards' blocks side by side along the
+    batch axis, and every micro-step averages the shards' gradients
+    (`make_dp_scan_train_steps`); `replicate(device) -> (model, loss_fn)`
+    builds the other shards' models, which take `model`'s weights.
+    Validation (shuffled minibatches from a generator seeded with
+    `config.seed`) and checkpoints are shard 0's, and `model` holds the
+    trained weights after each chunk. Returns (model, opt_state, logger)."""
     if mesh is not None:
-        raise NotImplementedError(DP_WAITS)
+        return _train_dp(loss_fn, model, train_data, val_data, config, logger, on_checkpoint,
+                         mesh, replicate)
     dev = _device(model)
     logger = logger or MetricsLogger(config.metrics_path)
     timer = Timer()
@@ -267,3 +314,52 @@ def train(loss_fn: Callable, model, train_data: dict, val_data: dict, config: Tr
         updates_done = _log_chunk(logger, timer, config, micro_step, epoch, train_loss, val_loss)
         _save(config, timer, model, opt_state, updates_done, on_checkpoint)
     return model, opt_state, logger
+
+
+def _train_dp(loss_fn, model, train_data, val_data, config, logger, on_checkpoint, mesh,
+              replicate):
+    """`train` over a mesh."""
+    from ..parallel.dp import make_dp_scan_train_steps
+    from ..parallel.mesh import batch_sharded
+
+    B = config.batch_size
+    replicas = _replicas(model, loss_fn, mesh, replicate, B)
+    n_dev, local_b, dev0 = mesh.size, B // mesh.size, mesh.devices[0]
+    logger = logger or MetricsLogger(config.metrics_path)
+    timer = Timer()
+    opt = make_optimizer(config)
+    opt_states = replicas.init(opt)
+    n_loc = train_data["s_wave"].shape[0] // n_dev
+    blocks = batch_sharded(tree_map(lambda x: x[:n_loc * n_dev], train_data), mesh)
+    val_data = tree_map(lambda x: x.to(dev0), val_data)
+    run_k = make_dp_scan_train_steps(opt)
+    eval_fn = make_eval_step(replicas.loss_fns[0])
+    K = config.val_every * config.accumulate  # micro-steps between validations
+    rng = np.random.default_rng(config.seed)
+    val_gen = torch.Generator(device=dev0).manual_seed(config.seed)
+
+    # one permutation of LOCAL sample indices a shard an epoch, the shards'
+    # blocks side by side along the batch axis
+    rows, epoch_of_row = [], []
+    nb = n_loc * n_dev // B
+    for epoch in range(config.epochs):
+        rows.append(np.concatenate([rng.permutation(n_loc)[:nb * local_b].reshape(nb, local_b)
+                                    for _ in range(n_dev)], axis=1))
+        epoch_of_row.extend([epoch] * nb)
+    rows = np.concatenate(rows, axis=0)
+
+    micro_step = 0
+    for start in range(0, rows.shape[0], K):
+        chunk = torch.as_tensor(rows[start:start + K])
+        with timer("train_chunk"):
+            replicas, opt_states, losses = run_k(replicas, opt_states, blocks, chunk)
+            train_loss = float(losses.mean())
+        micro_step += int(chunk.shape[0])
+        with timer("validate"):
+            val_loss = validate(eval_fn, replicas.models[0], val_data, B, val_gen,
+                                config.val_batches)
+        replicas.store(model)
+        epoch = epoch_of_row[min(start + chunk.shape[0] - 1, len(epoch_of_row) - 1)]
+        updates_done = _log_chunk(logger, timer, config, micro_step, epoch, train_loss, val_loss)
+        _save(config, timer, model, opt_states[0], updates_done, on_checkpoint)
+    return model, opt_states[0], logger

@@ -6,7 +6,9 @@ card, and each minibatch of windows is gathered there from (episode,
 start) index pairs, with the fields and joining of `data.prepare_data`.
 One store serves every horizon, which the mixed-horizon trainer
 (`loop.train_windowed`) round-robins. A chunk's indices go to the card in
-one copy, and its losses come back in one.
+one copy, and its losses come back in one. For data-parallel training the
+store is cut over a mesh on its episode axis and each shard gathers its
+windows from its own block (`make_dp_scan_train_steps_windowed`).
 """
 from __future__ import annotations
 
@@ -17,15 +19,20 @@ import torch
 
 from ..data import Episode
 from ..device import resolve_device
+from ..parallel.mesh import batch_sharded
 from ..utils.interp import flatten_repeated_last_dim
 from ..utils.trees import tree_map, tree_stack
 from .loop import _eval_mean, _micro_step
 
 
-def stack_episodes(episodes: list[Episode], device="cuda") -> Episode:
+def stack_episodes(episodes: list[Episode], device="cuda", mesh=None):
     """One store with leading axis E on every leaf, on `device` (None keeps
-    it where the episodes are)."""
+    it where the episodes are). With `mesh`, the store cut over the mesh on
+    its episode axis instead: one store a shard, episode block k on the
+    mesh's device k (JAX's `store_sharding`)."""
     store = tree_stack(episodes)
+    if mesh is not None:
+        return batch_sharded(store, mesh)
     if device is None:
         return store
     dev = resolve_device(device)
@@ -104,3 +111,37 @@ def make_scan_eval_windowed(loss_fn: Callable, horizon: int, stride: int = 1) ->
                                     for idx in idxs])
 
     return run
+
+
+def make_dp_scan_train_steps_windowed(opt, horizon: int, stride: int = 1) -> Callable:
+    """K data-parallel micro-steps over a store cut over the replicas' mesh
+    on its episode axis (`stack_episodes(..., mesh=)`). Returns run(replicas,
+    opt_states, stores, idxs (K, B, 2)) -> (replicas, opt_states, losses
+    (K,) on the first device): the batch axis of idxs holds the shards'
+    blocks in order, each of [episode, start] pairs in its shard's LOCAL
+    episode space; each shard gathers its windows from its own store, then
+    the gradients are averaged and every replica takes the same update
+    (`parallel.dp`)."""
+    from ..parallel.dp import dp_scan
+
+    def run(replicas, opt_states, stores, idxs):
+        return dp_scan(replicas, opt, opt_states, idxs,
+                     lambda k, idx: gather_window_batch(stores[k], idx, horizon, stride))
+
+    return run
+
+
+def sample_window_indices_dp(rng: np.random.Generator, n_eps: int, n_actions: int,
+                             horizon: int, count: int, n_devices: int,
+                             batch: int) -> np.ndarray:
+    """(count, batch, 2) indices for the data-parallel trainer: the batch
+    axis laid out in `n_devices` contiguous blocks, block d drawn by
+    `sample_window_indices` in shard d's local episode space [0, n_eps //
+    n_devices). The same draws as the JAX package's."""
+    if batch % n_devices or n_eps % n_devices:
+        raise ValueError(f"batch {batch} and episodes {n_eps} must divide over "
+                         f"{n_devices} shards")
+    local_b, local_e = batch // n_devices, n_eps // n_devices
+    blocks = [sample_window_indices(rng, local_e, n_actions, horizon, count * local_b)
+              .reshape(count, local_b, 2) for _ in range(n_devices)]
+    return np.concatenate(blocks, axis=1)
