@@ -137,7 +137,21 @@ its elapsed seconds:
    float32 (costs 5e-2, the bf16 choice among float32's best 5%); the
    bf16-conv encoder against float32 (rtol 0.1 / atol 0.05), its forward
    and backward timed; `train --dp` and `mpc --fast` once each, in
-   subprocesses.
+   subprocesses;
+13. full field at 700^2 from phase 3's state: `env_step_full` through the
+   exact one-launch kernel (K2 and its owner pass; K1 on the position
+   design) against its plain route on the card (frames and fields bit for
+   bit, signal 1e-6), the window's host, device and issue ms; the same
+   window at render size 350 and time stride 10 (the signal the full
+   one's); `env_step_flux` against its formula in float64 (FLUX_TOL) with
+   the flux's time and bound; `rollout_fields` under the random policy (5
+   actions) and under 256-shot random shooting on the flagship (3 actions,
+   the device half of `mpc --render`), frames 350^2 every 10 steps, each
+   episode's signals replayed through `env_step_full`; the adjoint demo's
+   optimisation (300 steps, 3 Adam steps, the loss falling); the
+   latent-space dashboard's rollout and MSE (5 actions); the PML demo's
+   free-field rollout. The drawing itself needs matplotlib, which the
+   card's machine lacks, so no phase draws.
 
 The launch counts of each kernel are read from the main-path runs alone:
 every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
@@ -2673,6 +2687,247 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
           "ms")
 
 
+FLUX_TOL = 1e-5  # env_step_flux's float32 flux against float64, of the largest |flux|
+RENDER_SIZE = 350  # the render episodes' frames after the on-card resize
+RENDER_STRIDE = 10  # steps between their frames
+RENDER_ACTIONS = 5  # the random-policy render episode's actions
+RENDER_MPC_ACTIONS = 3  # the RandomShooting render episode's (`mpc --render`'s device half)
+# windows that phase 13 first adds to phase 3's state: 10 ms in, the wave
+# has reached the cloak and the scattered field is non-zero
+REACH_WINDOWS = 9
+# Adam steps of the adjoint demo (its CLI's default is 10): each takes about
+# 3.8 s on the card, host-bound, so the phase cuts the depth to stay in its
+# budget; the width (1,024 elements, 300 steps, 50 frequencies) is the demo's
+ADJOINT_ITERS = 3
+
+
+def full_field_phase(env, state, pos_env, model, dev):
+    """Phase 13: the full-field window and what draws, at 700^2 from phase
+    3's state advanced REACH_WINDOWS windows (K5, uncounted), where the
+    scattered field is non-zero. `env_step_full` through the exact one-launch kernel (K2 and
+    its owner pass on the triple ring, K1 on phase 4's position design)
+    against its plain route on the card; at render size 350 and time
+    stride 10; `env_step_flux` against the same formula in float64;
+    `rollout_fields` under the random policy and under 256-shot random
+    shooting on the flagship (the device half of `mpc --render`), each
+    episode's signals replayed through `env_step_full`; the adjoint demo's
+    optimisation; the latent-space dashboard's rollout and MSE; the PML
+    demo's free-field rollout. Returns the phase's main-path launches: the
+    render episodes and the `env_step_full`/`env_step_flux` calls, not the
+    replays, the plain route or the timing repeats."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from waves_jl_tpu_torch.control.mpc import RandomShooting
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset, env_step_flux, resize_weights
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.ops.metrics import circle_mask, flux, laplacian_matrix
+    from waves_jl_tpu_torch.physics.fused import make_env_step_full, make_env_step_fused
+    from waves_jl_tpu_torch.scripts.adjoint_demo import AdjointProblem, optimise
+    from waves_jl_tpu_torch.scripts.latent_space import latent_comparison
+    from waves_jl_tpu_torch.scripts.pml_demo import pml_rollout
+    from waves_jl_tpu_torch.viz.episode import rollout_fields
+
+    t_phase = time.time()
+    main_path = collections.Counter()
+
+    def counted(fn):
+        """fn() with its launches added to the phase's main-path counts;
+        returns (result, its launches)."""
+        fk.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        main_path.update(fk.launch_counts)
+        return out, {k: v for k, v in fk.launch_counts.items() if v}
+
+    def warm_ms(fn, reps=3):
+        """Median host milliseconds of fn(), synchronised, after the run
+        already made."""
+        times = []
+        for _ in range(reps):
+            dt, _ = host_s(fn)
+            times.append(dt * 1e3)
+        return float(np.median(times))
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    policy = RandomDesignPolicy(env.action_space)
+    fused = make_env_step_fused(env)
+    for _ in range(REACH_WINDOWS):
+        state, _ = fused(state, policy(gen))
+    action = policy(gen)
+    kernel, plain = make_env_step_full(env), make_env_step_full(env, plain=True)
+
+    # 1. env_step_full at stride 1: the kernel route against the plain route
+    (got, info), launched = counted(lambda: kernel(state, action))
+    check(launched == {"fused_rk4_radii_only": STEPS, "select_owner": 1},
+          f"the full-field window launches K2 {STEPS} times and the owner pass once: {launched}")
+    plain_s, (want, want_info) = host_s(lambda: plain(state, action))
+    same = [torch.equal(a, b) for a, b in ((got.wave, want.wave), (info["u_tot"], want_info["u_tot"]),
+                                           (info["u_inc"], want_info["u_inc"]))]
+    sig_err = rel_err(got.signal, want.signal)
+    log("full field", f"env_step_full {SIZE}^2 K2, kernel route against plain route: frames "
+                      f"{differing_cells(got.wave, want.wave)}; u_tot "
+                      f"{differing_cells(info['u_tot'], want_info['u_tot'])}; u_inc "
+                      f"{differing_cells(info['u_inc'], want_info['u_inc'])}; signal rel err "
+                      f"{sig_err:.3e}")
+    check(all(same) and sig_err <= 1e-6,
+          "the full-field window equals its plain route bit for bit (frames, fields), its signal "
+          "within 1e-6")
+    check(tuple(info["u_tot"].shape) == (STEPS + 1, SIZE, SIZE)
+          and bool(torch.isfinite(info["u_tot"]).all()) and float(got.signal[:, 2].max()) > 0.0,
+          "the full fields are finite, (steps + 1, n, n), the scattered energy positive")
+    win_ms = warm_ms(lambda: kernel(state, action))
+    win_dev = device_ms(lambda: kernel(state, action), 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    kernel(state, action)
+    win_issue = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    log("full field", f"a full-field window (100 K2 steps, 101 two-channel copies): {win_ms:.4f} ms "
+                      f"on the host, device work {win_dev:.4f} ms, host issue {win_issue:.4f} ms; "
+                      f"plain route {plain_s * 1e3:.1f} ms")
+
+    # the same window at render size 350, time stride 10
+    (small, small_info), _ = counted(lambda: kernel(state, action, render_size=RENDER_SIZE,
+                                                    time_stride=RENDER_STRIDE))
+    weights = torch.from_numpy(resize_weights(SIZE, RENDER_SIZE)).to(dev)
+    with full_float32():
+        resized = weights @ info["u_tot"][::RENDER_STRIDE] @ weights.T
+    small_err = rel_err(small_info["u_tot"], resized)
+    check(torch.equal(small.signal, got.signal), "the strided window's signal is the full one's")
+    check(tuple(small_info["u_tot"].shape) == (STEPS // RENDER_STRIDE + 1, RENDER_SIZE, RENDER_SIZE)
+          and small_err <= 1e-6, f"the strided, resized fields are the full ones' ({small_err:.3e})")
+    small_ms = warm_ms(lambda: kernel(state, action, render_size=RENDER_SIZE,
+                                      time_stride=RENDER_STRIDE))
+    small_dev = device_ms(lambda: kernel(state, action, render_size=RENDER_SIZE,
+                                         time_stride=RENDER_STRIDE), 1)
+    log("full field", f"render_size {RENDER_SIZE}, time_stride {RENDER_STRIDE}: {small_ms:.4f} ms on "
+                      f"the host, device work {small_dev:.4f} ms; fields {small_err:.3e} from the "
+                      f"resized full ones, signal bit for bit")
+
+    # K1: the window on moving cylinders, one window from a reset
+    pgen = torch.Generator(device=dev).manual_seed(31)
+    pstate = env_reset(pos_env, pgen)
+    paction = RandomDesignPolicy(pos_env.action_space)(pgen)
+    (pgot, pinfo), launched = counted(lambda: make_env_step_full(pos_env)(pstate, paction))
+    check(launched == {"fused_rk4_general": STEPS}, f"K1 takes the moving cylinders: {launched}")
+    pwant, pwant_info = make_env_step_full(pos_env, plain=True)(pstate, paction)
+    check(torch.equal(pgot.wave, pwant.wave) and torch.equal(pinfo["u_tot"], pwant_info["u_tot"])
+          and torch.equal(pinfo["u_inc"], pwant_info["u_inc"])
+          and rel_err(pgot.signal, pwant.signal) <= 1e-6,
+          "the K1 full-field window equals its plain route")
+    log("full field", f"env_step_full {SIZE}^2 K1 (moving cylinders) against its plain route: frames "
+                      f"and fields bit for bit, signal {rel_err(pgot.signal, pwant.signal):.3e}")
+
+    # 2. env_step_flux against its formula in float64
+    (fstate, finfo), _ = counted(lambda: env_step_flux(env, state, action))
+    check(torch.equal(fstate.signal, got.signal) and torch.equal(finfo["u_tot"], info["u_tot"]),
+          "env_step_flux steps the same window")
+    lap = laplacian_matrix(env.dim.x)
+    mask = circle_mask(env.dim, 2.0).to(torch.float32)
+    u_sc = info["u_tot"] - info["u_inc"]
+    lap64, mask64, u64 = lap.double(), mask.double(), u_sc.double()
+    want_flux = torch.sum((lap64 @ u64 + (lap64 @ u64.transpose(-1, -2)).transpose(-1, -2)) * mask64,
+                          dim=(-2, -1))
+    flux_err = float(torch.max(torch.abs(finfo["flux"].double() - want_flux))
+                     / torch.max(torch.abs(want_flux)).clamp_min(1e-300))
+    log("full field", f"env_step_flux: flux float32 against float64 {flux_err:.3e} of the largest "
+                      f"|flux| {float(torch.max(torch.abs(want_flux))):.4e} (tol {FLUX_TOL:g})")
+    check(flux_err <= FLUX_TOL and bool(torch.isfinite(finfo["flux"]).all()),
+          "the flux agrees with float64")
+    flux_ms = cuda_ms(lambda: flux(u_sc, lap, mask), 5)
+    flux64_ms = cuda_ms(lambda: torch.sum((lap64 @ u64 + (lap64 @ u64.transpose(-1, -2))
+                                           .transpose(-1, -2)) * mask64, dim=(-2, -1)), 2)
+    flux_ops = 2 * 2 * u_sc.shape[0] * SIZE ** 3
+    flux_bound = bound(nbytes(u_sc, lap, mask) + 4 * u_sc.shape[0], flux_ops)
+    fw_ms = warm_ms(lambda: env_step_flux(env, state, action))
+    log("full field", f"flux of {u_sc.shape[0]} frames (two {SIZE}^3 matmuls a frame, IEEE float32): "
+                      f"{flux_ms:.4f} ms (float64 {flux64_ms:.4f} ms), bound {flux_bound[0]:.4f} ms "
+                      f"({flux_bound[1]}); env_step_flux {fw_ms:.4f} ms a window")
+
+    # 3. render episodes: the random policy, and random shooting on the flagship
+    def replayed(start, acts, signals):
+        st, same = start, True
+        for a, sig in zip(acts, signals):
+            st, _ = kernel(st, a)
+            same = same and np.array_equal(st.signal.cpu().numpy(), sig)
+        return same
+
+    # each from the state the window started from, for its last n_act actions
+    windows_in = state.time_step // STEPS
+    renders = {}
+    for name, n_act, state_aware in (("random policy", RENDER_ACTIONS, False),
+                                     ("random shooting", RENDER_MPC_ACTIONS, True)):
+        sub = dataclasses.replace(env, actions=windows_in + n_act)
+        rgen = torch.Generator(device=dev).manual_seed(32 + n_act)
+        start = state
+        acts = []
+        if state_aware:
+            mpc = RandomShooting(model=model, horizon=HORIZON, shots=SHOTS, alpha=1.0)
+
+            def pick(g, s, mpc=mpc, sub=sub, acts=acts):
+                acts.append(mpc(sub, s, g)[0])
+                return acts[-1]
+        else:
+            rpolicy = RandomDesignPolicy(sub.action_space)
+
+            def pick(g, rpolicy=rpolicy, acts=acts):
+                acts.append(rpolicy(g))
+                return acts[-1]
+        field = "sc" if state_aware else "tot"
+        t = time.time()
+        (times, frames, designs, signals), launched = counted(lambda: rollout_fields(
+            sub, pick, rgen, field=field, stride=RENDER_STRIDE, state=start,
+            render_size=RENDER_SIZE, state_aware=state_aware))
+        render_s = time.time() - t
+        n_frames = n_act * STEPS // RENDER_STRIDE + 1
+        check(frames.shape == (n_frames, RENDER_SIZE, RENDER_SIZE) and np.isfinite(frames).all()
+              and len(designs) == n_frames and signals.shape == (n_act, STEPS + 1, 3),
+              f"the {name} render episode's frames, designs and signals")
+        check(launched.get("fused_rk4_radii_only") == n_act * STEPS
+              and launched.get("select_owner") == n_act,
+              f"the {name} render episode takes K2 a step and an owner pass a window: {launched}")
+        check(replayed(start, acts, signals),
+              f"the {name} render episode's signals are env_step_full's")
+        renders[name] = render_s
+        log("full field", f"rollout_fields, {name}, {n_act} actions at {SIZE}^2, frames "
+                          f"{RENDER_SIZE}^2 every {RENDER_STRIDE} steps: {render_s:.3f} s; signals "
+                          f"equal to env_step_full's replay; launches {launched}")
+
+    # 4. the adjoint demo's optimisation at its width, ADJOINT_ITERS Adam steps
+    problem = AdjointProblem(steps=300, nfreq=50, elements=1024, device=dev)
+    coefs0 = (torch.randn((1, 4, 50), generator=torch.Generator().manual_seed(0)) * 0.01).to(dev)
+    adj_s, (_, losses) = host_s(lambda: optimise(problem, coefs0, ADJOINT_ITERS,
+                                                 log=lambda m: None))
+    log("full field", f"adjoint demo, {ADJOINT_ITERS} Adam steps through 300 latent steps: "
+                      f"{adj_s:.3f} s, loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the adjoint loss falls")
+
+    # 5. the latent-space dashboard's rollout and MSE at full width
+    lat_env = dataclasses.replace(env, actions=RENDER_ACTIONS)
+    lat_s, lat = host_s(lambda: latent_comparison(lat_env, model,
+                                                  torch.Generator(device=dev).manual_seed(35),
+                                                  STRIDE))
+    check(lat["y"].shape == (RENDER_ACTIONS * STEPS + 1, 3)
+          and lat["y_hat"].shape == (RENDER_ACTIONS * STEPS // STRIDE + 1, 3)
+          and np.isfinite(lat["mse"]) and np.isfinite(lat["z"]).all(),
+          "the latent-space comparison is finite, of the expected shapes")
+    log("full field", f"latent-space dashboard, {RENDER_ACTIONS} actions, {CHECKPOINT}: {lat_s:.3f} s, "
+                      f"real-vs-latent MSE {lat['mse']:.5g}")
+
+    # 6. the PML demo's free-field rollout (the plain integrator, 256^2, 500 steps)
+    pml_s, (pframes, energy) = host_s(lambda: pml_rollout(256, 500, dev))
+    check(np.isfinite(pframes).all() and energy.max() > 0.0, "the PML demo's field is finite")
+    log("full field", f"PML demo, 256^2 x 500 plain steps: {pml_s:.3f} s, energy peak "
+                      f"{energy.max():.4g}, final {energy[-1] / energy.max():.1%} of it")
+    log("full field", f"phase {time.time() - t_phase:.1f} s; main-path launches {dict(main_path)}")
+    return dict(main_path)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3035,18 +3290,25 @@ def main(argv=None) -> int:
     dp_bf16_phase(env, dev, dg_eps, os.path.join(data_tmp.name, "cli"), smi)
     data_tmp.cleanup()
 
+    # 13. full-field rollouts, flux and the device half of every drawing path
+    ff_counts = full_field_phase(env, state, pos_env, model, dev)
+
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
-    # launches from the main-path runs: K2 from the exact simulator run,
-    # K1 and K3 general from the position-design runs at x_matmul=False, K3
-    # radii-only from the hybrid's exact re-rank, K5 from datagen, the
-    # position-design runs and the hybrid episode
+    # launches from the main-path runs: K2 from the exact simulator run and
+    # phase 13's full-field runs, K1 and K3 general from the position-design
+    # runs at x_matmul=False (K1 also from phase 13), K3 radii-only from the
+    # hybrid's exact re-rank, K5 from datagen, the position-design runs and
+    # the hybrid episode
     single_rows = (
         ("fused_rk4_radii_only", "waves_jl_tpu/ops/pallas_fd.py:432",
-         sim_counts["fused_rk4_radii_only"], (k2_abs, k2_ms, k2_plain, k2_bound)),
-        ("select_owner", "waves_jl_tpu/ops/pallas_fd.py:247", mpc_counts["select_owner"],
+         sim_counts["fused_rk4_radii_only"] + ff_counts.get("fused_rk4_radii_only", 0),
+         (k2_abs, k2_ms, k2_plain, k2_bound)),
+        ("select_owner", "waves_jl_tpu/ops/pallas_fd.py:247",
+         mpc_counts["select_owner"] + ff_counts.get("select_owner", 0),
          (owner_err, own_ms, own_plain, own_bound)),
         ("fused_rk4_general", "waves_jl_tpu/ops/pallas_fd.py:432",
-         pos_counts[False]["fused_rk4_general"], (k1_abs, k1_ms, k1_plain, k1_bound)),
+         pos_counts[False]["fused_rk4_general"] + ff_counts.get("fused_rk4_general", 0),
+         (k1_abs, k1_ms, k1_plain, k1_bound)),
         ("fused_rk4_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278",
          dg_counts["fused_rk4_xmatmul_radii_only"], (xm_abs[True], k5_ms, k5_plain, k5_bound)),
         ("fused_rk4_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278",

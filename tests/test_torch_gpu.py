@@ -50,7 +50,11 @@ two shards of one card, and across two or four cards, against one card:
 two updates' losses within 1e-4 and leaves within rtol 5e-3 / atol 2e-5,
 the replicas bit for bit equal; `fast_ranking()` on the card against the
 float32 model and against the CPU (costs within 5e-2, the same choice),
-and the bf16-conv model against float32 (rtol 0.1 / atol 0.05).
+and the bf16-conv model against float32 (rtol 0.1 / atol 0.05). The
+full-field window of `env_step_full` (K2 with its owner pass, or K1) at
+700^2 equals its plain route on the card bit for bit on the frames and
+fields, its signal within 1e-6, its strided and resized form the
+stride-1 run's.
 """
 import dataclasses
 
@@ -1302,3 +1306,61 @@ def test_fast_ranking_and_bf16_convs_on_the_card(card):
         got, want = bf(batch), model(batch)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0.1, atol=0.05)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radii_only", [True, False])
+def test_full_field_window_kernel_route_equals_plain_route(card, radii_only):
+    """The full-field window (`make_env_step_full`) at 700^2 on the card, K2
+    with its owner pass on the triple ring and K1 on moving cylinders,
+    against its plain route on the same card: frames and the u_tot/u_inc
+    fields at stride 1 bit for bit, the signal within 1e-6, one launch a
+    step; and at render_size 350, time stride 10, the signal the stride-1
+    run's bit for bit and the fields the resized stride-1 fields within
+    1e-6. The K1 case runs 10 steps a window (its plain step is slow)."""
+    from waves_jl_tpu_torch.designs import (AdjustablePositionScatterers, Cloak, Cylinders,
+                                            DesignSpace, build_triple_ring_design_space)
+    from waves_jl_tpu_torch.dims import build_grid, two_dim
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset, make_wave_env, resize_weights
+    from waves_jl_tpu_torch.models.layers import full_float32
+    from waves_jl_tpu_torch.physics.fused import make_env_step_full, radii_only_ok
+    from waves_jl_tpu_torch.sources import GaussianSource
+
+    n = 700
+    steps = 100 if radii_only else 10
+    dim = two_dim(15.0, n, device=card)
+    source = GaussianSource.create(build_grid(dim), [[-10.0, -10.0]], [[-10.0, 10.0]], [0.3],
+                                   [1.0], 1000.0)
+    space = build_triple_ring_design_space(device=card)
+    if not radii_only:
+        def free(d, v):
+            cy = d.config.cylinders
+            return Cloak(AdjustablePositionScatterers(Cylinders(cy.pos + v, torch.full_like(
+                cy.r, 0.6), cy.c)), d.core)
+
+        space = DesignSpace(free(space.low, -0.5), free(space.high, 0.5))
+    env = make_wave_env(dim, space, source, integration_steps=steps, actions=3)
+    assert radii_only_ok(env.design_space) == radii_only
+    gen = torch.Generator(device=card).manual_seed(0)
+    policy = RandomDesignPolicy(env.action_space)
+    kernel, plain = make_env_step_full(env), make_env_step_full(env, plain=True)
+    state, _ = kernel(env_reset(env, gen), policy(gen))  # a wave to step
+    action = policy(gen)
+    fk.reset_launch_counts()
+    got, info = kernel(state, action)
+    torch.cuda.synchronize()
+    key = "fused_rk4_radii_only" if radii_only else "fused_rk4_general"
+    assert fk.launch_counts[key] == steps
+    assert fk.launch_counts["select_owner"] == int(radii_only)
+    want, want_info = plain(state, action)
+    for a, b in ((got.wave, want.wave), (info["u_tot"], want_info["u_tot"]),
+                 (info["u_inc"], want_info["u_inc"])):
+        assert torch.equal(a, b)
+    assert rel(got.signal, want.signal) <= 1e-6
+    small, small_info = kernel(state, action, render_size=350, time_stride=10)
+    assert torch.equal(small.signal, got.signal)
+    assert small_info["u_tot"].shape == (steps // 10 + 1, 350, 350)
+    w = torch.from_numpy(resize_weights(n, 350)).to(card)
+    with full_float32():
+        resized = w @ info["u_tot"][::10] @ w.T
+    assert rel(small_info["u_tot"], resized) <= 1e-6

@@ -5,7 +5,9 @@ the tracked pools3 surrogate at full width and a small population. Each
 writes a result JSON with the keys of the JAX CLI's
 (`mpc_results_bc_policy.json`) and finite decreases. `--fast` (the bf16
 ranking) runs CEM and random shooting and prints its mode line. The
-options that are not ported yet exit with a message saying so; the
+option that is not ported yet (`--fused-episode`) exits with a message
+saying so, with `--render` (ported: tests/test_torch_viz_cli.py) or
+`--fast` beside it; the
 gradient, ensemble and oracle controllers run in
 tests/test_torch_control_cli.py.
 """
@@ -65,10 +67,10 @@ def test_fast_ranking_controllers(tmp_path, capsys, controller):
     assert "fast-ranking mode: bf16 latent matmul" in capsys.readouterr().out.splitlines()
 
 
-# --fast is ported: beside --render (args2) the refusal is --render's
-@pytest.mark.parametrize("args", [["--render", "out.mp4"],
+# --render and --fast are ported: beside them the refusal is --fused-episode's
+@pytest.mark.parametrize("args", [["--render", "out.mp4", "--fused-episode"],
                                   ["--controller", "hybrid", "--fused-episode"],
-                                  ["--fast", "--render", "out.mp4"]])
+                                  ["--fast", "--fused-episode"]])
 def test_unported_options_exit_with_a_message(tmp_path, args):
     with pytest.raises(SystemExit, match="not yet ported"):
         main([*args, "--checkpoint", "x", "--out", str(tmp_path / "r.json")])

@@ -5,10 +5,12 @@ trains the flagship at narrow width on them (`--horizons 1 2
 JAX package's `load_checkpoint` (parameters and the accumulating
 optimizer's state) and predicts what the port's model predicts from it
 (1e-5 relative); `scripts/avg_checkpoints.py` averages the run's two
-checkpoints as `scripts_tpu/avg_checkpoints.py` does, bit for bit; the
-options that wait for their port (the train CLI's `--dp` on the CPU, the
-plots of `scripts/prediction.py` and `scripts/pinn_acceptance.py`) exit
-non-zero with a message, and so does `--dp` with `--stream`."""
+checkpoints as `scripts_tpu/avg_checkpoints.py` does, bit for bit; each
+checkpoint directory holds the windowed trainer's dashboard (the flagship's
+`make_plots_acoustic` on the validation windows), with no "plotting
+failed" line; the options that wait for their port (the train CLI's `--dp`
+on the CPU, the MPC CLI's `--fused-episode`) exit non-zero with a message,
+and so does `--dp` with `--stream`."""
 import importlib.util
 import json
 import os
@@ -53,7 +55,12 @@ def trained(tmp_path_factory):
                "--accumulate", "2", "--val-every", "1", "--lr", "1e-3", "--sc-weight", "4",
                "--device", "cpu", *WIDTH)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "per-checkpoint plots" in proc.stdout.splitlines()[0]
+    assert "plotting failed" not in proc.stdout
+    checkpoints = [d for d in os.listdir(out) if d.startswith("checkpoint_step=")]
+    assert checkpoints
+    for d in checkpoints:
+        assert {"pml.png", "force.png", "tot1.png", "inc2.png",
+                "sc2.png"} <= set(os.listdir(os.path.join(out, d))), d
     return data, out
 
 
@@ -104,8 +111,8 @@ def test_avg_checkpoints_matches_jax_script(trained, tmp_path):
 
 @pytest.mark.parametrize("script,args", [
     ("train", ["--data", "{tmp}", "--out", "{tmp}/o", "--dp"]),
-    ("prediction", ["--data", "{tmp}", "--out", "{tmp}/plot.png"]),
-    ("pinn_acceptance", ["--out", "{tmp}/figures"]),
+    ("mpc", ["--controller", "hybrid", "--fused-episode", "--checkpoint", "x", "--out",
+             "{tmp}/r.json"]),
 ])
 def test_options_that_wait_exit_with_a_message(script, args, tmp_path):
     proc = run(f"waves_jl_tpu_torch.scripts.{script}", "--device", "cpu",

@@ -8,3 +8,5 @@ AIR = 344.0
 WATER = 1531.0
 
 DESIGN_SPEED = 3 * AIR
+
+FRAMES_PER_SECOND = 24  # frame rate of the rendered videos

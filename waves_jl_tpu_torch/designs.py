@@ -17,14 +17,43 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .constants import DESIGN_SPEED
+from .constants import AIR, DESIGN_SPEED
 from .device import resolve_device
-from .utils.trees import register_tree_dataclass, tree_map
+from .utils.trees import register_tree_dataclass, tree_add, tree_map, tree_scale, tree_zeros_like
+
+
+class DesignAlgebra:
+    """Designs as vectors: `+` and `-` with a design of the same structure
+    or a scalar, `*` with a scalar or leaf by leaf with a design, `/` by a
+    scalar, and `zero()`."""
+
+    def __add__(self, other):
+        if isinstance(other, (int, float)):
+            return tree_map(lambda x: x + other, self)
+        return tree_add(self, other)
+
+    __radd__ = __add__
+
+    def __mul__(self, s):
+        if isinstance(s, DesignAlgebra):
+            return tree_map(torch.mul, self, s)
+        return tree_scale(self, s)
+
+    __rmul__ = __mul__
+
+    def __sub__(self, other):
+        return self + (-1.0) * other
+
+    def __truediv__(self, s):
+        return self * (1.0 / s)
+
+    def zero(self):
+        return tree_zeros_like(self)
 
 
 @register_tree_dataclass
 @dataclass(frozen=True)
-class NoDesign:
+class NoDesign(DesignAlgebra):
     """The empty design of a free-field env: no cylinders."""
 
     def to_vec(self, device=None) -> torch.Tensor:
@@ -36,7 +65,7 @@ class NoDesign:
 
 @register_tree_dataclass
 @dataclass(frozen=True)
-class Cylinders:
+class Cylinders(DesignAlgebra):
     """M cylinders: pos (..., M, 2), radii r (..., M), speed c (..., M)."""
 
     pos: torch.Tensor
@@ -50,7 +79,7 @@ class Cylinders:
 
 @register_tree_dataclass
 @dataclass(frozen=True)
-class AdjustableRadiiScatterers:
+class AdjustableRadiiScatterers(DesignAlgebra):
     cylinders: Cylinders
 
     def to_vec(self) -> torch.Tensor:
@@ -59,7 +88,7 @@ class AdjustableRadiiScatterers:
 
 @register_tree_dataclass
 @dataclass(frozen=True)
-class AdjustablePositionScatterers:
+class AdjustablePositionScatterers(DesignAlgebra):
     cylinders: Cylinders
 
     def to_vec(self) -> torch.Tensor:
@@ -68,7 +97,7 @@ class AdjustablePositionScatterers:
 
 @register_tree_dataclass
 @dataclass(frozen=True)
-class Cloak:
+class Cloak(DesignAlgebra):
     """Adjustable ring + static core."""
 
     config: AdjustableRadiiScatterers
@@ -99,11 +128,16 @@ def design_cylinders(design) -> Cylinders | None:
     raise TypeError(f"unsupported design {type(design)}")
 
 
+def location_mask(cyls: Cylinders, grid: torch.Tensor) -> torch.Tensor:
+    """(nx, ny, M) mask of the grid points inside each cylinder."""
+    d2 = torch.sum((grid[:, :, None, :] - cyls.pos[None, None, :, :]) ** 2, dim=-1)
+    return d2 < (cyls.r**2)[None, None, :]
+
+
 def cylinders_speed(cyls: Cylinders, grid: torch.Tensor, ambient_speed) -> torch.Tensor:
     """Wavespeed field over grid (nx, ny, 2): ambient where no cylinder
     covers a point, else the sum of the covering cylinders' speeds."""
-    d2 = torch.sum((grid[:, :, None, :] - cyls.pos[None, None, :, :]) ** 2, dim=-1)
-    mask = (d2 < (cyls.r**2)[None, None, :]).to(grid.dtype)
+    mask = location_mask(cyls, grid).to(grid.dtype)
     ambient = (torch.sum(mask, dim=-1) == 0).to(grid.dtype) * ambient_speed
     return ambient + torch.sum(mask * cyls.c[None, None, :], dim=-1)
 
@@ -191,6 +225,18 @@ def lerp_weight(t, ti, tf) -> float:
     return float((min(max(t, ti), tf) - ti) / span)
 
 
+def multi_design_interpolation(interps: list, t):
+    """The design at time t of consecutive windows' interpolators: the first
+    whose [ti, tf] holds t, else the one with the nearest end (on the
+    host)."""
+    tf = float(t)
+    for interp in interps:
+        if interp.ti <= tf <= interp.tf:
+            return interp(t)
+    best = min(interps, key=lambda it: min(abs(tf - it.ti), abs(tf - it.tf)))
+    return best(t)
+
+
 @dataclass(frozen=True)
 class SpeedField:
     """t -> rasterised wavespeed field of the interpolated design."""
@@ -238,6 +284,16 @@ def to_vec(design) -> torch.Tensor:
     return design.to_vec()
 
 
+def design_to_circles(design) -> list:
+    """(x, y, r) of each cylinder of a design, on the host, for drawing."""
+    cyls = design_cylinders(design)
+    if cyls is None:
+        return []
+    pos = cyls.pos.detach().cpu().numpy()
+    r = cyls.r.detach().cpu().numpy()
+    return [(float(pos[i, 0]), float(pos[i, 1]), float(r[i])) for i in range(len(r))]
+
+
 def hexagon_ring(r: float, device) -> torch.Tensor:
     """(6, 2) hexagon vertex positions."""
     ang = torch.arange(6, dtype=torch.float32, device=device) * 2.0 * math.pi / 6.0
@@ -278,3 +334,46 @@ def build_triple_ring_design_space(device="cuda") -> DesignSpace:
                        hexagon_ring(6.0, dev)], dim=0)
     pos = rings + torch.tensor([5.0, 0.0], dtype=torch.float32, device=dev)
     return build_radii_design_space(pos)
+
+
+def build_simple_radii_design_space(device="cuda") -> DesignSpace:
+    """One adjustable cylinder at the origin, radius in [0.2, 1.0], and a
+    static core of radius 2 at (5, 0), both at the speed of AIR."""
+    dev = resolve_device(device)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    c = f32([AIR])
+    core = Cylinders(pos=f32([[5.0, 0.0]]), r=f32([2.0]), c=f32([AIR]))
+
+    def cloak(radius):
+        return Cloak(AdjustableRadiiScatterers(Cylinders(f32([[0.0, 0.0]]), f32([radius]), c)),
+                     core)
+
+    return DesignSpace(cloak(0.2), cloak(1.0))
+
+
+def build_rectangular_grid(nx: int, ny: int, r: float, device="cuda") -> torch.Tensor:
+    """(nx ny, 2) positions of an nx x ny grid of pitch 2 r centred on the
+    origin, x varying slowest."""
+    dev = resolve_device(device)
+    xs = torch.arange(nx, dtype=torch.float32, device=dev) * 2.0 * r
+    ys = torch.arange(ny, dtype=torch.float32, device=dev) * 2.0 * r
+    gx, gy = torch.meshgrid(xs, ys, indexing="ij")
+    pos = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=1)
+    return pos - torch.mean(pos, dim=0, keepdim=True)
+
+
+def build_rectangular_grid_design_space(device="cuda") -> DesignSpace:
+    """A 5 x 5 grid of cylinders of pitch 2.2 with adjustable radii in
+    [0.2, 1.0] at speed 3 x AIR, no core."""
+    pos = build_rectangular_grid(5, 5, 1.0 + 0.1, device)
+    m = pos.shape[0]
+    c = torch.full((m,), DESIGN_SPEED, dtype=torch.float32, device=pos.device)
+
+    def grid(radius):
+        return AdjustableRadiiScatterers(
+            Cylinders(pos, torch.full((m,), radius, dtype=torch.float32, device=pos.device), c))
+
+    return DesignSpace(grid(0.2), grid(1.0))

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .device import resolve_device
@@ -37,10 +38,30 @@ def one_dim(grid_size: float, n: int, device="cuda") -> OneDim:
     return OneDim(torch.linspace(-grid_size, grid_size, n, dtype=torch.float32, device=dev))
 
 
+def spacing_axis(grid_size: float, delta: float) -> np.ndarray:
+    """The float32 points -grid_size, -grid_size + delta, ... up to
+    grid_size + delta / 2, as the JAX package's `jnp.arange` with a step
+    gives them: it hands a float step to `np.arange` in float32, whose point
+    count is the ceiling of (stop - start) / step in float64 and whose
+    points are start + i (the float32 second point minus start)."""
+    return np.arange(-grid_size, grid_size + 0.5 * delta, delta, dtype=np.float32)
+
+
+def one_dim_spacing(grid_size: float, delta: float, device="cuda") -> OneDim:
+    """Points delta apart on [-grid_size, grid_size]."""
+    return OneDim(torch.from_numpy(spacing_axis(grid_size, delta)).to(resolve_device(device)))
+
+
 def two_dim(grid_size: float, n: int, device="cuda") -> TwoDim:
     """n x n points on [-grid_size, grid_size]^2."""
     dev = resolve_device(device)
     ax = torch.linspace(-grid_size, grid_size, n, dtype=torch.float32, device=dev)
+    return TwoDim(ax, ax)
+
+
+def two_dim_spacing(grid_size: float, delta: float, device="cuda") -> TwoDim:
+    """Points delta apart on [-grid_size, grid_size]^2."""
+    ax = torch.from_numpy(spacing_axis(grid_size, delta)).to(resolve_device(device))
     return TwoDim(ax, ax)
 
 
@@ -55,6 +76,11 @@ def build_grid(dim):
         gy = dim.y[None, :].expand(nx, ny)
         return torch.stack([gx, gy], dim=-1)
     raise TypeError(f"unsupported dim type {type(dim)}")
+
+
+def build_wave(dim, fields: int) -> torch.Tensor:
+    """Zero state (fields, *dim.shape) on the grid's device."""
+    return torch.zeros((fields, *dim.shape), dtype=torch.float32, device=dim.x.device)
 
 
 def build_dirichlet(dim) -> torch.Tensor:

@@ -5,7 +5,9 @@ A frozen `WaveEnv` holds the static parameters and an explicit `EnvState`
 is stepped by functions `(env, state, action) -> (state', info)`. Random
 draws come from an explicit `torch.Generator`. `env_step` is the plain
 PyTorch path, an RK4 step at a time; `physics.fused.make_env_step_fused` is
-the kernel path the main loop runs.
+the kernel path the main loop runs. `env_step_full` and `env_step_flux`,
+which give the full fields for rendering and the flux, take the kernel
+with the exact stencil (`physics.fused.make_env_step_full`).
 """
 from __future__ import annotations
 
@@ -174,6 +176,35 @@ def env_step(env: WaveEnv, state: EnvState, action) -> tuple[EnvState, dict]:
         time_step=state.time_step + env.integration_steps,
     )
     return new_state, {"tspan": tspan}
+
+
+def env_step_full(env: WaveEnv, state: EnvState, action, render_size: int | None = None,
+                  time_stride: int = 1) -> tuple[EnvState, dict]:
+    """`env_step` that also returns the displacement trajectories u_tot and
+    u_inc of the window, (steps // time_stride + 1, n, n) each, resized on
+    the device to render_size^2 where given, for rendering. It runs the
+    exact one-launch kernel on the card and its plain version on the CPU
+    (`physics.fused.make_env_step_full`, which a caller stepping many
+    windows builds once); the signal stays full resolution."""
+    from .physics.fused import make_env_step_full
+
+    return make_env_step_full(env)(state, action, render_size, time_stride)
+
+
+def env_step_flux(env: WaveEnv, state: EnvState, action,
+                  mask_radius: float = 2.0) -> tuple[EnvState, dict]:
+    """`env_step_full` at full resolution, with info["flux"] (steps+1,): the
+    flux of each step's scattered field u_tot - u_inc through the disc of
+    `mask_radius` about the origin (`ops.metrics.flux` with the
+    `laplacian_matrix` of the x axis)."""
+    from .ops.fd import laplacian_matrix
+    from .ops.metrics import circle_mask, flux
+
+    lap = laplacian_matrix(env.dim.x)
+    mask = circle_mask(env.dim, mask_radius).to(torch.float32)
+    new_state, info = env_step_full(env, state, action)
+    info["flux"] = flux(info["u_tot"] - info["u_inc"], lap, mask)
+    return new_state, info
 
 
 def env_observe(env: WaveEnv, state: EnvState) -> WaveEnvState:

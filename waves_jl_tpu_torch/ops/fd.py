@@ -21,6 +21,41 @@ def gradient_matrix(x: torch.Tensor) -> torch.Tensor:
     return grad / (2.0 * dx)
 
 
+def laplacian_matrix(x: torch.Tensor) -> torch.Tensor:
+    """Dense (N, N) second-derivative operator: (1, -2, 1) / dx^2 inside,
+    and the one-sided rows (2, -5, 4, -1) / dx^3 at the two ends. The ends
+    divide by dx^3, copied from the reference's operator (sic)."""
+    n = x.shape[0]
+    dx = (x[-1] - x[0]) / (n - 1)
+    lap = torch.zeros((n, n), dtype=torch.float32, device=x.device)
+    i = torch.arange(1, n - 1, device=x.device)
+    lap[i, i - 1] = 1.0
+    lap[i, i] = -2.0
+    lap[i, i + 1] = 1.0
+    lap = lap / dx**2
+    b = torch.tensor([2.0, -5.0, 4.0, -1.0], dtype=torch.float32, device=x.device) / dx**3
+    lap[0, 0:4] = b
+    lap[n - 1, n - 4:n] = b.flip(0)
+    return lap
+
+
+def _d_last(v: torch.Tensor, spacing) -> torch.Tensor:
+    interior = v[..., 2:] - v[..., :-2]
+    left = -3.0 * v[..., :1] + 4.0 * v[..., 1:2] - v[..., 2:3]
+    right = v[..., -3:-2] - 4.0 * v[..., -2:-1] + 3.0 * v[..., -1:]
+    return torch.cat([left, interior, right], dim=-1) / (2.0 * spacing)
+
+
+def fd_d(u: torch.Tensor, spacing, axis: int) -> torch.Tensor:
+    """First derivative along any axis with `fd_dx`'s stencils."""
+    return torch.movedim(_d_last(torch.movedim(u, axis, -1), spacing), -1, axis)
+
+
+def fd_grad_1d(u: torch.Tensor, dx, axis: int = -1) -> torch.Tensor:
+    """First derivative along `axis` by the stencil; `gradient_matrix @ u`."""
+    return fd_d(u, dx, axis)
+
+
 def fd_dx(u: torch.Tensor, dx) -> torch.Tensor:
     """d/dx of a field laid out (..., nx, ny): derivative along axis -2."""
     interior = u[..., 2:, :] - u[..., :-2, :]
@@ -35,6 +70,11 @@ def fd_dy(u: torch.Tensor, dy) -> torch.Tensor:
     left = -3.0 * u[..., :1] + 4.0 * u[..., 1:2] - u[..., 2:3]
     right = u[..., -3:-2] - 4.0 * u[..., -2:-1] + 3.0 * u[..., -1:]
     return torch.cat([left, interior, right], dim=-1) / (2.0 * dy)
+
+
+def divergence(u: torch.Tensor, dx, dy) -> torch.Tensor:
+    """d/dx u + d/dy u of a field laid out (..., nx, ny)."""
+    return fd_dx(u, dx) + fd_dy(u, dy)
 
 
 def _dx_taps(u: torch.Tensor) -> torch.Tensor:

@@ -816,29 +816,58 @@ def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfi
     return out, partials.sum(dim=1)
 
 
+def _fields_out(u, times, every: int):
+    """The (1 + steps // every, 2, n, n) tensor a window's displacement
+    channels go into, channels (0, 6) of u already in its first slot."""
+    fields = torch.empty((1 + len(times) // every, 2, *u.shape[-2:]), dtype=u.dtype,
+                         device=u.device)
+    fields[0].copy_(u[0::6])
+    return fields
+
+
+def fused_rk4_window_reference(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
+                               keep, x_matmul: bool = False, fields_every: int = 0):
+    """Plain version of `fused_rk4_window`, on any device: the plain step
+    (`fused_rk4_step_reference`, or its batched form), step by step."""
+    batch = u.shape[0] if u.dim() == 4 else None
+    step = fused_rk4_step_reference if batch is None else fused_rk4_step_batched_reference
+    fields = _fields_out(u, times, fields_every) if fields_every else None
+    kept, energies = [], []
+    for s, t in enumerate(times):
+        u, e = step(u, shape, prof, cyl, owner, t, ti, tf, cfg, x_matmul=x_matmul)
+        energies.append(e)
+        if s in keep:
+            kept.append(u)
+        if fields_every and (s + 1) % fields_every == 0:
+            fields[(s + 1) // fields_every].copy_(u[0::6])
+    energies = torch.stack(energies)
+    return (kept, energies) if fields is None else (kept, energies, fields)
+
+
 def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
-                     keep, x_matmul: bool = False):
+                     keep, x_matmul: bool = False, fields_every: int = 0):
     """Advance one state (12, n, n), or K candidates (K, 12, n, n) with
     their own cylinders and owner fields, through a window's steps from the
     float32 start times `times`, with the design lerped over [ti, tf], as
     `fused_rk4_step` or `fused_rk4_step_batched` would step by step. The new
     state of each step whose index is in `keep` is kept, in a tensor of its
-    own. On the card, either mode in either d/dx form takes one launch a
-    step, its window's fixed inputs marshalled once, its steps alternating
-    between two state buffers made once (the input u is never written),
-    and its energy partials (steps, K, blocks, 3) made once and reduced
-    once. The CPU's plain version goes step by step. Returns (the kept
-    states in order, energies (steps, 3) or (steps, K, 3))."""
+    own. With `fields_every` > 0 (one state), the displacement channels
+    (0, 6), u_tot and u_inc, of u and of the state after every
+    fields_every-th step are copied into one (1 + steps // fields_every,
+    2, n, n) tensor, returned third: the full field at a time stride
+    without whole states kept. On the card, either mode in either d/dx form
+    takes one launch a step, its window's fixed inputs marshalled once, its
+    steps alternating between two state buffers made once (the input u is
+    never written), and its energy partials (steps, K, blocks, 3) made once
+    and reduced once. The CPU takes the plain version,
+    `fused_rk4_window_reference`. Returns (the kept states in order,
+    energies (steps, 3) or (steps, K, 3)[, fields])."""
     batch = u.shape[0] if u.dim() == 4 else None
+    if fields_every and batch is not None:
+        raise ValueError("fields_every takes one state, not a candidate batch")
     if not _on_card(u):
-        step = fused_rk4_step if batch is None else fused_rk4_step_batched
-        kept, energies = [], []
-        for s, t in enumerate(times):
-            u, e = step(u, shape, prof, cyl, owner, t, ti, tf, cfg, x_matmul=x_matmul)
-            energies.append(e)
-            if s in keep:
-                kept.append(u)
-        return kept, torch.stack(energies)
+        return fused_rk4_window_reference(u, shape, prof, cyl, owner, times, ti, tf, cfg, keep,
+                                          x_matmul, fields_every)
     n, dev = cfg.n, u.device
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, n), dev)
@@ -848,6 +877,7 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
                            device=dev)
     base, row_bytes = partials.data_ptr(), partials.stride(0) * partials.element_size()
     buffers = (torch.empty_like(u), torch.empty_like(u))
+    fields = _fields_out(u, times, fields_every) if fields_every else None
     keep, kept = set(keep), []
     with torch.cuda.device(dev):  # the launches go to the current device
         for s, t in enumerate(times):
@@ -858,8 +888,11 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
                 dst = buffers[1] if u is buffers[0] else buffers[0]
             launcher.launch(u.data_ptr(), dst.data_ptr(), base + s * row_bytes, float(t))
             u = dst
+            if fields_every and (s + 1) % fields_every == 0:
+                fields[(s + 1) // fields_every].copy_(u[0::6])
     energies = partials.sum(dim=2)
-    return kept, energies if batch is not None else energies[:, 0]
+    energies = energies if batch is not None else energies[:, 0]
+    return (kept, energies) if fields is None else (kept, energies, fields)
 
 
 class SlabWindow:

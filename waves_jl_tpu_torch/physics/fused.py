@@ -20,9 +20,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..designs import design_cylinders
-from ..env import EnvState, WaveEnv, env_tspan, frame_segments
-from ..ops.fused_rk4 import StepConfig, fused_rk4_window, select_owner, select_owner_batched
+from ..designs import DesignInterpolator, design_cylinders
+from ..env import EnvState, WaveEnv, env_tspan, frame_segments, resize_weights
+from ..models.layers import full_float32
+from ..ops.fused_rk4 import (StepConfig, fused_rk4_window, fused_rk4_window_reference,
+                             select_owner, select_owner_batched, select_owner_reference)
 from ..utils.trees import tree_leaves, tree_map
 
 
@@ -72,16 +74,21 @@ def step_config(env: WaveEnv) -> StepConfig:
     )
 
 
-def make_fused_window(env: WaveEnv, x_matmul: bool = True):
+def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False):
     """Action window through the fused kernel, one launch a step on the
     card; radii-only (K2) when `radii_only_ok` holds for the design space,
-    else general (K1); with the split d/dx (K5) if `x_matmul`.
+    else general (K1); with the split d/dx (K5) if `x_matmul`. `plain`
+    takes the plain step on any device (the reference the card holds the
+    kernel to); the CPU takes it anyway.
 
-    Returns window(u, shape, tspan, cyl) -> (u_final, frames, signal): u the
-    (12, n, n) state, shape the (n, n) source shape, tspan the window's
-    (steps+1,) float32 host times, cyl from `cyl_params`. frames are the
-    states at the ends of the frame segments and signal is (steps+1, 3)
-    energies times the cell area.
+    Returns window(u, shape, tspan, cyl, fields_every=0) -> (u_final,
+    frames, signal): u the (12, n, n) state, shape the (n, n) source shape,
+    tspan the window's (steps+1,) float32 host times, cyl from
+    `cyl_params`. frames are the states at the ends of the frame segments
+    and signal is (steps+1, 3) energies times the cell area, from the
+    kernel's partials at every step. With `fields_every` > 0 a fourth
+    value, (1 + steps // fields_every, 2, n, n): u_tot and u_inc of u and
+    of the state after every fields_every-th step (`fused_rk4_window`).
     """
     cfg = step_config(env)
     frame_ends = (np.cumsum(frame_segments(env.integration_steps)) - 1).tolist()
@@ -89,20 +96,63 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True):
     radii = radii_only_ok(env.design_space)
     prof = env.integrator.dynamics.pml[:, 0].contiguous()
     d_omega = cfg.spacing * cfg.spacing
+    run = fused_rk4_window_reference if plain else fused_rk4_window
+    owner_of = select_owner_reference if plain else select_owner
 
-    def window(u, shape, tspan, cyl):
+    def window(u, shape, tspan, cyl, fields_every: int = 0):
         ti, tf = float(tspan[0]), float(tspan[-1])
-        owner = select_owner(cyl, cfg) if radii else None
+        owner = owner_of(cyl, cfg) if radii else None
         sc = u[0] - u[6]
         e0 = torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
-        kept, energies = fused_rk4_window(u, shape, prof, cyl, owner,
-                                          [float(t) for t in tspan[:-1]], ti, tf, cfg, stepped,
-                                          x_matmul)
+        kept, energies, *fields = run(u, shape, prof, cyl, owner, [float(t) for t in tspan[:-1]],
+                                      ti, tf, cfg, stepped, x_matmul, fields_every)
         after = dict(zip(stepped, kept))  # an empty segment's frame is the state before it
         frames = [after.get(e, u) for e in frame_ends]
-        return frames[-1], frames, torch.cat([e0[None], energies]) * d_omega
+        return (frames[-1], frames, torch.cat([e0[None], energies]) * d_omega, *fields)
 
     return window
+
+
+def make_env_step_full(env: WaveEnv, plain: bool = False):
+    """Counterpart of the JAX package's `env_step_full`: the window of
+    `make_fused_window` with the exact stencil of JAX's `env.integrator`
+    (`x_matmul=False`; K2 and its owner pass, or K1), `plain` as there, the
+    fields copied out at the time stride. Returns step(state, action,
+    render_size=None, time_stride=1) -> (state', info): the state as
+    `env_step` gives it, info {"tspan", "u_tot", "u_inc", "interp"} with
+    the trajectories (steps // time_stride + 1, n, n) at every
+    time_stride-th time, resized on the device to render_size^2 with the
+    observation's antialiased linear weights (`resize_weights`, in IEEE
+    float32) where render_size is below the grid's size. The signal stays
+    full resolution."""
+    window = make_fused_window(env, x_matmul=False, plain=plain)
+    n = env.dim.shape[0]
+    weights = {}
+
+    def resize(u, size):
+        if size not in weights:
+            weights[size] = torch.from_numpy(resize_weights(n, size)).to(env.device)
+        w = weights[size]
+        with full_float32():
+            return torch.matmul(torch.matmul(w, u), w.T)
+
+    def step(state: EnvState, action, render_size: int | None = None, time_stride: int = 1):
+        tspan = env_tspan(env, state)
+        next_design = env.design_space(state.design, action)
+        cyl = cyl_params(state.design, next_design, env.device).contiguous()
+        _, frames, signal, fields = window(state.wave[-1], state.source.shape, tspan, cyl,
+                                           time_stride)
+        new_state = EnvState(wave=torch.stack(frames, dim=0), design=next_design,
+                             source=state.source, signal=signal,
+                             time_step=state.time_step + env.integration_steps)
+        u_tot, u_inc = fields[:, 0], fields[:, 1]
+        if render_size is not None and render_size < n:
+            u_tot, u_inc = resize(u_tot, render_size), resize(u_inc, render_size)
+        interp = DesignInterpolator(state.design, next_design, float(tspan[0]), float(tspan[-1]))
+        return new_state, {"tspan": tspan[::time_stride], "u_tot": u_tot, "u_inc": u_inc,
+                           "interp": interp}
+
+    return step
 
 
 def make_env_step_fused(env: WaveEnv, x_matmul: bool = True):

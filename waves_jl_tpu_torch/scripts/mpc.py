@@ -16,7 +16,10 @@ gradient descent on `max(8, shots // 8)` sequences), `ensemble` (several
 `--rerank-n`, `--exact-rounds`), `oracle` (shooting in the simulator
 itself, no checkpoint) and `policy` (a one-shot policy checkpoint).
 `--fast` ranks with each surrogate's bf16 form (`fast_ranking`: the latent
-state and its derivative contraction in bf16). The result JSON has the
+state and its derivative contraction in bf16). `--render PATH` renders one
+more episode of the chosen controller after the protocol: its scattered
+energy density every 10 steps, resized on the card to at most 350^2
+(drawing needs matplotlib). The result JSON has the
 keys of the JAX CLI's. Draws
 come from torch generators seeded from `--seed`, the location and the
 episode, so the decreases are the port's own. `--device cpu` runs the
@@ -40,11 +43,11 @@ import torch
 from waves_jl_tpu_torch.control.mpc import (CEMShooting, EnsembleShooting, GradientShooting,
                                             RandomShooting, make_action_episode,
                                             make_hybrid_action_fused, make_mpc_episode_fused,
-                                            make_oracle_episode_fused, make_policy_episode_fused)
+                                            make_oracle_action_fused, make_policy_episode_fused)
 from waves_jl_tpu_torch.data import make_episode_fused
 from waves_jl_tpu_torch.designs import build_triple_ring_design_space
 from waves_jl_tpu_torch.device import resolve_device
-from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset
+from waves_jl_tpu_torch.env import RandomDesignPolicy, env_observe, env_reset
 from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
 from waves_jl_tpu_torch.models.policy import AmortizedPolicy
 from waves_jl_tpu_torch.scripts.datagen import build_env
@@ -53,8 +56,7 @@ from waves_jl_tpu_torch.utils.gaussians import build_normal
 from waves_jl_tpu_torch.utils.trees import tree_stack
 
 # options of the JAX CLI that the port does not run yet (ROADMAP Queue 1)
-NOT_PORTED = {"render": "--render",
-              "fused_episode": "--fused-episode (the one-program hybrid episode)"}
+NOT_PORTED = {"fused_episode": "--fused-episode (the one-program hybrid episode)"}
 
 
 def scattered_tail_mean(signals: np.ndarray) -> float:
@@ -134,7 +136,9 @@ def parse_args(argv=None):
                    help="receding-horizon warm start from the previous plan")
     p.add_argument("--latent-stride", type=int, default=1,
                    help="latent-dt coarsening of the surrogate checkpoint (as it was trained)")
-    p.add_argument("--render", type=str, default=None, help="not yet ported")
+    p.add_argument("--render", type=str, default=None,
+                   help="video path of one more episode of the controller, rendered after the "
+                        "protocol")
     p.add_argument("--h-size", type=int, default=256)
     p.add_argument("--nfreq", type=int, default=500)
     p.add_argument("--elements", type=int, default=1024)
@@ -154,8 +158,9 @@ def check_ported(args) -> None:
 
 
 def build_controller(args, env, dev):
-    """run(state, generator) -> (final_state, signals (A, T+1, 3), ...) of
-    the chosen controller."""
+    """(run, select) of the chosen controller: run(state, generator) ->
+    (final_state, signals (A, T+1, 3), ...) a whole episode, and
+    select(generator, state) -> action one selection."""
     space = build_triple_ring_design_space(device=dev)
     if args.controller == "policy":
         if len(args.checkpoint) != 1:
@@ -164,10 +169,12 @@ def build_controller(args, env, dev):
                                         device=dev)
         step_no = load_policy_checkpoint(policy.net, args.checkpoint[0])
         print(f"loaded policy checkpoint step {step_no} ({args.checkpoint[0]})", flush=True)
-        return make_policy_episode_fused(env, policy)
+        return (make_policy_episode_fused(env, policy),
+                lambda g, s: policy.action(env_observe(env, s).wave, s.design))
     if args.controller == "oracle":  # shooting in the simulator needs no surrogate
-        return make_oracle_episode_fused(env, horizon=args.horizon, shots=args.shots,
-                                         alpha=args.alpha)
+        act, step = make_oracle_action_fused(env, horizon=args.horizon, shots=args.shots,
+                                             alpha=args.alpha)
+        return make_action_episode(env, act, step), lambda g, s: act(s, g)[0]
     if args.controller != "ensemble" and len(args.checkpoint) != 1:
         sys.exit("multiple checkpoints require --controller ensemble")
     models = []
@@ -181,30 +188,32 @@ def build_controller(args, env, dev):
     if args.fast:
         models = [m.fast_ranking() for m in models]
     model = models[0]
+    mpc = None
     if args.controller == "ensemble":
-        return make_mpc_episode_fused(env, EnsembleShooting(
-            models=tuple(models), horizon=args.horizon, shots=args.shots, alpha=args.alpha,
-            beta=args.beta))
-    if args.controller == "gradient":
-        return make_mpc_episode_fused(env, GradientShooting(
-            model=model, horizon=args.horizon, shots=max(8, args.shots // 8), alpha=args.alpha))
-    if args.controller == "random_shooting":
-        return make_mpc_episode_fused(env, RandomShooting(model=model, horizon=args.horizon,
-                                                          shots=args.shots, alpha=args.alpha))
-    if args.controller == "cem":
-        return make_mpc_episode_fused(env, CEMShooting(
-            model=model, horizon=args.horizon, shots=args.shots, alpha=args.alpha,
-            iters=args.cem_iters, elites=args.cem_elites, warm=args.cem_warm,
-            polish_steps=args.cem_polish, polish_topk=args.cem_polish_topk,
-            polish_lr=args.cem_polish_lr))
+        mpc = EnsembleShooting(models=tuple(models), horizon=args.horizon, shots=args.shots,
+                               alpha=args.alpha, beta=args.beta)
+    elif args.controller == "gradient":
+        mpc = GradientShooting(model=model, horizon=args.horizon, shots=max(8, args.shots // 8),
+                               alpha=args.alpha)
+    elif args.controller == "random_shooting":
+        mpc = RandomShooting(model=model, horizon=args.horizon, shots=args.shots,
+                             alpha=args.alpha)
+    elif args.controller == "cem":
+        mpc = CEMShooting(model=model, horizon=args.horizon, shots=args.shots, alpha=args.alpha,
+                          iters=args.cem_iters, elites=args.cem_elites, warm=args.cem_warm,
+                          polish_steps=args.cem_polish, polish_topk=args.cem_polish_topk,
+                          polish_lr=args.cem_polish_lr)
+    if mpc is not None:  # a selection alone starts cold, as the JAX CLI's render does
+        return make_mpc_episode_fused(env, mpc), lambda g, s: mpc(env, s, g)[0]
     searcher = (CEMShooting(model=model, horizon=args.horizon, shots=args.shots,
                             alpha=args.alpha, iters=args.cem_iters, elites=args.cem_elites)
                 if args.hybrid_cem else None)
     rerank_env = build_env(args.rerank_n, 100, args.actions, dev) if args.rerank_n else None
-    return make_action_episode(env, *make_hybrid_action_fused(
+    act, step = make_hybrid_action_fused(
         env, model, horizon=args.horizon, shots=args.shots, topk=args.topk, alpha=args.alpha,
         rerank_env=rerank_env, exact_rounds=args.exact_rounds, exact_elites=args.exact_elites,
-        searcher=searcher))
+        searcher=searcher)
+    return make_action_episode(env, act, step), lambda g, s: act(s, g)[0]
 
 
 def main(argv=None) -> dict:
@@ -218,7 +227,7 @@ def main(argv=None) -> dict:
     if args.fast:
         print("fast-ranking mode: bf16 latent matmul", flush=True)
     env = build_env(args.n, 100, args.actions, dev)
-    run_mpc = build_controller(args, env, dev)
+    run_mpc, select = build_controller(args, env, dev)
     run_rnd = make_episode_fused(env)
     policy = RandomDesignPolicy(env.action_space)
 
@@ -283,7 +292,21 @@ def main(argv=None) -> dict:
     with open(args.out, "w") as f:
         json.dump(result, f)
     print(f"wrote {args.out}", flush=True)
+    if args.render:
+        render_controller_episode(args, env, select, dev)
     return result
+
+
+def render_controller_episode(args, env, select, dev) -> None:
+    """One more episode of the controller from a reset drawn from --seed,
+    rendered to --render: the scattered energy density (bound 0.2) every 10
+    steps, resized on the card to min(350, n)^2."""
+    from waves_jl_tpu_torch.viz.episode import render_episode
+
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    render_episode(env, select, generator, args.render, field="sc", bound=0.2, energy=True,
+                   render_size=min(350, args.n), state_aware=True)
+    print(f"rendered {args.render}", flush=True)
 
 
 if __name__ == "__main__":

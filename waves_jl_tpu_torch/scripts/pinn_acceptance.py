@@ -12,8 +12,9 @@
 
     python -m waves_jl_tpu_torch.scripts.pinn_acceptance --iters 5000
 
-The three figures of the JAX script wait for the `viz/` port: `--out`
-exits as not ported. `--device cpu` runs on the CPU.
+`--out DIR` also draws the JAX script's three figures there (needs
+matplotlib; no default): energy.png, sol.png and frames.png.
+`--device cpu` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ from waves_jl_tpu_torch.physics.dynamics import Integrator, build_tspan
 from waves_jl_tpu_torch.train.optim import Adam, apply_updates
 from waves_jl_tpu_torch.utils.gaussians import build_normal
 
-NOT_PORTED = {"out": "the acceptance figures (--out; viz/, ROADMAP Queue 1: \"Long tail\")"}
 
 
 @dataclass(frozen=True)
@@ -93,7 +93,7 @@ def mlp_apply(params: list, x: torch.Tensor) -> torch.Tensor:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--out", default=None, help="the figures' directory: not yet ported")
+    p.add_argument("--out", default=None, help="directory of the figures (none by default)")
     p.add_argument("--elements", type=int, default=1024)
     p.add_argument("--latent-gs", type=float, default=100.0)
     p.add_argument("--steps", type=int, default=300)
@@ -108,9 +108,10 @@ def parse_args(argv=None):
 
 
 @full_float32()
-def run(args) -> float:
-    """Steps 1-4 at the flags' sizes; returns the mean relative energy
-    error."""
+def run(args) -> dict:
+    """Steps 1-4 at the flags' sizes; returns what the figures draw, on the
+    host: {"rel_energy_err", "x" (E,), "u_true", "u_pinn" (E, T+1), "e_true",
+    "e_pinn" (T+1,)}."""
     dev = resolve_device(args.device)
     dim = one_dim(args.latent_gs, args.elements, device=dev)
     x = dim.x
@@ -195,15 +196,54 @@ def run(args) -> float:
     e_true = energy_true.cpu().numpy()
     rel_energy_err = float(np.abs(e_pinn - e_true).mean() / (np.abs(e_true).mean() + 1e-12))
     print(f"mean relative energy error: {rel_energy_err:.4f}")
-    return rel_energy_err
+    return {"rel_energy_err": rel_energy_err, "x": x.cpu().numpy(),
+            "u_true": u_true.cpu().numpy(), "u_pinn": u_pinn, "e_true": e_true, "e_pinn": e_pinn}
+
+
+def draw_figures(r: dict, out: str) -> None:
+    """energy.png (the two energy curves), sol.png (the two fields over
+    (x, step)) and frames.png (both at four steps) in `out`."""
+    from waves_jl_tpu_torch.viz.plot import pyplot
+
+    plt = pyplot()
+    os.makedirs(out, exist_ok=True)
+    T = r["u_true"].shape[1] - 1
+    fig, ax = plt.subplots()
+    ax.plot(r["e_true"], label="Ground Truth")
+    ax.plot(r["e_pinn"], label="PINN")
+    ax.legend(loc="upper left")
+    ax.set_xlabel("step")
+    ax.set_ylabel("energy")
+    fig.savefig(os.path.join(out, "energy.png"), dpi=120)
+    plt.close(fig)
+
+    fig, axs = plt.subplots(1, 2, figsize=(10, 4))
+    for a, (img, title) in zip(axs, [(r["u_true"], "Ground Truth"), (r["u_pinn"], "PINN")]):
+        a.imshow(img, aspect="auto", origin="lower", cmap="seismic")
+        a.set_title(title)
+        a.set_xlabel("time step")
+        a.set_ylabel("x")
+    fig.savefig(os.path.join(out, "sol.png"), dpi=120)
+    plt.close(fig)
+
+    fig, axs = plt.subplots(2, 2, figsize=(10, 6))
+    for a, i in zip(axs.ravel(), [0, T // 3, 2 * T // 3, T]):
+        a.plot(r["x"], r["u_true"][:, i], label="GT")
+        a.plot(r["x"], r["u_pinn"][:, i], label="PINN")
+        a.set_title(f"step {i}")
+        a.set_ylim(-2, 2)
+    axs[0, 0].legend()
+    fig.savefig(os.path.join(out, "frames.png"), dpi=120)
+    plt.close(fig)
 
 
 def main(argv=None) -> float:
     args = parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            sys.exit(f"{what} is not yet ported to waves_jl_tpu_torch")
-    return run(args)
+    r = run(args)
+    if args.out:
+        draw_figures(r, args.out)
+        print(f"wrote {args.out}/energy.png, sol.png, frames.png")
+    return r["rel_energy_err"]
 
 
 if __name__ == "__main__":

@@ -10,9 +10,9 @@ horizon, so `--resume` picks up where a run stopped:
         --node models/ref500_node_r4b/checkpoint_step=2040 \\
         --pinn models/ref500_pinn_r4/checkpoint_step=2000 --horizons 2 4 8
 
-`loess` is the smoother of the comparison plot; the plot itself (`--out`)
-waits for the `viz/` port and exits as not ported. `--device cpu` runs on
-the CPU.
+`--out PATH` also draws the comparison plot there (needs matplotlib): each
+model's mean MSE per horizon, its `loess` line and a band of 1.92 standard
+errors about it (`error_bands`). `--device cpu` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -39,9 +39,6 @@ from waves_jl_tpu_torch.models.pinn import WaveControlPINN
 from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
 from waves_jl_tpu_torch.utils.trees import tree_map
 
-# options of the JAX CLI that the port does not run yet, by their ROADMAP
-# Queue 1 item
-NOT_PORTED = {"out": "the error plot (--out; viz/, ROADMAP Queue 1: \"Long tail\")"}
 
 
 @torch.no_grad()
@@ -95,6 +92,40 @@ def loess(x, y, frac: float = 0.6, degree: int = 1):
     return out
 
 
+def error_bands(results: dict) -> dict:
+    """{model: (horizons, mean MSE each, its loess line, half-width of the
+    band: 1.92 standard deviations over the square root of the samples)}
+    of a sweep's {model: {horizon: [mse, ...]}}, in horizon order."""
+    bands = {}
+    for name, errs in results.items():
+        hs = sorted(errs)
+        means = [float(np.mean(errs[h])) for h in hs]
+        half = np.array([1.92 * float(np.std(errs[h])) / np.sqrt(max(len(errs[h]), 1))
+                         for h in hs])
+        bands[name] = (hs, means, loess(hs, means), half)
+    return bands
+
+
+def plot_errors(results: dict, path: str) -> None:
+    """The comparison plot of `error_bands` at `path`."""
+    from waves_jl_tpu_torch.viz.plot import pyplot
+
+    plt = pyplot()
+    fig, ax = plt.subplots()
+    colors = {"acoustic": "green", "node": "red", "pinn": "purple"}
+    labels = {"acoustic": "Ours (PML)", "node": "NeuralODE", "pinn": "PINC"}
+    for name, (hs, means, smooth, half) in error_bands(results).items():
+        ax.plot(hs, smooth, color=colors[name], label=labels[name])
+        ax.fill_between(hs, smooth - half, smooth + half, color=colors[name], alpha=0.1)
+        ax.scatter(hs, means, color=colors[name], s=12)
+    ax.set_xlabel("Prediction horizon (actions)")
+    ax.set_ylabel("Scattered-energy MSE")
+    ax.legend()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+
+
 def load_eval_episodes(data_dir: str, episodes: int, device) -> list:
     """The last `episodes` episode files of a dataset dir (sorted by name),
     or the first `episodes` of its shard."""
@@ -116,7 +147,7 @@ def parse_args(argv=None):
     p.add_argument("--horizons", type=int, nargs="+", default=[2, 4, 6, 8, 10, 15, 20])
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--batches", type=int, default=8)
-    p.add_argument("--out", default=None, help="the error plot: not yet ported")
+    p.add_argument("--out", default=None, help="path of the error plot (none by default)")
     p.add_argument("--json-out", default="prediction_errors.json")
     p.add_argument("--force", action="store_true")
     p.add_argument("--resume", action="store_true",
@@ -135,9 +166,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            sys.exit(f"{what} is not yet ported to waves_jl_tpu_torch")
     if os.path.exists(args.json_out) and not (args.force or args.resume):
         sys.exit(f"refusing to overwrite {args.json_out} (pass --force, --resume or --json-out)")
     prior = {}
@@ -186,6 +214,9 @@ def main(argv=None) -> dict:
     with open(args.json_out, "w") as f:
         json.dump({k: {str(h): v for h, v in r.items()} for k, r in results.items()}, f)
     print(f"wrote {args.json_out}")
+    if args.out:
+        plot_errors(results, args.out)
+        print(f"wrote {args.out}")
     return results
 
 

@@ -23,7 +23,9 @@ the card, `--horizon` one length over prepared windows, `--stream` one
 length from host-resident episodes. `--device cpu` trains on the CPU.
 `--dp` trains data-parallel over every card of the machine (one replica of
 the model a card, the gradients averaged each micro-step); the streaming
-trainer is single-device, and the CLI's mesh is made of cards.
+trainer is single-device, and the CLI's mesh is made of cards. Each
+checkpoint directory also gets the model's dashboard (`viz.make_plots_*` on
+one validation batch); a plot that fails prints why and training goes on.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ if __package__ in (None, ""):  # run as a file
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
 from waves_jl_tpu_torch.constants import WATER
-from waves_jl_tpu_torch.data import load_episode, load_episodes_shard, prepare_dataset
+from waves_jl_tpu_torch.data import dataloader, load_episode, load_episodes_shard, prepare_dataset
 from waves_jl_tpu_torch.designs import build_triple_ring_design_space
 from waves_jl_tpu_torch.device import resolve_device
 from waves_jl_tpu_torch.models.acoustic_energy_model import (AcousticEnergyModel, energy_loss,
@@ -48,6 +50,8 @@ from waves_jl_tpu_torch.models.pinn import WaveControlPINN, WaveControlPINNLoss
 from waves_jl_tpu_torch.parallel.mesh import make_mesh
 from waves_jl_tpu_torch.train import TrainConfig, train, train_streaming, train_windowed
 from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+from waves_jl_tpu_torch.train.windows import gather_window_batch, stack_episodes
+from waves_jl_tpu_torch.utils.trees import tree_map
 
 
 def _load_episodes_dir(data_dir: str, episodes: int) -> list:
@@ -163,11 +167,43 @@ def check_ported(args) -> None:
                  "make_mesh(devices=['cpu'] * n)")
 
 
+def make_plot_hook(args, val_eps):
+    """on_checkpoint(path, model): the model's dashboard in the checkpoint
+    directory, drawn on one validation batch as the JAX CLI picks it:
+    `--batch` copies of the window of the last of `--horizons` at action 0
+    of the first validation episode (zero indices), or the first shuffled
+    minibatch (torch seed 1) of the `--horizon` windows. A failure prints
+    and training goes on."""
+    from waves_jl_tpu_torch.viz import make_plots_acoustic, make_plots_node, make_plots_pinn
+
+    def batch_on(device):
+        if args.horizons:
+            store = stack_episodes(val_eps, device=None)
+            idx = torch.zeros((args.batch, 2), dtype=torch.long)
+            batch = gather_window_batch(store, idx, args.horizons[-1], args.latent_stride)
+        else:
+            val = prepare_dataset(val_eps, args.horizon, args.latent_stride)
+            batch = next(iter(dataloader(val, args.batch, torch.Generator().manual_seed(1))))
+        return tree_map(lambda x: x.to(device), batch)
+
+    def on_checkpoint(path, model):
+        try:
+            batch = batch_on(next(model.parameters()).device)
+            if args.model == "acoustic":
+                make_plots_acoustic(model, batch, path, samples=2)
+            elif args.model == "node":
+                make_plots_node(model, batch, path, samples=2)
+            else:
+                make_plots_pinn(model, batch, path, samples=2)
+        except Exception as e:  # plots must never kill training
+            print(f"plotting failed: {e}", flush=True)
+
+    return on_checkpoint
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     check_ported(args)
-    print("the per-checkpoint plots (viz/, ROADMAP Queue 1: \"Long tail\") are not yet "
-          "ported: checkpoints are written without them", flush=True)
     dev = resolve_device(args.device)
     train_eps, val_eps = load_episodes_split(args.data, args.episodes)
     print(f"{len(train_eps)} training and {len(val_eps)} validation episodes", flush=True)
@@ -184,6 +220,7 @@ def main(argv=None) -> None:
                          checkpoint_dir=args.out,
                          metrics_path=os.path.join(args.out, "metrics.jsonl"), seed=args.seed)
     stride = args.latent_stride
+    plots = make_plot_hook(args, val_eps)
     mesh, replicate = None, None
     if args.dp:
         mesh = make_mesh()
@@ -192,15 +229,15 @@ def main(argv=None) -> None:
     if args.stream:
         print(f"streaming over {len(train_eps)} host-resident episodes", flush=True)
         train_streaming(loss_fn, model, train_eps, prepare_dataset(val_eps, args.horizon, stride),
-                        config, horizon=args.horizon, stride=stride)
+                        config, horizon=args.horizon, stride=stride, on_checkpoint=plots)
     elif args.horizons:
         train_windowed(loss_fn, model, train_eps, val_eps, config,
                        horizons=tuple(args.horizons), stride=stride, mesh=mesh,
-                       replicate=replicate)
+                       replicate=replicate, on_checkpoint=plots)
     else:
         train(loss_fn, model, prepare_dataset(train_eps, args.horizon, stride),
               prepare_dataset(val_eps, args.horizon, stride), config, mesh=mesh,
-              replicate=replicate)
+              replicate=replicate, on_checkpoint=plots)
 
 
 if __name__ == "__main__":

@@ -92,6 +92,33 @@ def tree_clamp(x, low, high):
     return tree_map(lambda v, lo, hi: torch.minimum(torch.maximum(v, lo), hi), x, low, high)
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_mul(a, b):
+    return tree_map(torch.mul, a, b)
+
+
+def tree_scale(a, s):
+    """Every leaf times the scalar (or broadcastable tensor) s."""
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_lerp(a, b, w):
+    """a + w * (b - a) leaf by leaf over matching trees; w a scalar."""
+    return tree_map(lambda x, y: x + w * (y - x), a, b)
+
+
+def tree_concat(trees, dim: int = 0):
+    """Concatenate matching trees leaf by leaf along an existing dimension."""
+    return tree_map(lambda *xs: torch.cat(xs, dim=dim), *trees)
+
+
 def tree_zeros_like(tree):
     """A tree of zeros with `tree`'s structure, leaf shapes, dtypes and
     devices."""
