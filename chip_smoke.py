@@ -151,7 +151,26 @@ its elapsed seconds:
    optimisation (300 steps, 3 Adam steps, the loss falling); the
    latent-space dashboard's rollout and MSE (5 actions); the PML demo's
    free-field rollout. The drawing itself needs matplotlib, which the
-   card's machine lacks, so no phase draws.
+   card's machine lacks, so no phase draws;
+14. the long tail: the one-call hybrid episode (`make_hybrid_episode_fused`)
+   at phase 5's configuration, 3 actions from a state 12 windows in: its
+   warm time an action beside phase 5's (the same loop, which it is), its
+   launches, and the synchronising CUDA calls inside it by site
+   (`torch.cuda.set_sync_debug_mode("warn")`); a `profile_trace` of one
+   fused-hybrid action that names `rk4_step_tiled` and times it;
+   `generate_episodes_batch` at `bench.py`'s datagen point, batch 10, 5 of
+   its 20 actions, through K3 radii-only with the exact d/dx (a source
+   shape a candidate) and one batched owner pass a window, each episode
+   against its reset and actions alone through K2 (final frames bit for
+   bit, signals and observations within 1e-6), s an episode, the batched
+   step and owner pass at 10 x 700^2 against their plain versions with
+   their times and bounds; `debug_nans` over a plain 700^2 window (finite
+   work passes, an injected NaN raises naming the op); the JAX package's
+   3-D smoke (n = 48, 120 steps) and an n = 128 window of 20 steps (its
+   first 4 held to the CPU's), pandemic and wildfire at 256^2 for 10
+   steps, each on the card against the CPU (1e-5), the 3-D scattered field exactly 0 and its Dirichlet
+   faces 0; the MPC CLI's `--fused-episode` once, in a subprocess beside
+   them. `--only-long-tail` runs phases 1, 2 and 14 alone.
 
 The launch counts of each kernel are read from the main-path runs alone:
 every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
@@ -160,8 +179,9 @@ one card (K4, K4-XM). The last lines are one JSON object describing every
 kernel (`ms` with CUDA events around calls as the host drives them; the
 rows of the step and of the owner passes add `device_ms`, the same
 launches queued behind a device sleep, without the host's issue cost;
-the rows of batched K5 and its owner pass, which run 16 candidates at
-350^2 and 64 at 700^2, give phase 3's 16 x 350^2 numbers and, under
+the rows of batched K5, K3 radii-only and the batched owner pass, which
+run 16 candidates at 350^2, 64 at 700^2 (the oracle) and 10 at 700^2
+(batched datagen), give phase 3's 16 x 350^2 numbers and, under
 `shapes`, each shape's launches, errors, times and bound), then
 {"ok": true, "device": ...}. Any failed check raises and the script exits
 non-zero; without a CUDA card it exits non-zero before printing a result.
@@ -606,7 +626,8 @@ def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
 
 def hybrid_episode(env, env_lo, space, dev):
     """Phase 5: the hybrid controller at full width. Returns its launch
-    counts and those of one re-rank with the exact stencil (K3)."""
+    counts, those of one re-rank with the exact stencil (K3) and its
+    seconds an action."""
     import torch
 
     from waves_jl_tpu_torch.control.mpc import (HybridShooting, coarsen_env_state,
@@ -725,7 +746,7 @@ def hybrid_episode(env, env_lo, space, dev):
                   f"{bool(torch.equal(r2_cost[:TOPK], ev_cost))}")
     check(float(r2_cost.min()) <= float(ev_cost.min()),
           "two exact rounds choose no worse than one from the same draws")
-    return counts, exact_counts
+    return counts, exact_counts, episode_s / WINDOWS
 
 
 def cylinder_grid(moving: bool):
@@ -2928,6 +2949,389 @@ def full_field_phase(env, state, pos_env, model, dev):
     return dict(main_path)
 
 
+# the long tail (phase 14)
+FUSED_ACTIONS = 3  # actions of the one-call hybrid episode
+BATCH_ACTIONS = 5  # of the batched datagen episodes' 20
+# windows of random actions before the fused hybrid episode: 12 ms in, the
+# scattered field is non-zero and the exact costs tell the candidates apart
+HYBRID_REACH = 12
+SMOKE_3D = (48, 120)  # the JAX package's 3-D smoke: n, steps (tests/test_dynamics.py:233)
+WINDOW_3D = (128, 20)
+# of the n = 128 window's steps, those held to the CPU's run (the n = 48
+# smoke holds the same arithmetic to the CPU over all its steps)
+WINDOW_3D_HELD = 4
+EXTRA_N, EXTRA_STEPS = 256, 10
+# steps of the plain window under `debug_nans`: every op's output is read on
+# the host there, about 0.1 s a step at 700^2
+NAN_STEPS = 10
+
+
+def sync_sites(fn):
+    """(fn(), {site: count}) of the synchronising CUDA calls fn makes, as
+    `torch.cuda.set_sync_debug_mode("warn")` reports them: each by the
+    innermost line of this checkout's code on the stack, then the line
+    that made the call, where that lies outside the checkout."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+    running = []  # non-empty while fn runs: switching the mode warns too
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if not running or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(ROOT + os.sep)]
+        site = f"{os.path.relpath(ours[-1].filename, ROOT)}:{ours[-1].lineno}" if ours else "?"
+        if not filename.startswith(ROOT + os.sep):
+            site += f" via {os.path.basename(os.path.dirname(filename))}/{os.path.basename(filename)}:{lineno}"
+        sites[site] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        running.append(True)
+        try:
+            out = fn()
+        finally:
+            running.clear()
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, dict(sites)
+
+
+def long_tail_phase(env, env_lo, dev, loop_action_s=None):
+    """Phase 14, the timed parts first: (a) the one-call hybrid episode at
+    phase 5's configuration, its time an action beside phase 5's
+    (`loop_action_s`, None where phase 5 did not run), its launches and
+    its synchronising calls; (b) `generate_episodes_batch` at bench.py's
+    datagen point through the batched exact kernel. Then, with the MPC
+    CLI's `--fused-episode` in a subprocess and the CPU runs of (c) in a
+    thread beside them: (b)'s episodes against the single exact kernel
+    alone, the batched step's and owner pass's times and bounds at
+    10 x 700^2; (d) a `profile_trace` of one fused-hybrid action; (e)
+    `debug_nans` over a plain window; (c) the 3-D and extra dynamics on the
+    card against the CPU. Returns (the fused episode's launches, the
+    batched episodes' launches, the numbers of the K3 radii-only and
+    batched owner rows at 10 x 700^2)."""
+    import dataclasses
+    import json as json_mod
+    import tempfile
+    import threading
+
+    import torch
+
+    import waves_jl_tpu_torch as tw
+    from waves_jl_tpu_torch.control import make_hybrid_episode_fused
+    from waves_jl_tpu_torch.data import _to_host, generate_episodes_batch
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_observe, env_reset, env_tspan
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.physics.extra import make_pandemic_dynamics, make_wildfire_dynamics
+    from waves_jl_tpu_torch.physics.fused import (cyl_params, make_env_step_fused,
+                                                  make_fused_window, step_config)
+    from waves_jl_tpu_torch.scripts.datagen import build_env as datagen_env
+    from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+    from waves_jl_tpu_torch.utils.debug import debug_nans
+    from waves_jl_tpu_torch.utils.logging import profile_trace
+    from waves_jl_tpu_torch.utils.trees import tree_index, tree_stack
+
+    t_phase = time.time()
+
+    # (a) the one-call hybrid episode: its time, launches and synchronising calls
+    model = AcousticEnergyModel(env.design_space, 1000.0, elements=1024, h_size=256, nfreq=500,
+                                integration_steps=STEPS // STRIDE, dt=1e-5 * STRIDE, device=dev)
+    load_model_checkpoint(model, os.path.join(ROOT, CHECKPOINT_HYBRID))
+    env3 = dataclasses.replace(env, actions=FUSED_ACTIONS)
+    run = make_hybrid_episode_fused(env3, model, horizon=HORIZON, shots=SHOTS, topk=TOPK,
+                                    alpha=1.0, rerank_env=env_lo)
+    gen = torch.Generator(device=dev).manual_seed(140)
+    policy = RandomDesignPolicy(env.action_space)
+    start = env_reset(env, gen)
+    fused = make_env_step_fused(env)
+    for _ in range(HYBRID_REACH):
+        start, _ = fused(start, policy(gen))
+
+    def episode(seed):
+        return run(start, torch.Generator(device=dev).manual_seed(seed))
+
+    episode(141)  # warm
+    fk.reset_launch_counts()
+    ep_s, (final, signals, costs) = host_s(lambda: episode(142))
+    fused_counts = dict(fk.launch_counts)
+    loop = "not run" if loop_action_s is None else f"{loop_action_s:.4f} s"
+    log("long tail", f"one-call hybrid episode ({FUSED_ACTIONS} actions from {HYBRID_REACH} windows "
+                     f"in, {SHOTS} shots, top {TOPK} at {SIZE_RERANK}^2, {CHECKPOINT_HYBRID}): "
+                     f"{ep_s:.4f} s warm, {ep_s / FUSED_ACTIONS:.4f} s an action (phase 5's "
+                     f"episode: {loop} an action); costs {costs.tolist()}")
+    check(bool(torch.isfinite(signals).all()) and float(signals[:, :, 2].max()) > 0.0,
+          "the fused episode's signals are finite and the scattered field non-zero")
+    expect = dict.fromkeys(fused_counts, 0)
+    expect.update({"fused_rk4_batched_xmatmul_radii_only": FUSED_ACTIONS * HORIZON * STEPS,
+                   "select_owner_batched": FUSED_ACTIONS * HORIZON,
+                   "fused_rk4_xmatmul_radii_only": FUSED_ACTIONS * STEPS,
+                   "select_owner": FUSED_ACTIONS})
+    check(fused_counts == expect, f"fused episode launch counts {fused_counts} == {expect}")
+    _, sites = sync_sites(lambda: episode(142))
+    n_sync = sum(sites.values())
+    log("long tail", f"synchronising calls inside the {FUSED_ACTIONS}-action episode: {n_sync} "
+                     f"({n_sync / FUSED_ACTIONS:.1f} an action), by site: "
+                     + json_mod.dumps(dict(sorted(sites.items(), key=lambda kv: -kv[1]))))
+
+    # (b) batched datagen at bench.py's point through the batched exact kernel
+    dg = datagen_env(SIZE, STEPS, BATCH_ACTIONS, dev)
+    dg_policy = RandomDesignPolicy(dg.action_space)
+
+    def batch(seed):
+        return generate_episodes_batch(dg, dg_policy, torch.Generator(device=dev).manual_seed(seed),
+                                       CHUNK)
+
+    batch(144)  # warm
+    fk.reset_launch_counts()
+    batch_s, (b_final, eps) = host_s(lambda: batch(145))
+    batch_counts = dict(fk.launch_counts)
+    pull_s, _ = host_s(lambda: _to_host(eps))
+    expect = dict.fromkeys(batch_counts, 0)
+    expect.update({"fused_rk4_batched_radii_only": BATCH_ACTIONS * STEPS,
+                   "select_owner_batched": BATCH_ACTIONS})
+    check(batch_counts == expect, f"batched datagen launches {batch_counts} == {expect}")
+    per_ep = (batch_s + pull_s) / CHUNK
+    log("long tail", f"generate_episodes_batch, {CHUNK} episodes x {BATCH_ACTIONS} actions x {STEPS} "
+                     f"steps at {SIZE}^2 (exact d/dx): {batch_s:.4f} s, host pull {pull_s:.4f} s; "
+                     f"{per_ep:.4f} s an episode of {BATCH_ACTIONS} actions, "
+                     f"{per_ep * WINDOWS / BATCH_ACTIONS:.4f} s for {WINDOWS} (phase 7: K5 one "
+                     f"episode at a time); launches {batch_counts}")
+    check(all(bool(torch.isfinite(x).all()) for x in (eps.y, eps.s_wave, b_final.wave)),
+          "the batched episodes are finite")
+    check(float(eps.y[:, -1, :, 2].max()) > 0.0, "the scattered field is non-zero by the last window")
+
+    # the untimed rest: the CLI in a subprocess and the CPU runs of (c) in a
+    # thread (their operations release the interpreter lock) beside the card's
+    tmp = tempfile.TemporaryDirectory()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "waves_jl_tpu_torch.scripts.mpc", "--controller", "hybrid",
+         "--fused-episode", "--checkpoint", os.path.join(ROOT, CHECKPOINT_HYBRID),
+         "--latent-stride", str(STRIDE), "--topk", "4", "--shots", "32", "--horizon", "2",
+         "--rerank-n", str(SIZE_RERANK), "--actions", "2", "--locations", "1", "--episodes", "1",
+         "--out", os.path.join(tmp.name, "r.json")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t_cli = time.time()
+
+    def smoke_3d(device, n, steps, trajectory, held=None):
+        """The 3-D smoke's run of `steps` steps, or of its first `held`."""
+        dim = tw.three_dim(5.0, n, device=device)
+        dyn = tw.make_acoustic_dynamics_3d(dim, tw.WATER, 1.0, 20000.0)
+        shape3 = torch.exp(-(tw.build_grid(dim) ** 2).sum(-1) / (2.0 * 0.3**2))
+        two_pi_f = torch.tensor(2.0 * math.pi * 1000.0, device=dim.x.device)
+        theta = (lambda s: torch.tensor(tw.WATER, dtype=torch.float32, device=dim.x.device),
+                 lambda s: shape3 * torch.sin(two_pi_f * s))
+        it = tw.Integrator(dynamics=dyn, dt=1e-5)
+        tspan3 = torch.from_numpy(tw.build_tspan(0.0, 1e-5, steps)[:(held or steps) + 1])
+        tspan3 = tspan3.to(dim.x.device)
+        u0 = tw.build_wave(dim, 16)
+        return it(u0, tspan3, theta) if trajectory else it.rollout_final(u0, tspan3, theta)
+
+    def extra(kind, device):
+        if kind == "pandemic":
+            dim = tw.two_dim(5.0, EXTRA_N, device=device)
+            dyn = make_pandemic_dynamics(dim)
+            shape2 = tw.build_normal(tw.build_grid(dim), torch.tensor([[0.0, 0.0]], device=device),
+                                     torch.tensor([0.3], device=device),
+                                     torch.tensor([1.0], device=device))
+            theta = (tw.Source(shape=shape2, freq=torch.tensor(1000.0, device=device)),)
+            u0 = tw.build_wave(dim, 3)
+            dt = 1e-5
+        else:
+            dim = tw.two_dim(100.0, EXTRA_N, device=device)
+            dyn = make_wildfire_dynamics(dim)
+            x = dim.x
+            hot = torch.exp(-(x[:, None] ** 2 + x[None, :] ** 2) / (2.0 * 20.0**2))
+            u0 = torch.stack([298.15 + 600.0 * hot, torch.ones_like(hot)])
+            theta, dt = (), 1e-3
+        it = tw.Integrator(dynamics=dyn, dt=dt)
+        return it.rollout_final(u0, torch.from_numpy(tw.build_tspan(0.0, dt, EXTRA_STEPS))
+                                .to(dim.x.device), theta)
+
+    cpu = {}
+
+    def cpu_runs():
+        try:
+            t = time.time()
+            cpu["smoke"] = smoke_3d("cpu", *SMOKE_3D, True)
+            cpu["window"] = smoke_3d("cpu", *WINDOW_3D, False, WINDOW_3D_HELD)
+            for kind in ("pandemic", "wildfire"):
+                cpu[kind] = extra(kind, "cpu")
+            cpu["s"] = time.time() - t
+        except BaseException as e:  # re-raised by the phase's thread
+            cpu["error"] = e
+
+    worker = threading.Thread(target=cpu_runs)
+    worker.start()
+
+    # (b) each batched episode against its reset and actions alone through
+    # the exact single kernel
+    g = torch.Generator(device=dev).manual_seed(145)
+    states = [env_reset(dg, g) for _ in range(CHUNK)]
+    actions = tree_stack([tree_stack([dg_policy(g) for _ in range(BATCH_ACTIONS)])
+                          for _ in range(CHUNK)])
+    single = make_env_step_fused(dg, x_matmul=False)
+    frames_same, sig_err, obs_err = 0, 0.0, 0.0
+    for b, st in enumerate(states):
+        for i in range(BATCH_ACTIONS):
+            obs_err = max(obs_err, rel_err(eps.s_wave[b, i], env_observe(dg, st).wave))
+            st, _ = single(st, tree_index(tree_index(actions, b), i))
+            sig_err = max(sig_err, rel_err(eps.y[b, i], st.signal))
+        frames_same += int(torch.equal(b_final.wave[b], st.wave))
+    log("long tail", f"each batched episode alone through the exact single kernel (K2): final "
+                     f"frames bit for bit in {frames_same} of {CHUNK}; signals rel err "
+                     f"{sig_err:.3e} (tol 1e-6); observations {obs_err:.3e}")
+    check(frames_same == CHUNK and sig_err <= 1e-6 and obs_err <= 1e-6,
+          "each batched episode is its single-kernel episode's")
+
+    # the batched step and owner pass at 10 x 700^2 against their plain versions
+    cfg = step_config(dg)
+    prof_x = dg.integrator.dynamics.pml[:, 0].contiguous()
+    u = b_final.wave[:, -1].contiguous()
+    shape = b_final.source.shape
+    nxt = dg.design_space(b_final.design, dg.action_space.sample(g, batch=(CHUNK,)))
+    cyl = cyl_params(b_final.design, nxt, dev).contiguous()
+    tspan = env_tspan(dg, b_final)
+    ti, tf, t_arg = float(tspan[0]), float(tspan[-1]), float(tspan[0])
+    own_k = fk.select_owner_batched(cyl, cfg)
+    own_p = fk.select_owner_batched_reference(cyl, cfg)
+    u_k, e_k = fk.fused_rk4_step_batched(u, shape, prof_x, cyl, own_k, t_arg, ti, tf, cfg)
+    u_p, e_p = fk.fused_rk4_step_batched_reference(u, shape, prof_x, cyl, own_p, t_arg, ti, tf,
+                                                   cfg)
+    torch.cuda.synchronize()
+    k3_abs = float(torch.max(torch.abs(u_k - u_p)))
+    own_abs = float(torch.max(torch.abs(own_k - own_p)))
+    log("long tail", f"K3 radii-only step at {CHUNK} x {SIZE}^2, a source shape a candidate, vs "
+                     f"plain: {differing_cells(u_k, u_p)}; energies {rel_err(e_k, e_p):.3e}; owner "
+                     f"pass {differing_cells(own_k, own_p)}")
+    check(torch.equal(u_k, u_p) and rel_err(e_k, e_p) <= 1e-6 and torch.equal(own_k, own_p),
+          "the batched step and owner pass at 10 x 700^2 equal their plain versions")
+    k3_ms = cuda_ms(lambda: fk.fused_rk4_step_batched(u, shape, prof_x, cyl, own_k, t_arg, ti, tf,
+                                                      cfg), 20)
+    k3_dev = device_ms(lambda: fk.fused_rk4_step_batched(u, shape, prof_x, cyl, own_k, t_arg, ti,
+                                                         tf, cfg), 20)
+    k3_plain = cuda_ms(lambda: fk.fused_rk4_step_batched_reference(u, shape, prof_x, cyl, own_p,
+                                                                   t_arg, ti, tf, cfg), 2)
+    own_ms = cuda_ms(lambda: fk.select_owner_batched(cyl, cfg), 20)
+    own_dev = device_ms(lambda: fk.select_owner_batched(cyl, cfg), 20)
+    own_plain = cuda_ms(lambda: fk.select_owner_batched_reference(cyl, cfg), 2)
+    part_t = torch.empty((CHUNK, fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
+    k3_bound = bound(2 * nbytes(u) + nbytes(shape, prof_x, cyl, part_t),
+                     CHUNK * fk.step_flops(SIZE, cyl.shape[-1], True))
+    own_bound = bound(nbytes(cyl, own_k), sum(owner_ops(c, cfg) for c in cyl))
+    log("long tail", f"K3 radii-only step at {CHUNK} x {SIZE}^2: {k3_ms:.4f} ms (device work "
+                     f"{k3_dev:.4f}, {k3_dev / k3_bound[0]:.2f}x its bound {k3_bound[0]:.5f} ms, "
+                     f"{k3_bound[1]}; plain {k3_plain:.4f}); batched owner pass {own_ms:.4f} ms "
+                     f"(device work {own_dev:.4f}, bound {own_bound[0]:.5f} ms, {own_bound[1]}; "
+                     f"plain {own_plain:.4f}); the CPU runs of (c) beside them")
+    k3_row = {"shape": f"{CHUNK}x{SIZE}^2", "launches": batch_counts["fused_rk4_batched_radii_only"],
+              "max_abs_err": k3_abs, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+              "bound_by": k3_bound[1], "device_ms": k3_dev}
+    own_row = {"shape": f"{CHUNK}x{SIZE}^2", "launches": batch_counts["select_owner_batched"],
+               "max_abs_err": own_abs, "ms": own_ms, "plain_ms": own_plain,
+               "bound_ms": own_bound[0], "bound_by": own_bound[1], "device_ms": own_dev}
+
+    # (d) a profile trace of one fused-hybrid action
+    with tempfile.TemporaryDirectory() as trace_dir:
+        g = torch.Generator(device=dev).manual_seed(143)
+        t = time.time()
+        with profile_trace(trace_dir) as prof:
+            a, _ = run.act(final, g)
+            run.step(final, a)
+            torch.cuda.synchronize()
+        trace_s = time.time() - t
+        files = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, files[0])) as f:
+            names = {e.get("name", "") for e in json_mod.load(f)["traceEvents"]}
+    tiled = sorted(n for n in names if "rk4_step_tiled" in n)
+    dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages() if "rk4_step_tiled" in e.key)
+    log("long tail", f"profile_trace of one fused-hybrid action ({trace_s:.2f} s with the trace "
+                     f"written): {len(files)} trace file, {len(names)} event names, rk4_step_tiled "
+                     f"kernels {tiled}, their device time {dev_us / 1e3:.3f} ms")
+    check(len(files) == 1 and tiled and dev_us > 0,
+          "the trace names rk4_step_tiled and times it on the card")
+
+    # (e) debug_nans over a plain window: finite work passes, a NaN raises
+    nan_env = datagen_env(SIZE, NAN_STEPS, 1, dev)
+    st = env_reset(nan_env, g)
+    st, _ = make_env_step_fused(nan_env)(st, dg_policy(g))  # a wave to step
+    window = make_fused_window(nan_env, x_matmul=False, plain=True)
+    tspan0 = env_tspan(nan_env, st)
+    cyl0 = cyl_params(st.design, nan_env.design_space(st.design, dg_policy(g)), dev).contiguous()
+
+    def trapped(u0):
+        with debug_nans():
+            return window(u0, st.source.shape, tspan0, cyl0)
+
+    nan_s, (_, _, sig0) = host_s(lambda: trapped(st.wave[-1]))
+    bad = st.wave[-1].clone()
+    bad[0, SIZE // 2, SIZE // 2] = float("nan")
+    try:
+        trapped(bad)
+        raised = ""
+    except FloatingPointError as e:
+        raised = str(e)
+    log("long tail", f"debug_nans over a plain {NAN_STEPS}-step window at {SIZE}^2: finite, "
+                     f"{nan_s:.2f} s with every op checked; with a NaN injected: {raised!r}")
+    check(bool(torch.isfinite(sig0).all()) and "aten." in raised,
+          "debug_nans passes a finite window and names the op that makes a NaN")
+
+    # (c) the 3-D and extra dynamics on the card against the CPU's runs
+    n, steps = SMOKE_3D
+    s3_s, traj = host_s(lambda: smoke_3d(dev, n, steps, True))
+    w3_s, traj3 = host_s(lambda: smoke_3d(dev, *WINDOW_3D, True))
+    u3 = traj3[-1]
+    card_extra = {kind: extra(kind, dev) for kind in ("pandemic", "wildfire")}
+    worker.join()
+    if "error" in cpu:
+        raise cpu["error"]
+    e = (traj[:, 0] ** 2).sum(dim=(1, 2, 3))
+    err3 = rel_err(traj.cpu(), cpu["smoke"])
+    faces = all(bool((traj[:, 0].select(ax, i) == 0).all()) for ax in (1, 2, 3) for i in (0, -1))
+    log("long tail", f"3-D smoke n = {n}, {steps} steps on the card: {s3_s:.3f} s; against the CPU "
+                     f"rel err {err3:.3e} (tol {REL_TOL:g}); scattered field exactly 0 "
+                     f"{torch.equal(traj[:, 0], traj[:, 8])}; Dirichlet faces 0 {faces}; energy "
+                     f"peak {float(e.max()):.4e}, final {float(e[-1] / e.max()):.3f} of it; the "
+                     f"CPU runs took {cpu['s']:.1f} s")
+    check(err3 <= REL_TOL and bool(torch.isfinite(traj).all()) and torch.equal(traj[:, 0], traj[:, 8])
+          and faces and float(e[-1]) < 0.8 * float(e.max()),
+          "the 3-D smoke holds on the card and agrees with the CPU")
+    err3w = rel_err(traj3[WINDOW_3D_HELD].cpu(), cpu["window"])
+    log("long tail", f"3-D window n = {WINDOW_3D[0]}, {WINDOW_3D[1]} steps: {w3_s:.3f} s on the card; "
+                     f"its first {WINDOW_3D_HELD} against the CPU rel err {err3w:.3e}; scattered "
+                     f"field exactly 0 {torch.equal(u3[0], u3[8])}")
+    check(err3w <= REL_TOL and bool(torch.isfinite(u3).all()) and torch.equal(u3[0], u3[8])
+          and float(u3[0].abs().max()) > 0.0, "the n = 128 window agrees with the CPU")
+    for kind, got in card_extra.items():
+        err = rel_err(got.cpu(), cpu[kind])
+        log("long tail", f"{kind} at {EXTRA_N}^2, {EXTRA_STEPS} steps: card against CPU rel err "
+                         f"{err:.3e} (tol {REL_TOL:g}); max |u0| {float(got[0].abs().max()):.4e}")
+        check(err <= REL_TOL and bool(torch.isfinite(got).all()),
+              f"the {kind} dynamics agree on the card and the CPU")
+    del traj, traj3, u3, cpu
+
+    out, err_text = cli.communicate(timeout=600)
+    cli_s = time.time() - t_cli
+    tail = (out + err_text).strip().splitlines()[-1:] or [""]
+    log("long tail", f"MPC CLI --controller hybrid --fused-episode (2 actions, top 4 of 32 at "
+                     f"{SIZE_RERANK}^2): exit {cli.returncode} after {cli_s:.2f} s (beside the "
+                     f"above): {tail[0][:200]}")
+    check(cli.returncode == 0, f"the MPC CLI's --fused-episode exits 0:\n{out}\n{err_text}")
+    with open(os.path.join(tmp.name, "r.json")) as f:
+        check(math.isfinite(json_mod.load(f)["mean_decrease"]), "the CLI's decrease is finite")
+    tmp.cleanup()
+    log("long tail", f"phase {time.time() - t_phase:.1f} s")
+    return fused_counts, batch_counts, k3_row, own_row
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2937,6 +3341,8 @@ def main(argv=None) -> int:
     p.add_argument("--save-train-batch", default=None, metavar="NPZ",
                    help="write phase 9's fixed learning batch and its loss trajectories at "
                         "lr 1e-5 and 1e-4 (tests/test_torch_train_learning.py reads them)")
+    p.add_argument("--only-long-tail", action="store_true",
+                   help="run phases 1, 2 and 14 alone (no kernels line)")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2991,6 +3397,15 @@ def main(argv=None) -> int:
                      f"one launch a step): ptxas {ptxas}; dynamic shared memory "
                      f"{occ['smem_bytes']} B a block of 256 threads; {occ[key]} blocks an SM")
         check(occ[key] >= 1, f"the one-launch step ({names[key]}) fits an SM")
+
+    if args.only_long_tail:
+        space = build_triple_ring_design_space(device=dev)
+        long_tail_phase(build_env(space, dev), build_env(space, dev, SIZE_RERANK), dev)
+        log("done", f"phases 1, 2 and 14 {time.time() - T0:.1f} s")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                  "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. kernels against their plain versions, 700^2
     space = build_triple_ring_design_space(device=dev)
@@ -3260,7 +3675,7 @@ def main(argv=None) -> int:
         k3[key], k3[key + "_dev"] = batched_general_kernel(pos_env, pst, elite, t_pos, dev, xm)
 
     # 5. the hybrid controller
-    hyb_counts, exact_rerank_counts = hybrid_episode(env, env_lo, space, dev)
+    hyb_counts, exact_rerank_counts, hyb_action_s = hybrid_episode(env, env_lo, space, dev)
 
     # 6. the y-sharded rollout through K4, at 700^2 from phase 3's state
     k4, k4_counts = sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms)
@@ -3293,6 +3708,11 @@ def main(argv=None) -> int:
     # 13. full-field rollouts, flux and the device half of every drawing path
     ff_counts = full_field_phase(env, state, pos_env, model, dev)
 
+    # 14. the long tail: the one-call hybrid episode, batched datagen on the
+    # batched exact kernel, the 3-D and extra dynamics, the debug and
+    # profiling scopes
+    fe_counts, bd_counts, k3_row, bown_row = long_tail_phase(env, env_lo, dev, hyb_action_s)
+
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
     # launches from the main-path runs: K2 from the exact simulator run and
     # phase 13's full-field runs, K1 and K3 general from the position-design
@@ -3304,13 +3724,14 @@ def main(argv=None) -> int:
          sim_counts["fused_rk4_radii_only"] + ff_counts.get("fused_rk4_radii_only", 0),
          (k2_abs, k2_ms, k2_plain, k2_bound)),
         ("select_owner", "waves_jl_tpu/ops/pallas_fd.py:247",
-         mpc_counts["select_owner"] + ff_counts.get("select_owner", 0),
+         mpc_counts["select_owner"] + ff_counts.get("select_owner", 0) + fe_counts["select_owner"],
          (owner_err, own_ms, own_plain, own_bound)),
         ("fused_rk4_general", "waves_jl_tpu/ops/pallas_fd.py:432",
          pos_counts[False]["fused_rk4_general"] + ff_counts.get("fused_rk4_general", 0),
          (k1_abs, k1_ms, k1_plain, k1_bound)),
         ("fused_rk4_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278",
-         dg_counts["fused_rk4_xmatmul_radii_only"], (xm_abs[True], k5_ms, k5_plain, k5_bound)),
+         dg_counts["fused_rk4_xmatmul_radii_only"] + fe_counts["fused_rk4_xmatmul_radii_only"],
+         (xm_abs[True], k5_ms, k5_plain, k5_bound)),
         ("fused_rk4_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278",
          pos_counts[True]["fused_rk4_xmatmul_general"],
          (xm_abs[False], k5g_ms, k5g_plain, k5g_bound)),
@@ -3332,14 +3753,17 @@ def main(argv=None) -> int:
     # 256-shot oracle selection's
     batched_rows = (
         ("fused_rk4_batched_radii_only", "waves_jl_tpu/ops/pallas_fd.py:162", "k3",
-         exact_rerank_counts["fused_rk4_batched_radii_only"]),
+         exact_rerank_counts["fused_rk4_batched_radii_only"]
+         + bd_counts["fused_rk4_batched_radii_only"]),
         ("select_owner_batched", "waves_jl_tpu/ops/pallas_fd.py:247", "own",
-         hyb_counts["select_owner_batched"] + oracle_counts["select_owner_batched"]),
+         hyb_counts["select_owner_batched"] + oracle_counts["select_owner_batched"]
+         + fe_counts["select_owner_batched"] + bd_counts["select_owner_batched"]),
         ("fused_rk4_batched_general", "waves_jl_tpu/ops/pallas_fd.py:162", "k3g",
          roll_counts[False]["fused_rk4_batched_general"]),
         ("fused_rk4_batched_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278", "k5b",
          hyb_counts["fused_rk4_batched_xmatmul_radii_only"]
-         + oracle_counts["fused_rk4_batched_xmatmul_radii_only"]),
+         + oracle_counts["fused_rk4_batched_xmatmul_radii_only"]
+         + fe_counts["fused_rk4_batched_xmatmul_radii_only"]),
         ("fused_rk4_batched_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278", "k5bg",
          roll_counts[True]["fused_rk4_batched_xmatmul_general"]),
     )
@@ -3351,23 +3775,29 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in dev_rows:
             k["device_ms"] = dev_rows[k["name"]]
-    # batched K5 and its owner pass run two shapes on the main path: the
-    # row's own numbers are phase 3's 16 x 350^2 (the hybrid's), and
-    # `shapes` splits its launches and gives each shape its numbers
+    # the batched rows run several shapes on the main paths: the row's own
+    # numbers are phase 3's 16 x 350^2 (the hybrid's), and `shapes` splits
+    # its launches and gives each shape its numbers: batched K5 and its
+    # owner pass also run the oracle's 64 x 700^2, K3 radii-only and the
+    # owner pass the batched datagen's 10 x 700^2
     for k in kernels:
-        key = {"fused_rk4_batched_xmatmul_radii_only": "k5b",
-               "select_owner_batched": "own"}.get(k["name"])
-        if key is None:
+        name = k["name"]
+        if name not in ("fused_rk4_batched_xmatmul_radii_only", "select_owner_batched",
+                        "fused_rk4_batched_radii_only"):
             continue
-        err, ms, plain, bnd, dev_only = oracle_shape[key]
         k["shape"] = f"{TOPK}x{SIZE_RERANK}^2"
-        k["shapes"] = [
-            {"shape": k["shape"], "launches": hyb_counts[k["name"]],
-             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-             "bound_by": k["bound_by"], "device_ms": k["device_ms"]},
-            {"shape": oracle_shape["shape"], "launches": oracle_counts[k["name"]],
-             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
-             "bound_by": bnd[1], "device_ms": dev_only}]
+        own_launches = (exact_rerank_counts[name] if name == "fused_rk4_batched_radii_only"
+                        else hyb_counts[name] + fe_counts[name])
+        k["shapes"] = [{"shape": k["shape"], "launches": own_launches,
+                        **{f: k[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "device_ms")}}]
+        if name != "fused_rk4_batched_radii_only":
+            err, ms, plain, bnd, dev_only = oracle_shape["k5b" if "xmatmul" in name else "own"]
+            k["shapes"].append({"shape": oracle_shape["shape"], "launches": oracle_counts[name],
+                                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                "bound_ms": bnd[0], "bound_by": bnd[1], "device_ms": dev_only})
+        if name != "fused_rk4_batched_xmatmul_radii_only":
+            k["shapes"].append(k3_row if name == "fused_rk4_batched_radii_only" else bown_row)
     sharded_rows = (
         ("fused_rk4_sharded_radii_only", "waves_jl_tpu/ops/pallas_fd.py:195", "radii"),
         ("select_owner_sharded", "waves_jl_tpu/ops/pallas_fd.py:247", "owner"),

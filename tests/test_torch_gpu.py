@@ -54,7 +54,11 @@ and the bf16-conv model against float32 (rtol 0.1 / atol 0.05). The
 full-field window of `env_step_full` (K2 with its owner pass, or K1) at
 700^2 equals its plain route on the card bit for bit on the frames and
 fields, its signal within 1e-6, its strided and resized form the
-stride-1 run's.
+stride-1 run's. Batched episodes, each with its own reset and source shape,
+through the batched exact kernel (K3 radii-only with its batched owner
+pass, or K3 general) equal each episode alone through K2 or K1 bit for bit
+on the frames and final states, their signals within 1e-6; the one-call
+hybrid episode equals act then step a window at a time, bit for bit.
 """
 import dataclasses
 
@@ -1364,3 +1368,98 @@ def test_full_field_window_kernel_route_equals_plain_route(card, radii_only):
     with full_float32():
         resized = w @ info["u_tot"][::10] @ w.T
     assert rel(small_info["u_tot"], resized) <= 1e-6
+
+
+def _card_env(card, n, steps, radii_only=True, actions=2):
+    """The triple-ring env on the card, or its cylinders free to move."""
+    from waves_jl_tpu_torch.designs import (AdjustablePositionScatterers, Cloak, Cylinders,
+                                            DesignSpace, build_triple_ring_design_space)
+    from waves_jl_tpu_torch.dims import build_grid, two_dim
+    from waves_jl_tpu_torch.env import make_wave_env
+    from waves_jl_tpu_torch.sources import GaussianSource
+
+    dim = two_dim(15.0, n, device=card)
+    source = GaussianSource.create(build_grid(dim), [[-10.0, -10.0]], [[-10.0, 10.0]], [0.3],
+                                   [1.0], 1000.0)
+    space = build_triple_ring_design_space(device=card)
+    if not radii_only:
+        def free(d, v):
+            cy = d.config.cylinders
+            return Cloak(AdjustablePositionScatterers(Cylinders(cy.pos + v, torch.full_like(
+                cy.r, 0.6), cy.c)), d.core)
+
+        space = DesignSpace(free(space.low, -0.5), free(space.high, 0.5))
+    return make_wave_env(dim, space, source, resolution=(16, 16), integration_steps=steps,
+                         actions=actions)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radii_only", [True, False])
+@pytest.mark.parametrize("n", [97, 350])
+def test_batched_episodes_equal_each_episode_alone_through_the_single_kernel(card, n,
+                                                                             radii_only):
+    """K episodes, each with its own reset (source shape included), through
+    the batched exact kernel (K3, one launch a step, a batched owner pass a
+    window radii-only) against each alone through K2 or K1: frames and
+    final states bit for bit, signals within 1e-6."""
+    from waves_jl_tpu_torch.data import make_episode_batch_fused
+    from waves_jl_tpu_torch.env import RandomDesignPolicy, env_reset
+    from waves_jl_tpu_torch.physics.fused import make_env_step_fused
+    from waves_jl_tpu_torch.utils.trees import tree_index, tree_stack
+
+    k, steps = 3, 20
+    env = _card_env(card, n, steps, radii_only)
+    gen = torch.Generator(device=card).manual_seed(1)
+    policy = RandomDesignPolicy(env.action_space)
+    states = [env_reset(env, gen) for _ in range(k)]
+    assert not torch.equal(states[0].source.shape, states[1].source.shape)
+    actions = tree_stack([tree_stack([policy(gen) for _ in range(env.actions)])
+                          for _ in range(k)])
+    fk.reset_launch_counts()
+    final, eps = make_episode_batch_fused(env)(states, actions)
+    torch.cuda.synchronize()
+    mode = "radii_only" if radii_only else "general"
+    assert fk.launch_counts[f"fused_rk4_batched_{mode}"] == env.actions * steps
+    assert fk.launch_counts["select_owner_batched"] == (env.actions if radii_only else 0)
+    assert fk.launch_counts[f"fused_rk4_{mode}"] == 0
+    step = make_env_step_fused(env, x_matmul=False)
+    for b, st in enumerate(states):
+        for i in range(env.actions):
+            st, _ = step(st, tree_index(tree_index(actions, b), i))
+            assert rel(eps.y[b, i], st.signal) <= 1e-6
+        assert torch.equal(final.wave[b], st.wave)
+    assert float(eps.y[..., 0].max()) > 0.0
+
+
+@pytest.mark.gpu
+def test_fused_hybrid_episode_equals_the_per_action_loop(card):
+    """The one-call hybrid episode (batched re-rank, batched K5) against act
+    then step a window at a time through the sequential re-rank (K
+    rollouts in turn through K5) from the same generator: the same
+    choices, so signals and final state bit for bit, and the chosen costs
+    within 1e-5 relative, with two exact rounds on a coarser re-rank
+    grid."""
+    from waves_jl_tpu_torch.control import make_hybrid_action_fused, make_hybrid_episode_fused
+    from waves_jl_tpu_torch.env import env_reset
+    from waves_jl_tpu_torch.models.acoustic_energy_model import AcousticEnergyModel
+
+    env, env_lo = _card_env(card, 64, 16), _card_env(card, 32, 16)
+    torch.manual_seed(0)
+    model = AcousticEnergyModel(env.design_space, 1000.0, elements=32, h_size=16, nfreq=12,
+                                integration_steps=4, dt=4e-5, device=card)
+    kw = dict(horizon=2, shots=16, topk=4, alpha=1.0, rerank_env=env_lo, exact_rounds=2,
+              exact_elites=2)
+    state = env_reset(env, torch.Generator(device=card).manual_seed(2))
+    final, signals, costs = make_hybrid_episode_fused(env, model, **kw)(
+        state, torch.Generator(device=card).manual_seed(3))
+    act, step = make_hybrid_action_fused(env, model, batched=False, **kw)
+    gen, s, sigs, cs = torch.Generator(device=card).manual_seed(3), state, [], []
+    for _ in range(env.actions):
+        a, c = act(s, gen)
+        s, _ = step(s, a)
+        sigs.append(s.signal)
+        cs.append(c)
+    assert torch.equal(signals, torch.stack(sigs))
+    assert rel(costs, torch.stack(cs)) <= 1e-5
+    assert torch.equal(final.wave, s.wave)
+    assert bool(torch.isfinite(signals).all())

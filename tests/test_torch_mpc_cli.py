@@ -4,10 +4,11 @@ policy with the tracked `models/bc_pools3` weights, and CEM + polish with
 the tracked pools3 surrogate at full width and a small population. Each
 writes a result JSON with the keys of the JAX CLI's
 (`mpc_results_bc_policy.json`) and finite decreases. `--fast` (the bf16
-ranking) runs CEM and random shooting and prints its mode line. The
-option that is not ported yet (`--fused-episode`) exits with a message
-saying so, with `--render` (ported: tests/test_torch_viz_cli.py) or
-`--fast` beside it; the
+ranking) runs CEM and random shooting and prints its mode line. Every
+option of the JAX CLI is ported: `--fused-episode`, alone with the hybrid
+or beside `--render` (tests/test_torch_viz_cli.py) or `--fast`, is no
+longer refused and the run goes on to load its checkpoint (its episode
+runs in tests/test_torch_pack_frontier_cli.py); the
 gradient, ensemble and oracle controllers run in
 tests/test_torch_control_cli.py.
 """
@@ -67,13 +68,15 @@ def test_fast_ranking_controllers(tmp_path, capsys, controller):
     assert "fast-ranking mode: bf16 latent matmul" in capsys.readouterr().out.splitlines()
 
 
-# --render and --fast are ported: beside them the refusal is --fused-episode's
+# --fused-episode, once refused as not yet ported, is accepted beside --render
+# and --fast: the run gets past the options to the missing checkpoint "x"
 @pytest.mark.parametrize("args", [["--render", "out.mp4", "--fused-episode"],
                                   ["--controller", "hybrid", "--fused-episode"],
                                   ["--fast", "--fused-episode"]])
 def test_unported_options_exit_with_a_message(tmp_path, args):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main([*args, "--checkpoint", "x", "--out", str(tmp_path / "r.json")])
+    with pytest.raises(FileNotFoundError, match="x/params.npz"):
+        main([*args, "--checkpoint", "x", "--out", str(tmp_path / "r.json"), "--n", "130",
+              "--device", "cpu"])
     assert not (tmp_path / "r.json").exists()
 
 

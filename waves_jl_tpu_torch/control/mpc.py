@@ -14,7 +14,8 @@ the search.
 
 `HybridShooting` (from `make_hybrid_action_fused`) prunes the shots with the
 surrogate and re-ranks the best `topk` exactly in the simulator, optionally
-on a coarser grid, through the candidate-batched kernel K3 by default.
+on a coarser grid, through the candidate-batched kernel K3 by default;
+`make_hybrid_episode_fused` runs its whole episode in one call.
 
 Exact search and distillation: `OracleShooting` scores every shot in the
 simulator, one window at a time (the reference route); `BatchedOracle`
@@ -29,6 +30,7 @@ surrogates' mean and spread.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -59,17 +61,26 @@ def compute_action_cost(actions) -> torch.Tensor:
     return torch.sum(norm, dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
+def _on_device(device: torch.device, make, *key) -> torch.Tensor:
+    """make(*key) (a float32 numpy array) copied to `device` once: a copy
+    from the host waits for the card, so the loops that select and step
+    make none."""
+    return torch.from_numpy(make(*key)).to(device)
+
+
 def selection_tspan(model, env: WaveEnv, state: EnvState, horizon: int,
                     shots: int) -> torch.Tensor:
     """(shots, L) time grid of one selection on the model's latent steps,
     or the env's for a model without them; the horizon spans horizon x
-    env.integration_steps x env.dt either way."""
+    env.integration_steps x env.dt either way. The grid from 0 is on the
+    device once; the window's start is added there, in float32 as on the
+    host."""
     if hasattr(model, "integrator") and hasattr(model, "integration_steps"):
         dt, steps = model.integrator.dt, model.integration_steps
     else:
         dt, steps = env.dt, env.integration_steps
-    t = env_time(env, state) + build_tspan(0.0, dt, steps * horizon)
-    t = torch.from_numpy(t).to(env.device)
+    t = _on_device(env.device, build_tspan, 0.0, dt, steps * horizon) + float(env_time(env, state))
     return t[None].expand(shots, t.shape[0])
 
 
@@ -404,8 +415,8 @@ def coarsen_env_state(env_lo: WaveEnv, state: EnvState) -> EnvState:
     m_x, m_y = env_lo.dim.shape
     n_x, n_y = state.wave.shape[-2:]
     dev = state.wave.device
-    wx = torch.from_numpy(resize_weights(n_x, m_x)).to(dev)
-    wy = torch.from_numpy(resize_weights(n_y, m_y)).to(dev)
+    wx = _on_device(dev, resize_weights, n_x, m_x)
+    wy = _on_device(dev, resize_weights, n_y, m_y)
 
     def resize(img):
         return torch.matmul(torch.matmul(wx, img), wy.T)
@@ -591,6 +602,26 @@ def make_hybrid_action_fused(env: WaveEnv, model, horizon: int = 5, shots: int =
     return act, make_env_step_fused(env)
 
 
+def make_hybrid_episode_fused(env: WaveEnv, model, horizon: int = 5, shots: int = 256,
+                              topk: int = 8, alpha: float = 1.0, searcher=None,
+                              rerank_env: WaveEnv | None = None, exact_rounds: int = 1,
+                              exact_elites: int = 8):
+    """A whole hybrid episode in one call (the JAX package's
+    `make_hybrid_episode_fused`, one device program over the actions): for
+    each of env.actions windows, the surrogate prune, the exact re-rank and
+    the full-resolution env window, queued with no read of the card
+    between actions (`make_action_episode` over `make_hybrid_action_fused`).
+    The re-rank is batched through the candidate-batched kernel, the port's
+    default; JAX's episode re-ranks sequentially, to the same costs.
+
+    Returns run(state, generator) -> (final_state, signals (A, T+1, 3),
+    chosen exact costs (A,)); `run.act` is the `HybridShooting`, whose
+    `candidates` and `noise` a caller may override."""
+    return make_action_episode(env, *make_hybrid_action_fused(
+        env, model, horizon=horizon, shots=shots, topk=topk, alpha=alpha, rerank_env=rerank_env,
+        exact_rounds=exact_rounds, exact_elites=exact_elites, searcher=searcher))
+
+
 @dataclass(frozen=True)
 class OracleShooting:
     """Random shooting against the simulator itself (the JAX package's
@@ -671,7 +702,11 @@ def make_action_episode(env: WaveEnv, act, step):
     at a time (the oracle, the hybrid): for each of env.actions windows,
     act(state, generator) -> (action, chosen cost) and step(state, action)
     -> (state', info). Returns run(state, generator) -> (final_state,
-    signals (A, T+1, 3), chosen costs (A,))."""
+    signals (A, T+1, 3), chosen costs (A,)), with `run.act` and `run.step`
+    the two it drives (a caller may override the selection's draws there).
+    Nothing in the loop reads the card from the host: each window's
+    selection, signal and cost stay on the card and are stacked at the
+    end."""
     def run(state: EnvState, generator: torch.Generator):
         signals, chosen = [], []
         for _ in range(env.actions):
@@ -681,6 +716,7 @@ def make_action_episode(env: WaveEnv, act, step):
             chosen.append(c)
         return state, torch.stack(signals), torch.stack(chosen)
 
+    run.act, run.step = act, step
     return run
 
 

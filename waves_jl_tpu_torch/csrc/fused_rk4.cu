@@ -23,7 +23,9 @@
 // :450-456), in both rasterisation modes: K independent states advance
 // through the same time step in one launch. blockIdx.z is the candidate;
 // it offsets the state, out, cylinder, owner and energy-partial pointers,
-// while the source shape and the PML profile are shared. A launch with one
+// and the source shape's where each candidate has its own (`shape_stride`:
+// the batched episodes of datagen; the re-rank's candidates share one),
+// while the PML profile is shared. A launch with one
 // candidate is K1 or K2, so each candidate's state is bit for bit what K1
 // or K2 computes for it alone. The TPU kernel's padded layout and DMA
 // semaphores have no counterpart here: a 350^2 grid is only 15 x 22 = 330
@@ -442,6 +444,7 @@ struct StepParams {
   const float* cyl;
   int n_cyl;
   float x_min, spacing;
+  int shape_stride;  // floats between two candidates' source shapes: 0 shared, n * n each
 };
 
 // The right-hand side of one stack (6 channels) at region cell l, from the
@@ -611,13 +614,13 @@ rk4_step_tiled(const float* __restrict__ u, float* __restrict__ out,
   const int ghost = SLAB ? HALO : 0;  // halo columns a side
   const int ny = w - 2 * ghost;       // owned columns
   // z: the candidate on the whole grid (its own cylinders, the source shape
-  // shared), or the slab (its own columns and source shape, the cylinders
-  // shared)
+  // shared or its own), or the slab (its own columns and source shape, the
+  // cylinders shared)
   const size_t cand = blockIdx.z;
   const int col0 = SLAB ? g.col0 + (int)cand * ny : 0;  // global column of local column 0
   u += cand * 12 * (size_t)nn;
   out += cand * 12 * (size_t)nn;
-  if constexpr (SLAB) shape += cand * (size_t)nn;
+  shape += cand * (size_t)(SLAB ? nn : g.shape_stride);
   if constexpr (!GENERAL) owner += cand * 5 * (size_t)nn;
   const int tx = threadIdx.x, ty = threadIdx.y;
 
@@ -825,7 +828,8 @@ bool valid_extent(int n, int w, int col0, int slabs) {
 // by the caller, so that a step marshals four pointers and a time. The
 // layout is that of `_TiledWindow` in ops/fused_rk4.py.
 struct TiledWindow {
-  const float* shape;  // (n, n) shared by the candidates, or (batch, n, w) a slab each
+  const float* shape;  // (n, n) shared by the candidates, (batch, n, n) one a candidate
+                       // (shape_stride n * n), or (batch, n, w) a slab each
   const float* prof;   // (n)
   const float* owner;  // (batch, 5, n, w) of the radii-only mode; null: the general mode
   const float* cyl;    // (batch, 8, n_cyl) of the general mode, or (8, n_cyl) for all slabs
@@ -836,6 +840,8 @@ struct TiledWindow {
   int col0;  // 0 on the whole grid, or the first slab's global column of local column 0
   int xm;    // 1: K5's split d/dx; 0: the exact one (K1, K2, K3)
   int n_cyl;
+  int shape_stride;  // on the whole grid, floats between two candidates' source shapes:
+                     // 0 for one shared, n * n for one a candidate
   float inv2d, c0, freq, half, full, sixth, ti, tf, x_min, spacing;
 };
 
@@ -856,8 +862,9 @@ template <bool XM, bool GENERAL, bool SLAB>
 int step_tiled(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
   const cudaError_t e = configure_tiled<XM, GENERAL, SLAB>();
   if (e != cudaSuccess) return (int)e;
-  const StepParams p{w->n,   w->w,  w->col0, w->inv2d, w->c0,    w->freq,  w->half, w->full,
-                     w->sixth, w->ti, w->tf,  w->cyl,   w->n_cyl, w->x_min, w->spacing};
+  const StepParams p{w->n,     w->w,  w->col0, w->inv2d, w->c0,    w->freq,  w->half, w->full,
+                     w->sixth, w->ti, w->tf,  w->cyl,   w->n_cyl, w->x_min, w->spacing,
+                     w->shape_stride};
   const int ny = SLAB ? w->w - 2 * HALO : w->n;
   rk4_step_tiled<XM, GENERAL, SLAB><<<tiled_grid(w->n, ny, w->batch), dim3(BX, BY), TILED_SMEM,
                                       (cudaStream_t)w->stream>>>(u, out, partials, w->shape,
@@ -911,7 +918,8 @@ int fused_rk4_step_occupancy(int xm, int general, int slab) {
 // radii-only on w->owner's fields, or general on w->cyl's n_cyl cylinders
 // where w->owner is null (a null w->cyl only with no cylinder). On the
 // whole grid (w->w == n, w->col0 == 0) of w->batch candidates: u and out
-// (batch, 12, n, n), partials (batch, fused_rk4_step_blocks(n, n), 3). On
+// (batch, 12, n, n), partials (batch, fused_rk4_step_blocks(n, n), 3), the
+// source shape (n, n) shared (w->shape_stride 0) or (batch, n, n) (n * n). On
 // w->batch consecutive slabs of w->w local columns from w->col0: u and out
 // (batch, 12, n, w), their halo columns written 0, partials
 // (batch, fused_rk4_step_blocks(n, w - 8), 3). t is the step's start time.
@@ -920,6 +928,8 @@ int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float
                          float t) {
   if (w == nullptr || w->batch < 1 || w->batch > 65535 ||
       !valid_extent(w->n, w->w, w->col0, w->batch) || w->xm < 0 || w->xm > 1 || w->n_cyl < 0 ||
+      (w->shape_stride != 0 && !(w->shape_stride == w->n * w->n && w->w == w->n &&
+                                 w->col0 == 0)) ||
       (w->owner == nullptr && w->n_cyl > 0 && w->cyl == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }

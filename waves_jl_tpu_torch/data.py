@@ -5,7 +5,9 @@ An episode is a frozen dataclass of tensors with a leading action axis.
 `generate_episode` runs the plain `env_step`; the fused generators run the
 kernel path (`physics.fused.make_env_step_fused`, K5 by default), one
 wrapper call a step, and `generate_episodes_chunked` is what the datagen
-CLI drives. Random draws come from an explicit `torch.Generator`. Episodes
+CLI drives. `generate_episodes_batch` advances a batch of episodes together
+through the batched exact kernel. Random draws come from an explicit
+`torch.Generator`. Episodes
 are stored as npz or `.wbin` bundles of named leaves with the JAX
 package's structure descriptor, or streamed into one shard, so either
 package loads what the other saved.
@@ -24,7 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .env import WaveEnv, env_observe, env_reset, env_step
+from .env import EnvState, WaveEnv, env_observe, env_reset, env_step
 from .utils.interp import flatten_repeated_last_dim
 from .utils.trees import (decode_structure, encode_structure, register_tree_dataclass,
                           tree_index, tree_leaves, tree_map, tree_named_leaves, tree_stack)
@@ -119,6 +121,73 @@ def make_episode_chunk_fused(env: WaveEnv):
                            for k, st in enumerate(states)])
 
     return run
+
+
+def _stack_states(states) -> EnvState:
+    """One state with a leading K on its wave, design, source and signal
+    leaves from K states of one time step."""
+    steps = {st.time_step for st in states}
+    if len(steps) != 1:
+        raise ValueError(f"the states are at different time steps {sorted(steps)}")
+    return EnvState(wave=torch.stack([st.wave for st in states]),
+                    design=tree_stack([st.design for st in states]),
+                    source=tree_stack([st.source for st in states]),
+                    signal=torch.stack([st.signal for st in states]), time_step=steps.pop())
+
+
+def make_episode_batch_fused(env: WaveEnv):
+    """Batch-of-episodes generator on the batched exact kernel (the
+    counterpart of `jax.vmap` over the JAX package's `_episode_scan`, which
+    steps XLA's `env_step` with the exact stencil): the K episodes advance
+    together, one launch of the candidate-batched kernel a step (K3
+    radii-only with one batched owner pass a window where `radii_only_ok`
+    holds, K3 general otherwise; `x_matmul=False`).
+
+    Returns run(states, actions) -> (final states, Episode), states a
+    sequence of K states of one time step and actions with leading (K, A);
+    every leaf of the Episode and of the final states but `time_step`
+    leads with K. Each episode is what the single-state exact window
+    gives it alone: frames and final state bit for bit, the signal within
+    the energy partials' summation order."""
+    from .physics.fused import make_env_step_fused
+
+    step = make_env_step_fused(env, x_matmul=False)
+
+    def run(states, actions):
+        state = _stack_states(states)
+        s_wave, s_design, s_tspan, ys = [], [], [], []
+        for i in range(tree_leaves(actions)[0].shape[1]):
+            s_wave.append(env_observe(env, state).wave)
+            s_design.append(state.design)
+            state, info = step(state, tree_map(lambda v: v[:, i], actions))
+            s_tspan.append(info["tspan"])
+            ys.append(state.signal)
+        k = state.wave.shape[0]
+        tspan = torch.from_numpy(np.stack(s_tspan)).to(env.device)
+        return state, Episode(s_wave=torch.stack(s_wave, dim=1),
+                              s_design=tree_stack(s_design, dim=1),
+                              s_tspan=tspan[None].expand(k, *tspan.shape).contiguous(),
+                              a=actions, y=torch.stack(ys, dim=1))
+
+    return run
+
+
+def generate_episodes_batch(env: WaveEnv, policy, generator: torch.Generator, batch: int):
+    """`batch` independent episodes (random designs, sources and actions)
+    advanced together on the batched exact kernel
+    (`make_episode_batch_fused`): the resets, then each episode's actions,
+    drawn in turn from `generator` as `generate_episodes_chunked` draws a
+    chunk's. Returns (final states, Episode), every leaf leading with
+    `batch`."""
+    states = [env_reset(env, generator) for _ in range(batch)]
+    actions = tree_stack([_draw_actions(env, policy, generator) for _ in range(batch)])
+    return make_episode_batch_fused(env)(states, actions)
+
+
+def split_episode_batch(batched) -> list:
+    """The Episodes of a batched (final states, Episode), in order."""
+    _, eps = batched
+    return [tree_index(eps, i) for i in range(eps.s_wave.shape[0])]
 
 
 def _to_host(tree):

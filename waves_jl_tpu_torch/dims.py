@@ -32,6 +32,17 @@ class TwoDim:
         return (self.x.shape[0], self.y.shape[0])
 
 
+@dataclass(frozen=True)
+class ThreeDim:
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+    @property
+    def shape(self):
+        return (self.x.shape[0], self.y.shape[0], self.z.shape[0])
+
+
 def one_dim(grid_size: float, n: int, device="cuda") -> OneDim:
     """n points on [-grid_size, grid_size]."""
     dev = resolve_device(device)
@@ -65,9 +76,17 @@ def two_dim_spacing(grid_size: float, delta: float, device="cuda") -> TwoDim:
     return TwoDim(ax, ax)
 
 
+def three_dim(grid_size: float, n: int, device="cuda") -> ThreeDim:
+    """n x n x n points on [-grid_size, grid_size]^3."""
+    dev = resolve_device(device)
+    ax = torch.linspace(-grid_size, grid_size, n, dtype=torch.float32, device=dev)
+    return ThreeDim(ax, ax, ax)
+
+
 def build_grid(dim):
     """OneDim -> (nx,); TwoDim -> (nx, ny, 2) with [..., 0] the x coordinate
-    (varies along axis 0) and [..., 1] the y coordinate."""
+    (varies along axis 0) and [..., 1] the y coordinate; ThreeDim ->
+    (nx, ny, nz, 3), the "ij" meshgrid."""
     if isinstance(dim, OneDim):
         return dim.x
     if isinstance(dim, TwoDim):
@@ -75,6 +94,8 @@ def build_grid(dim):
         gx = dim.x[:, None].expand(nx, ny)
         gy = dim.y[None, :].expand(nx, ny)
         return torch.stack([gx, gy], dim=-1)
+    if isinstance(dim, ThreeDim):
+        return torch.stack(torch.meshgrid(dim.x, dim.y, dim.z, indexing="ij"), dim=-1)
     raise TypeError(f"unsupported dim type {type(dim)}")
 
 
@@ -96,6 +117,11 @@ def build_dirichlet(dim) -> torch.Tensor:
         bc[:, 0] = 0.0
         bc[:, -1] = 0.0
         return bc
+    if isinstance(dim, ThreeDim):
+        for axis in range(3):
+            bc.select(axis, 0).zero_()
+            bc.select(axis, -1).zero_()
+        return bc
     raise TypeError(f"unsupported dim type {type(dim)}")
 
 
@@ -106,3 +132,7 @@ def get_dx(dim) -> torch.Tensor:
 
 def get_dy(dim) -> torch.Tensor:
     return torch.mean(torch.diff(dim.y))
+
+
+def get_dz(dim) -> torch.Tensor:
+    return torch.mean(torch.diff(dim.z))

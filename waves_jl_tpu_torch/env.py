@@ -209,10 +209,12 @@ def env_step_flux(env: WaveEnv, state: EnvState, action,
 
 def env_observe(env: WaveEnv, state: EnvState) -> WaveEnvState:
     """3 displacement frames and the source shape, resized to `resolution`
-    with the antialiased linear weights of `resize_weights`, channels last."""
-    img = torch.cat([state.wave[:, 0], state.source.shape[None]], dim=0)  # (4, nx, ny)
-    small = torch.matmul(torch.matmul(env.resize_x, img), env.resize_y.T)  # (4, rx, ry)
-    return WaveEnvState(tspan=env_tspan(env, state), wave=small.permute(1, 2, 0),
+    with the antialiased linear weights of `resize_weights`, channels last;
+    for K stacked states (wave (K, 3, 12, n, n)) the images lead with K."""
+    img = torch.cat([state.wave[..., 0, :, :], state.source.shape[..., None, :, :]],
+                    dim=-3)  # (..., 4, nx, ny)
+    small = torch.matmul(torch.matmul(env.resize_x, img), env.resize_y.T)  # (..., 4, rx, ry)
+    return WaveEnvState(tspan=env_tspan(env, state), wave=small.movedim(-3, -1),
                         design=state.design)
 
 

@@ -104,7 +104,13 @@ class AcousticEnergyModel(nn.Module):
         return fast
 
     def _source_freq(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor(self.source_freq, dtype=torch.float32, device=like.device)
+        """The source frequency as a float32 tensor on `like`'s device, made
+        once a device: a copy from the host waits for the card."""
+        cache = self.__dict__.setdefault("_freq_on", {})
+        if like.device not in cache:
+            cache[like.device] = torch.tensor(self.source_freq, dtype=torch.float32,
+                                              device=like.device)
+        return cache[like.device]
 
     def get_parameters_and_initial_condition(self, batch: dict):
         """(z0 (B, 4, E), theta = (C, F, PML)) of a batch: s_wave (B, res,

@@ -38,7 +38,8 @@ c2], the cylinders at the two ends of the design lerp. Energies are
 [sum u_tot^2, sum u_inc^2, sum (u_tot - u_inc)^2] after each step, not yet
 multiplied by the cell area. The batched functions take the same tensors
 with a leading candidate axis K on the state, cylinders and owner fields;
-the source shape and the PML profile are shared. On a `Slab` the state,
+the PML profile is shared, and so is the source shape unless it comes
+with the candidate axis too, (K, n, n). On a `Slab` the state,
 source shape and owner fields are (.., n, slab.w) column slabs of the
 global grid, the profile stays the global (n,) one, the energies cover
 the slab's owned columns, and the new state's halo columns are 0. Stacked
@@ -360,7 +361,8 @@ def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg:
                                      x_matmul: bool = False):
     """Plain PyTorch version of `fused_rk4_step_batched`: the plain step of
     each candidate in turn. Returns (u_next (K, 12, n, n), energies (K, 3))."""
-    steps = [fused_rk4_step_reference(u[b], shape, prof, cyl[b],
+    shapes = shape.expand(u.shape[0], *shape.shape[-2:])  # shared, or one a candidate
+    steps = [fused_rk4_step_reference(u[b], shapes[b], prof, cyl[b],
                                       None if owner is None else owner[b], t, ti, tf, cfg,
                                       x_matmul=x_matmul)
              for b in range(u.shape[0])]
@@ -691,7 +693,8 @@ class _TiledWindow(ctypes.Structure):
 
     _fields_ = [("shape", ctypes.c_void_p), ("prof", ctypes.c_void_p),
                 ("owner", ctypes.c_void_p), ("cyl", ctypes.c_void_p), ("stream", ctypes.c_void_p),
-                *((name, ctypes.c_int) for name in ("batch", "n", "w", "col0", "xm", "n_cyl")),
+                *((name, ctypes.c_int)
+                  for name in ("batch", "n", "w", "col0", "xm", "n_cyl", "shape_stride")),
                 *((name, ctypes.c_float)
                   for name in ("inv2d", "c0", "freq", "half", "full", "sixth", "ti", "tf",
                                "x_min", "spacing"))]
@@ -722,7 +725,9 @@ class _TiledStep:
         n = cfg.n
         lead = () if batch is None else (batch,)
         if slabs is None:
-            self.w, col0, shape_lead, cyl_lead, ny = n, 0, (), lead, n
+            self.w, col0, cyl_lead, ny = n, 0, lead, n
+            # K3 and batched K5 take one shared source shape or one a candidate
+            shape_lead = lead if batch is not None and shape.dim() == 3 else ()
         else:
             if len(slabs) != (batch or 1):
                 raise ValueError(f"{len(slabs)} slabs for a batch of {batch or 1}")
@@ -738,7 +743,8 @@ class _TiledStep:
         f = np.float32
         self.args = _TiledWindow(shape.data_ptr(), prof.data_ptr(), _ptr(owner), _ptr(cyl),
                                  _stream(dev).value, batch or 1, n, self.w, col0, int(x_matmul),
-                                 n_cyl, cfg.inv2d, cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt),
+                                 n_cyl, n * n if slabs is None and shape_lead else 0, cfg.inv2d,
+                                 cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt),
                                  f(cfg.dt / 6.0), ti, tf, cfg.x_min, cfg.spacing)
         self.ref = ctypes.addressof(self.args)
         self.inputs = (shape, prof, held)  # alive while the struct points at them
@@ -803,7 +809,8 @@ def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfi
                            x_matmul: bool = False):
     """Advance K candidate states (K, 12, n, n) one RK4 step from the same
     time t in one launch (K3, or batched K5), each with its own cylinders
-    (K, 8, n_cyl) lerped over [ti, tf]. `owner` (K, 5, n, n) from
+    (K, 8, n_cyl) lerped over [ti, tf] and the source shape (n, n) shared
+    or its own, (K, n, n). `owner` (K, 5, n, n) from
     `select_owner_batched` selects the radii-only mode, None the general
     one; `x_matmul` the split d/dx (K5). Each candidate's energy partials
     are summed in a fixed order. Returns (u_next (K, 12, n, n), energies
@@ -847,7 +854,8 @@ def fused_rk4_window_reference(u, shape, prof, cyl, owner, times, ti, tf, cfg: S
 def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
                      keep, x_matmul: bool = False, fields_every: int = 0):
     """Advance one state (12, n, n), or K candidates (K, 12, n, n) with
-    their own cylinders and owner fields, through a window's steps from the
+    their own cylinders and owner fields (and source shapes, where `shape`
+    is (K, n, n)), through a window's steps from the
     float32 start times `times`, with the design lerped over [ti, tf], as
     `fused_rk4_step` or `fused_rk4_step_batched` would step by step. The new
     state of each step whose index is in `keep` is kept, in a tensor of its

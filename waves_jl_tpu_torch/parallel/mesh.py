@@ -7,10 +7,13 @@ The port's counterpart is one process that drives a list of devices: a
 card only when the caller names it several times (`devices=["cuda:0"] * 4`),
 the counterpart of JAX's virtual CPU mesh in the tests; nothing repeats a
 device quietly. Where JAX places an array by a sharding (`batch_sharded`),
-the port places a tree: one tree a shard, shard k's on the mesh's device k.
+the port places a tree: one tree a shard, shard k's on the mesh's device k,
+or one copy on each device (`replicated`). A 2-D mesh (`make_mesh_2d`) keeps
+its devices in row-major order beside its shape and axis names.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -20,9 +23,12 @@ from ..utils.trees import tree_leaves, tree_map
 
 @dataclass(frozen=True)
 class Mesh:
-    """One axis of devices, one per shard, all of one type."""
+    """Devices, one per shard, all of one type: one axis by default, or
+    `shape` with `axis_names`, the devices in row-major order."""
 
     devices: tuple
+    axis_names: tuple = ("data",)
+    shape: tuple = ()
 
     def __post_init__(self):
         if not self.devices:
@@ -30,10 +36,24 @@ class Mesh:
         kinds = sorted({d.type for d in self.devices})
         if len(kinds) > 1:
             raise ValueError(f"a mesh takes devices of one type, got {kinds}")
+        if not self.shape:
+            object.__setattr__(self, "shape", (len(self.devices),))
+        if math.prod(self.shape) != len(self.devices) or len(self.shape) != len(self.axis_names):
+            raise ValueError(f"a mesh of shape {self.shape} and axes {self.axis_names} "
+                             f"cannot hold {len(self.devices)} devices")
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+
+def _cuda_devices(n: int) -> tuple:
+    count = torch.cuda.device_count()
+    if not 1 <= n <= count:
+        raise RuntimeError(
+            f"asked for {n} CUDA devices, {count} available; name devices= to put "
+            "several shards on one device or to run on the CPU")
+    return tuple(torch.device("cuda", k) for k in range(n))
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -45,13 +65,23 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
         if n_devices is not None and n_devices != len(devs):
             raise ValueError(f"n_devices={n_devices} but {len(devs)} devices named")
         return Mesh(devs)
-    count = torch.cuda.device_count()
-    n = count if n_devices is None else n_devices
-    if not 1 <= n <= count:
-        raise RuntimeError(
-            f"asked for {n} CUDA devices, {count} available; name devices= to put "
-            "several shards on one device or to run on the CPU")
-    return Mesh(tuple(torch.device("cuda", k) for k in range(n)))
+    return Mesh(_cuda_devices(torch.cuda.device_count() if n_devices is None else n_devices))
+
+
+def make_mesh_2d(shape: tuple, axis_names: tuple = ("data", "space"), devices=None) -> Mesh:
+    """2-D mesh of shape (rows, columns) over the named `devices` in
+    row-major order, else over the first rows x columns CUDA devices
+    (asking for more than exist raises)."""
+    shape = tuple(int(s) for s in shape)
+    if devices is None:
+        return Mesh(_cuda_devices(math.prod(shape)), tuple(axis_names), shape)
+    return Mesh(tuple(torch.device(d) for d in devices), tuple(axis_names), shape)
+
+
+def replicated(tree, mesh: Mesh) -> list:
+    """One copy of the tree on each of the mesh's devices, in mesh order
+    (where JAX places an array with a replicated sharding)."""
+    return [tree_map(lambda x, d=d: x.to(d), tree) for d in mesh.devices]
 
 
 def batch_sharded(tree, mesh: Mesh) -> list:

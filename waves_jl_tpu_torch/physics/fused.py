@@ -5,7 +5,9 @@ Gives the same signal and frames as `env_step`, with each RK4 step in the
 fused kernel. The state stays a contiguous (12, n, n) float32 tensor; the
 JAX package's padded TPU layout has no counterpart here.
 `make_rerank_rollout` advances K candidate states at once through the
-candidate-batched kernel K3, the hybrid controller's exact re-rank.
+candidate-batched kernel K3, the hybrid controller's exact re-rank, and
+`make_env_step_fused` K independent episodes' windows when the state
+leads with K, batched datagen.
 
 Each takes `x_matmul=True` by default, as in the JAX package: d/dx in the
 bf16 hi/lo split form of the JAX kernel's default mode (K5);
@@ -24,7 +26,8 @@ from ..designs import DesignInterpolator, design_cylinders
 from ..env import EnvState, WaveEnv, env_tspan, frame_segments, resize_weights
 from ..models.layers import full_float32
 from ..ops.fused_rk4 import (StepConfig, fused_rk4_window, fused_rk4_window_reference,
-                             select_owner, select_owner_batched, select_owner_reference)
+                             select_owner, select_owner_batched, select_owner_batched_reference,
+                             select_owner_reference)
 from ..utils.trees import tree_leaves, tree_map
 
 
@@ -89,6 +92,14 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False):
     kernel's partials at every step. With `fields_every` > 0 a fourth
     value, (1 + steps // fields_every, 2, n, n): u_tot and u_inc of u and
     of the state after every fields_every-th step (`fused_rk4_window`).
+
+    With a leading axis K on u (K, 12, n, n), shape (K, n, n) and cyl
+    (K, 8, n_cyl), K independent states advance together through the
+    candidate-batched kernel (K3, or batched K5), one launch a step and,
+    radii-only, one batched owner pass a window: each state's frames and
+    final state are what the window gives it alone, bit for bit, and the
+    signal is (K, steps+1, 3) (its energy partials summed in another
+    order). `fields_every` takes one state only.
     """
     cfg = step_config(env)
     frame_ends = (np.cumsum(frame_segments(env.integration_steps)) - 1).tolist()
@@ -98,17 +109,27 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False):
     d_omega = cfg.spacing * cfg.spacing
     run = fused_rk4_window_reference if plain else fused_rk4_window
     owner_of = select_owner_reference if plain else select_owner
+    owners_of = select_owner_batched_reference if plain else select_owner_batched
 
     def window(u, shape, tspan, cyl, fields_every: int = 0):
         ti, tf = float(tspan[0]), float(tspan[-1])
-        owner = owner_of(cyl, cfg) if radii else None
-        sc = u[0] - u[6]
-        e0 = torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]), torch.sum(sc * sc)])
+        batch = u.dim() == 4
+        owner = (owners_of if batch else owner_of)(cyl, cfg) if radii else None
+        if batch:
+            sc = u[:, 0] - u[:, 6]
+            e0 = torch.stack([torch.sum(u[:, 0] * u[:, 0], dim=(-2, -1)),
+                              torch.sum(u[:, 6] * u[:, 6], dim=(-2, -1)),
+                              torch.sum(sc * sc, dim=(-2, -1))], dim=-1)
+        else:
+            sc = u[0] - u[6]
+            e0 = torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]),
+                              torch.sum(sc * sc)])
         kept, energies, *fields = run(u, shape, prof, cyl, owner, [float(t) for t in tspan[:-1]],
                                       ti, tf, cfg, stepped, x_matmul, fields_every)
         after = dict(zip(stepped, kept))  # an empty segment's frame is the state before it
         frames = [after.get(e, u) for e in frame_ends]
-        return (frames[-1], frames, torch.cat([e0[None], energies]) * d_omega, *fields)
+        signal = torch.cat([e0[None], energies]) * d_omega
+        return (frames[-1], frames, signal.transpose(0, 1) if batch else signal, *fields)
 
     return window
 
@@ -157,16 +178,23 @@ def make_env_step_full(env: WaveEnv, plain: bool = False):
 
 def make_env_step_fused(env: WaveEnv, x_matmul: bool = True):
     """Fused counterpart of `env_step`: returns step(state, action) ->
-    (state', info). `x_matmul` as for `make_fused_window`."""
+    (state', info). `x_matmul` as for `make_fused_window`.
+
+    A state whose wave, design, source and signal lead with K (one time
+    step for all) and actions with leading K advance together through the
+    candidate-batched kernel (K3, or batched K5): each state as the window
+    would advance it alone, the counterpart of the JAX package's vmapped
+    `env_step` at `x_matmul=False`."""
     window = make_fused_window(env, x_matmul)
 
     def step(state: EnvState, action):
         tspan = env_tspan(env, state)
         next_design = env.design_space(state.design, action)
         cyl = cyl_params(state.design, next_design, env.device).contiguous()
-        _, frames, signal = window(state.wave[-1], state.source.shape, tspan, cyl)
+        _, frames, signal = window(state.wave[..., -1, :, :, :].contiguous(), state.source.shape,
+                                   tspan, cyl)
         new_state = EnvState(
-            wave=torch.stack(frames, dim=0),
+            wave=torch.stack(frames, dim=-4),
             design=next_design,
             source=state.source,
             signal=signal,

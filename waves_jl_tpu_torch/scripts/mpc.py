@@ -13,8 +13,10 @@ second half of an episode (the reference `scripts/test.jl:36-41`).
 Controllers: `random_shooting`, `cem` (`--cem-*`), `gradient` (projected
 gradient descent on `max(8, shots // 8)` sequences), `ensemble` (several
 `--checkpoint`s, `--beta`), `hybrid` (`--topk`, `--hybrid-cem`,
-`--rerank-n`, `--exact-rounds`), `oracle` (shooting in the simulator
-itself, no checkpoint) and `policy` (a one-shot policy checkpoint).
+`--rerank-n`, `--exact-rounds`; each episode in one call,
+`make_hybrid_episode_fused`, so `--fused-episode` changes nothing),
+`oracle` (shooting in the simulator itself, no checkpoint) and `policy`
+(a one-shot policy checkpoint).
 `--fast` ranks with each surrogate's bf16 form (`fast_ranking`: the latent
 state and its derivative contraction in bf16). `--render PATH` renders one
 more episode of the chosen controller after the protocol: its scattered
@@ -42,7 +44,7 @@ import torch
 
 from waves_jl_tpu_torch.control.mpc import (CEMShooting, EnsembleShooting, GradientShooting,
                                             RandomShooting, make_action_episode,
-                                            make_hybrid_action_fused, make_mpc_episode_fused,
+                                            make_hybrid_episode_fused, make_mpc_episode_fused,
                                             make_oracle_action_fused, make_policy_episode_fused)
 from waves_jl_tpu_torch.data import make_episode_fused
 from waves_jl_tpu_torch.designs import build_triple_ring_design_space
@@ -54,10 +56,6 @@ from waves_jl_tpu_torch.scripts.datagen import build_env
 from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint, load_policy_checkpoint
 from waves_jl_tpu_torch.utils.gaussians import build_normal
 from waves_jl_tpu_torch.utils.trees import tree_stack
-
-# options of the JAX CLI that the port does not run yet (ROADMAP Queue 1)
-NOT_PORTED = {"fused_episode": "--fused-episode (the one-program hybrid episode)"}
-
 
 def scattered_tail_mean(signals: np.ndarray) -> float:
     """Mean scattered energy over the second half of the episode's steps
@@ -125,7 +123,8 @@ def parse_args(argv=None):
                    help="hybrid: exact-CEM refinement rounds")
     p.add_argument("--exact-elites", type=int, default=8)
     p.add_argument("--fused-episode", action="store_true",
-                   help="hybrid: one program an episode (not yet ported)")
+                   help="hybrid: each episode in one call, no read of the card between "
+                        "actions; the port always does")
     p.add_argument("--cem-iters", type=int, default=3)
     p.add_argument("--cem-elites", type=int, default=32)
     p.add_argument("--cem-polish", type=int, default=0,
@@ -148,13 +147,6 @@ def parse_args(argv=None):
     p.add_argument("--force", action="store_true")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Exit with a clear message for an option the port does not run yet."""
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            sys.exit(f"{what} is not yet ported to waves_jl_tpu_torch (ROADMAP Queue 1)")
 
 
 def build_controller(args, env, dev):
@@ -209,16 +201,15 @@ def build_controller(args, env, dev):
                             alpha=args.alpha, iters=args.cem_iters, elites=args.cem_elites)
                 if args.hybrid_cem else None)
     rerank_env = build_env(args.rerank_n, 100, args.actions, dev) if args.rerank_n else None
-    act, step = make_hybrid_action_fused(
+    run = make_hybrid_episode_fused(
         env, model, horizon=args.horizon, shots=args.shots, topk=args.topk, alpha=args.alpha,
         rerank_env=rerank_env, exact_rounds=args.exact_rounds, exact_elites=args.exact_elites,
         searcher=searcher)
-    return make_action_episode(env, act, step), lambda g, s: act(s, g)[0]
+    return run, lambda g, s: run.act(s, g)[0]
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    check_ported(args)
     if os.path.exists(args.out) and not args.force:
         sys.exit(f"refusing to overwrite {args.out} (pass --force or --out)")
     if args.controller != "oracle" and not args.checkpoint:

@@ -1,6 +1,7 @@
 """Wave sources (counterpart of `waves_jl_tpu/sources.py`).
 
-A source is a static spatial shape modulated by sin(2 pi f t). The Gaussian
+A source is a static spatial shape modulated by sin(2 pi f t), or the zero
+`NoSource`. The Gaussian
 source redraws its centre uniformly in [mu_low, mu_high] on `resample`,
 from an explicit `torch.Generator`.
 """
@@ -21,6 +22,14 @@ def _modulate(shape: torch.Tensor, freq, t):
     if t.ndim == 0:
         return shape * s
     return shape * s.reshape(s.shape + (1,) * (shape.ndim - s.ndim))
+
+
+@dataclass(frozen=True)
+class NoSource:
+    """The zero source: a float32 0 at any time."""
+
+    def __call__(self, t):
+        return torch.tensor(0.0, dtype=torch.float32)
 
 
 @dataclass(frozen=True)

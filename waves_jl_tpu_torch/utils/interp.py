@@ -1,6 +1,6 @@
-"""Interpolation utilities (counterpart of `flatten_repeated_last_dim`,
-`LinearInterpolation` and `evaluate_over_time` in
-`waves_jl_tpu/utils/interp.py`).
+"""Interpolation utilities (counterpart of `waves_jl_tpu/utils/interp.py`:
+`flatten_repeated_last_dim`, `LinearInterpolation`, `PolynomialInterpolation`
+and `evaluate_over_time`).
 
 Linear interpolation: X (B, K) increasing knots; Y (B, K, E); t (B,) ->
 (B, E). t is clamped into [X[:, 0], X[:, -1]], as in the JAX package.
@@ -56,6 +56,30 @@ class LinearInterpolation:
         y0 = torch.einsum("bk,bke->be", m, self.Y[:, :-1, :])
         dydx = torch.einsum("bk,bke->be", m, self._slope)
         return y0 + (tb[:, 0] - x0)[:, None] * dydx
+
+
+@dataclass(frozen=True)
+class PolynomialInterpolation:
+    """Lagrange polynomial through the knots X (B, K) with values Y
+    (B, K, E): t (B,) -> (B, E). Each factor is divided by the largest
+    |X| of its row and offset by 1e-5 before the products, as in the JAX
+    package (and the reference)."""
+
+    X: torch.Tensor  # (B, K)
+    Y: torch.Tensor  # (B, K, E)
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        X, Y = self.X, self.Y
+        K = X.shape[1]
+        eye = torch.eye(K, dtype=Y.dtype, device=Y.device)
+        scale = torch.max(torch.abs(X), dim=1).values[:, None, None]  # (B, 1, 1)
+        # numerator: prod over j != k of (X_j - t)
+        n = eye[None] + (1.0 - eye)[None] * (X[:, :, None] - t[:, None, None])
+        numer = torch.prod(n / scale + 1e-5, dim=1)  # (B, K)
+        # denominator: prod over j of (X_j - X_k), the diagonal taken as 1
+        d = (X[:, :, None] - X[:, None, :]) + eye[None]
+        denom = torch.prod(d / scale + 1e-5, dim=1)  # (B, K)
+        return torch.einsum("bk,bke->be", numer / denom, Y)
 
 
 def evaluate_over_time(f, t: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""Metrics logging and phase timing (counterpart of
+"""Metrics logging, phase timing and profiling (counterpart of
 `waves_jl_tpu/utils/logging.py`): a JSONL metrics log with the JAX
-package's keys, and a phase timer on the host clock. The JAX logger's
-TensorBoard mirror and `profile_trace` are not ported."""
+package's keys, a phase timer on the host clock, and `profile_trace`, a
+`torch.profiler` scope that writes a Chrome trace. The JAX logger's
+TensorBoard mirror is not ported."""
 from __future__ import annotations
 
 import json
 import os
 import time
 from contextlib import contextmanager
+
+import torch
 
 
 class MetricsLogger:
@@ -48,3 +51,25 @@ class Timer:
             yield
         finally:
             self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextmanager
+def profile_trace(logdir: str | None):
+    """`torch.profiler` scope over the CPU and, where there is a card, CUDA
+    activities; on exit it writes a Chrome trace
+    `trace_<pid>_<ms>.json` under `logdir` (made if missing). Yields the
+    profiler, whose `key_averages()` sums the times by kernel, or None for
+    `logdir` None, where it does nothing (JAX's `jax.profiler` scope)."""
+    if logdir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
