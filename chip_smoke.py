@@ -7,11 +7,15 @@ from the root of the repository. Phases, each printing a flushed line with
 its elapsed seconds:
 
 1. device: the card's name and power limit;
-2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, with
-   ptxas's register and spill report, and for the four instances of the
-   one-launch step `rk4_step_tiled` (the split d/dx or the exact one, the
-   owner test or the general rasterisation) their registers, spills,
-   shared memory and resident blocks an SM;
+2. build: the CUDA kernels from `waves_jl_tpu_torch/csrc/` with nvcc, one
+   nvcc a library (`fused_rk4.cu`, `fused_rk4_multi.cu`) started together,
+   with ptxas's register and spill report, and for the eight instances of
+   the one-launch step `rk4_step_tiled` (the split d/dx or the exact one,
+   the owner test or the general rasterisation, the whole grid or slabs)
+   and the eight of `rk4_steps_tiled` (two or four steps a launch, the
+   JAX kernel's `steps_per_call`) their registers, spills, shared memory,
+   resident blocks an SM and, for the latter, the share of cell-stages
+   their band recomputes at 700^2;
 3. kernels: each kernel against its plain PyTorch version at 700^2, K1,
    K2 and K5 (the split d/dx, `x_matmul=True`, in both rasterisation
    modes) with the count of cells that differ (none: one launch a step,
@@ -23,14 +27,28 @@ its elapsed seconds:
    plain versions, bit for bit on all five planes; the time of a step of
    K1, K2 and K5 in both modes, K3 and batched K5 radii-only as one call,
    as device work, and inside a 100-step window with the host's issue
-   time, and of each owner pass as one call and as device work;
+   time, and of each owner pass as one call and as device work; then the
+   two- and four-step launches: each of the eight single-state instances
+   at 700^2 (40 steps radii-only, 20 general, at the JAX kernel's
+   sub-step times) and K3 and batched K5 at two steps a launch with 16
+   candidates at 350^2, against their plain versions and against one-step
+   launches at the same times, bit for bit (the differing cells counted),
+   each timed a launch beside its plain version and its bound (the state
+   read and written once a launch); K5 and K2 a step at one, two and four
+   steps a launch in turns, as device work (the probe of temporal
+   blocking);
 4. main path: a warm 20-action x 100-step MPC control episode at 700^2
    (triple-ring cloak, 256-shot random shooting on the stride-4 flagship
-   surrogate with the tracked weights), the simulator's steps/s over 20
-   windows with `x_matmul=True` (K5) and `False` (K2) in turns, and a
+   surrogate with the tracked weights; one launch a step at the JAX
+   window's step times, the default),
+   3 of its actions taken on the kernel route and on the plain route from
+   the same state and draws (the same actions, the frames bit for bit),
+   the simulator's steps/s over 20 windows with `x_matmul=True` (K5) and
+   `False` (K2), each by default and at two steps a launch, in turns, and a
    random-policy episode over a position-adjustable design space, the path
    of the general kernels (K5 general, and K1 with `x_matmul=False`), with
    one K = 4 re-rank window there in each mode (K5 and K3 general), each
+   by default and at two steps a launch,
    batched kernel held against its plain version on that window's own
    states, cylinders and step times (bit for bit) and against the
    single-state kernel on each candidate, and timed alone and inside the
@@ -41,7 +59,9 @@ its elapsed seconds:
    700^2 through K5), three of its selections replayed through the
    sequential re-rank, one selection split into prune, re-rank and env
    window, the batched re-rank against the sequential one and against the
-   exact-stencil re-rank (K3), and two exact-CEM rounds against one;
+   exact-stencil re-rank (K3), the batched re-rank by default (one launch
+   a step) against two steps a launch in turns, and two exact-CEM rounds
+   against one;
 6. sharded: from phase 3's state, cylinders and window times, the y-sharded
    rollout (`parallel/fused_domain.py`, 4 shards of 175 columns on one
    card, all four slabs stacked and stepped by K4 in one launch a step,
@@ -97,10 +117,13 @@ its elapsed seconds:
    and its owner pass, timed on the host, on the card and as the host's
    issue time, its launches counted (they join the batched rows of the
    JSON line), the chosen cost the least, three shots replayed through the
-   sequential `OracleShooting` (1e-6); one 64-candidate step and its owner
-   pass held against their plain versions (the owner fields and the state
-   bit for bit) and the step against K5 on four candidates alone (bit for
-   bit), each timed with its plain version and bound; a 64-shot oracle episode cut to 3 actions; a
+   sequential `OracleShooting` (1e-6); one 64-candidate step (the
+   oracle's), one launch of two steps at that shape and the owner pass
+   held against their plain versions (the owner fields and the state bit
+   for bit) and each launch against K5 on four candidates alone (bit for
+   bit), each timed with its plain version and bound, and K3 at that
+   shape and two steps a launch against its plain
+   version (bit for bit); a 64-shot oracle episode cut to 3 actions; a
    pool harvest episode (16 candidates scored at 350^2, 20 states, epsilon
    0.2) whose pools round-trip through their npz; one DAgger probe under
    the pools3 CEM + polish searcher; a recorded random-shooting episode
@@ -128,10 +151,14 @@ its elapsed seconds:
    global batch 4, 2 micro-steps) on a mesh of every card, and on two
    shards of the card where there is one, and `train(mesh=)` for one
    chunk of one update, each against the single-device trainer on the
-   same windows (losses 1e-4, each update's averaged gradient 1e-4 of a
-   leaf, after each update the leaves rtol 5e-3 / atol 2e-5 but where a
-   gradient is within NEAR_ZERO of its leaf's largest, replicas bit for
-   bit), with
+   same windows (each update's loss and averaged gradient within
+   DP_GRAD_TOL, 1e-4 of a leaf, of the single device's at the same
+   parameters, where one shard's gradient left unaveraged must read 10
+   times that; against the single device's own trajectory within 1e-4 plus
+   how far its gradient and loss move when its near-zero-gradient
+   parameters are moved Adam's whole 2 lr an update; after each update the
+   leaves rtol 5e-3 / atol 2e-5 but where a gradient is within NEAR_ZERO
+   of its leaf's largest, replicas bit for bit), with
    a micro-step's seconds and host share on each side, and no kernel
    launched; one 256-shot selection through `fast_ranking()` against
    float32 (costs 5e-2, the bf16 choice among float32's best 5%); the
@@ -172,10 +199,17 @@ its elapsed seconds:
    faces 0; the MPC CLI's `--fused-episode` once, in a subprocess beside
    them. `--only-long-tail` runs phases 1, 2 and 14 alone.
 
-The launch counts of each kernel are read from the main-path runs alone:
-every mode takes one launch a step (`rk4_step_tiled`), on the whole grid
-(K1, K2, K3, K5, batched K5, radii-only and general) and on the slabs of
-one card (K4, K4-XM). The last lines are one JSON object describing every
+The launch counts of each kernel are read from the main-path runs alone,
+each in its default configuration: every path takes one launch a step
+(`rk4_step_tiled`), the whole-grid ones at the JAX window's and re-rank's
+step times (two-step calls), and so do the slabs of one card (K4, K4-XM).
+The two- and four-step instances (`rk4_steps_tiled`, counters ending in
+`_spc2` and `_spc4`) run only where `steps_per_call` is asked for: their
+rows give `launches` 0, `on_main_path` false and, as `probe_launches`,
+the launches of the run that asked for them. Every row gives
+`steps_per_call`, and its `ms`, plain version and bound are those of one
+launch; a general row's operations count the cylinders each tile keeps
+(`tile_cylinders`), not every cylinder at every cell. The last lines are one JSON object describing every
 kernel (`ms` with CUDA events around calls as the host drives them; the
 rows of the step and of the owner passes add `device_ms`, the same
 launches queued behind a device sleep, without the host's issue cost;
@@ -228,12 +262,24 @@ BASELINE_WIDTH = dict(elements=1024, h_size=256, nfreq=500)
 # leaf's largest magnitude are held to that, the rest to JAX's bounds. On
 # the H100 the signs differed only at 3.6e-7 of a leaf's largest and below.
 NEAR_ZERO = 1e-6
+# Phase 12's averaged gradient against the single device's at the same
+# parameters and windows, relative to each leaf's largest magnitude: on the
+# H100 the largest reading was 1.721e-05 (`train(mesh=)`, two shards of one
+# card), and one shard's gradient left unaveraged reads far above this
+# limit (checked each run at 10 times it). The losses are held to the same.
+DP_GRAD_TOL = 1e-4
 # Kernel against plain version, relative to the largest magnitude: both run
 # the same float32 operations in the same order (FMA contraction is off in
 # the kernel), so they differ only where sinf and torch.sin round apart and
 # where sums are reduced in another order, ~1e-7 a step. A stencil, index
 # or rasterisation fault shows at 1e-3 or more.
 REL_TOL = 1e-5
+# RK4 steps a call of the JAX package's window for STEPS (frame segments
+# [80, 10, 10] all even) and of its re-rank for an even STEPS
+# (`physics.fused.default_steps_per_call`, `rerank_steps_per_call`): the
+# default paths step at those calls' sub-step times one launch a step, and
+# take SPC steps a launch (`rk4_steps_tiled`) where asked to
+SPC = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 
@@ -541,10 +587,135 @@ def batched_kernels(env, state, dev):
     log("kernels", f"K3 bound per batched step {k3_bound[0]:.5f} ms ({k3_bound[1]}; states alone "
                    f"{2 * nbytes(u0) / 1e6:.1f} MB, {2 * nbytes(u0) / HBM_BYTES_PER_S * 1e3:.5f} "
                    f"ms); select_owner_batched {own_bound[0]:.5f} ms ({own_bound[1]})")
+
+    # SPC steps a launch (`rk4_steps_tiled`), asked for: K3 and batched K5
+    # over 10 steps at the JAX re-rank's sub-step times, against their plain
+    # versions and against the one-step launches at those times
+    times_spc = fk.call_step_times(tspan[:10:SPC], SPC, cfg.dt)
+    spc_rows = {}
+    for xm, name in ((False, "K3"), (True, "batched K5")):
+        def window(route, own, spc):
+            return route(u0, shape, prof, cyl, own, times_spc, ti, tf, cfg, [9], xm,
+                         steps_per_call=spc)
+
+        key = fk.step_key(True, xm, True, SPC)
+        before = fk.launch_counts[key]
+        (u_m,), e_m = window(fk.fused_rk4_window, owner_k, SPC)
+        launched = fk.launch_counts[key] - before
+        (u_p,), e_p = window(fk.fused_rk4_window_reference, owner_p, SPC)
+        (u_1,), _ = window(fk.fused_rk4_window, owner_k, 1)
+        torch.cuda.synchronize()
+        sig = rel_err(e_m, e_p)
+        log("kernels", f"{name} radii-only, {SPC} steps a launch, vs plain, 10 steps: signal "
+                       f"{sig:.3e}; {differing_cells(u_m, u_p)}; against the one-step launches at "
+                       f"those times: {differing_cells(u_m, u_1)}")
+        check(torch.equal(u_m, u_p) and sig <= 1e-6,
+              f"{name} radii-only ({SPC} steps a launch) equals its plain version bit for bit, "
+              "its signal within 1e-6")
+        check(torch.equal(u_m, u_1),
+              f"{name} ({SPC} steps a launch) equals {SPC} one-step launches")
+
+        def launch(route=fk.fused_rk4_step_batched, own=owner_k):
+            return route(u0, shape, prof, cyl, own, times_spc[0], ti, tf, cfg, x_matmul=xm,
+                         steps_per_call=SPC)
+
+        ms, dev_ms = cuda_ms(launch, 20), device_ms(launch, 20)
+        plain = cuda_ms(lambda: launch(fk.fused_rk4_step_batched_reference, owner_p), 2)
+        bnd = bound(fk.call_bytes(SIZE_RERANK, n_cyl, SPC, TOPK),
+                    TOPK * fk.step_flops(SIZE_RERANK, n_cyl, True, x_matmul=xm,
+                                         steps_per_call=SPC))
+        log("kernels", f"{name} radii-only, {SPC} steps a launch, {TOPK} x {SIZE_RERANK}^2: "
+                       f"{ms:.4f} ms a launch (device work {dev_ms:.4f}, {dev_ms / SPC:.4f} a "
+                       f"step; plain {plain:.4f}); bound {bnd[0]:.5f} ms ({bnd[1]}), "
+                       f"{dev_ms / bnd[0]:.2f}x")
+        spc_rows[key] = (float(torch.max(torch.abs(u_m - u_p))), ms, plain, bnd, dev_ms,
+                         launched)
     return env_lo, {"k3": (k3_abs, k3_ms, k3_plain, k3_bound), "k3_dev": k3_dev,
                     "own": (owner_err, own_ms, own_plain, own_bound), "own_dev": own_dev,
                     "seq_ms": seq_ms,
-                    "k5b": (k5b_abs, k5b_ms, k5b_plain, k5b_bound), "k5b_dev": k5b_dev}
+                    "k5b": (k5b_abs, k5b_ms, k5b_plain, k5b_bound), "k5b_dev": k5b_dev,
+                    "spc": spc_rows}
+
+
+def multi_step_kernels(u0, shape, prof, cyl, moved, owner_k, owner_p, tspan, cfg):
+    """Phase 3, the two- and four-step launches (`rk4_steps_tiled<XM,
+    GENERAL, SPC>`) at 700^2 from phase 3's state: each of the eight
+    single-state instances over a window at the JAX kernel's sub-step times
+    (40 steps radii-only on the triple ring, 20 general on the moving
+    cylinders) against its plain version and against one-step launches at
+    those times, bit for bit, its signal within 1e-6; each timed a launch,
+    with its plain version and its bound, which counts the state read and
+    written once a launch (and, general, the cylinders each tile keeps);
+    then K5 and K2 radii-only a step at one, two and four steps a launch in
+    turns, as device work inside 20-step windows (the probe of temporal
+    blocking). Returns {counter: (max abs err, ms, plain ms, bound, device
+    ms, launches of the window held to its plain version)}."""
+    import torch
+
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+
+    ti, tf = float(tspan[0]), float(tspan[-1])
+    n_cyl = cyl.shape[1]
+    rows = {}
+    for spc in (2, 4):
+        for radii in (True, False):
+            own_k, own_p, cyl_ = (owner_k, owner_p, cyl) if radii else (None, None, moved)
+            times = fk.call_step_times(tspan[:(40 if radii else 20):spc], spc, cfg.dt)
+            for xm in (True, False):
+                def window(route, own, steps_per_call, xm=xm):
+                    return route(u0, shape, prof, cyl_, own, times, ti, tf, cfg,
+                                 [len(times) - 1], xm, steps_per_call=steps_per_call)
+
+                key = fk.step_key(False, xm, radii, spc)
+                before = fk.launch_counts[key]
+                (u_m,), e_m = window(fk.fused_rk4_window, own_k, spc)
+                launched = fk.launch_counts[key] - before
+                (u_p,), e_p = window(fk.fused_rk4_window_reference, own_p, spc)
+                (u_1,), _ = window(fk.fused_rk4_window, own_k, 1)
+                torch.cuda.synchronize()
+                sig = rel_err(e_m, e_p)
+                log("kernels", f"{key} ({spc} steps a launch) vs plain, {len(times)} steps: "
+                               f"signal {sig:.3e}; {differing_cells(u_m, u_p)}; against one-step "
+                               f"launches at those times: {differing_cells(u_m, u_1)}")
+                check(torch.equal(u_m, u_p) and sig <= 1e-6,
+                      f"{key} equals its plain version bit for bit, its signal within 1e-6")
+                check(torch.equal(u_m, u_1), f"{key} equals {spc} one-step launches")
+
+                def launch(route=fk.fused_rk4_step, own=own_k, xm=xm):
+                    return route(u0, shape, prof, cyl_, own, times[0], ti, tf, cfg, x_matmul=xm,
+                                 steps_per_call=spc)
+
+                ms, dev_ms = cuda_ms(launch, 20), device_ms(launch, 20)
+                plain = cuda_ms(lambda: launch(fk.fused_rk4_step_reference, own_p), 2)
+                tested = n_cyl if radii else fk.tile_cylinders(
+                    cyl_, cfg, fk.lerp_weight(times[0], ti, tf))
+                bnd = bound(fk.call_bytes(SIZE, cyl_.shape[1], spc),
+                            fk.step_flops(SIZE, tested, radii, x_matmul=xm, steps_per_call=spc))
+                log("kernels", f"{key}: {ms:.4f} ms a launch (device work {dev_ms:.4f}, "
+                               f"{dev_ms / spc:.4f} a step; plain {plain:.4f}); bound "
+                               f"{bnd[0]:.5f} ms ({bnd[1]}), {dev_ms / bnd[0]:.2f}x")
+                rows[key] = (float(torch.max(torch.abs(u_m - u_p))), ms, plain, bnd, dev_ms,
+                             launched)
+
+    # the probe: device ms a step at 1, 2 and 4 steps a launch in turns,
+    # against the bound of a step's share of a launch's bytes
+    per_step = {}
+    for xm in (True, False):
+        for spc in (1, 2, 4, 4, 2, 1):
+            times = fk.call_step_times(tspan[:20:spc], spc, cfg.dt)
+            dev_ms = device_ms(lambda: fk.fused_rk4_window(u0, shape, prof, cyl, owner_k, times,
+                                                           ti, tf, cfg, [19], xm,
+                                                           steps_per_call=spc), 1) / 20
+            per_step.setdefault((xm, spc), []).append(dev_ms)
+    for (xm, spc), v in per_step.items():
+        bnd = bound(fk.call_bytes(SIZE, n_cyl, spc) / spc,
+                    fk.step_flops(SIZE, n_cyl, True, x_matmul=xm))
+        log("kernels", f"{'K5' if xm else 'K2'} radii-only at {SIZE}^2, {spc} steps a launch, "
+                       f"device work a step inside 20-step windows, in turns: "
+                       f"{', '.join(f'{x:.5f}' for x in v)} ms; bound a step {bnd[0]:.5f} ms "
+                       f"({bnd[1]}), {min(v) / bnd[0]:.2f}x")
+    return rows
+
 
 
 def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
@@ -554,7 +725,11 @@ def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
     (one launch a step) against its plain version over the window's first
     10 steps, bit for bit on the state, and each candidate against the
     single-state kernel on it; its time a step alone and inside the window.
-    Returns the numbers of its kernel row and its device ms a step."""
+    The same window's first 10 steps at SPC steps a launch (`rk4_steps_tiled`,
+    asked for) against the plain version and the one-step launches, bit for
+    bit, timed a launch. The bounds count the cylinders each tile keeps
+    (`tile_cylinders`). Returns the numbers of its kernel row, its device ms
+    a step and the SPC-step row's numbers."""
     import numpy as np
     import torch
 
@@ -573,8 +748,9 @@ def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
     check(bool((cyl[:, 0:2] != cyl[:, 4:6]).any()), "the re-rank window's cylinders move")
     t_i = np.float32(t0)
     ti, tf = float(t_i), float(np.float32(t_i + np.float32(STEPS * cfg.dt)))
-    all_times = [float(ts) for ts in rerank_step_times(t_i, STEPS, cfg.dt)]
+    all_times = [float(ts) for ts in rerank_step_times(t_i, STEPS, cfg.dt)]  # SPC a call
     times = all_times[:10]
+    tested = fk.tile_cylinders(cyl, cfg, fk.lerp_weight(times[0], ti, tf))
 
     kernel = functools.partial(fk.fused_rk4_step_batched, x_matmul=x_matmul)
     reference = functools.partial(fk.fused_rk4_step_batched_reference, x_matmul=x_matmul)
@@ -616,18 +792,50 @@ def batched_general_kernel(env, state, elite, t0, dev, x_matmul):
     plain = cuda_ms(lambda: reference(u0, shape, prof, cyl, None, times[0], ti, tf, cfg), 2)
     part = torch.empty((k, fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
     bnd = bound(2 * nbytes(u0) + nbytes(shape, prof, cyl, part),
-                k * fk.step_flops(SIZE, cyl.shape[-1], False, x_matmul=x_matmul))
+                k * fk.step_flops(SIZE, tested, False, x_matmul=x_matmul))
     log("main path", f"ms per batched RK4 step of {k} candidates at {SIZE}^2: {name} {ms:.4f} "
                      f"(plain {plain:.4f}; device work {dev_ms:.4f}; inside a {STEPS}-step window "
                      f"{win[0]:.4f} a step, device work {win[1]:.4f}, the host issues a step in "
-                     f"{win[2]:.4f}), bound {bnd[0]:.5f} ms ({bnd[1]})")
-    return (abs_err, ms, plain, bnd), dev_ms
+                     f"{win[2]:.4f}), bound {bnd[0]:.5f} ms ({bnd[1]}; {tested:.4f} of "
+                     f"{cyl.shape[-1]} cylinders a cell, those each tile keeps)")
+
+    # SPC steps a launch on the same 10 steps (their times are the re-rank's
+    # sub-step times), against the plain version and the one-step launches
+    def window(route):
+        return route(u0, shape, prof, cyl, None, times, ti, tf, cfg, [9], x_matmul,
+                     steps_per_call=SPC)
+
+    (u_m,), e_m = window(fk.fused_rk4_window)
+    (u_mp,), e_mp = window(fk.fused_rk4_window_reference)
+    torch.cuda.synchronize()
+    sig = rel_err(e_m, e_mp)
+    log("main path", f"{name}, {SPC} steps a launch, vs plain on the re-rank window, 10 steps: "
+                     f"signal {sig:.3e}; {differing_cells(u_m, u_mp)}; against the one-step "
+                     f"launches: {differing_cells(u_m, u_k)}")
+    check(torch.equal(u_m, u_mp) and sig <= 1e-6,
+          f"{name} ({SPC} steps a launch) equals its plain version bit for bit, its signal within "
+          "1e-6")
+    check(torch.equal(u_m, u_k), f"{name} ({SPC} steps a launch) equals {SPC} one-step launches")
+
+    def launch(route=fk.fused_rk4_step_batched):
+        return route(u0, shape, prof, cyl, None, times[0], ti, tf, cfg, x_matmul=x_matmul,
+                     steps_per_call=SPC)
+
+    ms_m, dev_m = cuda_ms(launch, 20), device_ms(launch, 20)
+    plain_m = cuda_ms(lambda: launch(fk.fused_rk4_step_batched_reference), 2)
+    bnd_m = bound(fk.call_bytes(SIZE, cyl.shape[-1], SPC, k),
+                  k * fk.step_flops(SIZE, tested, False, x_matmul=x_matmul, steps_per_call=SPC))
+    log("main path", f"{name}, {SPC} steps a launch, {k} x {SIZE}^2: {ms_m:.4f} ms a launch "
+                     f"(device work {dev_m:.4f}, {dev_m / SPC:.4f} a step; plain {plain_m:.4f}); "
+                     f"bound {bnd_m[0]:.5f} ms ({bnd_m[1]}), {dev_m / bnd_m[0]:.2f}x")
+    return ((abs_err, ms, plain, bnd), dev_ms,
+            (float(torch.max(torch.abs(u_m - u_mp))), ms_m, plain_m, bnd_m, dev_m))
 
 
 def hybrid_episode(env, env_lo, space, dev):
     """Phase 5: the hybrid controller at full width. Returns its launch
-    counts, those of one re-rank with the exact stencil (K3) and its
-    seconds an action."""
+    counts, those of one re-rank with the exact stencil (K3) and of one
+    asked for SPC steps a launch (batched K5), and its seconds an action."""
     import torch
 
     from waves_jl_tpu_torch.control.mpc import (HybridShooting, coarsen_env_state,
@@ -739,6 +947,30 @@ def hybrid_episode(env, env_lo, space, dev):
     check(split_rel <= 1e-6 and same_choice,
           "the split and exact re-rank costs agree within 1e-6 and choose alike")
 
+    # the batched K5 re-rank by default (one launch a step) against SPC steps
+    # a launch at the same step times, in turns: its launches, time and costs
+    multi = make_rerank_rollout(env_lo, HORIZON, steps_per_call=SPC)
+    multi(st_lo, best, t0)  # warm
+    turns = {1: [], SPC: []}
+    for spc in (1, SPC, SPC, 1):
+        fk.reset_launch_counts()
+        s_, c_ = host_s(lambda: (act.exact_eval if spc == 1 else multi)(st_lo, best, t0))
+        turns[spc].append(s_)
+        if spc == SPC:
+            spc_counts, spc_cost = dict(fk.launch_counts), c_
+    spc_rel = rel_err(spc_cost, split_cost)
+    log("hybrid", f"batched K5 re-rank of the {TOPK} pruned in turns: by default (one launch a "
+                  f"step) {', '.join(f'{s:.4f}' for s in turns[1])} s, {SPC} steps a launch "
+                  f"{', '.join(f'{s:.4f}' for s in turns[SPC])} s; costs rel err {spc_rel:.3e} "
+                  f"(tol 1e-06), identical {bool(torch.equal(spc_cost, split_cost))}, same choice "
+                  f"{int(torch.argmin(spc_cost)) == int(torch.argmin(split_cost))}; launches "
+                  f"{spc_counts}")
+    expect = dict.fromkeys(spc_counts, 0)
+    expect.update({f"fused_rk4_batched_xmatmul_radii_only_spc{SPC}": HORIZON * STEPS // SPC,
+                   "select_owner_batched": HORIZON})
+    check(spc_counts == expect, f"{SPC}-step re-rank launch counts {spc_counts} == {expect}")
+    check(spc_rel <= 1e-6, f"the default and {SPC}-step re-rank costs agree within 1e-6")
+
     rounds = HybridShooting(env, model, exact_rounds=2, **kw)
     rounds_s, (_, r2_cost) = host_s(lambda: rounds.rerank(final, *pruned, gen))
     log("hybrid", f"two exact rounds {rounds_s:.4f} s: chosen cost {float(r2_cost.min()):.6e} vs "
@@ -746,7 +978,7 @@ def hybrid_episode(env, env_lo, space, dev):
                   f"{bool(torch.equal(r2_cost[:TOPK], ev_cost))}")
     check(float(r2_cost.min()) <= float(ev_cost.min()),
           "two exact rounds choose no worse than one from the same draws")
-    return counts, exact_counts, episode_s / WINDOWS
+    return counts, exact_counts, spc_counts, episode_s / WINDOWS
 
 
 def cylinder_grid(moving: bool):
@@ -837,8 +1069,9 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
           "the slabs' owner pass takes one launch and equals its plain version bit for bit")
 
     # the sharded rollout against the whole-grid kernel over the window (K2,
-    # the exact d/dx that the sharded rollout takes)
-    u_w, _, s_w = make_fused_window(env, x_matmul=False)(u0, shape, tspan, cyl)
+    # the exact d/dx that the sharded rollout takes, one step a launch at the
+    # window's tspan times, as the sharded rollout steps in both packages)
+    u_w, _, s_w = make_fused_window(env, x_matmul=False, steps_per_call=1)(u0, shape, tspan, cyl)
     owner_w = fk.select_owner(cyl, cfg)
     d_omega = cfg.spacing * cfg.spacing
     counts = {}
@@ -944,7 +1177,7 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         roll = rollout(k, True)
         steps_ms[k] = cuda_ms(lambda: roll(u0, tspan, cyl, shape, prof), 3) / STEPS
         dev_ms[k] = device_ms(lambda: roll(u0, tspan10, cyl, shape, prof), 1) / 10
-    window = make_fused_window(env, x_matmul=False)
+    window = make_fused_window(env, x_matmul=False, steps_per_call=1)
     win_ms = cuda_ms(lambda: window(u0, shape, tspan, cyl), 3) / STEPS
     win_dev = device_ms(lambda: window(u0, shape, tspan10, cyl), 1) / 10
     k2_dev = device_ms(lambda: fk.fused_rk4_step(u0, shape, prof, cyl, owner_w, times[0], ti, tf,
@@ -997,7 +1230,9 @@ def sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms):
         dev_only = device_ms(kernel, 20)
         plain_ms = cuda_ms(lambda: fk.fused_rk4_step_slabs_reference(
             us, sh, prof, cyl_, own_p, t0, ti, tf, cfg, slabs, False), 3)
-        flops = shards * fk.step_flops(SIZE, n_cyl, radii, ny)
+        # general: the cylinders each tile keeps, counted on the whole grid's tiles
+        tested = n_cyl if radii else fk.tile_cylinders(cyl_, cfg, fk.lerp_weight(t0, ti, tf))
+        flops = shards * fk.step_flops(SIZE, tested, radii, ny)
         err = max(errs[radii], float(torch.max(torch.abs(got[0] - want[0]))))
         rows[name] = (err, ms, dev_only, plain_ms, bound(io, flops))
     own_ms = cuda_ms(lambda: fk.select_owner_slabs(cyl, cfg, slabs), 50)
@@ -1065,8 +1300,9 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
         check(errs[radii] == 0.0, "K4-XM's owned state equals its plain version's")
         check(sig <= REL_TOL, "K4-XM's signal agrees with its plain version's")
 
-    # the split sharded rollout against the whole-grid K5 window
-    u_w, _, s_w = make_fused_window(env, x_matmul=True)(u0, shape, tspan, cyl)
+    # the split sharded rollout against the whole-grid K5 window at one step a
+    # launch (the rollout's tspan times)
+    u_w, _, s_w = make_fused_window(env, x_matmul=True, steps_per_call=1)(u0, shape, tspan, cyl)
     d_omega = cfg.spacing * cfg.spacing
     counts = {}
     for k in (1, 2, 4):
@@ -1158,7 +1394,8 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
         ms, dev_only = turns[(name, True)][0]
         plain_ms = cuda_ms(lambda: fk.fused_rk4_step_slabs_reference(
             us, sh, prof, cyl_, own_p, t0, ti, tf, cfg, slabs, True), 3)
-        flops = shards * fk.step_flops(SIZE, n_cyl, radii, ny, x_matmul=True)
+        tested = n_cyl if radii else fk.tile_cylinders(cyl_, cfg, fk.lerp_weight(t0, ti, tf))
+        flops = shards * fk.step_flops(SIZE, tested, radii, ny, x_matmul=True)
         err = max(errs[radii], float(torch.max(torch.abs(got[0] - want[0]))))
         rows[name] = (err, ms, dev_only, plain_ms, bound(io, flops))
         log("sharded", f"one step of {shards} stacked slabs (one launch), {name}, in turns, ms "
@@ -1801,7 +2038,8 @@ def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: 
                    f"{chunks} chunks of {EXACT_CHUNK} through batched K5) {wall:.4f} s; the card "
                    f"{card:.4f} s between events; the host issues it in {issue:.4f} s; launches "
                    f"{oracle_counts}")
-    only(oracle_counts, {"fused_rk4_batched_xmatmul_radii_only": HORIZON * STEPS * chunks,
+    k5b = "fused_rk4_batched_xmatmul_radii_only"
+    only(oracle_counts, {k5b: HORIZON * STEPS * chunks,
                          "select_owner_batched": HORIZON * chunks}, "the oracle selection")
     energy = cost - compute_action_cost(actions)
     check(tuple(cost.shape) == (ORACLE_SHOTS,) and bool(torch.isfinite(cost).all())
@@ -1822,9 +2060,10 @@ def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: 
                    f"{seq_err:.3e} (tol 1e-06)")
     check(seq_err <= 1e-6, "the batched oracle's costs are the sequential route's")
 
-    # one batched K5 step of 64 candidates at 700^2 and its owner pass
-    # against their plain versions, and the step against K5 on four of the
-    # candidates alone
+    # one batched K5 step of 64 candidates at 700^2, the oracle's, and one
+    # launch of SPC steps at that shape, and the owner pass, against their
+    # plain versions, and each launch against K5 on four of the candidates
+    # alone
     cfg = step_config(env)
     prof = env.integrator.dynamics.pml[:, 0].contiguous()
     k, shape = EXACT_CHUNK, start.source.shape
@@ -1842,55 +2081,73 @@ def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: 
                     "bit")
     ti = float(start.time_step * 1e-5)
     times = (ti, ti, ti + 1e-3, cfg)
-    ub, eb = fk.fused_rk4_step_batched(u, shape, prof, cyl, owner, *times, x_matmul=True)
-    up, ep = fk.fused_rk4_step_batched_reference(u, shape, prof, cyl, owner_p, *times,
-                                                 x_matmul=True)
-    torch.cuda.synchronize()
-    big_state, big_sig = rel_err(ub, up), rel_err(eb, ep)
-    big_abs = float(torch.max(torch.abs(ub - up)))
-    log("distill", f"one batched K5 step of {k} candidates at {SIZE}^2 vs plain on the plain "
-                   f"owner fields: rel err state {big_state:.3e}, signal {big_sig:.3e} (tol "
-                   f"{REL_TOL:g}); {differing_cells(ub, up)}")
-    check(big_state <= REL_TOL and big_sig <= REL_TOL,
-          "batched K5 of 64 candidates at 700^2 agrees with its plain version")
-    check(torch.equal(ub, up) and big_sig <= 1e-6,
-          "batched K5 of 64 candidates at 700^2 equals its plain version bit for bit, its "
-          "signal within 1e-6")
-    del up
-    same = []
     picks = (0, k // 3, 2 * k // 3, k - 1)
-    for b in picks:
-        u1, e1 = fk.fused_rk4_step(u[b], shape, prof, cyl[b], owner[b], *times, x_matmul=True)
-        same.append(torch.equal(ub[b], u1) and rel_err(eb[b], e1) <= 1e-6)
-    log("distill", f"one batched K5 step of {k} candidates at {SIZE}^2 vs K5 on candidates "
-                   f"{picks} alone: identical {same}")
-    check(all(same), "each of the 64 candidates is K5's state bit for bit")
-    del ub, u1
+    big = {}
+    for spc in (1, SPC):
+        what = "step" if spc == 1 else f"launch of {spc} steps"
+        ub, eb = fk.fused_rk4_step_batched(u, shape, prof, cyl, owner, *times, x_matmul=True,
+                                           steps_per_call=spc)
+        up, ep = fk.fused_rk4_step_batched_reference(u, shape, prof, cyl, owner_p, *times,
+                                                     x_matmul=True, steps_per_call=spc)
+        torch.cuda.synchronize()
+        big_state, big_sig = rel_err(ub, up), rel_err(eb, ep)
+        big_abs = float(torch.max(torch.abs(ub - up)))
+        log("distill", f"one batched K5 {what} of {k} candidates at {SIZE}^2 vs plain on the "
+                       f"plain owner fields: rel err state {big_state:.3e}, signal {big_sig:.3e} "
+                       f"(tol {REL_TOL:g}); {differing_cells(ub, up)}")
+        check(big_state <= REL_TOL and big_sig <= REL_TOL,
+              f"batched K5 ({what}) of 64 candidates at 700^2 agrees with its plain version")
+        check(torch.equal(ub, up) and big_sig <= 1e-6,
+              f"batched K5 ({what}) of 64 candidates at 700^2 equals its plain version bit for "
+              "bit, its signal within 1e-6")
+        del up
+        same = []
+        for b in picks:
+            u1, e1 = fk.fused_rk4_step(u[b], shape, prof, cyl[b], owner[b], *times, x_matmul=True,
+                                       steps_per_call=spc)
+            same.append(torch.equal(ub[b], u1) and rel_err(eb[b], e1) <= 1e-6)
+        log("distill", f"one batched K5 {what} of {k} candidates at {SIZE}^2 vs K5 on candidates "
+                       f"{picks} alone: identical {same}")
+        check(all(same), f"each of the 64 candidates is K5's state bit for bit ({what})")
+        del ub, u1
 
-    # that shape's step and owner pass timed alone, their plain versions
-    # and their bounds, as phase 3 times 16 candidates at 350^2
-    def big_step(route=fk.fused_rk4_step_batched, own=owner):
-        return route(u, shape, prof, cyl, own, *times, x_matmul=True)
+        # that shape's launch timed alone, its plain version and its bound,
+        # as phase 3 times 16 candidates at 350^2
+        def big_step(route=fk.fused_rk4_step_batched, own=owner, spc=spc):
+            return route(u, shape, prof, cyl, own, *times, x_matmul=True, steps_per_call=spc)
 
-    big_ms, big_dev = cuda_ms(big_step, 10), device_ms(big_step, 10)
-    big_plain = cuda_ms(lambda: big_step(fk.fused_rk4_step_batched_reference, owner_p), 1)
+        big_ms, big_dev = cuda_ms(big_step, 10), device_ms(big_step, 10)
+        big_plain = cuda_ms(lambda: big_step(fk.fused_rk4_step_batched_reference, owner_p), 1)
+        step_bound = bound(fk.call_bytes(SIZE, cyl.shape[-1], spc, k),
+                           k * fk.step_flops(SIZE, cyl.shape[-1], True, x_matmul=True,
+                                             steps_per_call=spc))
+        log("distill", f"batched K5 {what} of {k} candidates at {SIZE}^2: {big_ms:.4f} ms "
+                       f"(device work {big_dev:.4f}; plain {big_plain:.4f}), "
+                       f"{big_dev / k / spc:.5f} ms a candidate-step; bound "
+                       f"{step_bound[0]:.5f} ms ({step_bound[1]}), {big_dev / step_bound[0]:.2f}x")
+        big[spc] = (big_abs, big_ms, big_plain, step_bound, big_dev)
+    # K3, the exact d/dx, at that shape and SPC steps a launch
+    uk3, ek3 = fk.fused_rk4_step_batched(u, shape, prof, cyl, owner, *times, steps_per_call=SPC)
+    up3, ep3 = fk.fused_rk4_step_batched_reference(u, shape, prof, cyl, owner_p, *times,
+                                                   steps_per_call=SPC)
+    torch.cuda.synchronize()
+    k3_sig = rel_err(ek3, ep3)
+    log("distill", f"one K3 launch of {SPC} steps of {k} candidates at {SIZE}^2 vs plain: signal "
+                   f"{k3_sig:.3e}; {differing_cells(uk3, up3)}")
+    check(torch.equal(uk3, up3) and k3_sig <= 1e-6,
+          "K3 of 64 candidates at 700^2 equals its plain version bit for bit, its signal within "
+          "1e-6")
+    del uk3, up3
+
     own_ms = cuda_ms(lambda: fk.select_owner_batched(cyl, cfg), 10)
     own_dev = device_ms(lambda: fk.select_owner_batched(cyl, cfg), 10)
     own_plain = cuda_ms(lambda: fk.select_owner_batched_reference(cyl, cfg), 1)
-    part_t = torch.empty((k, fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
-    step_bound = bound(2 * nbytes(u) + nbytes(shape, prof, cyl, part_t),
-                       k * fk.step_flops(SIZE, cyl.shape[-1], True, x_matmul=True))
     own_bound = bound(nbytes(cyl, owner), sum(owner_ops(c, cfg) for c in cyl))
     per_step = card / (HORIZON * STEPS * chunks) * 1e3  # the launches checked above
-    log("distill", f"batched K5 step of {k} candidates at {SIZE}^2: {big_ms:.4f} ms (device "
-                   f"work {big_dev:.4f}; plain {big_plain:.4f}), {big_dev / k:.5f} ms a "
-                   f"candidate; bound {step_bound[0]:.5f} ms ({step_bound[1]}), "
-                   f"{big_dev / step_bound[0]:.2f}x; in the selection {per_step:.4f} ms a step, "
-                   f"owner passes included; select_owner_batched {own_ms:.4f} ms (device work "
-                   f"{own_dev:.4f}; plain {own_plain:.4f}), bound {own_bound[0]:.5f} ms "
-                   f"({own_bound[1]})")
-    oracle_shape = {"shape": f"{k}x{SIZE}^2",
-                    "k5b": (big_abs, big_ms, big_plain, step_bound, big_dev),
+    log("distill", f"in the selection {per_step:.4f} ms a step, owner passes included; "
+                   f"select_owner_batched {own_ms:.4f} ms (device work {own_dev:.4f}; plain "
+                   f"{own_plain:.4f}), bound {own_bound[0]:.5f} ms ({own_bound[1]})")
+    oracle_shape = {"shape": f"{k}x{SIZE}^2", "k5b": big[1], "k5b_spc": big[SPC],
                     "own": (own_abs, own_ms, own_plain, own_bound, own_dev)}
     del u, owner, owner_p
 
@@ -1899,7 +2156,7 @@ def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: 
     run = make_oracle_episode_fused(env3, horizon=HORIZON, shots=ORACLE_EPISODE_SHOTS)
     fk.reset_launch_counts()
     ep_s, (final, signals, chosen3) = host_s(lambda: run(start, gen))
-    only(dict(fk.launch_counts), {"fused_rk4_batched_xmatmul_radii_only": 3 * HORIZON * STEPS,
+    only(dict(fk.launch_counts), {k5b: 3 * HORIZON * STEPS,
                                   "select_owner_batched": 3 * HORIZON,
                                   "fused_rk4_xmatmul_radii_only": 3 * STEPS,
                                   "select_owner": 3}, "the oracle episode")
@@ -1923,7 +2180,7 @@ def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: 
 
     harvest_s, _ = host_s(harvest)
     only(dict(fk.launch_counts),
-         {"fused_rk4_batched_xmatmul_radii_only": WINDOWS * HORIZON * STEPS,
+         {k5b: WINDOWS * HORIZON * STEPS,
           "select_owner_batched": WINDOWS * HORIZON,
           "fused_rk4_xmatmul_radii_only": WINDOWS * STEPS, "select_owner": WINDOWS},
          "the harvest episode")
@@ -1954,7 +2211,7 @@ def distillation_phase(env, env_lo, space, dev, phase7_eps, cli_data: str, smi: 
                                       searcher_samples=8)
     fk.reset_launch_counts()
     dagger_s, (dpool, _) = host_s(lambda: dagger(start, gen))
-    only(dict(fk.launch_counts), {"fused_rk4_batched_xmatmul_radii_only": HORIZON * STEPS,
+    only(dict(fk.launch_counts), {k5b: HORIZON * STEPS,
                                   "select_owner_batched": HORIZON}, "the DAgger probe")
     check(tuple(dpool["y_true"].shape) == (16,) and float(dpool["y_true"].min()) > 0.0,
           "the DAgger pool's 16 exact costs are positive")
@@ -2375,8 +2632,9 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
     micro-steps, accumulate 1) against the single-device trainer on the
     same global windows, and `train(mesh=)` for one chunk of one update
     against the single-device scan on JAX's schedule's rows: the losses
-    within 1e-4 relative, after each update the leaves as `held_leaves`
-    holds them (tests/test_windows_and_cem.py's rtol 5e-3 / atol 2e-5), the
+    and gradients as `held_leaves` and `held_last` hold them (with a
+    control, one shard's gradient left unaveraged), after each update the
+    leaves as `held_leaves` holds them (tests/test_windows_and_cem.py's rtol 5e-3 / atol 2e-5), the
     replicas bit for bit equal, a micro-step's seconds and host share on
     each side; training
     launches none of the CUDA kernels. Then the bf16 options: one 256-shot
@@ -2454,10 +2712,18 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
             prev = st.mu
         return out
 
-    def held_leaves(name, params, params1, states, states1):
+    def held_leaves(name, params, params1, states, states1, ref_grads=None, path_bound=0.0):
         """After update u = len(states): each update's averaged gradient
-        within 1e-4 of each leaf's largest magnitude of the single device's
-        (phase 9's gradient bound), and every parameter within rtol 5e-3 /
+        within DP_GRAD_TOL of each leaf's largest magnitude of the single
+        device's gradient at the same parameters and on the same windows,
+        `ref_grads` (its own trajectory's where not given: one update from
+        the same parameters). The single device's own trajectory parts from
+        the shards' by up to 2 lr an update where a gradient is near zero,
+        below, so its later gradients are taken at other points: the last
+        update's gradient is held to its own trajectory's within
+        DP_GRAD_TOL plus `path_bound`, how far the single device's gradient
+        moves when those parameters are moved Adam's whole 2 lr an update.
+        And every parameter within rtol 5e-3 /
         atol 2e-5 of the single device's (tests/test_windows_and_cem.py's
         bounds) but where the single device's gradient of some update, or
         Adam's first moment after the last, is within NEAR_ZERO of the
@@ -2466,9 +2732,11 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
         size, so those are held within 2 lr an update."""
         u = len(states)
         g, g1 = update_grads(states), update_grads(states1)
+        ref_grads = g1 if ref_grads is None else ref_grads
         beyond, unexplained, gap, reach = 0, 0, 0.0, 0.0
         with torch.no_grad():
-            grad_err = max(rel_err(g[i][k], g1[i][k]) for i in range(u) for k in g1[i])
+            grad_err = max(rel_err(g[i][k], ref_grads[i][k]) for i in range(u) for k in g1[i])
+            path_err = max(rel_err(g[-1][k], g1[-1][k]) for k in g1[-1])
             for k, b in params1.items():
                 diff = (params[k] - b).abs()
                 out = diff > 2e-5 + 5e-3 * b.abs()
@@ -2482,28 +2750,47 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
                 gap = max(gap, float(diff[out].max()))
                 reach = max(reach, float(share[out].max()))
         log("dp", f"{name}, after update {u}: averaged gradients {grad_err:.3e} of a leaf from the "
-                  f"single device's; {beyond} of {sum(v.numel() for v in params1.values())} "
+                  f"single device's at the same parameters; the last {path_err:.3e} from its own "
+                  f"trajectory's (bound {DP_GRAD_TOL:g} + {path_bound:.3e}); {beyond} of "
+                  f"{sum(v.numel() for v in params1.values())} "
                   f"parameters beyond rtol 5e-3 / atol 2e-5, their gradients within {reach:.3e} of "
                   f"their leaf's largest magnitude ({unexplained} beyond {NEAR_ZERO:g}), apart "
                   f"by at most {gap:.3e} (lr {opt_lr:g})")
-        check(grad_err <= 1e-4, f"{name}: the averaged gradients match the single device's to "
-                                "1e-4 of each leaf")
+        check(grad_err <= DP_GRAD_TOL, f"{name}: the averaged gradients match the single "
+                                       f"device's to {DP_GRAD_TOL:g} of each leaf")
+        check(path_err <= DP_GRAD_TOL + path_bound,
+              f"{name}: the last averaged gradient is within {DP_GRAD_TOL:g} + {path_bound:.3e} "
+              "of the single device's own trajectory's")
         check(unexplained == 0, f"{name}: after update {u} every parameter is within rtol 5e-3 / "
                                 f"atol 2e-5 of the single device's but where its gradient is "
                                 f"within {NEAR_ZERO:g} of its leaf's largest magnitude")
         check(gap <= 2 * opt_lr * u, f"{name}: those within Adam's 2 lr an update")
 
-    def held_last(name, losses, losses1, model, built):
-        """After the last update: the losses within 1e-4 relative of the
-        single device's, the replicas bit for bit equal."""
-        lrel = float(((losses - losses1).abs() / losses1.abs()).max())
+    def held_last(name, losses, losses1, model, built, ref_losses=None, path_bounds=None):
+        """After the last update: the losses within DP_GRAD_TOL relative of
+        the single device's at the same parameters where `ref_losses` gives
+        them, and of its own trajectory's within DP_GRAD_TOL plus each
+        update's `path_bounds` (as `held_leaves` bounds the gradient), the
+        replicas bit for bit equal."""
+        ref = losses1 if ref_losses is None else ref_losses
+        lrel = float(((losses - ref).abs() / ref.abs()).max())
+        paths = (losses - losses1).abs() / losses1.abs()
+        path = float(paths.max())
+        bounds = torch.zeros_like(paths) if path_bounds is None else path_bounds
         with torch.no_grad():
             same = all(torch.equal(a.to(dev), b) for m in built
                        for a, b in zip(m.parameters(), model.parameters()))
         log("dp", f"{name}: losses {[round(float(v), 6) for v in losses]} against "
-                  f"{[round(float(v), 6) for v in losses1]}, largest relative difference "
-                  f"{lrel:.3e}; {len(built)} built replicas bit for bit equal {same}")
-        check(lrel <= 1e-4, f"{name}: the losses match the single device's to 1e-4")
+                  f"{[round(float(v), 6) for v in ref]}, largest relative difference "
+                  f"{lrel:.3e} ({path:.3e} from the single device's own trajectory's "
+                  f"{[round(float(v), 6) for v in losses1]}, bounds {DP_GRAD_TOL:g} + "
+                  f"[{', '.join(f'{float(b):.3e}' for b in bounds)}]); {len(built)} built replicas bit "
+                  f"for bit equal {same}")
+        check(lrel <= DP_GRAD_TOL, f"{name}: the losses match the single device's to "
+                                   f"{DP_GRAD_TOL:g}")
+        check(bool((paths <= DP_GRAD_TOL + bounds).all()),
+              f"{name}: the losses are within {DP_GRAD_TOL:g} and Adam's drift of the single "
+              "device's own trajectory's")
         check(same, f"{name}: the replicas are equal bit for bit")
 
     opt_lr = 1e-4
@@ -2538,6 +2825,36 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
         after1.append((params_of(single), state1))
     log("dp", f"the single device: {wall1:.4f} s a micro-step of {B} horizon-8 windows (the "
               f"second), host issue {issue1 / wall1:.3f} of it")
+    ref = flagship()  # the single device at other parameters
+    run_ref = make_scan_train_steps_windowed(sc4(ref), opt, H, STRIDE)
+    grads1 = update_grads([st for _, st in after1])
+
+    def single_at(params, before, windows):
+        """The single device's loss and gradient at `params` on the global
+        `windows`: one update of `ref` from Adam's state `before`."""
+        with torch.no_grad():
+            for k, p in ref.named_parameters():
+                p.copy_(params[k])
+        _, st, loss = run_ref(ref, before, store, torch.as_tensor(windows, device=dev))
+        return loss, {k: (m - B1 * before.mu[k].to(dev)) / (1 - B1) for k, m in st.mu.items()}
+
+    def adam_worst(params, i):
+        """The single device's parameters before update i (of 0, 1, ...)
+        moved as far toward `params` as Adam's near-zero steps allow: where
+        its gradient of an update before i, or its first moment after the
+        last, is within NEAR_ZERO of its leaf's largest magnitude, the two
+        sums may give the gradient either sign and each update may part the
+        two runs by 2 lr, so 2 lr i toward `params`; elsewhere `params`."""
+        base, st1 = after1[i - 1]
+        out = {}
+        for k, b in base.items():
+            share = torch.stack([x.abs() / x.abs().max().clamp_min(1e-30) for x in
+                                 [grads1[j][k] for j in range(i)] + [st1.mu[k]]]).amin(0)
+            d = params[k] - b
+            near = (share <= NEAR_ZERO) & (d != 0)
+            out[k] = b + torch.where(near, torch.sign(d) * (2 * opt_lr * i), d)
+        return out
+
     times = {}
     for mesh in meshes:
         n = mesh.size
@@ -2551,19 +2868,45 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
         replicas = Replicas(model, sc4(model), mesh, replicate_into(built))
         stores = stack_episodes(eps, mesh=mesh)
         run = make_dp_scan_train_steps_windowed(opt, H, STRIDE)
-        states, losses, shard0 = replicas.init(opt), [], []
+        states, losses, shard0, ref_grads, ref_losses = replicas.init(opt), [], [], [], []
+        loss_bounds = []
         for i in range(K):
+            # the single device's gradient at this run's parameters and Adam
+            # state before the update, on the same windows
+            own, before = params_of(model), states[0]
+            ref_loss, ref_grad = single_at(own, before, glob[i:i + 1])
+            ref_losses.append(ref_loss)
+            ref_grads.append(ref_grad)
+            if n > 1 and i == 0:
+                # the control: shard 0's gradient alone, left unaveraged
+                one_loss, one_grad = single_at(own, before, glob[i:i + 1, :B // n])
+                control = max(rel_err(one_grad[k], ref_grad[k]) for k in ref_grad)
+                log("dp", f"windowed, {where}: shard 0's gradient alone (its {B // n} windows, "
+                          f"unaveraged) {control:.3e} of a leaf from the averaged one, its loss "
+                          f"{float(one_loss):.6f} against {float(ref_loss):.6f}")
+                check(control >= 10 * DP_GRAD_TOL,
+                      f"the gradient check tells an unaveraged shard gradient apart (above "
+                      f"{10 * DP_GRAD_TOL:g})")
+            # Adam's drift: the single device's gradient and loss at its own
+            # parameters moved Adam's whole near-zero reach toward this run's
+            drift, loss_drift = 0.0, 0.0
+            if i > 0 and any(not torch.equal(own[k], b) for k, b in after1[i - 1][0].items()):
+                worst_loss, worst = single_at(adam_worst(own, i), before, glob[i:i + 1])
+                drift = max(rel_err(worst[k], grads1[i][k]) for k in worst)
+                loss_drift = float((worst_loss - losses1[i]).abs().max() / losses1[i].abs().max())
+            loss_bounds.append(loss_drift)
             wall, issue, (_, states, loss) = timed(lambda: run(
                 replicas, states, stores, torch.as_tensor(local[i:i + 1])))
             losses.append(loss)
             shard0.append(states[0])
             held_leaves(f"windowed, {where}", params_of(model), after1[i][0], shard0,
-                        [st for _, st in after1[:i + 1]])
+                        [st for _, st in after1[:i + 1]], ref_grads, drift)
         times[where] = (wall, issue / wall, wall1, issue1 / wall1)
         log("dp", f"make_dp_scan_train_steps_windowed, {where}: {wall:.4f} s a micro-step of "
                   f"{B} horizon-8 windows (the second), host issue {issue / wall:.3f} of it; the "
                   f"single device {wall1:.4f} s")
-        held_last(f"windowed, {where}", torch.cat(losses), torch.cat(losses1), model, built)
+        held_last(f"windowed, {where}", torch.cat(losses), torch.cat(losses1), model, built,
+                  torch.cat(ref_losses), torch.tensor(loss_bounds, device=dev))
         del model, replicas, built, stores
     del single, after1
 
@@ -3177,7 +3520,8 @@ def long_tail_phase(env, env_lo, dev, loop_action_s=None):
     states = [env_reset(dg, g) for _ in range(CHUNK)]
     actions = tree_stack([tree_stack([dg_policy(g) for _ in range(BATCH_ACTIONS)])
                           for _ in range(CHUNK)])
-    single = make_env_step_fused(dg, x_matmul=False)
+    # one step a call: the tspan times of JAX's vmapped env_step, as batched datagen
+    single = make_env_step_fused(dg, x_matmul=False, steps_per_call=1)
     frames_same, sig_err, obs_err = 0, 0.0, 0.0
     for b, st in enumerate(states):
         for i in range(BATCH_ACTIONS):
@@ -3254,8 +3598,8 @@ def long_tail_phase(env, env_lo, dev, loop_action_s=None):
     dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                  for e in prof.key_averages() if "rk4_step_tiled" in e.key)
     log("long tail", f"profile_trace of one fused-hybrid action ({trace_s:.2f} s with the trace "
-                     f"written): {len(files)} trace file, {len(names)} event names, rk4_step_tiled "
-                     f"kernels {tiled}, their device time {dev_us / 1e3:.3f} ms")
+                     f"written): {len(files)} trace file, {len(names)} event names, "
+                     f"rk4_step_tiled kernels {tiled}, their device time {dev_us / 1e3:.3f} ms")
     check(len(files) == 1 and tiled and dev_us > 0,
           "the trace names rk4_step_tiled and times it on the card")
 
@@ -3357,6 +3701,7 @@ def main(argv=None) -> int:
     from waves_jl_tpu_torch.physics.fused import (cyl_params, make_env_step_fused,
                                                   make_rerank_rollout, radii_only_ok, step_config)
     from waves_jl_tpu_torch.train.checkpoint import load_model_checkpoint
+    from waves_jl_tpu_torch.utils.trees import tree_leaves
 
     dev = torch.device("cuda")
 
@@ -3369,8 +3714,9 @@ def main(argv=None) -> int:
 
     # 2. build
     t = time.time()
-    lib_path, report = fk.build()
-    log("build", f"{time.time() - t:.2f} s, {lib_path.name}" + ("" if report else " (already built)"))
+    libs, report = fk.build()
+    log("build", f"{time.time() - t:.2f} s, {', '.join(p.name for p in libs.values())} (one nvcc "
+                 f"a library, started together)" + ("" if report else " (already built)"))
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("    " + line.strip(), flush=True)
@@ -3397,6 +3743,22 @@ def main(argv=None) -> int:
                      f"one launch a step): ptxas {ptxas}; dynamic shared memory "
                      f"{occ['smem_bytes']} B a block of 256 threads; {occ[key]} blocks an SM")
         check(occ[key] >= 1, f"the one-launch step ({names[key]}) fits an SM")
+    # the eight instances of rk4_steps_tiled<XM, GENERAL, SPC>: two or four
+    # steps a launch on the whole grid, single or batched
+    for key, (xm, general, spc) in fk.STEPS_INSTANCES.items():
+        mangled = f"rk4_steps_tiledILb{int(xm)}ELb{int(general)}ELi{spc}EE"
+        at = [i for i, line in enumerate(lines) if "Compiling entry" in line and mangled in line]
+        ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in lines[at[0] + 1:at[0] + 4]
+                          if "registers" in line or "spill" in line) if at else "already built"
+        what = names[key.rsplit("_spc", 1)[0]]
+        log("build", f"rk4_steps_tiled<{str(xm).lower()}, {str(general).lower()}, {spc}> ({what}, "
+                     f"{spc} steps a launch): ptxas {ptxas}; dynamic shared memory "
+                     f"{occ[f'smem_bytes_spc{spc}']} B a block of 256 threads; {occ[key]} blocks "
+                     f"an "
+                     f"SM; {fk.band_work_share(SIZE, spc):.3f} of the cell-stages at {SIZE}^2 "
+                     f"computed more than once (one step a launch: "
+                     f"{fk.band_work_share(SIZE, 1):.3f})")
+        check(occ[key] >= 1, f"the {spc}-step launch ({what}) fits an SM")
 
     if args.only_long_tail:
         space = build_triple_ring_design_space(device=dev)
@@ -3552,16 +3914,20 @@ def main(argv=None) -> int:
     # and stay out of the bound.
     part_t = torch.empty((fk.step_partial_rows(SIZE), 3), dtype=torch.float32)
     io_step = nbytes(u0, shape, prof, cyl) + nbytes(u0, part_t)
-    k1_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False))
+    # the general mode tests only the cylinders that reach a tile
+    tested = fk.tile_cylinders(moved, cfg, fk.lerp_weight(t_arg, ti, tf))
+    k1_bound = bound(io_step, fk.step_flops(SIZE, tested, False))
     own_bound = bound(nbytes(cyl, owner_k), owner_ops(cyl, cfg))
     k2_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True))
     k5_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, True, x_matmul=True))
-    k5g_bound = bound(io_step, fk.step_flops(SIZE, n_cyl, False, x_matmul=True))
-    log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}), K1, K2 and K5 "
+    k5g_bound = bound(io_step, fk.step_flops(SIZE, tested, False, x_matmul=True))
+    log("kernels", f"bound per RK4 step {k1_bound[0]:.5f} ms ({k1_bound[1]}; {tested:.4f} of "
+                   f"{moved.shape[1]} cylinders a cell, those each tile keeps), K1, K2 and K5 "
                    f"({k5_bound[1]}); K2 reads "
                    f"its owner fields on top, {nbytes(owner_k) / HBM_BYTES_PER_S * 1e3:.5f} ms "
                    f"of bytes once read")
     env_lo, k3 = batched_kernels(env, state, dev)
+    multi = multi_step_kernels(u0, shape, prof, cyl, moved, owner_k, owner_p, tspan, cfg)
 
     # 4. main path: the MPC control episode
     model = AcousticEnergyModel(space, 1000.0, elements=1024, h_size=256, nfreq=500,
@@ -3585,9 +3951,9 @@ def main(argv=None) -> int:
     log("main path", f"MPC episode {episode_s:.4f} s, launches {mpc_counts}")
     expect_steps = WINDOWS * STEPS
     check(mpc_counts["fused_rk4_xmatmul_radii_only"] == expect_steps
-          and mpc_counts["fused_rk4_radii_only"] == 0,
+          and sum(mpc_counts.values()) == expect_steps + WINDOWS,
           f"{expect_steps} K5 radii-only launches ({WINDOWS} windows x {STEPS} steps, one "
-          f"launch a step) and none of K2")
+          f"launch a step), the owner passes and nothing else")
     check(mpc_counts["select_owner"] == WINDOWS, f"{WINDOWS} owner launches, one per window")
     check(tuple(signals.shape) == (WINDOWS, STEPS + 1, 3), f"signal shape {tuple(signals.shape)}")
     check(bool(torch.isfinite(signals).all()), "every signal is finite")
@@ -3607,31 +3973,62 @@ def main(argv=None) -> int:
                      f"{mpc.horizon * model.integration_steps} latent RK4 steps) {select_s:.4f} s; "
                      f"{WINDOWS} of them {WINDOWS * select_s:.3f} s of the {episode_s:.3f} s episode")
 
+    # the episode's decisions on the kernel route are the plain route's: 3 actions from the same state and draws, each selection
+    # made on each route's own state and its window taken on that route
+    plain_step = make_env_step_fused(env, plain=True)
+    st_k = st_p = start
+    same_actions = same_states = 0
+    for i in range(3):
+        a_k, _ = mpc(env, st_k, torch.Generator(device=dev).manual_seed(40 + i))
+        a_p, _ = mpc(env, st_p, torch.Generator(device=dev).manual_seed(40 + i))
+        same_actions += all(torch.equal(x, y) for x, y in zip(tree_leaves(a_k), tree_leaves(a_p)))
+        st_k, _ = step(st_k, a_k)
+        st_p, _ = plain_step(st_p, a_p)
+        same_states += int(torch.equal(st_k.wave, st_p.wave))
+    log("main path", f"3 MPC actions on the kernel route and on the plain route: the same action in "
+                     f"{same_actions} of 3, the same frames bit for bit after {same_states} of 3")
+    check(same_actions == 3 and same_states == 3,
+          "the MPC episode takes the plain route's actions and states on the kernel route")
+
     # the simulator alone, 20 windows, with the split d/dx (K5, the default)
-    # and the exact one (K2) in turns
+    # and the exact one (K2), each by default (None: one launch a step at the
+    # JAX window's step times) and at SPC steps a launch, in turns
     acts = [policy(gen) for _ in range(WINDOWS)]
     start_sim = env_reset(env, torch.Generator(device=dev).manual_seed(5))
-    steps_by_mode = {True: step, False: make_env_step_fused(env, x_matmul=False)}
-    sim_s = {True: [], False: []}
-    for xm in (True, False, False, True):
+    modes = [(True, None), (True, SPC), (False, None), (False, SPC)]
+    steps_by_mode = {m: make_env_step_fused(env, x_matmul=m[0], steps_per_call=m[1])
+                     for m in modes}
+    steps_by_mode[(True, None)] = step  # the default
+    finals = {}
+    sim_s, sim_counts = {m: [] for m in modes}, {}
+    for m in modes + modes[::-1]:
         st = start_sim
         fk.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.time()
         for a in acts:
-            st, _ = steps_by_mode[xm](st, a)
+            st, _ = steps_by_mode[m](st, a)
         torch.cuda.synchronize()
-        sim_s[xm].append(time.time() - t)
-        if not xm:
-            sim_counts = dict(fk.launch_counts)
+        sim_s[m].append(time.time() - t)
+        sim_counts[m] = dict(fk.launch_counts)
+        finals[m] = st.wave
         check(bool(torch.isfinite(st.signal).all()), "simulator-only run is finite")
-    log("main path", f"simulator alone, {WINDOWS * STEPS} steps, in turns: split d/dx (K5) "
-        + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[True])
-        + "; exact (K2) "
-        + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s" for s in sim_s[False]))
-    check(sim_counts["fused_rk4_radii_only"] == expect_steps
-          and sim_counts["fused_rk4_xmatmul_radii_only"] == 0,
-          f"the exact simulator run launches K2 {expect_steps} times (one a step) and K5 never")
+    log("main path", f"simulator alone, {WINDOWS * STEPS} steps, in turns: "
+        + "; ".join(f"{'split d/dx (K5)' if xm else 'exact (K2)'}, "
+                    + (f"{spc} steps a launch " if spc else "by default (one step a launch) ")
+                    + ", ".join(f"{s:.4f} s = {WINDOWS * STEPS / s:.1f} steps/s"
+                                for s in sim_s[(xm, spc)])
+                    for xm, spc in modes))
+    for xm, spc in modes:
+        key, per = fk.step_key(False, xm, True, spc or 1), spc or 1
+        check(sim_counts[(xm, spc)] == {**dict.fromkeys(sim_counts[(xm, spc)], 0),
+                                        key: expect_steps // per, "select_owner": WINDOWS},
+              f"the simulator run launches {key} {expect_steps // per} times (a launch a call of "
+              f"{per} steps) and the owner pass a window, nothing else")
+    for xm in (True, False):
+        check(torch.equal(finals[(xm, None)], finals[(xm, SPC)]),
+              f"the simulator's frames at {SPC} steps a launch are the default's bit for bit "
+              f"(x_matmul={xm})")
 
     # the general kernels: a position-design episode and one K = 4 re-rank
     # window there, each with the split d/dx (K5) and the exact one (K1, K3)
@@ -3641,41 +4038,44 @@ def main(argv=None) -> int:
     pos_windows = 2
     rerank_k = 4
     pos_counts, roll_counts = {}, {}
-    for xm, single, batched in ((True, "fused_rk4_xmatmul_general",
-                                 "fused_rk4_batched_xmatmul_general"),
-                                (False, "fused_rk4_general", "fused_rk4_batched_general")):
-        pos_step = make_env_step_fused(pos_env, x_matmul=xm)
-        pgen = torch.Generator(device=dev).manual_seed(6)
-        pst = env_reset(pos_env, pgen)
-        fk.reset_launch_counts()
-        for _ in range(pos_windows):
-            pst, _ = pos_step(pst, pos_policy(pgen))
-        torch.cuda.synchronize()
-        pos_counts[xm] = dict(fk.launch_counts)
-        check(pos_counts[xm][single] == pos_windows * STEPS,
-              f"{pos_windows * STEPS} {single} launches (one a step)")
-        check(bool(torch.isfinite(pst.signal).all()), "position-design signal is finite")
-        log("main path", f"position-design episode, {pos_windows} windows, x_matmul={xm}: "
-                         f"launches {pos_counts[xm]}")
+    for xm in (True, False):
+        for spc in (SPC, None):  # SPC steps a launch, and the default (one launch a step)
+            per = spc or 1
+            single, batched = fk.step_key(False, xm, False, per), fk.step_key(True, xm, False, per)
+            pos_step = make_env_step_fused(pos_env, x_matmul=xm, steps_per_call=spc)
+            pgen = torch.Generator(device=dev).manual_seed(6)
+            pst = env_reset(pos_env, pgen)
+            fk.reset_launch_counts()
+            for _ in range(pos_windows):
+                pst, _ = pos_step(pst, pos_policy(pgen))
+            torch.cuda.synchronize()
+            pos_counts[(xm, spc)] = dict(fk.launch_counts)
+            check(pos_counts[(xm, spc)][single] == pos_windows * STEPS // per,
+                  f"{pos_windows * STEPS // per} {single} launches (one a call of {per} steps)")
+            check(bool(torch.isfinite(pst.signal).all()), "position-design signal is finite")
+            log("main path", f"position-design episode, {pos_windows} windows, x_matmul={xm}, "
+                             f"{per} steps a launch: launches {pos_counts[(xm, spc)]}")
 
-        roll = make_rerank_rollout(pos_env, 1, x_matmul=xm)
-        elite = pos_env.action_space.sample(pgen, batch=(rerank_k, 1))
-        t_pos = env_time(pos_env, pst)
-        fk.reset_launch_counts()
-        pos_costs = roll(pst, elite, t_pos)
-        torch.cuda.synchronize()
-        roll_counts[xm] = dict(fk.launch_counts)
-        check(roll_counts[xm][batched] == STEPS,
-              f"{STEPS} {batched} launches (one a step)")
-        check(tuple(pos_costs.shape) == (rerank_k,) and bool(torch.isfinite(pos_costs).all()),
-              "position-design re-rank costs are finite")
-        log("main path", f"position-design re-rank window, K = {rerank_k}, x_matmul={xm}: "
-                         f"launches {roll_counts[xm]}")
+            roll = make_rerank_rollout(pos_env, 1, x_matmul=xm, steps_per_call=spc)
+            elite = pos_env.action_space.sample(pgen, batch=(rerank_k, 1))
+            t_pos = env_time(pos_env, pst)
+            fk.reset_launch_counts()
+            pos_costs = roll(pst, elite, t_pos)
+            torch.cuda.synchronize()
+            roll_counts[(xm, spc)] = dict(fk.launch_counts)
+            check(roll_counts[(xm, spc)][batched] == STEPS // per,
+                  f"{STEPS // per} {batched} launches (one a call of {per} steps)")
+            check(tuple(pos_costs.shape) == (rerank_k,) and bool(torch.isfinite(pos_costs).all()),
+                  "position-design re-rank costs are finite")
+            log("main path", f"position-design re-rank window, K = {rerank_k}, x_matmul={xm}, "
+                             f"{per} steps a launch: launches {roll_counts[(xm, spc)]}")
         key = "k5bg" if xm else "k3g"
-        k3[key], k3[key + "_dev"] = batched_general_kernel(pos_env, pst, elite, t_pos, dev, xm)
+        k3[key], k3[key + "_dev"], multi[fk.step_key(True, xm, False, SPC)] = \
+            batched_general_kernel(pos_env, pst, elite, t_pos, dev, xm)
 
     # 5. the hybrid controller
-    hyb_counts, exact_rerank_counts, hyb_action_s = hybrid_episode(env, env_lo, space, dev)
+    hyb_counts, exact_rerank_counts, rerank_spc_counts, hyb_action_s = hybrid_episode(
+        env, env_lo, space, dev)
 
     # 6. the y-sharded rollout through K4, at 700^2 from phase 3's state
     k4, k4_counts = sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms)
@@ -3714,90 +4114,116 @@ def main(argv=None) -> int:
     fe_counts, bd_counts, k3_row, bown_row = long_tail_phase(env, env_lo, dev, hyb_action_s)
 
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
-    # launches from the main-path runs: K2 from the exact simulator run and
-    # phase 13's full-field runs, K1 and K3 general from the position-design
-    # runs at x_matmul=False (K1 also from phase 13), K3 radii-only from the
-    # hybrid's exact re-rank, K5 from datagen, the position-design runs and
-    # the hybrid episode
-    single_rows = (
-        ("fused_rk4_radii_only", "waves_jl_tpu/ops/pallas_fd.py:432",
-         sim_counts["fused_rk4_radii_only"] + ff_counts.get("fused_rk4_radii_only", 0),
-         (k2_abs, k2_ms, k2_plain, k2_bound)),
-        ("select_owner", "waves_jl_tpu/ops/pallas_fd.py:247",
-         mpc_counts["select_owner"] + ff_counts.get("select_owner", 0) + fe_counts["select_owner"],
-         (owner_err, own_ms, own_plain, own_bound)),
-        ("fused_rk4_general", "waves_jl_tpu/ops/pallas_fd.py:432",
-         pos_counts[False]["fused_rk4_general"] + ff_counts.get("fused_rk4_general", 0),
-         (k1_abs, k1_ms, k1_plain, k1_bound)),
-        ("fused_rk4_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278",
-         dg_counts["fused_rk4_xmatmul_radii_only"] + fe_counts["fused_rk4_xmatmul_radii_only"],
-         (xm_abs[True], k5_ms, k5_plain, k5_bound)),
-        ("fused_rk4_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278",
-         pos_counts[True]["fused_rk4_xmatmul_general"],
-         (xm_abs[False], k5g_ms, k5g_plain, k5g_bound)),
-    )
-    # the one-launch step's and the owner passes' rows add `device_ms`, as K4's do
-    dev_rows = {"fused_rk4_radii_only": k2_dev, "fused_rk4_xmatmul_radii_only": k5_dev,
-                "select_owner": own_dev, "select_owner_batched": k3["own_dev"],
-                "fused_rk4_general": k1_dev, "fused_rk4_xmatmul_general": k5g_dev,
-                "fused_rk4_batched_radii_only": k3["k3_dev"],
-                "fused_rk4_batched_xmatmul_radii_only": k3["k5b_dev"],
-                "fused_rk4_batched_general": k3["k3g_dev"],
-                "fused_rk4_batched_xmatmul_general": k3["k5bg_dev"]}
-    kernels = []
-    for name, replaces, launches, (err, ms, plain, bnd) in single_rows:
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
-    # batched K5 and its owner pass: the hybrid episode's launches and the
-    # 256-shot oracle selection's
-    batched_rows = (
-        ("fused_rk4_batched_radii_only", "waves_jl_tpu/ops/pallas_fd.py:162", "k3",
-         exact_rerank_counts["fused_rk4_batched_radii_only"]
-         + bd_counts["fused_rk4_batched_radii_only"]),
-        ("select_owner_batched", "waves_jl_tpu/ops/pallas_fd.py:247", "own",
-         hyb_counts["select_owner_batched"] + oracle_counts["select_owner_batched"]
-         + fe_counts["select_owner_batched"] + bd_counts["select_owner_batched"]),
-        ("fused_rk4_batched_general", "waves_jl_tpu/ops/pallas_fd.py:162", "k3g",
-         roll_counts[False]["fused_rk4_batched_general"]),
-        ("fused_rk4_batched_xmatmul_radii_only", "waves_jl_tpu/ops/pallas_fd.py:278", "k5b",
-         hyb_counts["fused_rk4_batched_xmatmul_radii_only"]
-         + oracle_counts["fused_rk4_batched_xmatmul_radii_only"]
-         + fe_counts["fused_rk4_batched_xmatmul_radii_only"]),
-        ("fused_rk4_batched_xmatmul_general", "waves_jl_tpu/ops/pallas_fd.py:278", "k5bg",
-         roll_counts[True]["fused_rk4_batched_xmatmul_general"]),
-    )
-    for name, replaces, key, launches in batched_rows:
-        err, ms, plain, bnd = k3[key]
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
-    for k in kernels:
-        if k["name"] in dev_rows:
-            k["device_ms"] = dev_rows[k["name"]]
-    # the batched rows run several shapes on the main paths: the row's own
-    # numbers are phase 3's 16 x 350^2 (the hybrid's), and `shapes` splits
-    # its launches and gives each shape its numbers: batched K5 and its
-    # owner pass also run the oracle's 64 x 700^2, K3 radii-only and the
-    # owner pass the batched datagen's 10 x 700^2
-    for k in kernels:
-        name = k["name"]
-        if name not in ("fused_rk4_batched_xmatmul_radii_only", "select_owner_batched",
-                        "fused_rk4_batched_radii_only"):
-            continue
-        k["shape"] = f"{TOPK}x{SIZE_RERANK}^2"
-        own_launches = (exact_rerank_counts[name] if name == "fused_rk4_batched_radii_only"
-                        else hyb_counts[name] + fe_counts[name])
-        k["shapes"] = [{"shape": k["shape"], "launches": own_launches,
-                        **{f: k[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "device_ms")}}]
-        if name != "fused_rk4_batched_radii_only":
-            err, ms, plain, bnd, dev_only = oracle_shape["k5b" if "xmatmul" in name else "own"]
-            k["shapes"].append({"shape": oracle_shape["shape"], "launches": oracle_counts[name],
-                                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                "bound_ms": bnd[0], "bound_by": bnd[1], "device_ms": dev_only})
-        if name != "fused_rk4_batched_xmatmul_radii_only":
-            k["shapes"].append(k3_row if name == "fused_rk4_batched_radii_only" else bown_row)
+    src_multi = "waves_jl_tpu_torch/csrc/fused_rk4_multi.cu"
+    # the TPU kernel's sub-step loop, which the multi-step rows port
+    substeps = "waves_jl_tpu/ops/pallas_fd.py:359"
+
+    def row(name, source, replaces, launches, numbers, device_only, spc=1, **extra):
+        err, ms, plain, bnd = numbers[:4]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                "device_ms": device_only, "steps_per_call": spc, "on_main_path": True, **extra}
+
+    def multi_row(key, probe_launches, numbers, replaces=substeps, **extra):
+        """A row of `rk4_steps_tiled`, which no default path launches: its
+        `launches` on the main paths are 0, and `probe_launches` are those
+        of the run that asked for its steps a launch."""
+        spc = int(key.rsplit("_spc", 1)[1])
+        return {**row(key, src_multi, replaces, 0, numbers, numbers[4], spc, **extra),
+                "on_main_path": False, "probe_launches": probe_launches}
+
+    def shape_entry(shape, launches, numbers, device_only):
+        err, ms, plain, bnd = numbers[:4]
+        return {"shape": shape, "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1], "device_ms": device_only}
+
+    # one step a launch (`rk4_step_tiled`), every default path's; launches
+    # from the main-path runs: K2 from the exact simulator run and phase 13's
+    # full-field runs, K1 and K3 general from the position-design runs at
+    # x_matmul=False (K1 also from phase 13), K3 radii-only from the hybrid's
+    # exact re-rank and batched datagen, K5 from datagen, the position-design
+    # runs and the fused hybrid episode; `ms` and the bound are a step's
+    rerank_shape = f"{TOPK}x{SIZE_RERANK}^2"
+    k3b, k5b, ownb = ("fused_rk4_batched_radii_only", "fused_rk4_batched_xmatmul_radii_only",
+                      "select_owner_batched")
+    kernels = [
+        row("fused_rk4_radii_only", src, "waves_jl_tpu/ops/pallas_fd.py:432",
+            sim_counts[(False, None)]["fused_rk4_radii_only"]
+            + ff_counts.get("fused_rk4_radii_only", 0), (k2_abs, k2_ms, k2_plain, k2_bound),
+            k2_dev),
+        row("select_owner", src, "waves_jl_tpu/ops/pallas_fd.py:247",
+            mpc_counts["select_owner"] + ff_counts.get("select_owner", 0)
+            + fe_counts["select_owner"],
+            (owner_err, own_ms, own_plain, own_bound), own_dev),
+        row("fused_rk4_general", src, "waves_jl_tpu/ops/pallas_fd.py:432",
+            pos_counts[(False, None)]["fused_rk4_general"]
+            + ff_counts.get("fused_rk4_general", 0), (k1_abs, k1_ms, k1_plain, k1_bound), k1_dev),
+        row("fused_rk4_xmatmul_radii_only", src, "waves_jl_tpu/ops/pallas_fd.py:278",
+            dg_counts["fused_rk4_xmatmul_radii_only"] + fe_counts["fused_rk4_xmatmul_radii_only"],
+            (xm_abs[True], k5_ms, k5_plain, k5_bound), k5_dev),
+        row("fused_rk4_xmatmul_general", src, "waves_jl_tpu/ops/pallas_fd.py:278",
+            pos_counts[(True, None)]["fused_rk4_xmatmul_general"],
+            (xm_abs[False], k5g_ms, k5g_plain, k5g_bound), k5g_dev),
+        # the batched rows run several shapes on the main paths: the row's
+        # own numbers are phase 3's 16 x 350^2 (the hybrid's), and `shapes`
+        # splits its launches and gives each shape its numbers: batched K5
+        # and its owner pass also run the oracle's 64 x 700^2, K3 radii-only
+        # and the owner pass the batched datagen's 10 x 700^2
+        row(k3b, src, "waves_jl_tpu/ops/pallas_fd.py:162",
+            exact_rerank_counts[k3b] + bd_counts[k3b], k3["k3"], k3["k3_dev"], shape=rerank_shape,
+            shapes=[shape_entry(rerank_shape, exact_rerank_counts[k3b], k3["k3"], k3["k3_dev"]),
+                    k3_row]),
+        row(ownb, src, "waves_jl_tpu/ops/pallas_fd.py:247",
+            hyb_counts[ownb] + oracle_counts[ownb] + fe_counts[ownb] + bd_counts[ownb], k3["own"],
+            k3["own_dev"], shape=rerank_shape,
+            shapes=[shape_entry(rerank_shape, hyb_counts[ownb] + fe_counts[ownb], k3["own"],
+                                k3["own_dev"]),
+                    shape_entry(oracle_shape["shape"], oracle_counts[ownb], oracle_shape["own"],
+                                oracle_shape["own"][4]),
+                    bown_row]),
+        row("fused_rk4_batched_general", src, "waves_jl_tpu/ops/pallas_fd.py:162",
+            roll_counts[(False, None)]["fused_rk4_batched_general"], k3["k3g"], k3["k3g_dev"]),
+        row(k5b, src, "waves_jl_tpu/ops/pallas_fd.py:278",
+            hyb_counts[k5b] + oracle_counts[k5b] + fe_counts[k5b], k3["k5b"], k3["k5b_dev"],
+            shape=rerank_shape,
+            shapes=[shape_entry(rerank_shape, hyb_counts[k5b] + fe_counts[k5b], k3["k5b"],
+                                k3["k5b_dev"]),
+                    shape_entry(oracle_shape["shape"], oracle_counts[k5b], oracle_shape["k5b"],
+                                oracle_shape["k5b"][4])]),
+        row("fused_rk4_batched_xmatmul_general", src, "waves_jl_tpu/ops/pallas_fd.py:278",
+            roll_counts[(True, None)]["fused_rk4_batched_xmatmul_general"], k3["k5bg"],
+            k3["k5bg_dev"]),
+    ]
+    # SPC and four steps a launch (`rk4_steps_tiled`), asked for: `ms`, the
+    # plain version and the bound are a launch's; `probe_launches` from the
+    # simulator and position-design runs at SPC (phase 4), the hybrid's
+    # re-rank in turns (phase 5), and phase 3's windows for K3 and the
+    # four-step instance
+    k5s, k2s, k1s, k5gs = (fk.step_key(False, xm, radii, SPC)
+                           for xm, radii in ((True, True), (False, True), (False, False),
+                                             (True, False)))
+    k3s, k5bs, k3gs, k5bgs = (fk.step_key(True, xm, radii, SPC)
+                              for xm, radii in ((False, True), (True, True), (False, False),
+                                                (True, False)))
+    k5_probe = fk.step_key(False, True, True, 4)
+    kernels += [
+        multi_row(k5s, sim_counts[(True, SPC)][k5s], multi[k5s]),
+        multi_row(k2s, sim_counts[(False, SPC)][k2s], multi[k2s]),
+        multi_row(k1s, pos_counts[(False, SPC)][k1s], multi[k1s]),
+        multi_row(k5gs, pos_counts[(True, SPC)][k5gs], multi[k5gs]),
+        multi_row(k3s, k3["spc"][k3s][5], k3["spc"][k3s], shape=rerank_shape),
+        multi_row(k5bs, rerank_spc_counts[k5bs], k3["spc"][k5bs], shape=rerank_shape,
+                  shapes=[shape_entry(rerank_shape, 0, k3["spc"][k5bs], k3["spc"][k5bs][4]),
+                          shape_entry(oracle_shape["shape"], 0, oracle_shape["k5b_spc"],
+                                      oracle_shape["k5b_spc"][4])]),
+        multi_row(k3gs, roll_counts[(False, SPC)][k3gs], multi[k3gs], shape=f"4x{SIZE}^2"),
+        multi_row(k5bgs, roll_counts[(True, SPC)][k5bgs], multi[k5bgs], shape=f"4x{SIZE}^2"),
+        # four steps a launch: the probe of temporal blocking's instance, the
+        # JAX package's steps_per_call=4 with ghost=16
+        multi_row(k5_probe, multi[k5_probe][5], multi[k5_probe],
+                  replaces="scripts_tpu/kernel_probe.py:98"),
+    ]
     sharded_rows = (
         ("fused_rk4_sharded_radii_only", "waves_jl_tpu/ops/pallas_fd.py:195", "radii"),
         ("select_owner_sharded", "waves_jl_tpu/ops/pallas_fd.py:247", "owner"),
@@ -3808,7 +4234,7 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": k4_counts[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-                        "device_ms": dev_only})
+                        "device_ms": dev_only, "steps_per_call": 1, "on_main_path": True})
     for name, key in (("fused_rk4_sharded_xmatmul_radii_only", "radii"),
                       ("fused_rk4_sharded_xmatmul_general", "general")):
         err, ms, dev_only, plain, bnd = k4xm[key]
@@ -3816,8 +4242,14 @@ def main(argv=None) -> int:
                         "replaces": "waves_jl_tpu/parallel/fused_domain.py:62",
                         "launches": k4xm_counts[key], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-                        "library_ms": None, "device_ms": dev_only})
+                        "library_ms": None, "device_ms": dev_only, "steps_per_call": 1,
+                        "on_main_path": True})
     for k in kernels:
+        if k["on_main_path"]:
+            check(k["launches"] > 0, f"{k['name']} was launched on its path's run")
+        else:
+            check(k["launches"] == 0 and k["probe_launches"] > 0,
+                  f"{k['name']} was launched where asked for, and by no default path")
         for entry in (k, *k.get("shapes", ())):
             check(all(isinstance(v, (int, float)) and math.isfinite(v)
                       for key, v in entry.items()

@@ -98,8 +98,9 @@ def test_episode_batch_matches_jax_vmapped_episode_scan(mode):
     for a, b in zip(tree_leaves(got.s_design), jax.tree_util.tree_leaves(want.s_design)):
         assert rel(a.numpy(), np.asarray(b)) <= 1e-6
 
-    # each batched episode is its single-state exact window's, bit for bit
-    step = make_env_step_fused(pe, x_matmul=False)
+    # each batched episode is its single-state exact window's at one step a
+    # call (the tspan times JAX's vmapped env_step takes), bit for bit
+    step = make_env_step_fused(pe, x_matmul=False, steps_per_call=1)
     for k, st in enumerate(states):
         for i in range(2):
             obs = tenv.env_observe(pe, st)

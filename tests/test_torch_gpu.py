@@ -19,9 +19,15 @@ batched, at sizes whose edge tiles are partial or one cell wide, the
 general mode with no cylinder, 18 and 80 (more than one chunk); the
 windows that drive it give the plain path's signal and re-rank costs
 within 1e-6 (the energy partials are summed in another order), with
-frames of their own. On the slabs of a y-sharded grid (K4, and K4-XM with
-the split d/dx) the step equals its plain version bit for bit on the whole
-slab, halo columns (written 0) included, the slabs of a card stacked in
+frames of their own. Two and four steps a launch (`rk4_steps_tiled`,
+every whole-grid mode, single and batched, n = 33 to 700, K up to 16)
+equal spc chained plain steps at the sub-step times and spc one-step
+launches, bit for bit; the wrapper refuses a slab with more than one step
+a launch and a kept step inside a call; the default 700^2 window takes 100
+one-step launches at the JAX window's sub-step times and one owner pass,
+nothing else, and equals the same window at two steps a launch. On the slabs of a
+y-sharded grid (K4, and K4-XM with the split d/dx) the step equals its
+plain version bit for bit on the whole slab, halo columns (written 0) included, the slabs of a card stacked in
 one launch equal each slab stepped alone, each owned cell equals the
 whole-grid kernel's, and the sharded rollout takes one launch a card a
 step; the step refuses slabs that are not consecutive, too thin or outside
@@ -634,14 +640,16 @@ def test_slab_step_raises_on_slabs_it_does_not_take(card):
 
 def _check_windows(card, x_matmul):
     """The env window and the re-rank rollout in the given d/dx form, one
-    launch a step, against the plain path: frames bit for bit, of their own,
-    the input never written; signal and costs within 1e-6."""
+    launch a step at the JAX package's default step times (two-step calls
+    for 24 steps a window, frame segments [4, 10, 10]), against the plain
+    path at the same step times: frames bit for bit, of their own, the
+    input never written; signal and costs within 1e-6."""
     from waves_jl_tpu_torch.designs import build_triple_ring_design_space
     from waves_jl_tpu_torch.dims import build_grid, two_dim
     from waves_jl_tpu_torch.env import env_reset, env_time, env_tspan, frame_segments, make_wave_env
-    from waves_jl_tpu_torch.physics.fused import (cyl_params, make_fused_window,
-                                                  make_rerank_rollout, rerank_step_times,
-                                                  step_config)
+    from waves_jl_tpu_torch.physics.fused import (cyl_params, default_steps_per_call,
+                                                  make_fused_window, make_rerank_rollout,
+                                                  rerank_step_times, step_config)
     from waves_jl_tpu_torch.sources import GaussianSource
     from waves_jl_tpu_torch.utils.trees import tree_map
 
@@ -667,12 +675,14 @@ def _check_windows(card, x_matmul):
     before = dict(fk.launch_counts)
     u, frames, signal = make_fused_window(env, x_matmul)(u0, shape, tspan, cyl)
     torch.cuda.synchronize()
-    key = fk._key("fused_rk4", None, None, x_matmul) + "_radii_only"
+    spc = default_steps_per_call(steps)
+    assert spc == 2
+    key = fk.step_key(False, x_matmul, True)
     assert fk.launch_counts[key] - before[key] == steps
     ti, tf = float(tspan[0]), float(tspan[-1])
     owner = fk.select_owner_reference(cyl, cfg)
     want, es, want_frames = u0, [], []
-    for s, t0 in enumerate(tspan[:-1]):
+    for s, t0 in enumerate(fk.call_step_times(tspan[:steps:spc], spc, cfg.dt)):
         want, e = fk.fused_rk4_step_reference(want, shape, prof, cyl, owner, float(t0), ti, tf,
                                               cfg, x_matmul=x_matmul)
         es.append(e)
@@ -693,7 +703,7 @@ def _check_windows(card, x_matmul):
     before = dict(fk.launch_counts)
     cost = make_rerank_rollout(env, horizon, x_matmul)(state, elite, t_start)
     torch.cuda.synchronize()
-    key = fk._key("fused_rk4", k, None, x_matmul) + "_radii_only"
+    key = fk.step_key(True, x_matmul, True)  # a launch a step, at JAX's re-rank times
     assert fk.launch_counts[key] - before[key] == horizon * steps
     assert torch.equal(u0, untouched)
     f32 = np.float32
@@ -753,26 +763,29 @@ def test_one_launch_step_runs_on_each_of_several_cards_across_cards(card, cards)
     # the kernel takes its shared memory by a per-device opt-in, and the
     # launches go to the state's card, not the current one
     # (each of the four instances, split and exact, radii-only and general,
-    # its own)
+    # its own, and so is each of the two- and four-step instances)
     n, k = 48, 3
     for d in range(cards):
         dev = torch.device("cuda", d)
         radii = _one_launch_inputs(n, k, dev)
         general = (*_general_inputs(n, k, 18, dev), None)
-        times = [2e-4, 2.1e-4]
         for cfg, u, shape, prof, cyl, owner in (radii, general):
             for x_matmul in (True, False):
-                kept, energies = fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0,
-                                                     1e-3, cfg, [1], x_matmul)
-                want, es = u, []
-                for t0 in times:
-                    want, e = fk.fused_rk4_step_batched_reference(want, shape, prof, cyl, owner,
-                                                                  t0, 0.0, 1e-3, cfg,
-                                                                  x_matmul=x_matmul)
-                    es.append(e)
-                torch.cuda.synchronize(dev)
-                assert kept[0].device == dev and torch.equal(kept[0], want)
-                assert rel(energies, torch.stack(es)) <= 1e-6
+                for spc in (1, 2, 4):  # one step a launch, or rk4_steps_tiled's two or four
+                    calls = [float(np.float32(2e-4 + c * spc * 1e-5)) for c in range(4 // spc)]
+                    times = fk.call_step_times(calls, spc, cfg.dt)
+                    kept, energies = fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0,
+                                                         1e-3, cfg, [3], x_matmul,
+                                                         steps_per_call=spc)
+                    want, es = u, []
+                    for t0 in times:
+                        want, e = fk.fused_rk4_step_batched_reference(want, shape, prof, cyl,
+                                                                      owner, t0, 0.0, 1e-3, cfg,
+                                                                      x_matmul=x_matmul)
+                        es.append(e)
+                    torch.cuda.synchronize(dev)
+                    assert kept[0].device == dev and torch.equal(kept[0], want)
+                    assert rel(energies, torch.stack(es)) <= 1e-6
 
 
 def _owner_inputs(case, n, k, device):
@@ -1422,7 +1435,9 @@ def test_batched_episodes_equal_each_episode_alone_through_the_single_kernel(car
     assert fk.launch_counts[f"fused_rk4_batched_{mode}"] == env.actions * steps
     assert fk.launch_counts["select_owner_batched"] == (env.actions if radii_only else 0)
     assert fk.launch_counts[f"fused_rk4_{mode}"] == 0
-    step = make_env_step_fused(env, x_matmul=False)
+    # the single-state exact window at one step a call, the tspan times of
+    # JAX's vmapped env_step, which batched datagen takes
+    step = make_env_step_fused(env, x_matmul=False, steps_per_call=1)
     for b, st in enumerate(states):
         for i in range(env.actions):
             st, _ = step(st, tree_index(tree_index(actions, b), i))
@@ -1463,3 +1478,113 @@ def test_fused_hybrid_episode_equals_the_per_action_loop(card):
     assert rel(costs, torch.stack(cs)) <= 1e-5
     assert torch.equal(final.wave, s.wave)
     assert bool(torch.isfinite(signals).all())
+
+
+def _multi_inputs(n, k, general, device):
+    """Inputs of the two- and four-step launches: the radii-only mode's
+    (the triple ring's hexagon, owner fields from the kernel's pass), or the
+    general mode's 18 moving cylinders; one state for k None, else k
+    candidates."""
+    if general:
+        return (*_general_inputs(n, k, 18, device), None)
+    return _one_launch_inputs(n, k, device)
+
+
+# 33 = 2 x 16 + 1 = 24 + 9: a one-row and a one-column edge tile; 37 and 700
+# end in partial tiles; 160 is whole tile rows; n = 33 and 37 are narrower
+# than the 48 x 56 region of four steps
+@pytest.mark.gpu
+@pytest.mark.parametrize("general", [False, True], ids=["radii_only", "general"])
+@pytest.mark.parametrize("x_matmul", [True, False], ids=["split", "exact"])
+@pytest.mark.parametrize("spc", [2, 4])
+@pytest.mark.parametrize("k", [None, 3, 16])
+@pytest.mark.parametrize("n", [33, 37, 160, 700])
+def test_multi_step_launch_equals_plain_steps_bit_for_bit(card, n, k, spc, x_matmul, general):
+    """`rk4_steps_tiled<XM, GENERAL, SPC>`: spc steps in one launch against
+    spc chained plain steps at the sub-step times (`substep_times`), bit
+    for bit on the state, the energies (spc, 3) a state within 1e-6; and
+    against spc one-step launches at those times, bit for bit."""
+    cfg, u, shape, prof, cyl, owner = _multi_inputs(n, k, general, card)
+    step = fk.fused_rk4_step if k is None else fk.fused_rk4_step_batched
+    plain = fk.fused_rk4_step_reference if k is None else fk.fused_rk4_step_batched_reference
+    key = fk.step_key(k is not None, x_matmul, not general, spc)
+    before = dict(fk.launch_counts)
+    got = step(u, shape, prof, cyl, owner, 2e-4, 0.0, 1e-3, cfg, x_matmul=x_matmul,
+               steps_per_call=spc)
+    torch.cuda.synchronize()
+    assert fk.launch_counts[key] - before[key] == 1  # spc steps, one launch
+    want = plain(u, shape, prof, cyl, owner, 2e-4, 0.0, 1e-3, cfg, x_matmul=x_matmul,
+                 steps_per_call=spc)
+    assert tuple(got[1].shape) == tuple(want[1].shape) == ((spc, 3) if k is None
+                                                             else (k, spc, 3))
+    assert torch.equal(got[0], want[0])
+    assert rel(got[1], want[1]) <= 1e-6  # the energy partials sum in another order
+    one = u
+    for ts in fk.substep_times(2e-4, spc, cfg.dt):
+        one, _ = step(one, shape, prof, cyl, owner, float(ts), 0.0, 1e-3, cfg, x_matmul=x_matmul)
+    assert torch.equal(got[0], one)
+
+
+@pytest.mark.gpu
+def test_multi_step_launch_raises_on_what_it_does_not_take(card):
+    from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs, shard_slabs
+
+    cfg, u, shape, prof, cyl, owner = _one_launch_inputs(48, None, card)
+    slabs = shard_slabs(48, 4)
+    u_slab = cut_slabs(u, slabs, [card] * 4)[0]
+    shape_slab = cut_slabs(shape, slabs, [card] * 4)[0]
+    owner_slab = fk.select_owner(cyl, cfg, slabs[0])
+    with pytest.raises(ValueError, match="one step a launch"):  # the slabs stay at one
+        fk.fused_rk4_step(u_slab, shape_slab, prof, cyl, owner_slab, 2e-4, 0.0, 1e-3, cfg,
+                          slab=slabs[0], steps_per_call=2)
+    with pytest.raises(ValueError, match="is not one of"):
+        fk.fused_rk4_step(u, shape, prof, cyl, owner, 2e-4, 0.0, 1e-3, cfg, steps_per_call=3)
+    times = fk.call_step_times([2e-4, float(np.float32(2.2e-4))], 2, cfg.dt)
+    with pytest.raises(ValueError, match="last of a call"):  # a kept step inside a call
+        fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0, 1e-3, cfg, [2], True,
+                            steps_per_call=2)
+    with pytest.raises(ValueError, match="fields_every"):
+        fk.fused_rk4_window(u, shape, prof, cyl, owner, times, 0.0, 1e-3, cfg, [3], True,
+                            fields_every=1, steps_per_call=2)
+    with pytest.raises(ValueError, match="sub-step times"):
+        fk.fused_rk4_window(u, shape, prof, cyl, owner, [2e-4, 2.2e-4, 2.4e-4, 2.6e-4], 0.0,
+                            1e-3, cfg, [3], True, steps_per_call=2)
+
+
+@pytest.mark.gpu
+def test_default_window_takes_one_step_a_launch_at_jax_times(card):
+    """The default window at 700^2 (100 steps, frame segments [80, 10, 10])
+    launches the one-step K5 radii-only instance 100 times, at the JAX
+    window's sub-step times, and the owner pass once, and nothing else; its
+    frames equal the plain route's and those of the same window at two
+    steps a launch (50 launches of the two-step instance) bit for bit, its
+    signal within 1e-6 of both."""
+    from waves_jl_tpu_torch.env import env_reset, env_tspan
+    from waves_jl_tpu_torch.physics.fused import cyl_params, make_fused_window
+    from waves_jl_tpu_torch.scripts.datagen import build_env
+
+    env = build_env(700, 100, 2, card)
+    gen = torch.Generator(device=card).manual_seed(4)
+    state = env_reset(env, gen)
+    u0 = torch.from_numpy((np.random.default_rng(4).standard_normal((12, 700, 700)) * 1e-3)
+                          .astype(np.float32)).to(card)
+    nxt = env.design_space(state.design, env.action_space.sample(gen))
+    cyl = cyl_params(state.design, nxt, env.device).contiguous()
+    tspan = env_tspan(env, state)
+    fk.reset_launch_counts()
+    u, frames, signal = make_fused_window(env)(u0, state.source.shape, tspan, cyl)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fk.launch_counts.items() if v}
+    assert counts == {"fused_rk4_xmatmul_radii_only": 100, "select_owner": 1}
+    fk.reset_launch_counts()
+    _, mframes, msignal = make_fused_window(env, steps_per_call=2)(u0, state.source.shape, tspan,
+                                                                   cyl)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fk.launch_counts.items() if v}
+    assert counts == {"fused_rk4_xmatmul_radii_only_spc2": 50, "select_owner": 1}
+    fk.reset_launch_counts()
+    pu, pframes, psignal = make_fused_window(env, plain=True)(u0, state.source.shape, tspan, cyl)
+    assert all(v == 0 for v in fk.launch_counts.values())
+    assert all(torch.equal(a, b) for a, b in zip(frames, pframes)) and len(frames) == 3
+    assert all(torch.equal(a, b) for a, b in zip(frames, mframes))
+    assert rel(signal, psignal) <= 1e-6 and rel(msignal, psignal) <= 1e-6

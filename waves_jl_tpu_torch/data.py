@@ -101,8 +101,10 @@ def generate_episode_fused(env: WaveEnv, policy, generator: torch.Generator, fus
 
 
 def make_episode_fused(env: WaveEnv):
-    """Whole-episode generator on the kernel path: returns run(state,
-    actions) -> (final_state, Episode) for actions with leading A."""
+    """Whole-episode generator on the kernel path (at the JAX package's
+    default window's step times, `make_env_step_fused`): returns
+    run(state, actions) -> (final_state, Episode) for actions with leading
+    A."""
     from .physics.fused import make_env_step_fused
 
     step = make_env_step_fused(env)
@@ -138,20 +140,22 @@ def _stack_states(states) -> EnvState:
 def make_episode_batch_fused(env: WaveEnv):
     """Batch-of-episodes generator on the batched exact kernel (the
     counterpart of `jax.vmap` over the JAX package's `_episode_scan`, which
-    steps XLA's `env_step` with the exact stencil): the K episodes advance
-    together, one launch of the candidate-batched kernel a step (K3
+    steps XLA's `env_step` with the exact stencil, at the window's `tspan`
+    times): the K episodes advance together, one step a launch of the
+    candidate-batched kernel (K3
     radii-only with one batched owner pass a window where `radii_only_ok`
     holds, K3 general otherwise; `x_matmul=False`).
 
     Returns run(states, actions) -> (final states, Episode), states a
     sequence of K states of one time step and actions with leading (K, A);
     every leaf of the Episode and of the final states but `time_step`
-    leads with K. Each episode is what the single-state exact window
-    gives it alone: frames and final state bit for bit, the signal within
-    the energy partials' summation order."""
+    leads with K. Each episode is what the single-state exact window at one
+    step a call (`make_env_step_fused(env, x_matmul=False,
+    steps_per_call=1)`) gives it alone: frames and final state bit for bit,
+    the signal within the energy partials' summation order."""
     from .physics.fused import make_env_step_fused
 
-    step = make_env_step_fused(env, x_matmul=False)
+    step = make_env_step_fused(env, x_matmul=False, steps_per_call=1)
 
     def run(states, actions):
         state = _stack_states(states)

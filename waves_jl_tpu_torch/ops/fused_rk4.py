@@ -18,7 +18,12 @@ it.
 Every mode, in either d/dx form and either rasterisation, runs a whole RK4
 step in one launch (`rk4_step_tiled`: each block keeps its tile and a
 4-cell halo in shared memory through the four stages, and the general
-mode rasterises only the cylinders that reach its tile). `fused_rk4_window`
+mode rasterises only the cylinders that reach its tile). On the whole grid
+a launch may also take two or four steps (`steps_per_call`, the JAX
+kernel's temporal blocking: `rk4_steps_tiled` in csrc/fused_rk4_multi.cu
+keeps a band of 4 cells a step through them), sub-step st at the JAX
+kernel's time float32(t + float32(st dt)) (`substep_times`), with one row
+of energies a sub-step. `fused_rk4_window`
 drives a window's steps as the env window and the re-rank do, and
 `SlabWindow` a card's slabs through a sharded rollout: each makes its two
 state buffers and its energy partials once a window and marshals the
@@ -64,7 +69,10 @@ from ..designs import lerp_weight
 from .fd import dx_edge_aware, dx_split_bf16, dy_edge_aware
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_rk4.cu"
+# the two libraries, built in parallel, and the header both include
+SOURCES = {"fused_rk4": _PKG / "csrc" / "fused_rk4.cu",
+           "fused_rk4_multi": _PKG / "csrc" / "fused_rk4_multi.cu"}
+HEADER = _PKG / "csrc" / "fused_rk4_common.cuh"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,6 +85,8 @@ HALO = 4  # halo cells one RK4 step consumes on each side (pallas_fd.py:31)
 TILE = (16, 24)  # rows and columns of a block's tile in `rk4_step_tiled` (TX, TY)
 OWNER_TILE = (16, 64)  # rows and columns of a block's tile in `select_owner_kernel`
 
+STEPS_PER_CALL = (1, 2, 4)  # RK4 steps a launch takes; 2 and 4 on the whole grid alone
+
 launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0,
                  "fused_rk4_batched_general": 0, "fused_rk4_batched_radii_only": 0,
                  "select_owner_batched": 0, "fused_rk4_sharded_general": 0,
@@ -86,6 +96,9 @@ launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owne
                  "fused_rk4_batched_xmatmul_radii_only": 0,
                  "fused_rk4_sharded_xmatmul_general": 0,
                  "fused_rk4_sharded_xmatmul_radii_only": 0}
+# the multi-step launches, by the one-step counter's name and "_spc2" or "_spc4"
+launch_counts.update({f"{k}_spc{spc}": 0 for k in list(launch_counts)
+                      if k.startswith("fused_rk4") and "sharded" not in k for spc in (2, 4)})
 
 
 def reset_launch_counts() -> None:
@@ -144,21 +157,94 @@ def stage_times(t: float, dt: float):
     return t0, t0 + f(0.5 * dt), t0 + f(dt)
 
 
-def step_flops(n: int, n_cyl: int, radii_only: bool, w: int | None = None,
-               x_matmul: bool = False) -> int:
-    """Float32 operations of one RK4 step on an n x w grid (w = n unless
-    given): per cell and
+def substep_times(t: float, spc: int, dt: float) -> list[np.float32]:
+    """float32 start times of the `spc` RK4 steps of one kernel call from
+    time t, as the JAX kernel forms them (pallas_fd.py:362): sub-step st
+    at float32(t + float32(st * dt))."""
+    f = np.float32
+    return [f(f(t) + f(st * dt)) for st in range(spc)]
+
+
+def call_step_times(call_times, spc: int, dt: float) -> list[float]:
+    """The start time of every step of a window whose kernel calls start at
+    `call_times`, `spc` steps a call (`substep_times`)."""
+    return [float(ts) for t in call_times for ts in substep_times(t, spc, dt)]
+
+
+def step_flops(n: int, n_cyl: float, radii_only: bool, w: int | None = None,
+               x_matmul: bool = False, steps_per_call: int = 1) -> float:
+    """Float32 operations of `steps_per_call` RK4 steps (one unless given)
+    on an n x w grid (w = n unless given), the steps' own work without the
+    cells a multi-step launch recomputes in its band: per cell and
     stage, 12 stage inputs u + a k (2 each) and per stack 4 edge derivatives
     (3 each), U + f at the 4 stencil points (2 each) and the right-hand side
     (19), plus the rasterisation (5 for the owner test, 14 per cylinder in
-    the general mode); per cell and step, the combine (12 x 6) and the
+    the general mode, `n_cyl` the cylinders a cell tests: `tile_cylinders`
+    for what a run's data needs, where the kernel skips the cylinders that
+    cannot reach a tile); per cell and step, the combine (12 x 6) and the
     energies (6). With `x_matmul` each stack's 2 x-derivatives split their
     2 taps (4 conversions and a subtract each) and take the stencil twice
     and a sum: 14 operations each in place of 3."""
     raster = 5 if radii_only else 14 * n_cyl
     split = 2 * 2 * (14 - 3) if x_matmul else 0
     per_stage = 12 * 2 + 2 * (4 * 3 + 4 * 2 + 19) + split + raster
-    return n * (w or n) * (4 * per_stage + 12 * 6 + 6)
+    return steps_per_call * n * (w or n) * (4 * per_stage + 12 * 6 + 6)
+
+
+def call_bytes(n: int, n_cyl: int, steps_per_call: int = 1, batch: int = 1) -> int:
+    """Bytes a launch of `steps_per_call` steps of `batch` states on the
+    whole n x n grid must move at least: each state read and written once,
+    the shared source shape, the profile and the (8, n_cyl) cylinders of
+    each state read once, and one row of three energy partials a tile and
+    step written. The radii-only owner fields are a layout of the design
+    made once a window, and stay out."""
+    tiles = -(-n // TILE[0]) * -(-n // TILE[1])
+    floats = (2 * batch * 12 * n * n + n * n + n + batch * 8 * n_cyl
+              + steps_per_call * batch * tiles * 3)
+    return 4 * floats
+
+
+def band_work_share(n: int, steps_per_call: int) -> float:
+    """The share of the cells a launch of `steps_per_call` steps on the whole
+    n x n grid computes, summed over its stages, that are computed more than
+    once: the halo and band cells each block recomputes (the regions of
+    `fused_rk4_step_tiled_reference`) over all the cells its stages compute.
+    The rest, n^2 a stage, is the steps' own work."""
+    done = 0
+    for i0 in range(0, n, TILE[0]):
+        i1, rlo, rhi = _tile_region(i0, TILE[0], n, halo=HALO * steps_per_call)
+        for j0 in range(0, n, TILE[1]):
+            j1, clo, chi = _tile_region(j0, TILE[1], n, halo=HALO * steps_per_call)
+            span = (rlo, rhi, clo, chi)
+            for s in range(4 * steps_per_call):
+                span = (*_shrink(span[0], span[1], n), *_shrink(span[2], span[3], n))
+                if s == 4 * steps_per_call - 1:
+                    span = (i0, i1, j0, j1)
+                done += (span[1] - span[0] + 1) * (span[3] - span[2] + 1)
+    return 1.0 - 4 * steps_per_call * n * n / done
+
+
+def tile_cylinders(cyl: torch.Tensor, cfg: StepConfig, w: float = 0.5) -> float:
+    """The mean number of cylinders the general rasterisation must test a
+    cell of the whole grid when each tile of `TILE` tests only those that
+    `cull_cylinders` keeps for the tile's box at lerp weight w (the kernel
+    culls against its region's box, the tile and its halo, at each stage's
+    weight, so it tests at least these). cyl (8, n_cyl), or (K, 8, n_cyl)
+    for the mean over K: the `n_cyl` of `step_flops` for this data."""
+    cyl = cyl.detach().to("cpu", torch.float32)
+    cyl = cyl if cyl.dim() == 3 else cyl[None]
+    n = cfg.n
+    coord = _coords(cfg, "cpu")[0]
+    reach_of = {}
+    for axis, size in ((0, TILE[0]), (1, TILE[1])):
+        start = torch.arange(0, n, size)
+        stop = torch.clamp(start + size, max=n)
+        lo, hi = coord[start], coord[stop - 1]
+        p = cyl[:, axis] + w * (cyl[:, 4 + axis] - cyl[:, axis])  # (K, n_cyl)
+        reach = torch.abs(cyl[:, 2] + w * (cyl[:, 6] - cyl[:, 2])) + cfg.spacing
+        meets = ((p - reach)[..., None] <= hi) & ((p + reach)[..., None] >= lo)
+        reach_of[axis] = (meets.to(torch.float64) * (stop - start).to(torch.float64)).sum(-1)
+    return float((reach_of[0] * reach_of[1]).sum()) / (cyl.shape[0] * n * n)
 
 
 # ---------------------------------------------------------------------------
@@ -294,12 +380,22 @@ def _stack_rhs(v, b, f, sx, sy, bc, inv2d, lo, hi, dx):
 
 
 def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
-                             slab: Slab | None = None, x_matmul: bool = False):
+                             slab: Slab | None = None, x_matmul: bool = False,
+                             steps_per_call: int | None = None):
     """Plain PyTorch version of `fused_rk4_step`: the same equations, op
     order, rasterisation, closed-form RK4 combine and energies, on the whole
     grid or on a slab (its halo columns come out 0, energies cover the owned
     columns); d/dx split in bf16 with `x_matmul`. Returns
-    (u_next (12, n, w), energies (3,))."""
+    (u_next (12, n, w), energies (3,)). With `steps_per_call` spc, the
+    state takes spc chained steps from t at the JAX kernel's sub-step times
+    (`substep_times`), and the energies after each are (spc, 3)."""
+    if steps_per_call is not None:
+        es = []
+        for ts in substep_times(t, steps_per_call, cfg.dt):
+            u, e = fused_rk4_step_reference(u, shape, prof, cyl, owner, float(ts), ti, tf, cfg,
+                                            slab, x_matmul)
+            es.append(e)
+        return u, torch.stack(es)
     n = cfg.n
     dev = u.device
     xs, ys = _coords(cfg, dev, slab)
@@ -358,13 +454,14 @@ def select_owner_slabs_reference(cyl: torch.Tensor, cfg: StepConfig, slabs: list
 
 
 def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
-                                     x_matmul: bool = False):
+                                     x_matmul: bool = False, steps_per_call: int | None = None):
     """Plain PyTorch version of `fused_rk4_step_batched`: the plain step of
-    each candidate in turn. Returns (u_next (K, 12, n, n), energies (K, 3))."""
+    each candidate in turn. Returns (u_next (K, 12, n, n), energies (K, 3),
+    or (K, spc, 3) with `steps_per_call` spc)."""
     shapes = shape.expand(u.shape[0], *shape.shape[-2:])  # shared, or one a candidate
     steps = [fused_rk4_step_reference(u[b], shapes[b], prof, cyl[b],
                                       None if owner is None else owner[b], t, ti, tf, cfg,
-                                      x_matmul=x_matmul)
+                                      x_matmul=x_matmul, steps_per_call=steps_per_call)
              for b in range(u.shape[0])]
     return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
 
@@ -380,15 +477,16 @@ def fused_rk4_step_slabs_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: S
     return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
 
 
-def _tile_region(start: int, size: int, n: int, stop: int | None = None
+def _tile_region(start: int, size: int, n: int, stop: int | None = None, halo: int = HALO
                  ) -> tuple[int, int, int]:
     """(tile's last index, region's first, region's last) along one axis for
     the tile of `size` from `start`, cut at `stop` (the end of a slab's
-    owned columns; n by default), as `rk4_step_tiled` takes them: HALO
-    cells a side, one more before a one-cell tile on the last index (its
-    one-sided stencil reaches five cells inward), cut at the domain."""
+    owned columns; n by default), as `rk4_step_tiled` takes them: `halo`
+    cells a side (HALO, or the band of 4 spc cells of `rk4_steps_tiled`),
+    one more before a one-cell tile on the last index (its one-sided
+    stencil reaches five cells inward), cut at the domain."""
     end = min(start + size, n if stop is None else stop) - 1
-    return end, max(start - HALO - (start == n - 1), 0), min(end + HALO, n - 1)
+    return end, max(start - halo - (start == n - 1), 0), min(end + halo, n - 1)
 
 
 def _shrink(lo: int, hi: int, n: int) -> tuple[int, int]:
@@ -410,9 +508,16 @@ def cull_cylinders(cyl, w: float, xs, ys, spacing: float) -> torch.Tensor:
             & (py - reach <= ys[-1]) & (py + reach >= ys[0]))
 
 
+def _crop(x, have: tuple, want: tuple):
+    """x over the global rows and columns `have` (r0, r1, c0, c1), cut to
+    `want`, which lies inside."""
+    return x[..., want[0] - have[0]:want[1] - have[0] + 1, want[2] - have[2]:want[3] - have[2] + 1]
+
+
 def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepConfig,
                                    tile: tuple[int, int] = TILE, x_matmul: bool = True,
-                                   cyl=None, slab: Slab | None = None):
+                                   cyl=None, slab: Slab | None = None,
+                                   steps_per_call: int | None = None):
     """The step computed tile by tile as the one-launch kernel
     `rk4_step_tiled` decomposes it, in plain PyTorch with the whole-grid
     plain version's own `_stack_rhs`, d/dx and rasterisation: split in bf16
@@ -426,12 +531,22 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
     (`_shrink`): the stencils run on the stage input's whole region, and
     its cells on a side inside the domain, one-sided there, are dropped.
     The tile keeps the closed-form combine; no cell outside the domain is
-    held or read, and a slab's halo columns come out 0. For the tests
-    alone, which hold it equal to `fused_rk4_step_reference(...,
-    x_matmul=x_matmul)` without a card. Returns (u_next (12, n, w),
-    energies (3,))."""
+    held or read, and a slab's halo columns come out 0.
+
+    With `steps_per_call` spc (the whole grid alone), the decomposition of
+    `rk4_steps_tiled`: each region carries a band of 4 spc cells a side
+    and runs spc steps at the JAX kernel's sub-step times
+    (`substep_times`), the closed-form combine on the whole region where a
+    step's new state is valid (the tile after the last), and the energies
+    of the tile after each step. For the tests alone, which hold it equal
+    to `fused_rk4_step_reference(..., x_matmul=x_matmul,
+    steps_per_call=steps_per_call)` without a card. Returns (u_next
+    (12, n, w), energies (3,), or (spc, 3) with `steps_per_call`)."""
     n = cfg.n
     dev = u.device
+    spc = steps_per_call or 1
+    if spc > 1 and slab is not None:
+        raise ValueError("a slab takes one step a launch")
     w, col0 = _extent(cfg, slab)
     own0, own1 = (0, n) if slab is None else (col0 + HALO, col0 + HALO + slab.ny)
     dx = dx_split_bf16 if x_matmul else dx_edge_aware
@@ -439,28 +554,26 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
     b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
     two_pi_f = np.float32(2.0 * math.pi)
     half, full, sixth = 0.5 * cfg.dt, cfg.dt, cfg.dt / 6.0
-    t0, th, t1 = stage_times(t, cfg.dt)
     idx = torch.arange(n, device=dev)
     interior = (idx > 0) & (idx < n - 1)
     coord = _coords(cfg, dev)[0]
     out = torch.zeros_like(u)
     parts = []
 
-    def local(cols: slice) -> slice:
-        return slice(cols.start - col0, cols.stop - col0)
-
-    def rhs(v, ts, rows, cols, region):
+    def rhs(v, ts, span, region):
+        rows, cols = slice(span[0], span[1] + 1), slice(span[2], span[3] + 1)
+        local = slice(cols.start - col0, cols.stop - col0)
         w = lerp_weight(ts, ti, tf)
         if owner is None:
             xs, ys = coord[region[0]:region[1] + 1], coord[region[2]:region[3] + 1]
             keep = cull_cylinders(cyl, w, xs, ys, cfg.spacing)
             c = _rasterize(cyl[:, keep], coord[rows][:, None], coord[cols][None, :], w, c0)
         else:
-            own = owner[:, rows, local(cols)]
+            own = owner[:, rows, local]
             r = own[1] + w * own[2]
             c = torch.where(own[0] < r * r, own[3] + w * own[4], torch.full_like(r, c0))
         sn = torch.sin(torch.tensor(two_pi_f * np.float32(ts) * np.float32(cfg.freq), device=dev))
-        f = shape[rows, local(cols)] * sn
+        f = shape[rows, local] * sn
         sx, sy = prof[rows][:, None], prof[cols][None, :]
         bc = (interior[rows][:, None] & interior[cols][None, :]).to(torch.float32)
         lo, hi = -cols.start, n - 1 - cols.start  # local columns of the domain's edges
@@ -469,29 +582,37 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
         return torch.stack(d_tot + d_inc)
 
     for i0 in range(0, n, tile[0]):
-        i1, rlo, rhi = _tile_region(i0, tile[0], n)
+        i1, rlo, rhi = _tile_region(i0, tile[0], n, halo=HALO * spc)
         for j0 in range(own0, own1, tile[1]):
-            j1, clo, chi = _tile_region(j0, tile[1], n, own1)
+            j1, clo, chi = _tile_region(j0, tile[1], n, own1, halo=HALO * spc)
             region = span = (rlo, rhi, clo, chi)
-            # the stage-1 input on the region
-            v = u[:, rlo:rhi + 1, clo - col0:chi + 1 - col0]
-            ks = []
-            for ts, a in ((t0, half), (th, half), (th, full), (t1, None)):
-                k = rhs(v, ts, slice(span[0], span[1] + 1), slice(span[2], span[3] + 1), region)
-                new = (*_shrink(span[0], span[1], n), *_shrink(span[2], span[3], n))
-                k = k[:, new[0] - span[0]:new[1] - span[0] + 1, new[2] - span[2]:new[3] - span[2] + 1]
-                span = new
-                ks.append(k[:, i0 - span[0]:i1 - span[0] + 1, j0 - span[2]:j1 - span[2] + 1])
-                if a is not None:
-                    v = u[:, span[0]:span[1] + 1, span[2] - col0:span[3] + 1 - col0] + a * k
-            k1, k2, k3, k4 = ks
-            tile_cols = slice(j0 - col0, j1 + 1 - col0)
-            own = u[:, i0:i1 + 1, tile_cols] + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-            out[:, i0:i1 + 1, tile_cols] = own
-            sc = own[0] - own[6]
-            parts.append(torch.stack([torch.sum(own[0] * own[0]), torch.sum(own[6] * own[6]),
-                                      torch.sum(sc * sc)]))
-    return out, torch.stack(parts).sum(dim=0)
+            tile_span = (i0, i1, j0, j1)
+            us = u[:, rlo:rhi + 1, clo - col0:chi + 1 - col0]  # the state on `span`
+            tile_parts = []
+            for st, ts0 in enumerate(substep_times(t, spc, cfg.dt)):
+                t0, th, t1 = stage_times(ts0, cfg.dt)
+                start, v, ks = span, us, []
+                for ts, a in ((t0, half), (th, half), (th, full), (t1, None)):
+                    k = rhs(v, ts, span, region)
+                    new = (*_shrink(span[0], span[1], n), *_shrink(span[2], span[3], n))
+                    k = _crop(k, span, new)
+                    span = new
+                    ks.append((k, span))
+                    if a is not None:
+                        v = _crop(us, start, span) + a * k
+                # the combine where the new state is valid, the tile after the last step
+                fin = tile_span if st == spc - 1 else span
+                k1, k2, k3, k4 = (_crop(k, s, fin) for k, s in ks)
+                us = _crop(us, start, fin) + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+                span = fin
+                own = _crop(us, fin, tile_span)
+                sc = own[0] - own[6]
+                tile_parts.append(torch.stack([torch.sum(own[0] * own[0]),
+                                               torch.sum(own[6] * own[6]), torch.sum(sc * sc)]))
+            out[:, i0:i1 + 1, j0 - col0:j1 + 1 - col0] = us
+            parts.append(torch.stack(tile_parts))
+    energies = torch.stack(parts).sum(dim=0)
+    return out, (energies if steps_per_call is not None else energies[0])
 
 
 # ---------------------------------------------------------------------------
@@ -509,40 +630,54 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library if it is not built yet for this source
-    and these flags. Returns its path and nvcc's ptxas report (empty when
-    the library was already there)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libfused_rk4_{digest}.so"
-    if lib.exists():
-        return lib, ""
+def build() -> tuple[dict, str]:
+    """Compile the kernel libraries (`SOURCES`) that are not built yet for
+    these sources, the header and these flags, one nvcc each, all started
+    together. Returns their paths by name and nvcc's ptxas reports (empty
+    when every library was already there)."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in (*SOURCES.values(), HEADER))
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    libs = {name: BUILD_DIR / f"lib{name}_{digest}.so" for name in SOURCES}
+    todo = [name for name, lib in libs.items() if not lib.exists()]
+    if not todo:
+        return libs, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build finds a whole library or none
-    return lib, proc.stderr
+    tmps = {name: libs[name].with_name(f"{libs[name].name}.{os.getpid()}.tmp") for name in todo}
+    procs = {name: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmps[name]),
+                                     str(SOURCES[name])],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in todo}
+    outs = {name: p.communicate() for name, p in procs.items()}
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCES[name].name} ({p.returncode}):\n"
+                               f"{outs[name][0]}\n{outs[name][1]}")
+    for name in todo:  # atomic: a concurrent build finds a whole library or none
+        os.replace(tmps[name], libs[name])
+    return libs, "".join(outs[name][1] for name in todo)
 
 
 class _Library:
-    """The loaded kernel library with its C signatures declared."""
+    """The loaded kernel libraries with their C signatures declared."""
 
-    def __init__(self, path: Path):
-        self.cdll = ctypes.CDLL(str(path))
+    def __init__(self, paths: dict):
+        self.cdlls = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # the candidate count first, 1 for a single state
-        self.owner = self._bind("select_owner", [I, P, I, P, I, I, I, F, F, P])
+        self.owner = self._bind("fused_rk4", "select_owner", [I, P, I, P, I, I, I, F, F, P])
         # the one-launch step: the window's struct, u, out, partials, t
-        self.step_tiled = self._bind("fused_rk4_step_tiled", [P, P, P, P, F])
-        self.step_blocks = self._bind("fused_rk4_step_blocks", [I, I])
-        self.step_smem = self._bind("fused_rk4_step_smem", [])
-        self.step_occupancy = self._bind("fused_rk4_step_occupancy", [I, I, I])
+        self.step_tiled = self._bind("fused_rk4", "fused_rk4_step_tiled", [P, P, P, P, F])
+        self.step_blocks = self._bind("fused_rk4", "fused_rk4_step_blocks", [I, I])
+        self.step_smem = self._bind("fused_rk4", "fused_rk4_step_smem", [])
+        self.step_occupancy = self._bind("fused_rk4", "fused_rk4_step_occupancy", [I, I, I])
+        # two or four steps a launch: the same arguments as the one-step launch
+        self.steps_tiled = self._bind("fused_rk4_multi", "fused_rk4_steps_tiled", [P, P, P, P, F])
+        self.steps_smem = self._bind("fused_rk4_multi", "fused_rk4_steps_smem", [I])
+        self.steps_occupancy = self._bind("fused_rk4_multi", "fused_rk4_steps_occupancy",
+                                          [I, I, I])
 
-    def _bind(self, name: str, argtypes: list):
-        fn = getattr(self.cdll, name)
+    def _bind(self, lib: str, name: str, argtypes: list):
+        fn = getattr(self.cdlls[lib], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         return fn
@@ -554,8 +689,8 @@ _library: _Library | None = None
 def _lib() -> _Library:
     global _library
     if _library is None:
-        path, _ = build()
-        _library = _Library(path)
+        paths, _ = build()
+        _library = _Library(paths)
     return _library
 
 
@@ -571,6 +706,10 @@ TILED_INSTANCES = {"split": (True, False, False), "exact": (False, False, False)
                    "split_slab": (True, False, True), "exact_slab": (False, False, True),
                    "split_general_slab": (True, True, True),
                    "exact_general_slab": (False, True, True)}
+# the multi-step instances, `rk4_steps_tiled<XM, GENERAL, SPC>`, by name
+STEPS_INSTANCES = {f"{name}_spc{spc}": (xm, general, spc)
+                   for spc in (2, 4)
+                   for name, (xm, general, slab) in TILED_INSTANCES.items() if not slab}
 
 
 def tiled_kernel_report() -> dict:
@@ -580,11 +719,16 @@ def tiled_kernel_report() -> dict:
     instance's registers and shared memory), by the names of
     `TILED_INSTANCES`: on the whole grid "split" (K5), "exact" (K2, K3),
     "split_general" (K5 general) and "exact_general" (K1, K3 general), and
-    the same four on slabs with "_slab" (K4-XM, K4)."""
+    the same four on slabs with "_slab" (K4-XM, K4); the multi-step
+    instances by the names of `STEPS_INSTANCES` ("split_spc2" and so on),
+    with their shared memory as "smem_bytes_spc2" and "smem_bytes_spc4"."""
     lib = _lib()
     return {"smem_bytes": lib.step_smem(),
+            **{f"smem_bytes_spc{spc}": lib.steps_smem(spc) for spc in (2, 4)},
             **{name: lib.step_occupancy(int(xm), int(general), int(slab))
-               for name, (xm, general, slab) in TILED_INSTANCES.items()}}
+               for name, (xm, general, slab) in TILED_INSTANCES.items()},
+            **{name: lib.steps_occupancy(int(xm), int(general), spc)
+               for name, (xm, general, spc) in STEPS_INSTANCES.items()}}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -632,6 +776,15 @@ def _key(kernel: str, batch: int | None, slab, x_matmul: bool = False) -> str:
     else:
         key = kernel if batch is None else kernel + "_batched"
     return key + "_xmatmul" if x_matmul else key
+
+
+def step_key(batch: bool, x_matmul: bool, radii_only: bool, steps_per_call: int = 1) -> str:
+    """Launch counter of the whole-grid step: single or candidate-batched,
+    split or exact d/dx, radii-only or general, with "_spc2" or "_spc4"
+    for the launches that take two or four steps."""
+    key = (_key("fused_rk4", 1 if batch else None, None, x_matmul)
+           + ("_radii_only" if radii_only else "_general"))
+    return key if steps_per_call == 1 else f"{key}_spc{steps_per_call}"
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -694,10 +847,11 @@ class _TiledWindow(ctypes.Structure):
     _fields_ = [("shape", ctypes.c_void_p), ("prof", ctypes.c_void_p),
                 ("owner", ctypes.c_void_p), ("cyl", ctypes.c_void_p), ("stream", ctypes.c_void_p),
                 *((name, ctypes.c_int)
-                  for name in ("batch", "n", "w", "col0", "xm", "n_cyl", "shape_stride")),
+                  for name in ("batch", "n", "w", "col0", "xm", "n_cyl", "shape_stride", "spc")),
                 *((name, ctypes.c_float)
                   for name in ("inv2d", "c0", "freq", "half", "full", "sixth", "ti", "tf",
-                               "x_min", "spacing"))]
+                               "x_min", "spacing")),
+                ("sub", ctypes.c_float * 4)]
 
 
 def _slab_extent(slabs: list) -> tuple[int, int]:
@@ -718,10 +872,17 @@ class _TiledStep:
     S). Radii-only with `owner`, general on `cyl` where owner is None. The
     inputs fixed for the window are checked and marshalled once, and
     `launch` runs one RK4 step in one launch on the current stream of
-    `dev`, the state's device."""
+    `dev`, the state's device, or `steps_per_call` (2 or 4, the whole grid
+    alone) steps in one launch of `rk4_steps_tiled`, whose energy partials
+    are (steps_per_call, batch, rows, 3)."""
 
     def __init__(self, shape, prof, owner, cyl, ti: float, tf: float, cfg: StepConfig,
-                 batch: int | None, dev: torch.device, x_matmul: bool, slabs: list | None = None):
+                 batch: int | None, dev: torch.device, x_matmul: bool, slabs: list | None = None,
+                 steps_per_call: int = 1):
+        if steps_per_call not in STEPS_PER_CALL:
+            raise ValueError(f"steps_per_call {steps_per_call} is not one of {STEPS_PER_CALL}")
+        if steps_per_call > 1 and slabs is not None:
+            raise ValueError("the slabs take one step a launch (steps_per_call 1)")
         n = cfg.n
         lead = () if batch is None else (batch,)
         if slabs is None:
@@ -741,16 +902,20 @@ class _TiledStep:
             _check("owner", owner, (*lead, 5, n, self.w), dev)
             n_cyl, held = 0, owner
         f = np.float32
+        sub = (ctypes.c_float * 4)(*(f(st * cfg.dt) for st in range(4)))
         self.args = _TiledWindow(shape.data_ptr(), prof.data_ptr(), _ptr(owner), _ptr(cyl),
                                  _stream(dev).value, batch or 1, n, self.w, col0, int(x_matmul),
-                                 n_cyl, n * n if slabs is None and shape_lead else 0, cfg.inv2d,
-                                 cfg.c0, cfg.freq, f(0.5 * cfg.dt), f(cfg.dt),
-                                 f(cfg.dt / 6.0), ti, tf, cfg.x_min, cfg.spacing)
+                                 n_cyl, n * n if slabs is None and shape_lead else 0,
+                                 steps_per_call, cfg.inv2d, cfg.c0, cfg.freq, f(0.5 * cfg.dt),
+                                 f(cfg.dt), f(cfg.dt / 6.0), ti, tf, cfg.x_min, cfg.spacing, sub)
         self.ref = ctypes.addressof(self.args)
         self.inputs = (shape, prof, held)  # alive while the struct points at them
-        self.fn = _lib().step_tiled
+        self.spc = steps_per_call
+        self.fn = _lib().step_tiled if steps_per_call == 1 else _lib().steps_tiled
         self.key = (_key("fused_rk4", batch, slabs, x_matmul)
                     + ("_general" if owner is None else "_radii_only"))
+        if steps_per_call > 1:
+            self.key += f"_spc{steps_per_call}"
         self.rows = step_partial_rows(n, ny)
 
     def launch(self, u_ptr: int, out_ptr: int, partials_ptr: int, t: float) -> None:
@@ -759,35 +924,45 @@ class _TiledStep:
 
 
 def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: int | None,
-                 slabs: list | None = None, x_matmul: bool = False):
+                 slabs: list | None = None, x_matmul: bool = False, steps_per_call: int = 1):
     """Check the inputs and launch one RK4 step in one launch: of one state
     (K1 or K2) for batch None, else of `batch` candidates (K3); on
     consecutive slabs (K4) if given; with the split d/dx (K5) if
-    `x_matmul`. Returns (u_next, energy partials (batch or 1, tiles, 3))."""
+    `x_matmul`; or `steps_per_call` steps in one launch on the whole grid.
+    Returns (u_next, energy partials (steps_per_call, batch or 1, tiles,
+    3))."""
     dev = u.device
-    step = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul, slabs)
+    step = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul, slabs,
+                      steps_per_call)
     _check("u", u, (*(() if batch is None else (batch,)), 12, cfg.n, step.w), dev)
     out = torch.empty_like(u)
-    partials = torch.empty((batch or 1, step.rows, 3), dtype=torch.float32, device=dev)
+    partials = torch.empty((steps_per_call, batch or 1, step.rows, 3), dtype=torch.float32,
+                           device=dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
         step.launch(u.data_ptr(), out.data_ptr(), partials.data_ptr(), float(t))
     return out, partials
 
 
 def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
-                   slab: Slab | None = None, x_matmul: bool = False):
+                   slab: Slab | None = None, x_matmul: bool = False,
+                   steps_per_call: int | None = None):
     """Advance the state one RK4 step from time t, with the design lerped
     over [ti, tf], in one launch. `owner` (from `select_owner`) selects the
     radii-only kernel K2; None selects the general kernel K1. With a slab,
     u, shape and owner are its (.., n, slab.w) columns and the step is
     K4's. `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
-    K4-XM on a slab). Returns (u_next, energies (3,))."""
+    K4-XM on a slab). Returns (u_next, energies (3,)). With
+    `steps_per_call` spc (1, 2 or 4; more than 1 on the whole grid alone),
+    spc steps in one launch from t, sub-step st at `substep_times`, and
+    energies (spc, 3)."""
     if not _on_card(u):
         return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
-                                        x_matmul)
+                                        x_matmul, steps_per_call)
     out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, None,
-                                 None if slab is None else [slab], x_matmul)
-    return out, partials[0].sum(dim=0)
+                                 None if slab is None else [slab], x_matmul,
+                                 steps_per_call or 1)
+    energies = partials[:, 0].sum(dim=1)
+    return out, (energies if steps_per_call is not None else energies[0])
 
 
 def fused_rk4_step_slabs(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, slabs: list,
@@ -802,11 +977,11 @@ def fused_rk4_step_slabs(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
                                               x_matmul)
     out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, len(slabs), slabs,
                                  x_matmul)
-    return out, partials.sum(dim=1)
+    return out, partials[0].sum(dim=1)
 
 
 def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
-                           x_matmul: bool = False):
+                           x_matmul: bool = False, steps_per_call: int | None = None):
     """Advance K candidate states (K, 12, n, n) one RK4 step from the same
     time t in one launch (K3, or batched K5), each with its own cylinders
     (K, 8, n_cyl) lerped over [ti, tf] and the source shape (n, n) shared
@@ -814,13 +989,15 @@ def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfi
     `select_owner_batched` selects the radii-only mode, None the general
     one; `x_matmul` the split d/dx (K5). Each candidate's energy partials
     are summed in a fixed order. Returns (u_next (K, 12, n, n), energies
-    (K, 3))."""
+    (K, 3)); with `steps_per_call` spc, spc steps in one launch and
+    energies (K, spc, 3)."""
     if not _on_card(u):
         return fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg,
-                                                x_matmul)
+                                                x_matmul, steps_per_call)
     out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, u.shape[0],
-                                 x_matmul=x_matmul)
-    return out, partials.sum(dim=1)
+                                 x_matmul=x_matmul, steps_per_call=steps_per_call or 1)
+    energies = partials.sum(dim=2).transpose(0, 1)
+    return out, (energies if steps_per_call is not None else energies[:, 0])
 
 
 def _fields_out(u, times, every: int):
@@ -832,10 +1009,37 @@ def _fields_out(u, times, every: int):
     return fields
 
 
+def _check_calls(times, keep, steps_per_call: int, fields_every: int, dt: float) -> None:
+    """Raise unless a window of these step times can run `steps_per_call`
+    steps a launch: whole calls, each call's step times its first one's
+    `substep_times`, every kept step and every fields_every-th step the
+    last of a call."""
+    spc = steps_per_call
+    if spc not in STEPS_PER_CALL:
+        raise ValueError(f"steps_per_call {spc} is not one of {STEPS_PER_CALL}")
+    if spc == 1:
+        return
+    if len(times) % spc:
+        raise ValueError(f"{len(times)} steps are not whole calls of {spc}")
+    off = [s for s in keep if (s + 1) % spc]
+    if off:
+        raise ValueError(f"kept steps {off} are not the last of a call of {spc}")
+    if fields_every % spc:
+        raise ValueError(f"fields_every {fields_every} is not whole calls of {spc}")
+    for c in range(0, len(times), spc):
+        want = [float(ts) for ts in substep_times(times[c], spc, dt)]
+        if [float(ts) for ts in times[c:c + spc]] != want:
+            raise ValueError(f"the step times from {times[c]} are not the sub-step times {want}")
+
+
 def fused_rk4_window_reference(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
-                               keep, x_matmul: bool = False, fields_every: int = 0):
+                               keep, x_matmul: bool = False, fields_every: int = 0,
+                               steps_per_call: int = 1):
     """Plain version of `fused_rk4_window`, on any device: the plain step
-    (`fused_rk4_step_reference`, or its batched form), step by step."""
+    (`fused_rk4_step_reference`, or its batched form), step by step, at
+    the same step times, which `steps_per_call` checks as the kernel's
+    route does."""
+    _check_calls(times, keep, steps_per_call, fields_every, cfg.dt)
     batch = u.shape[0] if u.dim() == 4 else None
     step = fused_rk4_step_reference if batch is None else fused_rk4_step_batched_reference
     fields = _fields_out(u, times, fields_every) if fields_every else None
@@ -852,7 +1056,8 @@ def fused_rk4_window_reference(u, shape, prof, cyl, owner, times, ti, tf, cfg: S
 
 
 def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
-                     keep, x_matmul: bool = False, fields_every: int = 0):
+                     keep, x_matmul: bool = False, fields_every: int = 0,
+                     steps_per_call: int = 1):
     """Advance one state (12, n, n), or K candidates (K, 12, n, n) with
     their own cylinders and owner fields (and source shapes, where `shape`
     is (K, n, n)), through a window's steps from the
@@ -867,7 +1072,12 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
     takes one launch a step, its window's fixed inputs marshalled once, its
     steps alternating between two state buffers made once (the input u is
     never written), and its energy partials (steps, K, blocks, 3) made once
-    and reduced once. The CPU takes the plain version,
+    and reduced once. With `steps_per_call` 2 or 4 (the JAX kernel's
+    temporal blocking) a launch takes that many steps from its first step's
+    time: `times` must be whole calls, each call's step times its first
+    one's `substep_times` (`call_step_times` forms them), and every kept
+    step and every fields_every-th step the last of a call; the plain
+    route steps at the same times. The CPU takes the plain version,
     `fused_rk4_window_reference`. Returns (the kept states in order,
     energies (steps, 3) or (steps, K, 3)[, fields])."""
     batch = u.shape[0] if u.dim() == 4 else None
@@ -875,30 +1085,35 @@ def fused_rk4_window(u, shape, prof, cyl, owner, times, ti, tf, cfg: StepConfig,
         raise ValueError("fields_every takes one state, not a candidate batch")
     if not _on_card(u):
         return fused_rk4_window_reference(u, shape, prof, cyl, owner, times, ti, tf, cfg, keep,
-                                          x_matmul, fields_every)
-    n, dev = cfg.n, u.device
+                                          x_matmul, fields_every, steps_per_call)
+    _check_calls(times, keep, steps_per_call, fields_every, cfg.dt)
+    n, dev, spc = cfg.n, u.device, steps_per_call
     lead = () if batch is None else (batch,)
     _check("u", u, (*lead, 12, n, n), dev)
     _check_cyl(cyl, lead, dev)
-    launcher = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul)
-    partials = torch.empty((len(times), batch or 1, launcher.rows, 3), dtype=torch.float32,
+    launcher = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, batch, dev, x_matmul,
+                          steps_per_call=spc)
+    calls = len(times) // spc
+    partials = torch.empty((calls, spc, batch or 1, launcher.rows, 3), dtype=torch.float32,
                            device=dev)
     base, row_bytes = partials.data_ptr(), partials.stride(0) * partials.element_size()
     buffers = (torch.empty_like(u), torch.empty_like(u))
     fields = _fields_out(u, times, fields_every) if fields_every else None
     keep, kept = set(keep), []
     with torch.cuda.device(dev):  # the launches go to the current device
-        for s, t in enumerate(times):
+        for c in range(calls):
+            s = c * spc + spc - 1  # the call's last step
             if s in keep:
                 dst = torch.empty_like(u)
                 kept.append(dst)
             else:
                 dst = buffers[1] if u is buffers[0] else buffers[0]
-            launcher.launch(u.data_ptr(), dst.data_ptr(), base + s * row_bytes, float(t))
+            launcher.launch(u.data_ptr(), dst.data_ptr(), base + c * row_bytes,
+                            float(times[c * spc]))
             u = dst
             if fields_every and (s + 1) % fields_every == 0:
                 fields[(s + 1) // fields_every].copy_(u[0::6])
-    energies = partials.sum(dim=2)
+    energies = partials.sum(dim=3).reshape(calls * spc, batch or 1, 3)
     energies = energies if batch is not None else energies[:, 0]
     return (kept, energies) if fields is None else (kept, energies, fields)
 

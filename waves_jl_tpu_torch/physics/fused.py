@@ -14,8 +14,22 @@ bf16 hi/lo split form of the JAX kernel's default mode (K5);
 `x_matmul=False` takes the exact stencil of K1-K3. Both drive a window
 through `fused_rk4_window`: on the card, the radii-only mode (the triple
 ring's) and the general one (moving cylinders, the free field), in either
-d/dx form, take one launch a step, with the window's state buffers and
-energy partials made once and reduced once.
+d/dx form, take one launch a step (or a call of `steps_per_call` steps
+where asked), with the window's state buffers and energy partials made
+once and reduced once.
+
+`steps_per_call` follows the JAX package's step times: the window and the
+env step take calls of two steps where every frame segment is even, else
+one (`default_steps_per_call`), the re-rank two where the window's steps
+are even; sub-step st of a call from t runs from float32(t + float32(st
+dt)) (`ops.fused_rk4.substep_times`), on the card and in the plain route
+alike. By default (`steps_per_call=None`) the card takes one launch of
+the one-step kernel at each of those times, which on the H100 is faster a
+step than the kernel that takes two or four steps a launch (PERF.md); an
+explicit `steps_per_call` launches that many steps at once, at the same
+times and to the same state bit for bit. The paths whose JAX counterpart
+is XLA's `env_step` step at the window's `tspan` times: `make_env_step_full`,
+and batched datagen.
 """
 from __future__ import annotations
 
@@ -25,9 +39,9 @@ import torch
 from ..designs import DesignInterpolator, design_cylinders
 from ..env import EnvState, WaveEnv, env_tspan, frame_segments, resize_weights
 from ..models.layers import full_float32
-from ..ops.fused_rk4 import (StepConfig, fused_rk4_window, fused_rk4_window_reference,
-                             select_owner, select_owner_batched, select_owner_batched_reference,
-                             select_owner_reference)
+from ..ops.fused_rk4 import (StepConfig, call_step_times, fused_rk4_window,
+                             fused_rk4_window_reference, select_owner, select_owner_batched,
+                             select_owner_batched_reference, select_owner_reference)
 from ..utils.trees import tree_leaves, tree_map
 
 
@@ -77,12 +91,26 @@ def step_config(env: WaveEnv) -> StepConfig:
     )
 
 
-def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False):
-    """Action window through the fused kernel, one launch a step on the
-    card; radii-only (K2) when `radii_only_ok` holds for the design space,
-    else general (K1); with the split d/dx (K5) if `x_matmul`. `plain`
-    takes the plain step on any device (the reference the card holds the
-    kernel to); the CPU takes it anyway.
+def default_steps_per_call(steps: int) -> int:
+    """The JAX window's steps a kernel call (waves_jl_tpu/physics/fused.py:
+    101-104): 2 where every frame segment of a window of `steps` is even,
+    else 1."""
+    return 2 if all(seg % 2 == 0 for seg in frame_segments(steps)) else 1
+
+
+def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False,
+                      steps_per_call: int | None = None):
+    """Action window through the fused kernel; radii-only (K2) when
+    `radii_only_ok` holds for the design space, else general (K1); with the
+    split d/dx (K5) if `x_matmul`. `plain` takes the plain step on any
+    device (the reference the card holds the kernel to) at the same step
+    times; the CPU takes it anyway. Calls start at every spc-th time of the
+    window's `tspan`, and the steps of a call at its `substep_times`, as in
+    the JAX window (with one step a call, at `tspan`'s times). With
+    `steps_per_call` None, spc is `default_steps_per_call`, the JAX
+    package's rule, and the card takes one launch a step at those times;
+    an int is spc, a launch of that many steps (a frame segment it does not
+    divide raises).
 
     Returns window(u, shape, tspan, cyl, fields_every=0) -> (u_final,
     frames, signal): u the (12, n, n) state, shape the (n, n) source shape,
@@ -91,18 +119,25 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False):
     and signal is (steps+1, 3) energies times the cell area, from the
     kernel's partials at every step. With `fields_every` > 0 a fourth
     value, (1 + steps // fields_every, 2, n, n): u_tot and u_inc of u and
-    of the state after every fields_every-th step (`fused_rk4_window`).
+    of the state after every fields_every-th step (`fused_rk4_window`,
+    which refuses a fields_every that a launch's steps do not divide).
 
     With a leading axis K on u (K, 12, n, n), shape (K, n, n) and cyl
     (K, 8, n_cyl), K independent states advance together through the
-    candidate-batched kernel (K3, or batched K5), one launch a step and,
+    candidate-batched kernel (K3, or batched K5), the same launches and,
     radii-only, one batched owner pass a window: each state's frames and
     final state are what the window gives it alone, bit for bit, and the
     signal is (K, steps+1, 3) (its energy partials summed in another
     order). `fields_every` takes one state only.
     """
     cfg = step_config(env)
-    frame_ends = (np.cumsum(frame_segments(env.integration_steps)) - 1).tolist()
+    steps = env.integration_steps
+    spc = default_steps_per_call(steps) if steps_per_call is None else int(steps_per_call)
+    per_launch = 1 if steps_per_call is None else spc
+    if any(seg % spc for seg in frame_segments(steps)):
+        raise ValueError(f"steps_per_call {spc} does not divide the frame segments "
+                         f"{frame_segments(steps)}")
+    frame_ends = (np.cumsum(frame_segments(steps)) - 1).tolist()
     stepped = sorted({e for e in frame_ends if e >= 0})  # steps that end a frame segment
     radii = radii_only_ok(env.design_space)
     prof = env.integrator.dynamics.pml[:, 0].contiguous()
@@ -124,8 +159,9 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False):
             sc = u[0] - u[6]
             e0 = torch.stack([torch.sum(u[0] * u[0]), torch.sum(u[6] * u[6]),
                               torch.sum(sc * sc)])
-        kept, energies, *fields = run(u, shape, prof, cyl, owner, [float(t) for t in tspan[:-1]],
-                                      ti, tf, cfg, stepped, x_matmul, fields_every)
+        times = call_step_times(tspan[:steps:spc], spc, cfg.dt)
+        kept, energies, *fields = run(u, shape, prof, cyl, owner, times, ti, tf, cfg, stepped,
+                                      x_matmul, fields_every, per_launch)
         after = dict(zip(stepped, kept))  # an empty segment's frame is the state before it
         frames = [after.get(e, u) for e in frame_ends]
         signal = torch.cat([e0[None], energies]) * d_omega
@@ -137,7 +173,8 @@ def make_fused_window(env: WaveEnv, x_matmul: bool = True, plain: bool = False):
 def make_env_step_full(env: WaveEnv, plain: bool = False):
     """Counterpart of the JAX package's `env_step_full`: the window of
     `make_fused_window` with the exact stencil of JAX's `env.integrator`
-    (`x_matmul=False`; K2 and its owner pass, or K1), `plain` as there, the
+    (`x_matmul=False`; K2 and its owner pass, or K1) at one step a call, at
+    the window's `tspan` times as `env_step` steps, `plain` as there, the
     fields copied out at the time stride. Returns step(state, action,
     render_size=None, time_stride=1) -> (state', info): the state as
     `env_step` gives it, info {"tspan", "u_tot", "u_inc", "interp"} with
@@ -146,7 +183,7 @@ def make_env_step_full(env: WaveEnv, plain: bool = False):
     observation's antialiased linear weights (`resize_weights`, in IEEE
     float32) where render_size is below the grid's size. The signal stays
     full resolution."""
-    window = make_fused_window(env, x_matmul=False, plain=plain)
+    window = make_fused_window(env, x_matmul=False, plain=plain, steps_per_call=1)
     n = env.dim.shape[0]
     weights = {}
 
@@ -176,16 +213,18 @@ def make_env_step_full(env: WaveEnv, plain: bool = False):
     return step
 
 
-def make_env_step_fused(env: WaveEnv, x_matmul: bool = True):
+def make_env_step_fused(env: WaveEnv, x_matmul: bool = True, steps_per_call: int | None = None,
+                        plain: bool = False):
     """Fused counterpart of `env_step`: returns step(state, action) ->
-    (state', info). `x_matmul` as for `make_fused_window`.
+    (state', info). `x_matmul`, `steps_per_call` (None: the JAX package's
+    rule) and `plain` as for `make_fused_window`.
 
     A state whose wave, design, source and signal lead with K (one time
     step for all) and actions with leading K advance together through the
     candidate-batched kernel (K3, or batched K5): each state as the window
     would advance it alone, the counterpart of the JAX package's vmapped
-    `env_step` at `x_matmul=False`."""
-    window = make_fused_window(env, x_matmul)
+    `env_step` at `x_matmul=False` with `steps_per_call=1`."""
+    window = make_fused_window(env, x_matmul, plain=plain, steps_per_call=steps_per_call)
 
     def step(state: EnvState, action):
         tspan = env_tspan(env, state)
@@ -205,23 +244,35 @@ def make_env_step_fused(env: WaveEnv, x_matmul: bool = True):
     return step
 
 
-def rerank_step_times(t_i: np.float32, steps: int, dt: float) -> list[np.float32]:
+def rerank_steps_per_call(steps: int) -> int:
+    """The JAX re-rank's steps a kernel call (waves_jl_tpu/physics/fused.py:
+    170): 2 where the window's steps are even, else 1."""
+    return 2 if steps % 2 == 0 else 1
+
+
+def rerank_step_times(t_i: np.float32, steps: int, dt: float,
+                      steps_per_call: int | None = None) -> list[np.float32]:
     """float32 times of a re-rank window's steps from t_i, as the JAX
-    re-rank forms them: kernel calls at t_i + m dt for every second step m
-    (every step when `steps` is odd), each call's second step one dt later."""
+    re-rank forms them (:205): kernel calls at t_i + float32(m) dt for
+    every spc-th step m (`rerank_steps_per_call` unless given), each call's
+    steps at its `substep_times`."""
     f = np.float32
-    spc = 2 if steps % 2 == 0 else 1
-    return [f(f(t_i + f(f(m) * f(dt))) + f(s * dt))
-            for m in range(0, steps, spc) for s in range(spc)]
+    spc = rerank_steps_per_call(steps) if steps_per_call is None else steps_per_call
+    calls = [f(t_i + f(f(m) * f(dt))) for m in range(0, steps, spc)]
+    return [f(ts) for ts in call_step_times(calls, spc, dt)]
 
 
-def make_rerank_rollout(env: WaveEnv, horizon: int, x_matmul: bool = True):
+def make_rerank_rollout(env: WaveEnv, horizon: int, x_matmul: bool = True,
+                        steps_per_call: int | None = None):
     """K-candidate exact re-rank rollout for the hybrid controller: all K
-    action sequences advance through the simulator together, one
-    candidate-batched kernel launch a step (K3, or batched K5), instead of
-    K rollouts in turn. Radii-only when `radii_only_ok` holds for the design space,
-    with one batched owner pass a window; general otherwise; with the split
-    d/dx (K5) if `x_matmul`.
+    action sequences advance through the simulator together through the
+    candidate-batched kernel (K3, or batched K5), instead of K rollouts in
+    turn, at the JAX re-rank's step times (`rerank_step_times`). With
+    `steps_per_call` None, spc is `rerank_steps_per_call` and the card takes
+    one launch a step; an int is spc, a launch of that many steps.
+    Radii-only when `radii_only_ok` holds for the design space, with one
+    batched owner pass a window; general otherwise; with the split d/dx
+    (K5) if `x_matmul`.
 
     Returns rollout(state, elite, t0) -> (K,) cumulative scattered energy
     over `horizon` windows, sum_h sum(signal_h[1:, 2]) for each candidate:
@@ -233,6 +284,8 @@ def make_rerank_rollout(env: WaveEnv, horizon: int, x_matmul: bool = True):
     radii = radii_only_ok(env.design_space)
     prof = env.integrator.dynamics.pml[:, 0].contiguous()
     steps = env.integration_steps
+    spc = rerank_steps_per_call(steps) if steps_per_call is None else steps_per_call
+    per_launch = 1 if steps_per_call is None else spc
     d_omega = cfg.spacing * cfg.spacing
     f = np.float32
 
@@ -248,9 +301,9 @@ def make_rerank_rollout(env: WaveEnv, horizon: int, x_matmul: bool = True):
             cyl = cyl_params(designs, next_designs, env.device).contiguous()
             owner = select_owner_batched(cyl, cfg) if radii else None
             tf = f(t_i + f(steps * cfg.dt))
-            times = [float(ts) for ts in rerank_step_times(t_i, steps, cfg.dt)]
+            times = [float(ts) for ts in rerank_step_times(t_i, steps, cfg.dt, spc)]
             (u,), e = fused_rk4_window(u, shape, prof, cyl, owner, times, float(t_i), float(tf),
-                                       cfg, [steps - 1], x_matmul)
+                                       cfg, [steps - 1], x_matmul, steps_per_call=per_launch)
             per_window.append(e[:, :, 2].sum(dim=0))
             designs, t_i = next_designs, tf
         return torch.stack(per_window).sum(dim=0) * d_omega

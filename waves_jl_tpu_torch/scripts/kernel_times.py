@@ -27,6 +27,18 @@ paths' shapes, on the same seeded inputs in every checkout:
 With --cards C it times the sharded rollouts alone, with C shards: on one
 card, and one shard a card on C cards.
 
+With --steps-per-call S [S ...] (the counterpart of the JAX package's
+`scripts_tpu/kernel_probe.py`, which times one, two and four steps a
+Pallas call) it times the whole-grid modes alone at those steps a launch,
+in the order given (`--steps-per-call 1 2 4 4 2 1` takes them in turns):
+K5 and K2 radii-only and K5 general and K1 at 700^2, batched K5 and K3
+radii-only with 16 candidates at 350^2, batched K5 general and K3 general
+with 4 at 700^2, each through `fused_rk4_window(..., steps_per_call=S)` at
+the sub-step times: ms a step of a host-driven 100-step window and its
+steps/s ("ms", "steps_per_s"), and ms a step of device work in a 20-step
+window queued behind a device sleep ("device_ms"). The checkout must have
+`steps_per_call`.
+
 For each row it gives ms a step with CUDA events around calls as the host
 drives them ("ms"), the same calls queued behind a device sleep
 ("device_ms"; for a rollout, a 10-step one, its setup included), both
@@ -55,6 +67,8 @@ def main() -> int:
     parser.add_argument("--cards", type=int,
                         help="time the sharded rollouts alone, this many shards on one card "
                              "and one a card on this many cards")
+    parser.add_argument("--steps-per-call", type=int, nargs="+", metavar="S",
+                        help="time the whole-grid modes alone at these steps a launch, in turns")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -98,6 +112,47 @@ def main() -> int:
 
     times = [float(np.float32(T0) + np.float32(s * DT)) for s in range(20)]
     rows = {}
+
+    def finish() -> int:
+        result = {"root": root, "card": smi, "rows": rows}
+        print(json.dumps(result), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f)
+        return 0
+
+    if args.steps_per_call:
+        def window_times(spc, steps):
+            calls = [float(np.float32(T0) + np.float32(c * spc * DT)) for c in range(steps // spc)]
+            return fk.call_step_times(calls, spc, DT)
+
+        modes = (("K5 radii-only", "K2", N, None, ring), ("K5 general", "K1", N, None, moved),
+                 ("batched K5", "K3", N_RERANK, K_RADII, ring),
+                 ("batched K5 general", "K3 general", N, K_GENERAL, moved))
+        for split_name, exact_name, n, k, cyl_np in modes:
+            cfg = config(n)
+            lead = () if k is None else (k,)
+            u = on_card(rng.standard_normal((*lead, 12, n, n)) * 1e-3)
+            shape, prof = on_card(rng.random((n, n))), on_card(rng.random(n) * 100.0)
+            cyl = on_card(cyl_np) if k is None else candidates(cyl_np, k)
+            owner = None
+            if cyl_np is ring:
+                owner = (fk.select_owner(cyl, cfg) if k is None
+                         else fk.select_owner_batched(cyl, cfg))
+            for xm, name in ((True, split_name), (False, exact_name)):
+                for spc in args.steps_per_call:
+                    def run(ts, spc=spc, xm=xm):
+                        return fk.fused_rk4_window(u, shape, prof, cyl, owner, ts, TI, TF, cfg,
+                                                   [len(ts) - 1], xm, steps_per_call=spc)
+
+                    t100, t20 = window_times(spc, 100), window_times(spc, 20)
+                    ms = cuda_ms(lambda: run(t100), 3) / 100
+                    key = f"{name} spc{spc}"
+                    key += f" run {sum(r.startswith(key) for r in rows) + 1}" if key in rows else ""
+                    rows[key] = {"steps_per_call": spc, "ms": ms, "steps_per_s": 1e3 / ms,
+                                 "device_ms": device_ms(lambda: run(t20), 1) / 20}
+                    print(key, json.dumps(rows[key]), flush=True)
+        return finish()
 
     def row(name, step, window=None, reps=20):
         rows[name] = {"ms": cuda_ms(step, reps), "device_ms": device_ms(step, reps)}
@@ -183,13 +238,7 @@ def main() -> int:
                           "device_ms": device_ms(lambda: roll(u, tspan[:11], cyl, shape, prof),
                                                  1) / 10}
             print(name, json.dumps(rows[name]), flush=True)
-
-    result = {"root": root, "card": smi, "rows": rows}
-    print(json.dumps(result), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(result, f)
-    return 0
+    return finish()
 
 
 if __name__ == "__main__":
