@@ -12,10 +12,11 @@ its elapsed seconds:
    with ptxas's register and spill report, and for the eight instances of
    the one-launch step `rk4_step_tiled` (the split d/dx or the exact one,
    the owner test or the general rasterisation, the whole grid or slabs)
-   and the eight of `rk4_steps_tiled` (two or four steps a launch, the
-   JAX kernel's `steps_per_call`) their registers, spills, shared memory,
-   resident blocks an SM and, for the latter, the share of cell-stages
-   their band recomputes at 700^2;
+   and the sixteen of `rk4_steps_tiled` (two or four steps a launch, the
+   JAX kernel's `steps_per_call`, on the whole grid or on slabs with a
+   4 spc-column halo) their registers, spills, shared memory, resident
+   blocks an SM and, for the latter, the share of cell-stages their band
+   recomputes at 700^2;
 3. kernels: each kernel against its plain PyTorch version at 700^2, K1,
    K2 and K5 (the split d/dx, `x_matmul=True`, in both rasterisation
    modes) with the count of cells that differ (none: one launch a step,
@@ -80,7 +81,14 @@ its elapsed seconds:
    version in both modes, the split sharded rollout at 1, 2 and 4 shards
    against the K5 window and the split general one against the K5 general
    window, bit for bit, its step time against K4's in turns, and one
-   step of the stacked slabs against the plain version;
+   step of the stacked slabs against the plain version; then two and four
+   steps a launch on the slabs (K4 and K4-XM with a 4 spc-column halo, both
+   rasterisations): the 4-shard rollout over 20 steps against its plain
+   version and against one step a launch at the same times, bit for bit,
+   one launch a call, the owner pass on the wider slabs bit for bit, each
+   rollout's ms a step host-driven and as device work beside one step a
+   launch in turns, and one launch of the stacked slabs against its plain
+   version (halo columns included) with its time, plain time and bound;
 7. datagen at `bench.py`'s operating point (700^2, triple ring, Gaussian
    source at x = -10, 20 actions x 100 steps, random policy, chunks of 10
    episodes): one warm chunk, then two timed chunks, seconds per episode
@@ -155,8 +163,9 @@ its elapsed seconds:
    DP_GRAD_TOL, 1e-4 of a leaf, of the single device's at the same
    parameters, where one shard's gradient left unaveraged must read 10
    times that; against the single device's own trajectory within 1e-4 plus
-   how far its gradient and loss move when its near-zero-gradient
-   parameters are moved Adam's whole 2 lr an update; after each update the
+   how far its gradient and loss move from its own trajectory's parameters
+   to those the shards reached, which part from it by at most Adam's
+   2 lr an update; after each update the
    leaves rtol 5e-3 / atol 2e-5 but where a gradient is within NEAR_ZERO
    of its leaf's largest, replicas bit for bit), with
    a micro-step's seconds and host share on each side, and no kernel
@@ -197,14 +206,21 @@ its elapsed seconds:
    first 4 held to the CPU's), pandemic and wildfire at 256^2 for 10
    steps, each on the card against the CPU (1e-5), the 3-D scattered field exactly 0 and its Dirichlet
    faces 0; the MPC CLI's `--fused-episode` once, in a subprocess beside
-   them. `--only-long-tail` runs phases 1, 2 and 14 alone.
+   them. `--only-long-tail` runs phases 1, 2 and 14 alone;
+15. the entry points (`waves_jl_tpu_torch/entry_points.py`, the
+   counterparts of `__graft_entry__.py`'s): `entry()` on the card, the flagship's
+   forward at the production configuration held to the CPU's within 1e-4
+   and timed; `dryrun_multichip(4)` on 4 shards (every card where there
+   are 4, else 4 shards of one card), every result finite, its K4-XM slab
+   launches and owner passes counted into the slabs' rows.
 
 The launch counts of each kernel are read from the main-path runs alone,
 each in its default configuration: every path takes one launch a step
 (`rk4_step_tiled`), the whole-grid ones at the JAX window's and re-rank's
 step times (two-step calls), and so do the slabs of one card (K4, K4-XM).
 The two- and four-step instances (`rk4_steps_tiled`, counters ending in
-`_spc2` and `_spc4`) run only where `steps_per_call` is asked for: their
+`_spc2` and `_spc4`, the slabs' among them) run only where
+`steps_per_call` is asked for: their
 rows give `launches` 0, `on_main_path` false and, as `probe_launches`,
 the launches of the run that asked for them. Every row gives
 `steps_per_call`, and its `ms`, plain version and bound are those of one
@@ -1406,6 +1422,140 @@ def sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev):
               f"({rows[name][4][1]})")
     return rows, {"radii": counts["fused_rk4_sharded_xmatmul_radii_only"],
                   "general": counts_g["fused_rk4_sharded_xmatmul_general"]}
+
+
+# RK4 steps of the window phase 6's two- and four-step rollouts take (whole
+# calls of both), shorter than phase 6's 100-step rollouts: the plain
+# slab-by-slab rollout they are held to steps each slab in turn
+SHARDED_SPC_STEPS = 20
+
+
+def sharded_multi_step_phase(env, state, cyl, moved, tspan, dev):
+    """Phase 6, two and four steps a launch on slabs
+    (`rk4_steps_tiled<XM, GENERAL, SPC, true>`: K4 and K4-XM with a
+    4 spc-column halo): from phase 3's state, the 4-shard rollout at 700^2
+    (`build_stacked_rollout(..., steps_per_call=spc)`) over
+    SHARDED_SPC_STEPS steps, calls from the window's times and their steps
+    at the sub-step times, in both d/dx forms and both rasterisations,
+    against its plain version (`build_rollout` over the plain slab steps)
+    and the one-step rollout at the same times, bit for bit on the state,
+    its launches counted, and the owner pass on those wider slabs against
+    its plain version bit for bit; each rollout's ms a step host-driven and
+    as device work beside one step a launch, in turns; one launch of the 4
+    stacked slabs against its plain version bit for bit, halo columns
+    included, timed with its plain version and its bound (the slabs'
+    states read and written once a launch). Returns {counter: (max abs
+    err, ms, plain ms, bound, device ms, launches of the rollout held to
+    its plain version)}."""
+    import numpy as np
+    import torch
+
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.parallel import make_mesh
+    from waves_jl_tpu_torch.parallel.fused_domain import (build_rollout, build_stacked_rollout,
+                                                          cut_slabs, shard_slabs)
+    from waves_jl_tpu_torch.physics.fused import step_config
+
+    cfg = step_config(env)
+    prof = env.integrator.dynamics.pml[:, 0].contiguous()
+    shape = state.source.shape
+    u0 = state.wave[-1]
+    n_cyl = cyl.shape[1]
+    shards, steps = 4, SHARDED_SPC_STEPS
+    ny = SIZE // shards
+    mesh4 = make_mesh(devices=[dev] * shards)
+    rows = {}
+    for spc in (2, 4):
+        times = fk.call_step_times(tspan[:steps:spc], spc, cfg.dt)
+        span = np.array(times + [float(tspan[steps])], np.float32)
+        ti, tf = float(span[0]), float(span[-1])
+        slabs = shard_slabs(SIZE, shards, fk.HALO * spc)
+        us = torch.stack(cut_slabs(u0, slabs, [dev] * shards))
+        sh = torch.stack(cut_slabs(shape, slabs, [dev] * shards))
+        for radii, cyl_ in ((True, cyl), (False, moved)):
+            owners_k = owners_p = None
+            if radii:
+                owners_k = fk.select_owner_slabs(cyl_, cfg, slabs)
+                owners_p = fk.select_owner_slabs_reference(cyl_, cfg, slabs)
+                torch.cuda.synchronize()
+                log("sharded", f"select_owner_slabs on the {shards} slabs of {slabs[0].w} columns "
+                               f"(a {slabs[0].halo}-column halo) vs plain: "
+                               f"{differing_cells(owners_k, owners_p)} of the five planes")
+                check(torch.equal(owners_k, owners_p),
+                      "the owner pass on the wider slabs equals its plain version bit for bit")
+            for xm in (False, True):
+                key = fk.step_key(False, xm, radii, spc, sharded=True)
+                what = (f"{'K4-XM' if xm else 'K4'} {'radii-only' if radii else 'general'}, "
+                        f"{spc} steps a launch")
+
+                def roll(steps_per_call, xm=xm, radii=radii, cyl_=cyl_):
+                    return build_stacked_rollout(mesh4, cfg, n_cyl, radii, xm, steps_per_call)(
+                        u0, span, cyl_, shape, prof)
+
+                before = dict(fk.launch_counts)
+                u_k, e_k = roll(spc)
+                torch.cuda.synchronize()
+                launched = {k: v - before[k] for k, v in fk.launch_counts.items() if v != before[k]}
+                u_p, e_p = build_rollout(mesh4, cfg, n_cyl, radii, fk.fused_rk4_step_reference,
+                                         fk.select_owner_reference, xm, spc)(
+                    u0, span, cyl_, shape, prof)
+                u_1, e_1 = roll(1)
+                torch.cuda.synchronize()
+                sig_p, sig_1 = rel_err(e_k, e_p), rel_err(e_k, e_1)
+                log("sharded", f"{what}: the {shards}-shard rollout, {steps} steps at {SIZE}^2 "
+                               f"(slabs of {slabs[0].w} columns), launches {launched}; vs its plain "
+                               f"version: {differing_cells(u_k, u_p)}, signal rel err {sig_p:.3e}; "
+                               f"vs one step a launch at those times: {differing_cells(u_k, u_1)}, "
+                               f"signal rel err {sig_1:.3e} (tol 1e-06)")
+                expect = {key: steps // spc, **({"select_owner_sharded": 1} if radii else {})}
+                check(launched == expect, f"{what}: one launch a call for the card's slabs, "
+                                          f"{launched} == {expect}")
+                check(torch.equal(u_k, u_p) and sig_p <= 1e-6,
+                      f"{what}: the rollout equals its plain version bit for bit")
+                check(torch.equal(u_k, u_1) and sig_1 <= 1e-6,
+                      f"{what}: the rollout equals one step a launch bit for bit")
+                turns = {1: [], spc: []}
+                for per in (1, spc, spc, 1):
+                    turns[per].append((cuda_ms(lambda: roll(per), 2) / steps,
+                                       device_ms(lambda: roll(per), 1) / steps))
+                log("sharded", f"{what}: ms a step of the {shards}-shard rollout, host-driven "
+                               f"(device work), in turns: one step a launch " + ", ".join(
+                                   f"{a:.4f} ({b:.4f})" for a, b in turns[1])
+                    + f"; {spc} steps a launch " + ", ".join(
+                        f"{a:.4f} ({b:.4f})" for a, b in turns[spc]))
+
+                def kernel(xm=xm, cyl_=cyl_, own=owners_k):
+                    return fk.fused_rk4_step_slabs(us, sh, prof, cyl_, own, times[0], ti, tf, cfg,
+                                                   slabs, xm, spc)
+
+                def plain(xm=xm, cyl_=cyl_, own=owners_p):
+                    return fk.fused_rk4_step_slabs_reference(us, sh, prof, cyl_, own, times[0],
+                                                             ti, tf, cfg, slabs, xm, spc)
+
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                e_rel = rel_err(got[1], want[1])
+                log("sharded", f"{what}: one launch of the {shards} stacked slabs vs plain: "
+                               f"{differing_cells(got[0], want[0])}, halo columns included; "
+                               f"energies rel err {e_rel:.3e} (tol 1e-06)")
+                check(torch.equal(got[0], want[0]) and e_rel <= 1e-6,
+                      f"{what}: the stacked slabs equal their plain version bit for bit")
+                ms, dev_only = cuda_ms(kernel, 20), device_ms(kernel, 20)
+                plain_ms = cuda_ms(plain, 2)
+                part = torch.empty((spc, shards, fk.step_partial_rows(SIZE, ny), 3))
+                io = 2 * nbytes(us) + nbytes(sh, part, prof, cyl_)
+                tested = n_cyl if radii else fk.tile_cylinders(
+                    cyl_, cfg, fk.lerp_weight(times[0], ti, tf))
+                bnd = bound(io, shards * fk.step_flops(SIZE, tested, radii, ny, x_matmul=xm,
+                                                       steps_per_call=spc))
+                log("sharded", f"{what}: one launch of the {shards} stacked slabs {ms:.4f} ms "
+                               f"(device work {dev_only:.4f}, {dev_only / spc:.4f} a step; plain "
+                               f"{plain_ms:.4f}); bound {bnd[0]:.5f} ms ({bnd[1]}; states "
+                               f"{2 * nbytes(us) / 1e6:.1f} MB), {dev_only / bnd[0]:.2f}x")
+                err = max(float(torch.max(torch.abs(u_k - u_p))),
+                          float(torch.max(torch.abs(got[0] - want[0]))))
+                rows[key] = (err, ms, plain_ms, bnd, dev_only, launched.get(key, 0))
+    return rows
 
 
 def datagen_phase(dev, k5_dev_ms: float, cli_out: str):
@@ -2722,7 +2872,7 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
         below, so its later gradients are taken at other points: the last
         update's gradient is held to its own trajectory's within
         DP_GRAD_TOL plus `path_bound`, how far the single device's gradient
-        moves when those parameters are moved Adam's whole 2 lr an update.
+        moves from its own trajectory's parameters to the shards'.
         And every parameter within rtol 5e-3 /
         atol 2e-5 of the single device's (tests/test_windows_and_cem.py's
         bounds) but where the single device's gradient of some update, or
@@ -2838,23 +2988,6 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
         _, st, loss = run_ref(ref, before, store, torch.as_tensor(windows, device=dev))
         return loss, {k: (m - B1 * before.mu[k].to(dev)) / (1 - B1) for k, m in st.mu.items()}
 
-    def adam_worst(params, i):
-        """The single device's parameters before update i (of 0, 1, ...)
-        moved as far toward `params` as Adam's near-zero steps allow: where
-        its gradient of an update before i, or its first moment after the
-        last, is within NEAR_ZERO of its leaf's largest magnitude, the two
-        sums may give the gradient either sign and each update may part the
-        two runs by 2 lr, so 2 lr i toward `params`; elsewhere `params`."""
-        base, st1 = after1[i - 1]
-        out = {}
-        for k, b in base.items():
-            share = torch.stack([x.abs() / x.abs().max().clamp_min(1e-30) for x in
-                                 [grads1[j][k] for j in range(i)] + [st1.mu[k]]]).amin(0)
-            d = params[k] - b
-            near = (share <= NEAR_ZERO) & (d != 0)
-            out[k] = b + torch.where(near, torch.sign(d) * (2 * opt_lr * i), d)
-        return out
-
     times = {}
     for mesh in meshes:
         n = mesh.size
@@ -2887,13 +3020,27 @@ def dp_bf16_phase(env, dev, episodes, cli_data: str, smi: str):
                 check(control >= 10 * DP_GRAD_TOL,
                       f"the gradient check tells an unaveraged shard gradient apart (above "
                       f"{10 * DP_GRAD_TOL:g})")
-            # Adam's drift: the single device's gradient and loss at its own
-            # parameters moved Adam's whole near-zero reach toward this run's
+            # Adam's drift: how far the single device's gradient and loss
+            # move from its own trajectory's point to this run's, the
+            # parameters the shards actually moved away from it
             drift, loss_drift = 0.0, 0.0
-            if i > 0 and any(not torch.equal(own[k], b) for k, b in after1[i - 1][0].items()):
-                worst_loss, worst = single_at(adam_worst(own, i), before, glob[i:i + 1])
-                drift = max(rel_err(worst[k], grads1[i][k]) for k in worst)
-                loss_drift = float((worst_loss - losses1[i]).abs().max() / losses1[i].abs().max())
+            if i > 0:
+                base = after1[i - 1][0]
+                moved = {k: own[k] != b for k, b in base.items()}
+                n_moved = sum(int(m.sum()) for m in moved.values())
+                reach = max((float((own[k] - b)[moved[k]].abs().max()) for k, b in base.items()
+                             if moved[k].any()), default=0.0)
+                drift = max(rel_err(ref_grad[k], grads1[i][k]) for k in ref_grad)
+                loss_drift = float((ref_loss - losses1[i]).abs().max() / losses1[i].abs().max())
+                log("dp", f"windowed, {where}, before update {i}: the shards' parameters part "
+                          f"from the single device's own trajectory at {n_moved} of "
+                          f"{sum(v.numel() for v in base.values())}, by at most {reach:.3e} (Adam's "
+                          f"whole reach {2 * opt_lr * i:g}); the single device's gradient there "
+                          f"moves {drift:.3e} of a leaf and its loss {loss_drift:.3e}: the drift "
+                          f"bounds on top of {DP_GRAD_TOL:g}")
+                check(reach <= 2 * opt_lr * i, f"windowed, {where}: the shards' parameters lie "
+                                               f"within Adam's 2 lr an update of the single "
+                                               f"device's")
             loss_bounds.append(loss_drift)
             wall, issue, (_, states, loss) = timed(lambda: run(
                 replicas, states, stores, torch.as_tensor(local[i:i + 1])))
@@ -3676,6 +3823,60 @@ def long_tail_phase(env, env_lo, dev, loop_action_s=None):
     return fused_counts, batch_counts, k3_row, own_row
 
 
+def entry_points_phase(dev):
+    """Phase 15: the port's counterparts of the entry points of `__graft_entry__.py`
+    (`waves_jl_tpu_torch/entry_points.py`). `entry()` on the card: the
+    flagship's forward at the production configuration, held within 1e-4 to
+    the same forward on the CPU (the same seed's weights, the card's batch),
+    timed; then `dryrun_multichip(4)`: its data-parallel step and windowed
+    scan, the plain sharded window and the fused one through K4-XM on the
+    slabs, on 4 shards (every card where there are 4, else 4 shards of one
+    card), every result finite, its launches counted. Returns them."""
+    import torch
+
+    from waves_jl_tpu_torch.entry_points import STEPS, dryrun_multichip, entry
+    from waves_jl_tpu_torch.ops import fused_rk4 as fk
+    from waves_jl_tpu_torch.utils.trees import tree_map
+
+    t = time.time()
+    fn, (model, batch) = entry()
+    with torch.no_grad():
+        y = fn(model, batch)
+        torch.cuda.synchronize()
+        first_s = time.time() - t
+        ms = cuda_ms(lambda: fn(model, batch), 5)
+        fn_c, (model_c, _) = entry(device="cpu")
+        y_c = fn_c(model_c, tree_map(lambda x: x.cpu(), batch))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(model.state_dict().values(),
+                                                       model_c.state_dict().values()))
+    err = rel_err(y.cpu(), y_c)
+    log("entry points", f"entry() on {next(model.parameters()).device}: forward {tuple(y.shape)}, "
+                        f"built and run in {first_s:.3f} s, {ms:.4f} ms a warm forward; against "
+                        f"the CPU's forward with the same seed's weights (equal {same}) on the "
+                        f"card's batch: rel err {err:.3e} (tol 1e-4)")
+    check(next(model.parameters()).device.type == "cuda", "entry() builds its model on the card")
+    check(tuple(y.shape) == (2, 26, 3) and bool(torch.isfinite(y).all()),
+          "entry()'s forward gives finite (2, 26, 3) energies")
+    check(same and err <= 1e-4, "entry()'s forward on the card agrees with the CPU's")
+
+    fk.reset_launch_counts()
+    t = time.time()
+    loss, losses, signal, fsignal = dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry_s = time.time() - t
+    counts = {k: v for k, v in fk.launch_counts.items() if v}
+    groups = 4 if torch.cuda.device_count() >= 4 else 1  # the cards the 4 shards lie on
+    log("entry points", f"dryrun_multichip(4) on {groups} card(s) in {dry_s:.3f} s: loss "
+                        f"{float(loss):.6g}, the scan's {[round(float(v), 6) for v in losses]}, "
+                        f"the plain window's last tot {float(signal[-1, 0]):.4e}, the fused "
+                        f"window's {float(fsignal[-1, 0]):.4e}; launches {counts}")
+    expect = {"fused_rk4_sharded_xmatmul_radii_only": STEPS * groups,
+              "select_owner_sharded": groups}
+    check(counts == expect, f"the dry run's fused window takes K4-XM, one launch a card a step, "
+                            f"and one owner pass a card: {counts} == {expect}")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3743,15 +3944,16 @@ def main(argv=None) -> int:
                      f"one launch a step): ptxas {ptxas}; dynamic shared memory "
                      f"{occ['smem_bytes']} B a block of 256 threads; {occ[key]} blocks an SM")
         check(occ[key] >= 1, f"the one-launch step ({names[key]}) fits an SM")
-    # the eight instances of rk4_steps_tiled<XM, GENERAL, SPC>: two or four
-    # steps a launch on the whole grid, single or batched
-    for key, (xm, general, spc) in fk.STEPS_INSTANCES.items():
-        mangled = f"rk4_steps_tiledILb{int(xm)}ELb{int(general)}ELi{spc}EE"
+    # the sixteen instances of rk4_steps_tiled<XM, GENERAL, SPC, SLAB>: two
+    # or four steps a launch on the whole grid, single or batched, or on slabs
+    for key, (xm, general, spc, slab) in fk.STEPS_INSTANCES.items():
+        mangled = f"rk4_steps_tiledILb{int(xm)}ELb{int(general)}ELi{spc}ELb{int(slab)}EE"
         at = [i for i, line in enumerate(lines) if "Compiling entry" in line and mangled in line]
         ptxas = "; ".join(line.split(":", 1)[-1].strip() for line in lines[at[0] + 1:at[0] + 4]
                           if "registers" in line or "spill" in line) if at else "already built"
         what = names[key.rsplit("_spc", 1)[0]]
-        log("build", f"rk4_steps_tiled<{str(xm).lower()}, {str(general).lower()}, {spc}> ({what}, "
+        log("build", f"rk4_steps_tiled<{str(xm).lower()}, {str(general).lower()}, {spc}, "
+                     f"{str(slab).lower()}> ({what}, "
                      f"{spc} steps a launch): ptxas {ptxas}; dynamic shared memory "
                      f"{occ[f'smem_bytes_spc{spc}']} B a block of 256 threads; {occ[key]} blocks "
                      f"an "
@@ -4080,6 +4282,7 @@ def main(argv=None) -> int:
     # 6. the y-sharded rollout through K4, at 700^2 from phase 3's state
     k4, k4_counts = sharded_phase(env, state, nxt, cyl, moved, tspan, dev, k2_ms)
     k4xm, k4xm_counts = sharded_xmatmul_phase(env, state, cyl, moved, tspan, dev)
+    k4spc = sharded_multi_step_phase(env, state, cyl, moved, tspan, dev)
 
     # 7. datagen at bench.py's operating point, through K5
     import tempfile
@@ -4112,6 +4315,9 @@ def main(argv=None) -> int:
     # batched exact kernel, the 3-D and extra dynamics, the debug and
     # profiling scopes
     fe_counts, bd_counts, k3_row, bown_row = long_tail_phase(env, env_lo, dev, hyb_action_s)
+
+    # 15. the port's counterparts of `__graft_entry__.py`'s entry points
+    ep_counts = entry_points_phase(dev)
 
     src = "waves_jl_tpu_torch/csrc/fused_rk4.cu"
     src_multi = "waves_jl_tpu_torch/csrc/fused_rk4_multi.cu"
@@ -4224,17 +4430,26 @@ def main(argv=None) -> int:
         multi_row(k5_probe, multi[k5_probe][5], multi[k5_probe],
                   replaces="scripts_tpu/kernel_probe.py:98"),
     ]
+    # the slabs at two and four steps a launch (`y_ghost >= HALO * spc`):
+    # phase 6's 4-shard rollouts and one launch of the 4 stacked slabs
+    kernels += [multi_row(key, numbers[5], numbers, replaces="waves_jl_tpu/ops/pallas_fd.py:157",
+                          shape=f"{4}x{SIZE}^2")
+                for key, numbers in k4spc.items()]
     sharded_rows = (
         ("fused_rk4_sharded_radii_only", "waves_jl_tpu/ops/pallas_fd.py:195", "radii"),
         ("select_owner_sharded", "waves_jl_tpu/ops/pallas_fd.py:247", "owner"),
         ("fused_rk4_sharded_general", "waves_jl_tpu/ops/pallas_fd.py:195", "general"),
     )
+    # the dry run's owner passes (phase 15) join the slabs' owner row
+    k4_counts["owner"] += ep_counts["select_owner_sharded"]
     for name, replaces, key in sharded_rows:
         err, ms, dev_only, plain, bnd = k4[key]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": k4_counts[key], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                         "device_ms": dev_only, "steps_per_call": 1, "on_main_path": True})
+    # and its K4-XM launches the split slabs' radii-only row
+    k4xm_counts["radii"] += ep_counts["fused_rk4_sharded_xmatmul_radii_only"]
     for name, key in (("fused_rk4_sharded_xmatmul_radii_only", "radii"),
                       ("fused_rk4_sharded_xmatmul_general", "general")):
         err, ms, dev_only, plain, bnd = k4xm[key]

@@ -22,8 +22,14 @@ within 1e-6 (the energy partials are summed in another order), with
 frames of their own. Two and four steps a launch (`rk4_steps_tiled`,
 every whole-grid mode, single and batched, n = 33 to 700, K up to 16)
 equal spc chained plain steps at the sub-step times and spc one-step
-launches, bit for bit; the wrapper refuses a slab with more than one step
-a launch and a kept step inside a call; the default 700^2 window takes 100
+launches, bit for bit, and so do a card's slabs with a 4 spc-column halo
+(K4 and K4-XM, stacked in one launch) on the whole slab, halo columns
+included, each owned cell the whole grid's; the stacked rollout at two and
+four steps a launch equals the one-step rollout and its plain version bit
+for bit, on one card and across cards; the owner pass on those wider slabs
+equals its plain version and the whole grid's columns; the wrapper
+refuses a slab whose halo is not 4 columns a step of a launch and a kept
+step inside a call; the default 700^2 window takes 100
 one-step launches at the JAX window's sub-step times and one owner pass,
 nothing else, and equals the same window at two steps a launch. On the slabs of a
 y-sharded grid (K4, and K4-XM with the split d/dx) the step equals its
@@ -1534,9 +1540,17 @@ def test_multi_step_launch_raises_on_what_it_does_not_take(card):
     u_slab = cut_slabs(u, slabs, [card] * 4)[0]
     shape_slab = cut_slabs(shape, slabs, [card] * 4)[0]
     owner_slab = fk.select_owner(cyl, cfg, slabs[0])
-    with pytest.raises(ValueError, match="one step a launch"):  # the slabs stay at one
+    # a slab's halo is 4 columns a step of a launch: a 4-column one takes one
+    with pytest.raises(ValueError, match="takes steps_per_call 1, not 2"):
         fk.fused_rk4_step(u_slab, shape_slab, prof, cyl, owner_slab, 2e-4, 0.0, 1e-3, cfg,
                           slab=slabs[0], steps_per_call=2)
+    # the kernel refuses what the wrapper passes on: slabs of 12 owned
+    # columns at two steps a launch, thinner than their two 8-column halos
+    thin = [fk.Slab(w=12 + 16, col0=k * 12 - 8, halo=8) for k in range(4)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk.fused_rk4_step_slabs(torch.zeros((4, 12, 48, 28), device=card),
+                                torch.zeros((4, 48, 28), device=card), prof, cyl, None, 2e-4,
+                                0.0, 1e-3, cfg, thin, steps_per_call=2)
     with pytest.raises(ValueError, match="is not one of"):
         fk.fused_rk4_step(u, shape, prof, cyl, owner, 2e-4, 0.0, 1e-3, cfg, steps_per_call=3)
     times = fk.call_step_times([2e-4, float(np.float32(2.2e-4))], 2, cfg.dt)
@@ -1588,3 +1602,146 @@ def test_default_window_takes_one_step_a_launch_at_jax_times(card):
     assert all(torch.equal(a, b) for a, b in zip(frames, pframes)) and len(frames) == 3
     assert all(torch.equal(a, b) for a, b in zip(frames, mframes))
     assert rel(signal, psignal) <= 1e-6 and rel(msignal, psignal) <= 1e-6
+
+
+# n, shards, spc: 48 in 3 of 16 columns, the thinnest at two steps; 50 in 2
+# of 25, a one-cell tile on the domain's last column; 64 in 2 of 32, the
+# thinnest at four steps; 700 in 4 of 175, the main path's
+SLAB_SPC_CASES = [(48, 3, 2), (50, 2, 2), (700, 4, 2), (64, 2, 4), (700, 4, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("general", [False, True], ids=["radii_only", "general"])
+@pytest.mark.parametrize("x_matmul", [True, False], ids=["split", "exact"])
+@pytest.mark.parametrize("n,shards,spc", SLAB_SPC_CASES)
+def test_slab_multi_step_launch_equals_plain_version_bit_for_bit(card, n, shards, spc, x_matmul,
+                                                                 general):
+    """`rk4_steps_tiled<XM, GENERAL, SPC, true>`: a card's slabs with a
+    4 spc-column halo, stacked, spc steps in one launch, against the plain
+    version bit for bit on the whole slabs (halo columns 0 included), the
+    energies (S, spc, 3) within 1e-6; each owned cell the whole grid's
+    multi-step launch's, bit for bit; the owner pass on those slabs its
+    plain version's."""
+    from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs, shard_slabs
+
+    cfg, u, shape, prof, cyl, owner = _multi_inputs(n, None, general, card)
+    slabs = shard_slabs(n, shards, fk.HALO * spc)
+    us = torch.stack(cut_slabs(u, slabs, [card] * shards))
+    shapes = torch.stack(cut_slabs(shape, slabs, [card] * shards))
+    owners = None if general else fk.select_owner_slabs(cyl, cfg, slabs)
+    if owners is not None:
+        assert torch.equal(owners, fk.select_owner_slabs_reference(cyl, cfg, slabs))
+    key = fk.step_key(False, x_matmul, not general, spc, sharded=True)
+    before = fk.launch_counts[key]
+    args = (us, shapes, prof, cyl, owners, 2e-4, 0.0, 1e-3, cfg, slabs, x_matmul, spc)
+    got = fk.fused_rk4_step_slabs(*args)
+    torch.cuda.synchronize()
+    assert fk.launch_counts[key] - before == 1  # spc steps of every slab, one launch
+    want = fk.fused_rk4_step_slabs_reference(*args)
+    assert tuple(got[1].shape) == tuple(want[1].shape) == (shards, spc, 3)
+    assert torch.equal(got[0], want[0])
+    assert rel(got[1], want[1]) <= 1e-6
+    whole = fk.fused_rk4_step(u, shape, prof, cyl, owner, 2e-4, 0.0, 1e-3, cfg,
+                              x_matmul=x_matmul, steps_per_call=spc)
+    h, ny = slabs[0].halo, slabs[0].ny
+    for k in range(shards):
+        assert torch.equal(got[0][k][:, :, h:h + ny], whole[0][:, :, k * ny:(k + 1) * ny])
+        assert bool((got[0][k][:, :, :h] == 0).all() and (got[0][k][:, :, h + ny:] == 0).all())
+    assert rel(got[1].sum(dim=0), whole[1]) <= 1e-6
+
+
+def _call_tspan(spc, calls, dt):
+    """(calls spc + 1,) float32 times whose steps are `calls` calls of spc
+    steps at their sub-step times, from 2e-4."""
+    starts = [float(np.float32(2e-4) + np.float32(c * spc * dt)) for c in range(calls)]
+    times = fk.call_step_times(starts, spc, dt)
+    return np.array(times + [float(np.float32(times[-1]) + np.float32(dt))], np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_matmul", [False, True])
+@pytest.mark.parametrize("radii_only", [True, False])
+@pytest.mark.parametrize("spc", [2, 4])
+def test_stacked_rollout_at_steps_per_call_equals_one_step_a_launch(card, spc, radii_only,
+                                                                    x_matmul):
+    """`build_stacked_rollout(..., steps_per_call=spc)` on 4 shards of one
+    card: one launch a call of spc steps and one owner pass, the state bit
+    for bit the one-step rollout's at the same step times and its plain
+    version's, the signal within 1e-6."""
+    from waves_jl_tpu_torch.parallel import make_mesh
+    from waves_jl_tpu_torch.parallel.fused_domain import build_rollout, build_stacked_rollout
+
+    n, shards, calls = 128, 4, 3
+    cfg, cyl, u, shape, prof = _inputs(n, not radii_only, card)
+    tspan = _call_tspan(spc, calls, cfg.dt)
+    mesh = make_mesh(devices=[card] * shards)
+    key = fk.step_key(False, x_matmul, radii_only, spc, sharded=True)
+    before = dict(fk.launch_counts)
+    got = build_stacked_rollout(mesh, cfg, cyl.shape[1], radii_only, x_matmul, spc)(
+        u, tspan, cyl, shape, prof)
+    torch.cuda.synchronize()
+    assert fk.launch_counts[key] - before[key] == calls
+    assert (fk.launch_counts["select_owner_sharded"] - before["select_owner_sharded"]
+            == int(radii_only))
+    one = build_stacked_rollout(mesh, cfg, cyl.shape[1], radii_only, x_matmul)(
+        u, tspan, cyl, shape, prof)
+    plain = build_rollout(mesh, cfg, cyl.shape[1], radii_only, fk.fused_rk4_step_reference,
+                          fk.select_owner_reference, x_matmul, spc)(u, tspan, cyl, shape, prof)
+    assert got[1].shape == (calls * spc + 1, 3)
+    assert torch.equal(got[0], one[0]) and torch.equal(got[0], plain[0])
+    assert not torch.equal(got[0], u)
+    assert rel(got[1], one[1]) <= 1e-6 and rel(got[1], plain[1]) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_matmul", [False, True])
+@pytest.mark.parametrize("radii_only", [True, False])
+def test_two_step_sharded_rollout_across_cards_equals_one_card(card, cards, radii_only,
+                                                               x_matmul):
+    """The stacked rollout at two steps a launch, one shard a card on 2 or
+    4 cards, against the same shards on one card: one launch a card a call,
+    the state and signal bit for bit."""
+    from waves_jl_tpu_torch.parallel import make_mesh
+    from waves_jl_tpu_torch.parallel.fused_domain import build_stacked_rollout
+
+    n, calls = 64, 3
+    cfg, cyl, u, shape, prof = _inputs(n, not radii_only, card)
+    tspan = _call_tspan(2, calls, cfg.dt)
+    many, one = make_mesh(cards), make_mesh(devices=[card] * cards)
+    assert len(set(many.devices)) == cards
+    key = fk.step_key(False, x_matmul, radii_only, 2, sharded=True)
+
+    def roll(mesh):
+        return build_stacked_rollout(mesh, cfg, cyl.shape[1], radii_only, x_matmul, 2)(
+            u, tspan, cyl, shape, prof)
+
+    before = fk.launch_counts[key]
+    got = roll(many)
+    middle = fk.launch_counts[key]
+    want = roll(one)
+    torch.cuda.synchronize()
+    assert middle - before == cards * calls and fk.launch_counts[key] - middle == calls
+    assert got[0].device == want[0].device == many.devices[0]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo", [8, 16])
+@pytest.mark.parametrize("case,n,shards", [("ring", 64, 2), ("ring", 700, 4), ("eighty", 96, 3),
+                                           ("edge", 80, 2)])
+def test_wide_slab_owner_pass_equals_the_whole_grid_columns(card, case, n, shards, halo):
+    """The owner pass on slabs with an 8- or 16-column halo, in one launch:
+    its plain version bit for bit, and each slab's columns inside the domain
+    the whole grid's fields there, halo columns included (slab z's first
+    column lies at col0 + z (w - 2 halo))."""
+    from waves_jl_tpu_torch.parallel.fused_domain import shard_slabs
+
+    cfg, cyl = _owner_inputs(case, n, None, card)
+    slabs = shard_slabs(n, shards, halo)
+    got = fk.select_owner_slabs(cyl, cfg, slabs)
+    whole = fk.select_owner(cyl, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.select_owner_slabs_reference(cyl, cfg, slabs))
+    for slab, one in zip(slabs, got):
+        lo, hi = max(slab.col0, 0), min(slab.col0 + slab.w, n)
+        assert torch.equal(one[:, :, lo - slab.col0:hi - slab.col0], whole[:, :, lo:hi])

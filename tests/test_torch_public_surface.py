@@ -2,8 +2,11 @@
 public name of `waves_jl_tpu`'s top level and of `waves_jl_tpu.models`
 exists in the port under the same name, of the same kind (class, function
 or constant, the constants equal); the top level's submodules load on first
-access, `viz` without importing matplotlib; and `control` exports
-`make_hybrid_episode_fused` as JAX's does."""
+access, `viz` without importing matplotlib; `control` exports
+`make_hybrid_episode_fused` as JAX's does; and `entry_points` holds every
+function of the JAX entry points' `__graft_entry__.py`, its private
+`_tiny_batch` included, with JAX's arguments (a generator for its PRNG key)
+and a `device` last."""
 import inspect
 import subprocess
 import sys
@@ -19,7 +22,7 @@ import waves_jl_tpu_torch.control
 import waves_jl_tpu_torch.models
 
 SUBMODULES = ("models", "train", "control", "parallel", "viz", "data", "env", "native",
-              "physics", "ops", "utils")
+              "physics", "ops", "utils", "entry_points")
 
 
 def public_names(mod) -> list:
@@ -65,3 +68,18 @@ def test_submodules_load_on_first_access_without_matplotlib():
     assert proc.stdout.strip() == "(8, 8)"
     with pytest.raises(AttributeError):
         waves_jl_tpu_torch.not_a_module  # noqa: B018
+
+
+def test_entry_points_cover_graft_entry():
+    import __graft_entry__ as graft
+
+    names = [n for n, v in vars(graft).items()
+             if inspect.isfunction(v) and v.__module__ == graft.__name__
+             and n != "_dryrun_multichip_impl"]  # its body, which the port's runs in place
+    assert {"entry", "dryrun_multichip", "_tiny_batch"} <= set(names)
+    for n in names:
+        want = list(inspect.signature(getattr(graft, n)).parameters)
+        got = list(inspect.signature(getattr(waves_jl_tpu_torch.entry_points, n)).parameters)
+        want = {"dryrun_multichip": ["n"],  # JAX's n_devices: the shard count
+                "_tiny_batch": want[:-1] + ["generator"]}.get(n, want)  # JAX's PRNG key
+        assert got == want + ["device"], n

@@ -8,6 +8,8 @@ device="cpu"; on the CPU every kernel takes its plain PyTorch version.
 The top level exports the JAX package's names (`import waves_jl_tpu_torch as
 w; w.two_dim(...)`); the submodules `models`, `train`, `control`, ... load
 on first access, so `viz` needs matplotlib only when it draws.
+`entry_points` holds the counterparts of `__graft_entry__.py`'s `entry()` and
+`dryrun_multichip(n)`.
 """
 
 from .constants import AIR, ALUMINIUM, BRASS, COPPER, DESIGN_SPEED, WATER
@@ -74,7 +76,7 @@ def __getattr__(name):
     """The submodules on first access (w.models, w.train, ...), so that
     importing the package loads neither matplotlib nor the trainers."""
     if name in ("models", "train", "control", "parallel", "viz", "data", "env",
-                "native", "physics", "ops", "utils"):
+                "native", "physics", "ops", "utils", "entry_points"):
         import importlib
 
         return importlib.import_module("." + name, __name__)

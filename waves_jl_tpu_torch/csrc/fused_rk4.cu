@@ -168,8 +168,8 @@
 //
 // Two or four steps a launch, the Pallas kernel's `steps_per_call` (:98,
 // :359-386), are `rk4_steps_tiled` in fused_rk4_multi.cu, on the whole grid
-// alone; the slabs take one step a launch, as the JAX package's sharded
-// rollout does. What the two share is in fused_rk4_common.cuh.
+// and on slabs with a 4 SPC-column halo (`y_ghost >= HALO * steps_per_call`,
+// :156-157). What the two share is in fused_rk4_common.cuh.
 //
 // Numerics: the library is compiled with -fmad=false, so every a*b+c
 // rounds twice, as in the plain PyTorch version and the JAX kernel. The op
@@ -206,11 +206,14 @@ static_assert(CYL_CHUNK == 64 && OWN_BX * OWN_BY >= CYL_CHUNK,
 // false) blockIdx.z is the candidate, with its own (8, n_cyl) cylinders,
 // and local column j is global column col0 + j (col0 0); on slabs,
 // blockIdx.z is slab z, whose local column j is global column
-// col0 + z (w - 2 HALO) + j, and the cylinders are shared.
+// col0 + z (w - 2 halo) + j, and the cylinders are shared. `halo` is the
+// slabs' halo columns a side: HALO for the one-step kernel's slabs, 4 SPC
+// for those `rk4_steps_tiled` takes SPC steps a launch.
 struct Geometry {
   int n;
   int w;
   int col0;
+  int halo;
   float spacing;
   float x_min;
   bool slabs;
@@ -256,7 +259,7 @@ select_owner_kernel(const float* __restrict__ cyl, int n_cyl, float* __restrict_
   const int n = g.n;
   const int w = g.w;
   const size_t z = blockIdx.z;
-  const int col0 = g.slabs ? g.col0 + (int)z * (w - 2 * HALO) : g.col0;
+  const int col0 = g.slabs ? g.col0 + (int)z * (w - 2 * g.halo) : g.col0;
   if (!g.slabs) cyl += z * 8 * (size_t)n_cyl;
   owner += z * 5 * (size_t)n * w;
   const float sp = g.spacing;
@@ -673,18 +676,6 @@ cudaError_t configure_tiled() {
   return e;
 }
 
-// The whole grid is w == n with col0 == 0. Any other (w, col0) is the
-// first of `slabs` consecutive slabs with HALO halo columns on each side,
-// each of ny = w - 2 HALO >= 2 HALO owned columns, all in the domain (a
-// slab never has col0 == 0: col0 = start - HALO and the start is 0 or at
-// least 2 HALO). Returns false for anything else.
-bool valid_extent(int n, int w, int col0, int slabs) {
-  if (n < 3) return false;
-  if (w == n && col0 == 0) return true;
-  const long ny = w - 2 * HALO;
-  return ny >= 2 * HALO && col0 + HALO >= 0 && col0 + HALO + slabs * ny <= n;
-}
-
 template <bool XM, bool GENERAL, bool SLAB>
 int step_occupancy() {
   int blocks = 0;
@@ -765,7 +756,7 @@ int fused_rk4_step_occupancy(int xm, int general, int slab) {
 int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float* partials,
                          float t) {
   if (w == nullptr || w->spc != 1 || w->batch < 1 || w->batch > 65535 ||
-      !valid_extent(w->n, w->w, w->col0, w->batch) || w->xm < 0 || w->xm > 1 || w->n_cyl < 0 ||
+      !valid_extent(w->n, w->w, w->col0, w->batch, HALO) || w->xm < 0 || w->xm > 1 || w->n_cyl < 0 ||
       (w->shape_stride != 0 && !(w->shape_stride == w->n * w->n && w->w == w->n &&
                                  w->col0 == 0)) ||
       (w->owner == nullptr && w->n_cyl > 0 && w->cyl == nullptr)) {
@@ -779,18 +770,20 @@ int fused_rk4_step_tiled(const TiledWindow* w, const float* u, float* out, float
 // Owner fields (batch, 5, n, w) in one launch: on the whole grid (w == n,
 // col0 == 0) of `batch` candidates' cylinders (batch, 8, n_cyl); on any
 // other (w, col0), of the (8, n_cyl) cylinders on `batch` consecutive
-// slabs of w local columns from col0, as `fused_rk4_step_tiled` takes
-// them, slab z's local column j at global column col0 + z (w - 2 HALO) + j.
+// slabs of w local columns from col0 with `halo` halo columns a side, as
+// `fused_rk4_step_tiled` (halo HALO) and `fused_rk4_steps_tiled` (halo
+// 4 spc) take them, slab z's local column j at global column
+// col0 + z (w - 2 halo) + j.
 int select_owner(int batch, const float* cyl, int n_cyl, float* owner, int n, int w, int col0,
-                 float spacing, float x_min, void* stream) {
-  if (batch < 1 || batch > 65535 || !valid_extent(n, w, col0, batch) || n_cyl < 0 ||
+                 int halo, float spacing, float x_min, void* stream) {
+  if (batch < 1 || batch > 65535 || !valid_extent(n, w, col0, batch, halo) || n_cyl < 0 ||
       (n_cyl > 0 && cyl == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool whole = w == n && col0 == 0;
   select_owner_kernel<<<owner_grid(n, w, batch), dim3(OWN_BX, OWN_BY), 0,
                         (cudaStream_t)stream>>>(cyl, n_cyl, owner,
-                                                Geometry{n, w, col0, spacing, x_min, !whole});
+                                                Geometry{n, w, col0, halo, spacing, x_min, !whole});
   return (int)cudaGetLastError();
 }
 

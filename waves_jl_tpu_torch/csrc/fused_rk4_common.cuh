@@ -6,7 +6,7 @@
 //                      owner pass (`select_owner_kernel`);
 //   fused_rk4_multi.cu two or four RK4 steps a launch (`rk4_steps_tiled`),
 //                      the Pallas kernel's `steps_per_call` with its ghost
-//                      band.
+//                      band, on the whole grid or on slabs.
 // Both are compiled with -fmad=false, so every a*b+c rounds twice, as in
 // the plain PyTorch version and the JAX kernel.
 #pragma once
@@ -99,6 +99,18 @@ struct Span {
   __device__ __forceinline__ bool has(int k) const { return k >= lo && k <= hi; }
 };
 
+// The whole grid is w == n with col0 == 0. Any other (w, col0) is the
+// first of `slabs` consecutive slabs with h halo columns on each side, each
+// of ny = w - 2 h >= 2 h owned columns, all in the domain (a slab never has
+// col0 == 0: col0 = start - h and the start is 0 or at least 2 h). Returns
+// false for anything else.
+inline bool valid_extent(int n, int w, int col0, int slabs, int h) {
+  if (n < 3) return false;
+  if (w == n && col0 == 0) return true;
+  const long ny = (long)w - 2 * h;
+  return h >= HALO && ny >= 2 * h && col0 + h >= 0 && col0 + h + slabs * ny <= n;
+}
+
 // Where the next stage's outputs are valid, given where its input is: one
 // cell in from each side, except a side on the domain's edge, where the
 // one-sided stencil reads inward only.
@@ -109,7 +121,7 @@ __device__ __forceinline__ Span shrink(Span s, int n) {
 // The step's parameters that do not change within a window.
 struct StepParams {
   int n;
-  int w;     // a slab's local columns, ny + 2 HALO (SLAB only)
+  int w;     // a slab's local columns, ny + 2 H for its halo H (SLAB only)
   int col0;  // slab 0's global column of local column 0 (SLAB only)
   float inv2d;
   float c0;

@@ -9,21 +9,52 @@
 // are even (waves_jl_tpu/physics/fused.py:101-104, :170), and four with a
 // 16-cell band in its probe (scripts_tpu/kernel_probe.py:98-102).
 //
-// `rk4_steps_tiled<XM, GENERAL, SPC>` takes every whole-grid mode of the
+// `rk4_steps_tiled<XM, GENERAL, SPC, SLAB>` takes every mode of the
 // one-step kernel (fused_rk4.cu): the split d/dx (XM, K5) or the exact one
-// (K1-K3), the owner test on the (5, n, n) owner fields (K2, K5, the
+// (K1-K4), the owner test on the (5, n, w) owner fields (K2, K5, the
 // radii-only re-rank) or the general rasterisation (K1, K5 general), for one
-// state or K candidates (blockIdx.z, each with its own cylinders and owner
-// fields, the source shape shared or one a candidate). The slabs (K4) stay at
-// one step a launch, as the JAX package's sharded rollout pins them
-// (waves_jl_tpu/parallel/fused_domain.py:53-58).
+// state or K candidates on the whole grid (blockIdx.z, each with its own
+// cylinders and owner fields, the source shape shared or one a candidate),
+// or on S consecutive column slabs of a y-sharded grid (SLAB, K4 and K4-XM;
+// blockIdx.z the slab). The JAX package's sharded rollout pins one step a
+// call (waves_jl_tpu/parallel/fused_domain.py:53-58), but its kernel's
+// factory takes the slabs at SPC steps a call with `ny_local` owned columns
+// and `y_ghost >= HALO * SPC` halo columns (:129-133, :156-157), columns
+// indexed globally through `scalars[3]` (:195-204).
+//
+// The slab mode (SLAB). A slab of ny owned columns has H = 4 SPC halo
+// columns on each side, w = ny + 2 H local columns (191 at 700^2 in 4
+// shards at SPC 2, 207 at SPC 4); slab z's local column j is global column
+// col0 + z ny + j, with its own state, source shape (n, w) and owner fields
+// (5, n, w), the cylinders and the (n) profile shared. The tiles cover the
+// owned columns alone, ceil(ny / TY) tile columns a slab, and a tile never
+// crosses a slab's owned range. A tile's region, the tile and its band of H
+// cells a side, lies inside its slab: its columns are the tile's +-H, and
+// the extra column before a one-cell tile on the domain's last column lies
+// inside too, since that tile is never a slab's first (it needs ny > TY).
+// So the halo columns carry the neighbours' owned columns SPC steps deep,
+// and the band's shrinking leaves the owned columns valid after the last
+// sub-step, as the Pallas kernel's ghost columns do. The one-sided y
+// stencils (`_dy_edge_aware`, :75-85), the Dirichlet mask, the y
+// coordinate, the PML profile, the stage regions' shrinking and the general
+// mode's cull are taken at global columns, so an owned cell is bit for bit
+// the whole grid's. Each sub-step's energy partials cover the tile cells,
+// which are owned (`owned`, :351-357). The kernel writes the slab's halo
+// columns 0 (the blocks of the first and last tile column), as the one-step
+// slab kernel does: the exchange refreshes the interior halos before the
+// next launch, and the halos outside the domain stay 0. SLAB is a template
+// flag, as in the one-step kernel, so the whole-grid instances keep their
+// registers and spills; it doubles the instances to sixteen.
 //
 // What bounds it on the card: bytes, as the one-step kernel. A call must read
 // and write the 12 x n x n state once for SPC steps: at 700^2, 47.0 MB in and
 // out, 14.0 us at 3.35 TB/s, so 7.0 (SPC 2) or 3.5 (SPC 4) us a step, where
 // the one-step kernel's bound is 14.0 us a step. The arithmetic, about 2e8
 // float32 operations a step at 700^2, takes about 3 us a step at 67 TFLOP/s,
-// so at SPC 4 the two bounds meet.
+// so at SPC 4 the two bounds meet. On slabs a call reads and writes each
+// slab's w columns, halos included: at 700^2 in 4 shards, 4 x 2 x 12 x 700
+// x 191 x 4 B = 51.3 MB at SPC 2 (15.3 us, 7.7 a step) and 55.6 MB at SPC
+// 4 (207 columns).
 //   What the design does about it. Block (bx, by, z) owns the same
 // TX x TY = 16 x 24 tile as the one-step kernel and loads, once a stack, its
 // region: the tile with a band of H = 4 SPC cells on each side (one more row
@@ -179,11 +210,12 @@ __device__ __forceinline__ void fill_general_band(float* s_c, float* s_cyl, int*
 }
 
 // SPC whole RK4 steps from time t for `gridDim.z` candidates on the whole
-// grid (see the note at the top): K5's split d/dx if XM, else the exact one;
-// the general rasterisation of the (8, n_cyl) cylinders `g.cyl` if GENERAL,
-// else the owner test on the (5, n, n) fields `owner`. Block (bx, by, z)
-// owns the TX x TY tile of candidate z from global row by TX and column
-// bx TY; its region, Band<SPC>::RH x RW cells from global (r0, c0g), lies in
+// grid, or `gridDim.z` consecutive slabs if SLAB (see the note at the top):
+// K5's split d/dx if XM, else the exact one; the general rasterisation of
+// the (8, n_cyl) cylinders `g.cyl` if GENERAL, else the owner test on the
+// (5, n, w) fields `owner`. Block (bx, by, z) owns the TX x TY tile of
+// candidate or slab z from global row by TX and from global column bx TY
+// past z's first owned column; its region, Band<SPC>::RH x RW cells from global (r0, c0g), lies in
 // dynamic shared memory, Band<SPC>::SMEM bytes:
 //   s_u  [6][RC]  the stack's state at the sub-step's start, 0 outside the domain
 //   s_v  [6][RC]  the stage input u + a k of that stack
@@ -197,7 +229,7 @@ __device__ __forceinline__ void fill_general_band(float* s_c, float* s_cyl, int*
 // barrier a stage parts its writes from the next stage's reads. partials is
 // (SPC, gridDim.z, blocks, 3): sub-step st's row of block b of candidate z
 // at (st, z, b).
-template <bool XM, bool GENERAL, int SPC>
+template <bool XM, bool GENERAL, int SPC, bool SLAB>
 __global__ void __launch_bounds__(NT, Band<SPC>::MIN_BLOCKS)
 rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
                 float* __restrict__ partials, const float* __restrict__ shape,
@@ -214,17 +246,24 @@ rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
   float* s_ut = s_c + 3 * RC;
   float* s_red = s_ut + SPC * B::TC;
   const int n = g.n;
-  const size_t nn = (size_t)n * n;
+  const int w = SLAB ? g.w : n;          // local columns
+  const int ny = SLAB ? w - 2 * B::H : n;  // owned columns
+  const size_t nn = (size_t)n * w;
+  // z: the candidate on the whole grid (its own cylinders, the source shape
+  // shared or its own), or the slab (its own columns and source shape, the
+  // cylinders shared)
   const size_t cand = blockIdx.z;
+  const int col0 = SLAB ? g.col0 + (int)cand * ny : 0;  // global column of local column 0
   u += cand * 12 * nn;
   out += cand * 12 * nn;
-  shape += cand * (size_t)g.shape_stride;
+  shape += cand * (SLAB ? nn : (size_t)g.shape_stride);
   if constexpr (!GENERAL) owner += cand * 5 * nn;
   const int tid = threadIdx.y * BX + threadIdx.x;
 
-  const int ti0 = blockIdx.y * TX, tj0 = blockIdx.x * TY;
+  const int own0 = col0 + (SLAB ? B::H : 0);  // global column of the first owned column
+  const int ti0 = blockIdx.y * TX, tj0 = own0 + blockIdx.x * TY;
   const Span tile_r{ti0, min(ti0 + TX, n) - 1};
-  const Span tile_c{tj0, min(tj0 + TY, n) - 1};
+  const Span tile_c{tj0, min(tj0 + TY, own0 + ny) - 1};
   const int r0 = ti0 - B::H - (ti0 == n - 1 ? 1 : 0);  // global row of region row 0
   const int c0g = tj0 - B::H - (tj0 == n - 1 ? 1 : 0);  // global column of region column 0
   const Span load_r{max(r0, 0), min(tile_r.hi + B::H, n - 1)};
@@ -241,7 +280,7 @@ rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
     if (l >= RC) continue;
     const int gi = r0 + l / RW, gj = c0g + l % RW;
     const bool in = load_r.has(gi) && load_c.has(gj);
-    s_f[l] = in ? __ldg(shape + gi * n + gj) : 0.0f;
+    s_f[l] = in ? __ldg(shape + gi * w + gj - col0) : 0.0f;
   }
 
 #pragma unroll 1
@@ -253,7 +292,7 @@ rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
       if (l >= RC) continue;
       const int gi = r0 + l / RW, gj = c0g + l % RW;
       const bool in = load_r.has(gi) && load_c.has(gj);
-      const float* src = u + (size_t)6 * stack * nn + (in ? gi * n + gj : 0);
+      const float* src = u + (size_t)6 * stack * nn + (in ? gi * w + gj - col0 : 0);
 #pragma unroll
       for (int ch = 0; ch < 6; ++ch) s_u[ch * RC + l] = in ? __ldg(src + ch * nn) : 0.0f;
     }
@@ -279,8 +318,8 @@ rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
         if constexpr (GENERAL) {
           // the cylinders' chunk in s_v, free until the sub-step's first stage
           fill_general_band<SPC>(s_c, s_v, reinterpret_cast<int*>(s_v + 12 * CYL_CHUNK),
-                                 g.cyl + cand * 8 * (size_t)g.n_cyl, g, lw, r0, c0g, load_r,
-                                 load_c);
+                                 g.cyl + (SLAB ? 0 : cand * 8 * (size_t)g.n_cyl), g, lw, r0,
+                                 c0g, load_r, load_c);
         } else {
 #pragma unroll
           for (int a = 0; a < B::SLOTS; ++a) {
@@ -288,7 +327,7 @@ rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
             if (l >= RC) continue;
             const int gi = r0 + l / RW, gj = c0g + l % RW;
             const bool in = load_r.has(gi) && load_c.has(gj);
-            const int q = in ? gi * n + gj : 0;
+            const int q = in ? gi * w + gj - col0 : 0;
             const float d2 = in ? __ldg(owner + q) : 0.0f;
             const float r1 = in ? __ldg(owner + nn + q) : 0.0f;
             const float dr = in ? __ldg(owner + 2 * nn + q) : 0.0f;
@@ -352,7 +391,7 @@ rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
             for (int ch = 0; ch < 6; ++ch) {
               const float v = s_u[ch * RC + l] + g.sixth * (acc[a][ch] + k[ch]);
               if (final_stage) {
-                out[(size_t)(6 * stack + ch) * nn + gi * n + gj] = v;
+                out[(size_t)(6 * stack + ch) * nn + gi * w + gj - col0] = v;
               } else {
                 s_u[ch * RC + l] = v;  // the next sub-step's start, read here by this thread alone
               }
@@ -388,67 +427,93 @@ rk4_steps_tiled(const float* __restrict__ u, float* __restrict__ out,
       }
     }
   }
+
+  // a slab's halo columns are written 0: the left ones by the first tile
+  // column's blocks, the right ones by the last's
+  if constexpr (SLAB) {
+    constexpr int HC = TX * B::H;  // a side's halo cells of a tile row band
+#pragma unroll 1
+    for (int c = tid; c < 2 * HC; c += NT) {
+      const bool right = c >= HC;
+      const int gi = ti0 + (c % HC) / B::H;
+      const int lj = (right ? B::H + ny : 0) + c % B::H;
+      if ((right ? blockIdx.x != gridDim.x - 1 : blockIdx.x != 0) || !tile_r.has(gi)) continue;
+#pragma unroll
+      for (int ch = 0; ch < 12; ++ch) out[ch * nn + (size_t)gi * w + lj] = 0.0f;
+    }
+  }
 }
 
-dim3 steps_grid(int n, int batch) {
-  return dim3((n + TY - 1) / TY, (n + TX - 1) / TX, batch);
+// The grid of n rows and ny owned columns (n on the whole grid) a candidate
+// or slab.
+dim3 steps_grid(int n, int ny, int batch) {
+  return dim3((ny + TY - 1) / TY, (n + TX - 1) / TX, batch);
 }
 
-// Lets `rk4_steps_tiled<XM, GENERAL, SPC>` take Band<SPC>::SMEM bytes of
-// dynamic shared memory on the current device, once a device.
-template <bool XM, bool GENERAL, int SPC>
+// Lets `rk4_steps_tiled<XM, GENERAL, SPC, SLAB>` take Band<SPC>::SMEM bytes
+// of dynamic shared memory on the current device, once a device.
+template <bool XM, bool GENERAL, int SPC, bool SLAB>
 cudaError_t configure_steps() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(rk4_steps_tiled<XM, GENERAL, SPC>,
+  e = cudaFuncSetAttribute(rk4_steps_tiled<XM, GENERAL, SPC, SLAB>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, Band<SPC>::SMEM);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
 }
 
-template <bool XM, bool GENERAL, int SPC>
+template <bool XM, bool GENERAL, int SPC, bool SLAB>
 int steps_occupancy() {
   int blocks = 0;
-  cudaError_t e = configure_steps<XM, GENERAL, SPC>();
+  cudaError_t e = configure_steps<XM, GENERAL, SPC, SLAB>();
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rk4_steps_tiled<XM, GENERAL, SPC>,
-                                                      NT, Band<SPC>::SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, rk4_steps_tiled<XM, GENERAL, SPC, SLAB>, NT, Band<SPC>::SMEM);
   }
   return e == cudaSuccess ? blocks : -(int)e;
 }
 
-template <bool XM, bool GENERAL, int SPC>
+template <bool XM, bool GENERAL, int SPC, bool SLAB>
 int steps_tiled(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
-  const cudaError_t e = configure_steps<XM, GENERAL, SPC>();
+  const cudaError_t e = configure_steps<XM, GENERAL, SPC, SLAB>();
   if (e != cudaSuccess) return (int)e;
-  StepParams p{w->n,   w->n,     0,        w->inv2d, w->c0,    w->freq,    w->half,
+  StepParams p{w->n,   w->w,     w->col0,  w->inv2d, w->c0,    w->freq,    w->half,
                w->full, w->sixth, w->ti,    w->tf,    w->cyl,   w->n_cyl,   w->x_min,
                w->spacing, w->shape_stride};
   for (int k = 0; k < 4; ++k) p.sub[k] = w->sub[k];
-  rk4_steps_tiled<XM, GENERAL, SPC><<<steps_grid(w->n, w->batch), dim3(BX, BY), Band<SPC>::SMEM,
-                                      (cudaStream_t)w->stream>>>(u, out, partials, w->shape,
-                                                                 w->prof, w->owner, p, t);
+  const int ny = SLAB ? w->w - 2 * Band<SPC>::H : w->n;
+  rk4_steps_tiled<XM, GENERAL, SPC, SLAB>
+      <<<steps_grid(w->n, ny, w->batch), dim3(BX, BY), Band<SPC>::SMEM,
+         (cudaStream_t)w->stream>>>(u, out, partials, w->shape, w->prof, w->owner, p, t);
   return (int)cudaGetLastError();
 }
 
-template <int SPC>
+template <int SPC, bool SLAB>
 int steps_instance(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
   if (w->owner == nullptr) {
-    return w->xm ? steps_tiled<true, true, SPC>(w, u, out, partials, t)
-                 : steps_tiled<false, true, SPC>(w, u, out, partials, t);
+    return w->xm ? steps_tiled<true, true, SPC, SLAB>(w, u, out, partials, t)
+                 : steps_tiled<false, true, SPC, SLAB>(w, u, out, partials, t);
   }
-  return w->xm ? steps_tiled<true, false, SPC>(w, u, out, partials, t)
-               : steps_tiled<false, false, SPC>(w, u, out, partials, t);
+  return w->xm ? steps_tiled<true, false, SPC, SLAB>(w, u, out, partials, t)
+               : steps_tiled<false, false, SPC, SLAB>(w, u, out, partials, t);
+}
+
+template <int SPC, bool SLAB>
+int steps_occupancy_instance(int xm, int general) {
+  if (general) {
+    return xm ? steps_occupancy<true, true, SPC, SLAB>()
+              : steps_occupancy<false, true, SPC, SLAB>();
+  }
+  return xm ? steps_occupancy<true, false, SPC, SLAB>()
+            : steps_occupancy<false, false, SPC, SLAB>();
 }
 
 template <int SPC>
-int steps_occupancy_instance(int xm, int general) {
-  if (general) {
-    return xm ? steps_occupancy<true, true, SPC>() : steps_occupancy<false, true, SPC>();
-  }
-  return xm ? steps_occupancy<true, false, SPC>() : steps_occupancy<false, false, SPC>();
+int steps_launch(const TiledWindow* w, const float* u, float* out, float* partials, float t) {
+  return w->w == w->n && w->col0 == 0 ? steps_instance<SPC, false>(w, u, out, partials, t)
+                                      : steps_instance<SPC, true>(w, u, out, partials, t);
 }
 
 }  // namespace
@@ -462,34 +527,47 @@ int fused_rk4_steps_smem(int spc) {
 }
 
 // Blocks of the SPC-step instance (xm 1: split d/dx, 0: exact; general 1:
-// the general rasterisation, 0: the owner test) resident on one SM of the
-// current device, as the occupancy calculator gives it for the instance's
-// registers and shared memory; negative on an error.
-int fused_rk4_steps_occupancy(int xm, int general, int spc) {
-  if (spc == 2) return steps_occupancy_instance<2>(xm, general);
-  if (spc == 4) return steps_occupancy_instance<4>(xm, general);
+// the general rasterisation, 0: the owner test; slab 1: on slabs, 0: on the
+// whole grid) resident on one SM of the current device, as the occupancy
+// calculator gives it for the instance's registers and shared memory;
+// negative on an error.
+int fused_rk4_steps_occupancy(int xm, int general, int spc, int slab) {
+  if (spc == 2) {
+    return slab ? steps_occupancy_instance<2, true>(xm, general)
+                : steps_occupancy_instance<2, false>(xm, general);
+  }
+  if (spc == 4) {
+    return slab ? steps_occupancy_instance<4, true>(xm, general)
+                : steps_occupancy_instance<4, false>(xm, general);
+  }
   return -(int)cudaErrorInvalidValue;
 }
 
-// w->spc (2 or 4) whole RK4 steps in one launch, on the whole grid
-// (w->w == n, w->col0 == 0) of w->batch candidates, from start time t,
-// sub-step st from t + w->sub[st]: the exact d/dx for w->xm 0 (K1, K2, K3)
-// or the split one for w->xm 1 (K5, batched K5); radii-only on w->owner's
-// fields, or general on w->cyl's n_cyl cylinders where w->owner is null. u
-// and out (batch, 12, n, n), partials (spc, batch, blocks, 3) with blocks
-// `fused_rk4_step_blocks(n, n)` of fused_rk4.cu (the same tiles), the source
-// shape (n, n) shared (w->shape_stride 0) or (batch, n, n) (n * n). Returns
-// the cudaError_t of the launch.
+// w->spc (2 or 4) whole RK4 steps in one launch from start time t, sub-step
+// st from t + w->sub[st]: the exact d/dx for w->xm 0 (K1-K4) or the split
+// one for w->xm 1 (K5, batched K5, K4-XM); radii-only on w->owner's fields,
+// or general on w->cyl's n_cyl cylinders where w->owner is null. On the
+// whole grid (w->w == n, w->col0 == 0) of w->batch candidates: u and out
+// (batch, 12, n, n), partials (spc, batch, blocks, 3) with blocks
+// `fused_rk4_step_blocks(n, n)` of fused_rk4.cu (the same tiles), the
+// source shape (n, n) shared (w->shape_stride 0) or (batch, n, n) (n * n).
+// On w->batch consecutive slabs of w->w local columns from w->col0 with
+// 4 spc halo columns a side: u and out (batch, 12, n, w), their halo
+// columns written 0, the source shape (batch, n, w), partials (spc, batch,
+// fused_rk4_step_blocks(n, w - 8 spc), 3). Returns the cudaError_t of the
+// launch.
 int fused_rk4_steps_tiled(const TiledWindow* w, const float* u, float* out, float* partials,
                           float t) {
   if (w == nullptr || (w->spc != 2 && w->spc != 4) || w->batch < 1 || w->batch > 65535 ||
-      w->n < 3 || w->w != w->n || w->col0 != 0 || w->xm < 0 || w->xm > 1 || w->n_cyl < 0 ||
-      (w->shape_stride != 0 && w->shape_stride != w->n * w->n) ||
+      !valid_extent(w->n, w->w, w->col0, w->batch, HALO * w->spc) || w->xm < 0 || w->xm > 1 ||
+      w->n_cyl < 0 ||
+      (w->shape_stride != 0 && !(w->shape_stride == w->n * w->n && w->w == w->n &&
+                                 w->col0 == 0)) ||
       (w->owner == nullptr && w->n_cyl > 0 && w->cyl == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  return w->spc == 2 ? steps_instance<2>(w, u, out, partials, t)
-                     : steps_instance<4>(w, u, out, partials, t);
+  return w->spc == 2 ? steps_launch<2>(w, u, out, partials, t)
+                     : steps_launch<4>(w, u, out, partials, t);
 }
 
 }  // extern "C"

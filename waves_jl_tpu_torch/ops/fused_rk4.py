@@ -23,7 +23,8 @@ a launch may also take two or four steps (`steps_per_call`, the JAX
 kernel's temporal blocking: `rk4_steps_tiled` in csrc/fused_rk4_multi.cu
 keeps a band of 4 cells a step through them), sub-step st at the JAX
 kernel's time float32(t + float32(st dt)) (`substep_times`), with one row
-of energies a sub-step. `fused_rk4_window`
+of energies a sub-step; so may a card's slabs, each with a halo of 4 cells
+a step of a launch (`Slab.halo`). `fused_rk4_window`
 drives a window's steps as the env window and the re-rank do, and
 `SlabWindow` a card's slabs through a sharded rollout: each makes its two
 state buffers and its energy partials once a window and marshals the
@@ -47,7 +48,8 @@ the PML profile is shared, and so is the source shape unless it comes
 with the candidate axis too, (K, n, n). On a `Slab` the state,
 source shape and owner fields are (.., n, slab.w) column slabs of the
 global grid, the profile stays the global (n,) one, the energies cover
-the slab's owned columns, and the new state's halo columns are 0. Stacked
+the slab's owned columns, and the new state's halo columns are 0; a slab
+taking spc steps a launch has 4 spc halo columns a side. Stacked
 slabs take a leading slab axis S on the state, source shape and owner
 fields, and share the cylinders and the profile.
 """
@@ -85,7 +87,7 @@ HALO = 4  # halo cells one RK4 step consumes on each side (pallas_fd.py:31)
 TILE = (16, 24)  # rows and columns of a block's tile in `rk4_step_tiled` (TX, TY)
 OWNER_TILE = (16, 64)  # rows and columns of a block's tile in `select_owner_kernel`
 
-STEPS_PER_CALL = (1, 2, 4)  # RK4 steps a launch takes; 2 and 4 on the whole grid alone
+STEPS_PER_CALL = (1, 2, 4)  # RK4 steps a launch takes
 
 launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owner": 0,
                  "fused_rk4_batched_general": 0, "fused_rk4_batched_radii_only": 0,
@@ -98,7 +100,7 @@ launch_counts = {"fused_rk4_general": 0, "fused_rk4_radii_only": 0, "select_owne
                  "fused_rk4_sharded_xmatmul_radii_only": 0}
 # the multi-step launches, by the one-step counter's name and "_spc2" or "_spc4"
 launch_counts.update({f"{k}_spc{spc}": 0 for k in list(launch_counts)
-                      if k.startswith("fused_rk4") and "sharded" not in k for spc in (2, 4)})
+                      if k.startswith("fused_rk4") for spc in (2, 4)})
 
 
 def reset_launch_counts() -> None:
@@ -127,17 +129,19 @@ class StepConfig:
 @dataclass(frozen=True)
 class Slab:
     """One column slab of the global n x n grid (K4): `w` local columns,
-    local column j at global column col0 + j, HALO halo columns on each
-    side of the owned ones. A shard of ny_local columns from global column
-    `start` is Slab(w=ny_local + 2 HALO, col0=start - HALO)."""
+    local column j at global column col0 + j, `halo` halo columns on each
+    side of the owned ones: HALO for one step a launch, 4 spc for spc steps
+    (the JAX kernel's `y_ghost`). A shard of ny_local columns from global
+    column `start` is Slab(w=ny_local + 2 halo, col0=start - halo, halo)."""
 
     w: int
     col0: int
+    halo: int = HALO
 
     @property
     def ny(self) -> int:
         """Owned columns."""
-        return self.w - 2 * HALO
+        return self.w - 2 * self.halo
 
     def columns(self, device) -> torch.Tensor:
         """(w,) global column index of each local column."""
@@ -147,6 +151,16 @@ class Slab:
 def _extent(cfg: StepConfig, slab: Slab | None) -> tuple[int, int]:
     """(w, col0) of the whole grid or of a slab."""
     return (cfg.n, 0) if slab is None else (slab.w, slab.col0)
+
+
+def _check_halo(slabs, steps_per_call: int) -> None:
+    """Raise unless each slab's halo is 4 cells a step of a launch of
+    `steps_per_call` steps: what the steps consume, and the band the kernel
+    carries (slabs None or empty: the whole grid)."""
+    for s in slabs or ():
+        if s.halo != HALO * steps_per_call:
+            raise ValueError(f"a slab with a {s.halo}-column halo takes steps_per_call "
+                             f"{s.halo / HALO:g}, not {steps_per_call}")
 
 
 def stage_times(t: float, dt: float):
@@ -388,14 +402,27 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
     columns); d/dx split in bf16 with `x_matmul`. Returns
     (u_next (12, n, w), energies (3,)). With `steps_per_call` spc, the
     state takes spc chained steps from t at the JAX kernel's sub-step times
-    (`substep_times`), and the energies after each are (spc, 3)."""
-    if steps_per_call is not None:
-        es = []
-        for ts in substep_times(t, steps_per_call, cfg.dt):
-            u, e = fused_rk4_step_reference(u, shape, prof, cyl, owner, float(ts), ti, tf, cfg,
-                                            slab, x_matmul)
-            es.append(e)
-        return u, torch.stack(es)
+    (`substep_times`), and the energies after each are (spc, 3). A slab's
+    halo (4 spc columns) is zeroed after the last step alone: each step
+    leaves 4 fewer columns a side valid, the owned ones after the last, as
+    in the JAX kernel's ghost columns."""
+    spc = steps_per_call or 1
+    _check_halo([slab] if slab is not None else None, spc)
+    es = []
+    for ts in substep_times(t, spc, cfg.dt):
+        u, e = _plain_step(u, shape, prof, cyl, owner, float(ts), ti, tf, cfg, slab, x_matmul)
+        es.append(e)
+    if slab is not None:
+        u[:, :, :slab.halo] = 0.0
+        u[:, :, slab.w - slab.halo:] = 0.0
+    return u, (torch.stack(es) if steps_per_call is not None else es[0])
+
+
+def _plain_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, slab: Slab | None,
+                x_matmul: bool):
+    """One plain step of `fused_rk4_step_reference` on the whole grid or a
+    slab, the slab's halo columns left as computed: (u_next, energies of
+    the owned columns (3,))."""
     n = cfg.n
     dev = u.device
     xs, ys = _coords(cfg, dev, slab)
@@ -403,7 +430,7 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
     rows = torch.arange(n, device=dev)
     cols = rows if slab is None else slab.columns(dev)
     w, col0 = _extent(cfg, slab)
-    halo = 0 if slab is None else HALO
+    halo = 0 if slab is None else slab.halo
     sx, sy = prof[:, None], prof[cols.clamp(0, n - 1)][None, :]
     bc = (((rows > 0) & (rows < n - 1))[:, None]
           & ((cols > 0) & (cols < n - 1))[None, :]).to(torch.float32)
@@ -433,8 +460,6 @@ def fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepCon
     k3 = rhs(u + half * k2, th)
     k4 = rhs(u + full * k3, t1)
     u = u + sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-    u[:, :, :halo] = 0.0
-    u[:, :, w - halo:] = 0.0
     own = u[:, :, halo:w - halo]
     sc = own[0] - own[6]
     return u, torch.stack([torch.sum(own[0] * own[0]), torch.sum(own[6] * own[6]),
@@ -467,12 +492,14 @@ def fused_rk4_step_batched_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg:
 
 
 def fused_rk4_step_slabs_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
-                                   slabs: list, x_matmul: bool = False):
+                                   slabs: list, x_matmul: bool = False,
+                                   steps_per_call: int | None = None):
     """Plain PyTorch version of `fused_rk4_step_slabs`: the plain step of
-    each slab in turn. Returns (u_next (S, 12, n, w), energies (S, 3))."""
+    each slab in turn. Returns (u_next (S, 12, n, w), energies (S, 3), or
+    (S, spc, 3) with `steps_per_call` spc)."""
     steps = [fused_rk4_step_reference(u[k], shape[k], prof, cyl,
                                       None if owner is None else owner[k], t, ti, tf, cfg, s,
-                                      x_matmul)
+                                      x_matmul, steps_per_call)
              for k, s in enumerate(slabs)]
     return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
 
@@ -533,8 +560,9 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
     The tile keeps the closed-form combine; no cell outside the domain is
     held or read, and a slab's halo columns come out 0.
 
-    With `steps_per_call` spc (the whole grid alone), the decomposition of
-    `rk4_steps_tiled`: each region carries a band of 4 spc cells a side
+    With `steps_per_call` spc, the decomposition of `rk4_steps_tiled` on
+    the whole grid or on a slab with a 4 spc-column halo: each region
+    carries a band of 4 spc cells a side
     and runs spc steps at the JAX kernel's sub-step times
     (`substep_times`), the closed-form combine on the whole region where a
     step's new state is valid (the tile after the last), and the energies
@@ -545,10 +573,9 @@ def fused_rk4_step_tiled_reference(u, shape, prof, owner, t, ti, tf, cfg: StepCo
     n = cfg.n
     dev = u.device
     spc = steps_per_call or 1
-    if spc > 1 and slab is not None:
-        raise ValueError("a slab takes one step a launch")
+    _check_halo([slab] if slab is not None else None, spc)
     w, col0 = _extent(cfg, slab)
-    own0, own1 = (0, n) if slab is None else (col0 + HALO, col0 + HALO + slab.ny)
+    own0, own1 = (0, n) if slab is None else (col0 + slab.halo, col0 + slab.halo + slab.ny)
     dx = dx_split_bf16 if x_matmul else dx_edge_aware
     c0 = float(np.float32(cfg.c0))
     b_inc = float(np.float32(cfg.c0) * np.float32(cfg.c0))
@@ -664,7 +691,7 @@ class _Library:
         self.cdlls = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # the candidate count first, 1 for a single state
-        self.owner = self._bind("fused_rk4", "select_owner", [I, P, I, P, I, I, I, F, F, P])
+        self.owner = self._bind("fused_rk4", "select_owner", [I, P, I, P, I, I, I, I, F, F, P])
         # the one-launch step: the window's struct, u, out, partials, t
         self.step_tiled = self._bind("fused_rk4", "fused_rk4_step_tiled", [P, P, P, P, F])
         self.step_blocks = self._bind("fused_rk4", "fused_rk4_step_blocks", [I, I])
@@ -674,7 +701,7 @@ class _Library:
         self.steps_tiled = self._bind("fused_rk4_multi", "fused_rk4_steps_tiled", [P, P, P, P, F])
         self.steps_smem = self._bind("fused_rk4_multi", "fused_rk4_steps_smem", [I])
         self.steps_occupancy = self._bind("fused_rk4_multi", "fused_rk4_steps_occupancy",
-                                          [I, I, I])
+                                          [I, I, I, I])
 
     def _bind(self, lib: str, name: str, argtypes: list):
         fn = getattr(self.cdlls[lib], name)
@@ -706,10 +733,9 @@ TILED_INSTANCES = {"split": (True, False, False), "exact": (False, False, False)
                    "split_slab": (True, False, True), "exact_slab": (False, False, True),
                    "split_general_slab": (True, True, True),
                    "exact_general_slab": (False, True, True)}
-# the multi-step instances, `rk4_steps_tiled<XM, GENERAL, SPC>`, by name
-STEPS_INSTANCES = {f"{name}_spc{spc}": (xm, general, spc)
-                   for spc in (2, 4)
-                   for name, (xm, general, slab) in TILED_INSTANCES.items() if not slab}
+# the multi-step instances, `rk4_steps_tiled<XM, GENERAL, SPC, SLAB>`, by name
+STEPS_INSTANCES = {f"{name}_spc{spc}": (xm, general, spc, slab)
+                   for spc in (2, 4) for name, (xm, general, slab) in TILED_INSTANCES.items()}
 
 
 def tiled_kernel_report() -> dict:
@@ -720,15 +746,16 @@ def tiled_kernel_report() -> dict:
     `TILED_INSTANCES`: on the whole grid "split" (K5), "exact" (K2, K3),
     "split_general" (K5 general) and "exact_general" (K1, K3 general), and
     the same four on slabs with "_slab" (K4-XM, K4); the multi-step
-    instances by the names of `STEPS_INSTANCES` ("split_spc2" and so on),
-    with their shared memory as "smem_bytes_spc2" and "smem_bytes_spc4"."""
+    instances by the names of `STEPS_INSTANCES` ("split_spc2",
+    "split_slab_spc2" and so on), with their shared memory as
+    "smem_bytes_spc2" and "smem_bytes_spc4"."""
     lib = _lib()
     return {"smem_bytes": lib.step_smem(),
             **{f"smem_bytes_spc{spc}": lib.steps_smem(spc) for spc in (2, 4)},
             **{name: lib.step_occupancy(int(xm), int(general), int(slab))
                for name, (xm, general, slab) in TILED_INSTANCES.items()},
-            **{name: lib.steps_occupancy(int(xm), int(general), spc)
-               for name, (xm, general, spc) in STEPS_INSTANCES.items()}}
+            **{name: lib.steps_occupancy(int(xm), int(general), spc, int(slab))
+               for name, (xm, general, spc, slab) in STEPS_INSTANCES.items()}}
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -778,11 +805,13 @@ def _key(kernel: str, batch: int | None, slab, x_matmul: bool = False) -> str:
     return key + "_xmatmul" if x_matmul else key
 
 
-def step_key(batch: bool, x_matmul: bool, radii_only: bool, steps_per_call: int = 1) -> str:
-    """Launch counter of the whole-grid step: single or candidate-batched,
-    split or exact d/dx, radii-only or general, with "_spc2" or "_spc4"
-    for the launches that take two or four steps."""
-    key = (_key("fused_rk4", 1 if batch else None, None, x_matmul)
+def step_key(batch: bool, x_matmul: bool, radii_only: bool, steps_per_call: int = 1,
+             sharded: bool = False) -> str:
+    """Launch counter of the step: on the whole grid, single or
+    candidate-batched, or on slabs (`sharded`); split or exact d/dx,
+    radii-only or general, with "_spc2" or "_spc4" for the launches that
+    take two or four steps."""
+    key = (_key("fused_rk4", 1 if batch else None, True if sharded else None, x_matmul)
            + ("_radii_only" if radii_only else "_general"))
     return key if steps_per_call == 1 else f"{key}_spc{steps_per_call}"
 
@@ -804,10 +833,11 @@ def _launch_owner(cyl: torch.Tensor, cfg: StepConfig, batch: int | None,
     else:
         n_cyl = _check_cyl(cyl, (), cyl.device)
         w, col0 = _slab_extent(slabs)
+    halo = HALO if slabs is None else slabs[0].halo
     owner = torch.empty((*lead, 5, cfg.n, w), dtype=torch.float32, device=cyl.device)
     key = _key("select_owner", batch, slabs)
     with torch.cuda.device(cyl.device):  # the launch goes to the current device
-        code = _lib().owner(batch or 1, _ptr(cyl), n_cyl, _ptr(owner), cfg.n, w, col0,
+        code = _lib().owner(batch or 1, _ptr(cyl), n_cyl, _ptr(owner), cfg.n, w, col0, halo,
                             cfg.spacing, cfg.x_min, _stream(cyl.device))
     _raise_on(code, key)
     launch_counts[key] += 1
@@ -824,8 +854,8 @@ def select_owner(cyl: torch.Tensor, cfg: StepConfig, slab: Slab | None = None) -
 
 def select_owner_slabs(cyl: torch.Tensor, cfg: StepConfig, slabs: list) -> torch.Tensor:
     """K4's owner fields (S, 5, n, w) of the cylinders (8, n_cyl) on S
-    consecutive slabs of equal width, stacked as `fused_rk4_step_slabs`
-    and `SlabWindow` take them, in one launch (see
+    consecutive slabs of equal width and halo, stacked as
+    `fused_rk4_step_slabs` and `SlabWindow` take them, in one launch (see
     `select_owner_slabs_reference`)."""
     if not _on_card(cyl):
         return select_owner_slabs_reference(cyl, cfg, slabs)
@@ -855,11 +885,11 @@ class _TiledWindow(ctypes.Structure):
 
 
 def _slab_extent(slabs: list) -> tuple[int, int]:
-    """(w, col0 of the first) of consecutive slabs of equal width; raises
-    on any others."""
+    """(w, col0 of the first) of consecutive slabs of equal width and halo;
+    raises on any others."""
     first = slabs[0]
     for k, s in enumerate(slabs):
-        if s.w != first.w or s.col0 != first.col0 + k * first.ny:
+        if s.w != first.w or s.halo != first.halo or s.col0 != first.col0 + k * first.ny:
             raise ValueError(f"slabs {slabs} are not consecutive slabs of one width")
     return first.w, first.col0
 
@@ -872,17 +902,16 @@ class _TiledStep:
     S). Radii-only with `owner`, general on `cyl` where owner is None. The
     inputs fixed for the window are checked and marshalled once, and
     `launch` runs one RK4 step in one launch on the current stream of
-    `dev`, the state's device, or `steps_per_call` (2 or 4, the whole grid
-    alone) steps in one launch of `rk4_steps_tiled`, whose energy partials
-    are (steps_per_call, batch, rows, 3)."""
+    `dev`, the state's device, or `steps_per_call` (2 or 4; slabs with a
+    4 spc-column halo) steps in one launch of `rk4_steps_tiled`, whose
+    energy partials are (steps_per_call, batch, rows, 3)."""
 
     def __init__(self, shape, prof, owner, cyl, ti: float, tf: float, cfg: StepConfig,
                  batch: int | None, dev: torch.device, x_matmul: bool, slabs: list | None = None,
                  steps_per_call: int = 1):
         if steps_per_call not in STEPS_PER_CALL:
             raise ValueError(f"steps_per_call {steps_per_call} is not one of {STEPS_PER_CALL}")
-        if steps_per_call > 1 and slabs is not None:
-            raise ValueError("the slabs take one step a launch (steps_per_call 1)")
+        _check_halo(slabs, steps_per_call)
         n = cfg.n
         lead = () if batch is None else (batch,)
         if slabs is None:
@@ -928,7 +957,7 @@ def _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, batch: 
     """Check the inputs and launch one RK4 step in one launch: of one state
     (K1 or K2) for batch None, else of `batch` candidates (K3); on
     consecutive slabs (K4) if given; with the split d/dx (K5) if
-    `x_matmul`; or `steps_per_call` steps in one launch on the whole grid.
+    `x_matmul`; or `steps_per_call` steps in one launch.
     Returns (u_next, energy partials (steps_per_call, batch or 1, tiles,
     3))."""
     dev = u.device
@@ -952,8 +981,8 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
     u, shape and owner are its (.., n, slab.w) columns and the step is
     K4's. `x_matmul` takes d/dx in the JAX kernel's bf16 split form (K5, or
     K4-XM on a slab). Returns (u_next, energies (3,)). With
-    `steps_per_call` spc (1, 2 or 4; more than 1 on the whole grid alone),
-    spc steps in one launch from t, sub-step st at `substep_times`, and
+    `steps_per_call` spc (1, 2 or 4; a slab's halo 4 spc columns), spc
+    steps in one launch from t, sub-step st at `substep_times`, and
     energies (spc, 3)."""
     if not _on_card(u):
         return fused_rk4_step_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slab,
@@ -966,18 +995,21 @@ def fused_rk4_step(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
 
 
 def fused_rk4_step_slabs(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig, slabs: list,
-                         x_matmul: bool = False):
+                         x_matmul: bool = False, steps_per_call: int | None = None):
     """Advance S consecutive slabs of equal width, stacked (S, 12, n, w) on
     one card, one RK4 step from time t in one launch (K4, or K4-XM with
     `x_matmul`): shape (S, n, w), owner (S, 5, n, w) from `select_owner`
     on each slab or None (the general mode), the cylinders (8, n_cyl) and
-    the profile shared. Returns (u_next (S, 12, n, w), energies (S, 3))."""
+    the profile shared. Returns (u_next (S, 12, n, w), energies (S, 3)).
+    With `steps_per_call` spc (slabs with a 4 spc-column halo), spc steps
+    in one launch at `substep_times`, and energies (S, spc, 3)."""
     if not _on_card(u):
         return fused_rk4_step_slabs_reference(u, shape, prof, cyl, owner, t, ti, tf, cfg, slabs,
-                                              x_matmul)
+                                              x_matmul, steps_per_call)
     out, partials = _launch_step(u, shape, prof, cyl, owner, t, ti, tf, cfg, len(slabs), slabs,
-                                 x_matmul)
-    return out, partials[0].sum(dim=1)
+                                 x_matmul, steps_per_call or 1)
+    energies = partials.sum(dim=2).transpose(0, 1)
+    return out, (energies if steps_per_call is not None else energies[:, 0])
 
 
 def fused_rk4_step_batched(u, shape, prof, cyl, owner, t, ti, tf, cfg: StepConfig,
@@ -1123,52 +1155,58 @@ class SlabWindow:
     (S, 12, n, w), through a window of `steps` RK4 steps as a sharded
     rollout drives them (K4, or K4-XM with `x_matmul`): shape (S, n, w),
     owner (S, 5, n, w) or None, the cylinders (8, n_cyl) and the profile
-    shared, as `fused_rk4_step_slabs` takes them. `u` is the current
-    state, whose halo columns the caller refreshes before each `step(t)`;
-    the u given becomes the first of two state buffers and the other is
-    made once. `energies()` gives each slab's energies after each step
-    taken, (steps, S, 3). On the card a step is one launch into the other
-    buffer, the window's fixed inputs marshalled once, and the energy
-    partials (steps, S, tiles, 3) made once and reduced once, each slab's
-    in the same order whatever S; on the CPU each slab takes the plain
-    version in turn."""
+    shared, as `fused_rk4_step_slabs` takes them. `steps_per_call` spc
+    steps a launch (slabs with a 4 spc-column halo), so `steps` must be
+    whole calls. `u` is the current state, whose halo columns the caller
+    refreshes before each `step(t)`; the u given becomes the first of two
+    state buffers and the other is made once. `energies()` gives each
+    slab's energies after each step taken, (steps, S, 3). On the card a
+    call is one launch into the other buffer, the window's fixed inputs
+    marshalled once, and the energy partials (calls, spc, S, tiles, 3)
+    made once and reduced once, each slab's in the same order whatever S;
+    on the CPU each slab takes the plain version in turn."""
 
     def __init__(self, u, shape, prof, cyl, owner, ti: float, tf: float, cfg: StepConfig,
-                 slabs: list, steps: int, x_matmul: bool = False):
-        self.u, self.taken, self.steps = u, 0, steps
+                 slabs: list, steps: int, x_matmul: bool = False, steps_per_call: int = 1):
+        if steps % steps_per_call:
+            raise ValueError(f"{steps} steps are not whole calls of {steps_per_call}")
+        self.u, self.taken, self.steps, self.spc = u, 0, steps, steps_per_call
         self._launcher = None
         if not _on_card(u):
-            self._plain = lambda v, t: fused_rk4_step_slabs_reference(v, shape, prof, cyl, owner,
-                                                                      t, ti, tf, cfg, slabs,
-                                                                      x_matmul)
+            self._plain = lambda v, t: fused_rk4_step_slabs_reference(
+                v, shape, prof, cyl, owner, t, ti, tf, cfg, slabs, x_matmul, steps_per_call)
             self._energies = [torch.empty((0, len(slabs), 3))]
             return
         self._launcher = _TiledStep(shape, prof, owner, cyl, ti, tf, cfg, len(slabs), u.device,
-                                    x_matmul, slabs)
+                                    x_matmul, slabs, steps_per_call)
         _check("u", u, (len(slabs), 12, cfg.n, self._launcher.w), u.device)
         self._other = torch.empty_like(u)
-        self._partials = torch.empty((steps, len(slabs), self._launcher.rows, 3),
-                                     dtype=torch.float32, device=u.device)
+        self._partials = torch.empty((steps // steps_per_call, steps_per_call, len(slabs),
+                                      self._launcher.rows, 3), dtype=torch.float32,
+                                     device=u.device)
         self._row_bytes = self._partials.stride(0) * self._partials.element_size()
 
     def step(self, t: float) -> None:
-        """Advance every slab one RK4 step from time t."""
+        """Advance every slab `steps_per_call` RK4 steps from time t, at
+        `substep_times`."""
         if self.taken == self.steps:
             raise RuntimeError(f"the window has {self.steps} steps")
         if self._launcher is None:
             self.u, e = self._plain(self.u, t)
-            self._energies.append(e[None])
+            self._energies.append(e.transpose(0, 1))
         else:
             with torch.cuda.device(self.u.device):  # the launch goes to the current device
-                self._launcher.launch(self.u.data_ptr(), self._other.data_ptr(),
-                                      self._partials.data_ptr() + self.taken * self._row_bytes,
-                                      float(t))
+                self._launcher.launch(
+                    self.u.data_ptr(), self._other.data_ptr(),
+                    self._partials.data_ptr() + self.taken // self.spc * self._row_bytes,
+                    float(t))
             self.u, self._other = self._other, self.u
-        self.taken += 1
+        self.taken += self.spc
 
     def energies(self) -> torch.Tensor:
         """(steps taken, S, 3): each slab's energies after each step."""
         if self._launcher is None:
             return torch.cat(self._energies)
-        p = self._partials[:self.taken]
-        return torch.stack([p[:, k].contiguous().sum(dim=1) for k in range(p.shape[1])], dim=1)
+        p = self._partials[:self.taken // self.spc]
+        return torch.stack([p[:, :, k].contiguous().sum(dim=2).reshape(self.taken, 3)
+                            for k in range(p.shape[2])], dim=1)

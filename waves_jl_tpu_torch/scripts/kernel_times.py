@@ -25,9 +25,13 @@ paths' shapes, on the same seeded inputs in every checkout:
   (`select_owner_slabs`) where the checkout has it, else slab by slab.
 
 With --cards C it times the sharded rollouts alone, with C shards: on one
-card, and one shard a card on C cards.
+card, and one shard a card on C cards; with --steps-per-call S [S ...] as
+well, the stacked rollout (`build_stacked_rollout(..., steps_per_call=S)`,
+slabs with a 4 S-column halo exchanged once a call) at each S in the order
+given, on the same call times (call c from step c S, its sub-steps at the
+JAX kernel's times), for K4 and K4-XM radii-only.
 
-With --steps-per-call S [S ...] (the counterpart of the JAX package's
+With --steps-per-call S [S ...] alone (the counterpart of the JAX package's
 `scripts_tpu/kernel_probe.py`, which times one, two and four steps a
 Pallas call) it times the whole-grid modes alone at those steps a launch,
 in the order given (`--steps-per-call 1 2 4 4 2 1` takes them in turns):
@@ -41,7 +45,8 @@ window queued behind a device sleep ("device_ms"). The checkout must have
 
 For each row it gives ms a step with CUDA events around calls as the host
 drives them ("ms"), the same calls queued behind a device sleep
-("device_ms"; for a rollout, a 10-step one, its setup included), both
+("device_ms"; for a rollout, a 10-step one, 20 steps with --steps-per-call, its setup
+included), both
 with `chip_smoke.py`'s timers, and for the whole grid ms a step of device
 work inside a 20-step window driven by `fused_rk4_window`
 ("window_device_ms"). It prints a line a row and, last, one JSON object with the card's name and
@@ -85,6 +90,10 @@ def main() -> int:
     from waves_jl_tpu_torch.ops import fused_rk4 as fk
     from waves_jl_tpu_torch.parallel import make_fused_sharded_rollout, make_mesh
     from waves_jl_tpu_torch.parallel.fused_domain import cut_slabs, shard_slabs
+    try:
+        from waves_jl_tpu_torch.parallel.fused_domain import build_stacked_rollout
+    except ImportError:  # a checkout from before the stacked rollout
+        build_stacked_rollout = None
     from waves_jl_tpu_torch.physics.fused import cyl_params
 
     dev = torch.device("cuda")
@@ -121,11 +130,15 @@ def main() -> int:
                 json.dump(result, f)
         return 0
 
-    if args.steps_per_call:
-        def window_times(spc, steps):
-            calls = [float(np.float32(T0) + np.float32(c * spc * DT)) for c in range(steps // spc)]
-            return fk.call_step_times(calls, spc, DT)
+    def window_times(spc, steps):
+        calls = [float(np.float32(T0) + np.float32(c * spc * DT)) for c in range(steps // spc)]
+        return fk.call_step_times(calls, spc, DT)
 
+    def run_key(key):
+        """key, or key with its run's number where an earlier run has it."""
+        return key + (f" run {sum(r.startswith(key) for r in rows) + 1}" if key in rows else "")
+
+    if args.steps_per_call and not args.cards:
         modes = (("K5 radii-only", "K2", N, None, ring), ("K5 general", "K1", N, None, moved),
                  ("batched K5", "K3", N_RERANK, K_RADII, ring),
                  ("batched K5 general", "K3 general", N, K_GENERAL, moved))
@@ -147,8 +160,7 @@ def main() -> int:
 
                     t100, t20 = window_times(spc, 100), window_times(spc, 20)
                     ms = cuda_ms(lambda: run(t100), 3) / 100
-                    key = f"{name} spc{spc}"
-                    key += f" run {sum(r.startswith(key) for r in rows) + 1}" if key in rows else ""
+                    key = run_key(f"{name} spc{spc}")
                     rows[key] = {"steps_per_call": spc, "ms": ms, "steps_per_s": 1e3 / ms,
                                  "device_ms": device_ms(lambda: run(t20), 1) / 20}
                     print(key, json.dumps(rows[key]), flush=True)
@@ -220,24 +232,34 @@ def main() -> int:
                 row(name, lambda: [fk.fused_rk4_step(u_k, h, prof, cyl, o, T0, TI, TF, cfg, s, xm)
                                    for u_k, h, o, s in zip(us, sh, owners, slabs)])
 
-    # the sharded rollout: 100 steps host-driven, 10 steps queued behind a
-    # device sleep, on one card and, if asked, one shard a card
-    tspan = np.float32(T0) + np.arange(101, dtype=np.float32) * np.float32(DT)
+    # the sharded rollout: 100 steps host-driven, 20 steps queued behind a
+    # device sleep (10 where no steps a launch are asked for), on one card
+    # and, if asked, one shard a card
     cyl = on_card(ring)
     meshes = [make_mesh(devices=[dev] * (args.cards or SHARDS))]
     if (args.cards or 1) > 1:
         meshes.append(make_mesh(args.cards))
     for mesh in meshes:
         where = f", {mesh.size} cards" if len(set(mesh.devices)) > 1 else ""
-        for xm in (False, True):
-            roll = make_fused_sharded_rollout(mesh, N, cfg.spacing, DT, cfg.c0, cfg.freq,
-                                              cyl.shape[1], cfg.x_min, radii_only=True,
-                                              x_matmul=xm)
-            name = f"rollout {mesh.size} shards {'K4-XM' if xm else 'K4'} radii-only{where}"
-            rows[name] = {"ms": cuda_ms(lambda: roll(u, tspan, cyl, shape, prof), 3) / 100,
-                          "device_ms": device_ms(lambda: roll(u, tspan[:11], cyl, shape, prof),
-                                                 1) / 10}
-            print(name, json.dumps(rows[name]), flush=True)
+        for spc in (args.steps_per_call if args.cards and args.steps_per_call else [None]):
+            short = 10 if spc is None else 20
+            times = window_times(spc or 1, 100)
+            tspan = np.array(times + [float(np.float32(times[-1]) + np.float32(DT))], np.float32)
+            for xm in (False, True):
+                if spc is None:
+                    roll = make_fused_sharded_rollout(mesh, N, cfg.spacing, DT, cfg.c0, cfg.freq,
+                                                      cyl.shape[1], cfg.x_min, radii_only=True,
+                                                      x_matmul=xm)
+                else:
+                    roll = build_stacked_rollout(mesh, cfg, cyl.shape[1], True, xm, spc)
+                name = run_key(f"rollout {mesh.size} shards {'K4-XM' if xm else 'K4'} radii-only"
+                               + ("" if spc is None else f" spc{spc}") + where)
+                rows[name] = {"ms": cuda_ms(lambda: roll(u, tspan, cyl, shape, prof), 3) / 100,
+                              "device_ms": device_ms(
+                                  lambda: roll(u, tspan[:short + 1], cyl, shape, prof), 1) / short}
+                if spc is not None:
+                    rows[name]["steps_per_call"] = spc
+                print(name, json.dumps(rows[name]), flush=True)
     return finish()
 
 
